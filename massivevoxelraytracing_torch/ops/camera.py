@@ -1,0 +1,62 @@
+"""Pinhole camera (the reference's ops/camera.py: Camera.look_at and
+np_frame_rays). Host numpy only; the thin lens waits for the path-tracer
+slice."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Camera:
+    o: np.ndarray  # eye position f32[3]
+    front: np.ndarray
+    up: np.ndarray
+    right: np.ndarray
+    tan_half_fovy: float
+    lens_r: float = 0.0
+    focus: float = 1.0
+
+    @staticmethod
+    def look_at(eye, target, up=(0.0, 1.0, 0.0), fovy_deg: float = 45.0,
+                lens_r: float = 0.0, focus: float | None = None) -> "Camera":
+        eye = np.asarray(eye, np.float32)
+        target = np.asarray(target, np.float32)
+        front = target - eye
+        dist = float(np.linalg.norm(front))
+        front = front / dist
+        upv = np.asarray(up, np.float32)
+        right = np.cross(front, upv)
+        right /= np.linalg.norm(right)
+        up2 = np.cross(right, front)
+        return Camera(
+            o=eye,
+            front=front.astype(np.float32),
+            up=up2.astype(np.float32),
+            right=right.astype(np.float32),
+            tan_half_fovy=math.tan(math.radians(fovy_deg) * 0.5),
+            lens_r=lens_r,
+            focus=dist if focus is None else focus,
+        )
+
+
+def np_frame_rays(cam: Camera, width: int, height: int, off_x=0.5, off_y=0.5):
+    """Host-side primary rays for a full frame (row-major pixel order)."""
+    idx = np.arange(width * height)
+    px = idx % width
+    py = idx // width
+    xf = (px + off_x) / width
+    yf = (py + off_y) / height
+    th = cam.tan_half_fovy
+    u = (-th + 2.0 * th * xf) * (width / height)
+    v = th - 2.0 * th * yf
+    rd = (
+        u[:, None] * cam.right[None, :]
+        + v[:, None] * cam.up[None, :]
+        + cam.front[None, :]
+    ).astype(np.float32)
+    ro = np.broadcast_to(cam.o, rd.shape).astype(np.float32)
+    return ro, rd

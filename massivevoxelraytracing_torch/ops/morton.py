@@ -1,0 +1,60 @@
+"""Morton (Z-order) codes for 3 x 21-bit coordinates as one int64.
+
+The reference (ops/morton.py) carries the 63-bit code as a (hi, lo) pair
+of u32 limbs only because JAX runs with x64 off. Here the code is a
+single int64 tensor with the same bit layout: coordinate bit i of x, y, z
+lands at bit 3i, 3i+1, 3i+2. Every code is below 2^63, so the signed
+shifts below never see a sign bit. `to_pair` / `from_pair` convert to and
+from the reference's limbs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MAX_COORD_BITS = 21
+_C21 = (1 << MAX_COORD_BITS) - 1
+
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 21 bits of x to stride-3 positions 0, 3, ..., 60."""
+    x = x.to(torch.int64) & _C21
+    x = (x | (x << 32)) & 0x1F00000000FFFF
+    x = (x | (x << 16)) & 0x1F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
+    return x
+
+
+def _compact1by2(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of _part1by2."""
+    x = x & 0x1249249249249249
+    x = (x ^ (x >> 2)) & 0x10C30C30C30C30C3
+    x = (x ^ (x >> 4)) & 0x100F00F00F00F00F
+    x = (x ^ (x >> 8)) & 0x1F0000FF0000FF
+    x = (x ^ (x >> 16)) & 0x1F00000000FFFF
+    x = (x ^ (x >> 32)) & _C21
+    return x
+
+
+def encode(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Interleave three 21-bit coordinates into an int64 Morton code
+    (bit-for-bit the reference's morton.encode, as one word)."""
+    return _part1by2(x) | (_part1by2(y) << 1) | (_part1by2(z) << 2)
+
+
+def decode(code: torch.Tensor):
+    """int64 Morton code -> (x, y, z) int64 coordinates."""
+    return _compact1by2(code), _compact1by2(code >> 1), _compact1by2(code >> 2)
+
+
+def to_pair(code: torch.Tensor):
+    """int64 code -> the reference's (hi, lo) limbs, as int64 tensors
+    holding u32 values."""
+    return code >> 32, code & 0xFFFFFFFF
+
+
+def from_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) limbs (any integer dtype, u32 values) -> int64 code."""
+    return ((hi.to(torch.int64) & 0xFFFFFFFF) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
