@@ -65,6 +65,41 @@ __device__ __forceinline__ uint32_t pc64_below(uint32_t lo, uint32_t hi,
   return __popc(lo & ((1u << cell) - 1u));
 }
 
+struct Ray {
+  float t0[3], t1[3], dt[3];
+  int vm6;
+  bool enter_ok;
+};
+
+// Mirrored parametrization of ray i (the reference's _ray_preamble):
+// per-axis entry / exit planes of the root box and their span, the XOR
+// mirror mask vm6, and whether the ray enters the box at all. bounds:
+// lower[3], upper[3]; ro / rd: [n, 3].
+__device__ __forceinline__ Ray ray_preamble(const float* bounds,
+                                            const float* ro, const float* rd,
+                                            int i) {
+  Ray r;
+  r.vm6 = 0;
+  const int pat[3] = {0b001001, 0b010010, 0b100100};
+  for (int a = 0; a < 3; ++a) {
+    const float lo = bounds[a];
+    const float up = bounds[3 + a];
+    const float o = ro[3 * i + a];
+    const float inv = 1.0f / rd[3 * i + a];
+    const bool neg = inv < 0.0f;
+    const float rom = neg ? (lo + up) - o : o;
+    const float bound =
+        (0.25f * kMaxFloat) / jmax(jmax(fabsf(lo - rom), fabsf(up - rom)), 1.0f);
+    const float inva = jmin(fabsf(inv), bound);
+    r.t0[a] = (lo - rom) * inva;
+    r.t1[a] = (up - rom) * inva;
+    r.dt[a] = r.t1[a] - r.t0[a];
+    if (neg) r.vm6 |= pat[a];
+  }
+  r.enter_ok = min3(r.t1[0], r.t1[1], r.t1[2]) >= max3(r.t0[0], r.t0[1], r.t0[2]);
+  return r;
+}
+
 struct Walk {
   float en, ex;
   int c;  // 64 = none

@@ -57,28 +57,12 @@ __global__ void __launch_bounds__(kThreads) hako_mega_kernel(const Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
 
-  // mirrored parametrization (the reference's _ray_preamble)
-  float t0[3], t1[3], dt[3];
-  int vm6 = 0;
-  const int pat[3] = {0b001001, 0b010010, 0b100100};
-  for (int a = 0; a < 3; ++a) {
-    const float lo = p.bounds[a];
-    const float up = p.bounds[3 + a];
-    const float ro = p.ro[3 * i + a];
-    const float inv = 1.0f / p.rd[3 * i + a];
-    const bool neg = inv < 0.0f;
-    const float rom = neg ? (lo + up) - ro : ro;
-    const float bound =
-        (0.25f * kMaxFloat) / jmax(jmax(fabsf(lo - rom), fabsf(up - rom)), 1.0f);
-    const float inva = jmin(fabsf(inv), bound);
-    t0[a] = (lo - rom) * inva;
-    t1[a] = (up - rom) * inva;
-    dt[a] = t1[a] - t0[a];
-    if (neg) vm6 |= pat[a];
-  }
-  const bool enter_ok = min3(t1[0], t1[1], t1[2]) >= max3(t0[0], t0[1], t0[2]);
+  const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, i);
+  const float* t1 = ray.t1;
+  const float* dt = ray.dt;
+  const int vm6 = ray.vm6;
 
-  bool resolved = !enter_ok;  // no-enter rays are misses
+  bool resolved = !ray.enter_ok;  // no-enter rays are misses
   float t_q = 0.0f;
   float t_out = kMaxFloat;
   int nm_out = -1;

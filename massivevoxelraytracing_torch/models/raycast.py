@@ -34,13 +34,14 @@ def _shade_flat(color_table, rd, t, nmaj, vidx, *, show_color: bool):
     return img, t
 
 
-def render_rays(tree, ro, rd, show_color: bool = False):
+def render_rays(tree, ro, rd, show_color: bool = False,
+                traversal: str = "mega"):
     """Render arbitrary rays (f32 [N, 3], numpy or tensors) on the tree's
     device. Returns (u8 [N, 3], f32 [N])."""
     dev = tree.device
     ro = torch.as_tensor(ro, dtype=F32, device=dev).contiguous()
     rd = torch.as_tensor(rd, dtype=F32, device=dev).contiguous()
-    kind, depth, meta, root = accel_lib.accel_args(tree)
+    kind, depth, meta, root = accel_lib.accel_args(tree, traversal)
     t, nmaj, vidx = accel_lib.intersect_with(
         kind, depth, meta, root, tree.lower, tree.upper, ro, rd)
     return _shade_flat(_color_table(tree), rd, t, nmaj, vidx,
@@ -117,13 +118,14 @@ def _color_table(tree):
 
 
 def render_frame(tree, cam: camera_ops.Camera, width: int, height: int,
-                 show_color: bool = False, *, device):
-    """Render one frame on `device`, where the tree must live. Returns
+                 show_color: bool = False, *, device, traversal: str = "mega"):
+    """Render one frame on `device`, where the tree must live, through the
+    megakernel or the round driver (`traversal`, models/accel.py). Returns
     device tensors (u8 [H, W, 3] image, f32 [H, W] depth)."""
     device = torch.empty(0, device=device).device  # "cuda" -> "cuda:<current>"
     if tree.device != device:
         raise ValueError(f"tree lives on {tree.device}, not {device}")
-    kind, depth, meta, root = accel_lib.accel_args(tree)
+    kind, depth, meta, root = accel_lib.accel_args(tree, traversal)
     ro, rd = _gen_rays_tiled(
         torch.as_tensor(cam.o, dtype=F32, device=device),
         torch.as_tensor(cam.right, dtype=F32, device=device),

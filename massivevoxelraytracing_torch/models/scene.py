@@ -19,11 +19,10 @@ import time
 import numpy as np
 import torch
 
-from massivevoxelraytracing_tpu.utils import meshprep
-
 from ..ops import hako as hako_ops
 from ..ops import voxelize as vox_ops
 from ..ops.octree import bucket
+from ..utils import meshprep
 
 GROUP_DUMPED = 40 << 20  # above this, unique runs hierarchically (by groups)
 

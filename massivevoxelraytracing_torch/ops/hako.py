@@ -301,7 +301,7 @@ def _rows_i32(a: np.ndarray, n: int, device) -> torch.Tensor:
     ).to(device)
 
 
-def from_numpy(d: dict, device="cpu") -> HakoTree:
+def from_numpy(d: dict, device="cuda") -> HakoTree:
     """HakoTree from the fields of a tree built by the JAX package, as
     numpy arrays and python numbers (the dataclass fields of the
     reference's HakoTree). Rows are copied as they are, cut to their

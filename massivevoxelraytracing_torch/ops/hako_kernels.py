@@ -19,6 +19,8 @@ popcounts mask to 32 bits first. The reference's TPU node-fetch forms and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .bits import MASK32, popcount32
@@ -293,3 +295,354 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
         active = found_s & ~is_hit
         i += 1
     return hit, t_hit, nmaj, vr, p3, tqp, active, sub_tq
+
+
+# ---------------------------------------------------------------------------
+# the legacy round driver (the reference's intersect_rays_hako): kernel A
+# (hako_probe), kernel B (hako_dda) and the merge (hako_merge) on the lanes
+# still unresolved, round after round
+# ---------------------------------------------------------------------------
+#
+# Each kernel has a plain version (`*_plain`, the per-lane algorithm above
+# as tensor code on the round's lanes) and a wrapper that takes the plain
+# version for CPU tensors, launches the CUDA kernel of
+# csrc/hako_rounds.cu for CUDA tensors, and raises for anything else.
+#
+# Round state (per ray, [R]): resolved bool, tq f32 (resume key), t f32
+# (MAX_FLOAT = miss), nmaj int32 (-1 = miss), vrank int32. A round's lanes
+# are an int32 index list `idx` [n]; its per-lane arrays are [n] (bt1
+# [3, n]): emit / exh / hit / more bool, child / nmaj / vr int32, the rest
+# f32.
+
+PROBES = 4      # kernel A: root descents per round
+DDA_ITERS = 24  # kernel B: sub-brick visits per row stage per round
+
+LAUNCHES = {"hako_probe": 0, "hako_dda": 0, "hako_merge": 0}
+ROUNDS = 0      # rounds run by intersect_rays_hako since the last reset
+_UNRESOLVED: dict = {}  # device -> int32 [1] accumulator
+
+
+def reset_counters() -> None:
+    global ROUNDS
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    ROUNDS = 0
+    for acc in _UNRESOLVED.values():
+        acc.zero_()
+
+
+def unresolved_lanes() -> int:
+    """Lanes left unresolved at max_rounds since the last reset."""
+    return sum(int(acc.item()) for acc in _UNRESOLVED.values())
+
+
+def level_pack(tabs):
+    """Root-down level tables -> (one int32 [sum n_l, 3] table or None,
+    offsets of each level in it)."""
+    offs = []
+    n = 0
+    for tab in tabs:
+        offs.append(n)
+        n += tab.shape[0]
+    return (torch.cat(tabs) if tabs else None), tuple(offs)
+
+
+def _unpack_levels(levels, level_off):
+    ends = level_off[1:] + ((levels.shape[0],) if level_off else ())
+    return [levels[a:b] for a, b in zip(level_off, ends)]
+
+
+def hako_probe_plain(levels, level_off, T, root_mask, bounds, ro, rd, idx,
+                     tq, *, max_probes):
+    """Kernel A: each lane's preamble, then up to max_probes descents from
+    the root emitting its next fat row. Returns (emit, child, bt1, tqe,
+    tqn, exh)."""
+    i = idx.long()
+    _t0, t1, dt, vm6, enter_ok = _ray_preamble(bounds[:3], bounds[3:],
+                                               ro[i], rd[i])
+    _need, tqn, emit, child, bt1, tqe, exh = _probe_from_root(
+        _unpack_levels(levels, level_off) if level_off else [], T, t1, dt,
+        vm6, root_mask[0], root_mask[1], enter_ok, ~enter_ok, tq[i],
+        max_probes=max_probes)
+    child = torch.where(emit, child, 0).to(torch.int32)
+    return emit, child, bt1, tqe, tqn, exh
+
+
+def hako_dda_plain(rows, bounds, ro, rd, idx, go, child, bt1, tqe, *,
+                   dt_factor, leaf, shadow, max_iters):
+    """Kernel B: the row DDA of each go-lane's row rows[child]. Returns
+    (hit, t, nmaj, vr, p3, tqp, more, tqr); a supernode row's outputs are
+    (emit, exit plane x, exit plane y bit-cast, child brick, exit plane z,
+    resume key passed on, more, resume key)."""
+    i = idx.long()
+    _t0, _t1, dt, vm6, _ok = _ray_preamble(bounds[:3], bounds[3:], ro[i], rd[i])
+    hit, t, nmaj, vr, p3, tqp, more, tqr = _dda_rows(
+        rows, child.long(), dt, vm6, bt1, tqe, go, dt_factor=dt_factor,
+        shadow=shadow, leaf=leaf, max_iters=max_iters)
+    return hit, t, nmaj, vr.to(torch.int32), p3, tqp, more, tqr
+
+
+def hako_merge_plain(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr,
+                     more, tqr):
+    """The round's where-merges, written into state (resolved, tq, t,
+    nmaj, vrank) at the lanes idx, in place."""
+    resolved, tq, t_out, nm_out, vi_out = state
+    i = idx.long()
+    act = ~resolved[i]
+    go = emit & act
+    tqn = torch.where(go, torch.where(more, tqr, _min3(bt1)), tqn)
+    newhit = act & hit
+    resolved[i] = resolved[i] | (act & (newhit | exh))
+    tq[i] = torch.where(act, tqn, tq[i])
+    t_out[i] = torch.where(newhit, t_hit, t_out[i])
+    nm_out[i] = torch.where(newhit, nmaj, nm_out[i])
+    vi_out[i] = torch.where(newhit, vr, vi_out[i])
+
+
+def _check(name, x, device, dtype, shape):
+    if (x.device != device or x.dtype != dtype or tuple(x.shape) != shape
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: need contiguous {dtype} {list(shape)} on "
+                         f"{device}, got {x.dtype} {list(x.shape)} on {x.device}")
+
+
+def _check_rays(bounds, ro, rd, idx, device):
+    _check("bounds", bounds, device, torch.float32, (6,))
+    _check("ro", ro, device, torch.float32, (ro.shape[0], 3))
+    _check("rd", rd, device, torch.float32, (ro.shape[0], 3))
+    _check("idx", idx, device, torch.int32, (idx.shape[0],))
+
+
+def _device_of(ro, name):
+    """'cpu' -> the plain version, 'cuda' -> the kernel; raise otherwise."""
+    if ro.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {ro.device}")
+    return ro.device.type
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _launched(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def hako_probe(levels, level_off, T, root_mask, bounds, ro, rd, idx, tq, *,
+               max_probes):
+    """Kernel A (arguments and results as in hako_probe_plain)."""
+    if _device_of(ro, "hako_probe") == "cpu":
+        return hako_probe_plain(levels, level_off, T, root_mask, bounds, ro,
+                                rd, idx, tq, max_probes=max_probes)
+    from ..utils import cuda_build
+
+    dev = ro.device
+    _check_rays(bounds, ro, rd, idx, dev)
+    _check("tq", tq, dev, torch.float32, (ro.shape[0],))
+    if len(level_off) != T - 1 or T - 1 > cuda_build.MAX_LEVELS:
+        raise ValueError(f"need T-1 = {T - 1} level tables, got {len(level_off)}")
+    if levels is not None:
+        _check("levels", levels, dev, torch.int32, (levels.shape[0], 3))
+    n = idx.shape[0]
+    emit = torch.empty(n, dtype=torch.bool, device=dev)
+    exh = torch.empty_like(emit)
+    child = torch.empty(n, dtype=torch.int32, device=dev)
+    bt1 = torch.empty((3, n), dtype=torch.float32, device=dev)
+    tqe = torch.empty(n, dtype=torch.float32, device=dev)
+    tqn = torch.empty_like(tqe)
+    offs = (ctypes.c_int * cuda_build.MAX_LEVELS)(*level_off)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().hako_probe_launch(
+            None if levels is None else levels.data_ptr(),
+            ctypes.addressof(offs), T, root_mask[0], root_mask[1],
+            bounds.data_ptr(), ro.data_ptr(), rd.data_ptr(), idx.data_ptr(),
+            tq.data_ptr(), n, emit.data_ptr(), child.data_ptr(),
+            bt1.data_ptr(), tqe.data_ptr(), tqn.data_ptr(), exh.data_ptr(),
+            max_probes, _stream(dev))
+    _launched("hako_probe", rc)
+    return emit, child, bt1, tqe, tqn, exh
+
+
+def hako_dda(rows, bounds, ro, rd, idx, go, child, bt1, tqe, *, dt_factor,
+             leaf, shadow, max_iters):
+    """Kernel B (arguments and results as in hako_dda_plain)."""
+    if _device_of(ro, "hako_dda") == "cpu":
+        return hako_dda_plain(rows, bounds, ro, rd, idx, go, child, bt1, tqe,
+                              dt_factor=dt_factor, leaf=leaf, shadow=shadow,
+                              max_iters=max_iters)
+    from ..utils import cuda_build
+
+    dev = ro.device
+    n = idx.shape[0]
+    _check_rays(bounds, ro, rd, idx, dev)
+    _check("rows", rows, dev, torch.int32, (rows.shape[0], 164))
+    _check("go", go, dev, torch.bool, (n,))
+    _check("child", child, dev, torch.int32, (n,))
+    _check("bt1", bt1, dev, torch.float32, (3, n))
+    _check("tqe", tqe, dev, torch.float32, (n,))
+    f = dict(dtype=torch.float32, device=dev)
+    i = dict(dtype=torch.int32, device=dev)
+    b = dict(dtype=torch.bool, device=dev)
+    out = (torch.empty(n, **b), torch.empty(n, **f), torch.empty(n, **i),
+           torch.empty(n, **i), torch.empty(n, **f), torch.empty(n, **f),
+           torch.empty(n, **b), torch.empty(n, **f))
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().hako_dda_launch(
+            rows.data_ptr(), bounds.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+            idx.data_ptr(), n, go.data_ptr(), child.data_ptr(),
+            bt1.data_ptr(), tqe.data_ptr(), *(o.data_ptr() for o in out),
+            float(dt_factor), int(leaf), int(shadow), int(max_iters),
+            _stream(dev))
+    _launched("hako_dda", rc)
+    return out
+
+
+def hako_merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more,
+               tqr):
+    """The merge (arguments as in hako_merge_plain), in place."""
+    resolved = state[0]
+    if _device_of(resolved, "hako_merge") == "cpu":
+        return hako_merge_plain(state, idx, emit, bt1, tqn, exh, hit, t_hit,
+                                nmaj, vr, more, tqr)
+    from ..utils import cuda_build
+
+    dev = resolved.device
+    r, n = resolved.shape[0], idx.shape[0]
+    _check("idx", idx, dev, torch.int32, (n,))
+    for name, x, dtype in (("resolved", resolved, torch.bool),
+                           ("tq", state[1], torch.float32),
+                           ("t", state[2], torch.float32),
+                           ("nmaj", state[3], torch.int32),
+                           ("vrank", state[4], torch.int32)):
+        _check(name, x, dev, dtype, (r,))
+    _check("bt1", bt1, dev, torch.float32, (3, n))
+    for name, x, dtype in (("emit", emit, torch.bool), ("tqn", tqn, torch.float32),
+                           ("exh", exh, torch.bool), ("hit", hit, torch.bool),
+                           ("t_hit", t_hit, torch.float32),
+                           ("nmaj", nmaj, torch.int32), ("vr", vr, torch.int32),
+                           ("more", more, torch.bool), ("tqr", tqr, torch.float32)):
+        _check(name, x, dev, dtype, (n,))
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().hako_merge_launch(
+            idx.data_ptr(), n, emit.data_ptr(), bt1.data_ptr(), tqn.data_ptr(),
+            exh.data_ptr(), hit.data_ptr(), t_hit.data_ptr(), nmaj.data_ptr(),
+            vr.data_ptr(), more.data_ptr(), tqr.data_ptr(),
+            *(x.data_ptr() for x in state), _stream(dev))
+    _launched("hako_merge", rc)
+
+
+def default_max_rounds(snodes, T: int, max_probes: int, max_dda: int) -> int:
+    """Safety bound only (the loop ends when no lane is left): every
+    active lane is served every round, so a lane needs as many rounds as
+    it does in the megakernel, whose bound this is."""
+    from .hako_mega import _rounds_for
+
+    return _rounds_for(snodes, T, max_probes, max_dda)
+
+
+def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
+           T, shadow, max_probes, max_dda, max_rounds):
+    """The round loop with the given (probe, dda, merge): the kernel
+    wrappers, their plain versions, or (chip_smoke.py) both side by side.
+    Returns (t, nmaj, vrank, unresolved int32 [1], rounds)."""
+    probe, dda, merge = kernels
+    dev = ro.device
+    n = ro.shape[0]
+    fat = snodes is not None
+    levels, level_off = level_pack(tabs)
+    bounds = torch.cat([lower, upper]).to(device=dev, dtype=torch.float32)
+    state = (torch.zeros(n, dtype=torch.bool, device=dev),
+             torch.zeros(n, dtype=torch.float32, device=dev),
+             torch.full((n,), MAX_FLOAT, dtype=torch.float32, device=dev),
+             torch.full((n,), -1, dtype=torch.int32, device=dev),
+             torch.zeros(n, dtype=torch.int32, device=dev))
+    rays = (bounds, ro, rd)
+    rounds = 0
+    while rounds < max_rounds:
+        # the round's one host sync: how many lanes are still active
+        idx = torch.nonzero(~state[0]).reshape(-1).to(torch.int32)
+        if idx.shape[0] == 0:
+            break
+        emit, child, bt1, tqe, tqn, exh = probe(
+            levels, level_off, T, root_mask, *rays, idx, state[1],
+            max_probes=max_probes)
+        if fat:
+            # stage 1: the supernode row walk emits the next brick + planes;
+            # lanes whose supernode held nothing past tq resume at its exit
+            # (or at the DDA's resume key when capped)
+            (emit2, bp1, bp2i, brick, bp3, btq, more_s, tqr_s) = dda(
+                snodes, *rays, idx, emit, child, bt1, tqe,
+                dt_factor=0.25 ** T, leaf=False, shadow=shadow,
+                max_iters=max_dda)
+            tqn = torch.where(emit & ~emit2,
+                              torch.where(more_s, tqr_s, _min3(bt1)), tqn)
+            emit, child, tqe = emit2, brick, btq
+            bt1 = torch.stack([bp1, bp2i.view(torch.float32), bp3])
+        hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = dda(
+            bricks, *rays, idx, emit, child, bt1, tqe,
+            dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, shadow=shadow,
+            max_iters=max_dda)
+        merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more, tqr)
+        rounds += 1
+    unresolved = (~state[0]).sum().to(torch.int32).reshape(1)
+    return state[2], state[3], state[4], unresolved, rounds
+
+
+def intersect_rays_hako_plain(bricks, snodes, tabs, root_mask, lower, upper,
+                              ro, rd, *, T: int, shadow: bool = False,
+                              max_probes: int = PROBES,
+                              max_dda: int = DDA_ITERS,
+                              max_rounds: int | None = None):
+    """Plain version of the round driver on any device (arguments and
+    results as in hako_mega.intersect_rays_hako_mega_plain, plus the
+    number of rounds run)."""
+    if max_rounds is None:
+        max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
+    return drive((hako_probe_plain, hako_dda_plain, hako_merge_plain),
+                  bricks, snodes, tabs, root_mask, lower, upper, ro, rd, T=T,
+                  shadow=shadow, max_probes=max_probes, max_dda=max_dda,
+                  max_rounds=max_rounds)
+
+
+def intersect_rays_hako(bricks, snodes, tabs, root_mask, lower, upper, ro,
+                        rd, *, T: int, shadow: bool = False,
+                        max_probes: int = PROBES, max_dda: int = DDA_ITERS,
+                        max_rounds: int | None = None):
+    """Full-frame traversal through the round driver. Returns (t, nmajor,
+    vrank). CPU tensors run the plain versions; CUDA tensors launch the
+    three kernels (one host sync per round) or raise."""
+    global ROUNDS
+    if max_rounds is None:
+        max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
+    _device_of(ro, "round driver")
+    dev = torch.device(ro.device)
+    if dev not in _UNRESOLVED:
+        _UNRESOLVED[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    t, nmaj, vrank, unresolved, rounds = drive(
+        (hako_probe, hako_dda, hako_merge), bricks, snodes, tabs, root_mask,
+        lower, upper, ro, rd, T=T, shadow=shadow, max_probes=max_probes,
+        max_dda=max_dda, max_rounds=max_rounds)
+    _UNRESOLVED[dev] += unresolved
+    ROUNDS += rounds
+    return t, nmaj, vrank
+
+
+def hako_args(tree):
+    """(meta, T) for the accel dispatch: the megakernel's (bricks, snodes,
+    root-down level tables, root mask)."""
+    from .hako_mega import hako_mega_args
+
+    return hako_mega_args(tree)
+
+
+def intersect_hako(tree, ro, rd, shadow: bool = False, **kw):
+    (bricks, snodes, tabs, root_mask), T = hako_args(tree)
+    dev = tree.device
+    return intersect_rays_hako(
+        bricks, snodes, tabs, root_mask, tree.lower, tree.upper,
+        torch.as_tensor(ro, dtype=torch.float32, device=dev).contiguous(),
+        torch.as_tensor(rd, dtype=torch.float32, device=dev).contiguous(),
+        T=T, shadow=shadow, **kw,
+    )

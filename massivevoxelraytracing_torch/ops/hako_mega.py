@@ -220,6 +220,8 @@ def intersect_rays_hako_mega(bricks, snodes, tabs, root_mask, lower, upper,
     max_dda = MEGA_DDA if max_dda is None else int(max_dda)
     if max_rounds is None:
         max_rounds = _rounds_for(snodes, T, max_probes, max_dda)
+    if ro.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no hako_mega kernel for device {ro.device}")
     acc = _unresolved_acc(ro.device)
     kw = dict(T=T, shadow=shadow, max_probes=max_probes, max_dda=max_dda,
               max_rounds=int(max_rounds))
@@ -228,8 +230,6 @@ def intersect_rays_hako_mega(bricks, snodes, tabs, root_mask, lower, upper,
             bricks, snodes, tabs, root_mask, lower, upper, ro, rd, **kw)
         acc += unresolved
         return t, nmaj, vrank
-    if ro.device.type != "cuda":
-        raise ValueError(f"no hako_mega kernel for device {ro.device}")
     return _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
                    unresolved=acc, **kw)
 

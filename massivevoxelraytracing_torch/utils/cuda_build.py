@@ -3,8 +3,9 @@
 The sources are `massivevoxelraytracing_torch/csrc/*.cu` (plus the `.cuh`
 headers they include). They are compiled at first use into
 `build/torch_kernels/libhako_torch.so` at the repository root, with a
-plain C interface (no PyTorch headers, so a build takes seconds), and
-rebuilt whenever the hash of the sources and the command changes.
+plain C interface (no PyTorch headers, so a build takes seconds): one nvcc
+per source, all started together, then one link. The library is rebuilt
+whenever the hash of the sources and the commands changes.
 
 Flags: `-fmad=false` keeps every float expression as written (the
 traversal decides ties by exact float equality of cell planes, which an
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 LIB_PATH = os.path.join(BUILD_DIR, "libhako_torch.so")
-MAX_LEVELS = 8  # top-tree level tables the kernel takes (T <= 9)
+MAX_LEVELS = 8  # top-tree level tables the kernels take (T <= 9)
 
 _lib = None
 last_build_seconds = None  # wall seconds of this process's nvcc run, if any
@@ -47,36 +48,99 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def nvcc_command(nvcc: str, out: str, srcs: list) -> list:
-    return [
-        nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-        "-o", out, *srcs,
+def nvcc_commands(nvcc: str, out: str, srcs: list, tag: str = ""):
+    """(one compile command per source, the link command) for the library
+    `out`; object files sit next to it, suffixed with `tag`."""
+    objs = [os.path.join(os.path.dirname(out),
+                         os.path.basename(s)[:-3] + tag + ".o") for s in srcs]
+    compile_cmds = [
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+         "-c", "-o", obj, src]
+        for src, obj in zip(srcs, objs)
     ]
+    link_cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", out, *objs]
+    return compile_cmds, link_cmd
 
 
-def _digest(cmd: list) -> str:
-    h = hashlib.sha256(" ".join(cmd[1:]).encode())
-    files = sources() + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+def digest(cmds: list, files: list) -> str:
+    """Hash of the build commands' flags and the files' contents."""
+    h = hashlib.sha256()
+    for cmd in cmds:
+        h.update(" ".join(a for a in cmd[1:] if not a.startswith(BUILD_DIR))
+                 .encode())
     for path in files:
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + f.read())
     return h.hexdigest()
 
 
+def is_fresh(lib_path: str, want: str) -> bool:
+    stamp = lib_path + ".sha256"
+    if not (os.path.exists(lib_path) and os.path.exists(stamp)):
+        return False
+    with open(stamp) as f:
+        return f.read().strip() == want
+
+
+def install(tmp: str, lib_path: str, want: str) -> None:
+    """Move a finished build into place and stamp it (atomic rename, so
+    concurrent builders never load a half-written library)."""
+    os.replace(tmp, lib_path)
+    with open(lib_path + ".sha256", "w") as f:
+        f.write(want)
+
+
+def _run_parallel(cmds: list) -> str:
+    """Run the commands concurrently; raise on the first failure. Returns
+    their stderr, concatenated."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(cmd[0])} failed ({p.returncode}) on "
+                f"{cmd[-1]}:\n{err[-4000:]}")
+    return "".join(err for _out, err in outs)
+
+
 def _bind(lib):
     p = ctypes.c_void_p
     i = ctypes.c_int
+    f = ctypes.c_float
+    u = ctypes.c_uint
     lib.hako_mega_launch.argtypes = [
         p, p, p, p, i,                                 # rows, levels, offs, T
-        ctypes.c_uint, ctypes.c_uint, p,               # root mask, bounds
+        u, u, p,                                       # root mask, bounds
         p, p, i,                                       # ro, rd, n
         p, p, p, p,                                    # t, nmaj, vrank, unres
         i, i, i, i,                                    # shadow, caps, rounds
-        ctypes.c_float, ctypes.c_float,                # dt factors
+        f, f,                                          # dt factors
         p,                                             # stream
     ]
-    lib.hako_mega_launch.restype = ctypes.c_int
+    lib.hako_probe_launch.argtypes = [
+        p, p, i, u, u, p,                              # levels, offs, T, root, bounds
+        p, p, p, p, i,                                 # ro, rd, idx, tq, n
+        p, p, p, p, p, p,                              # emit, child, bt1, tqe, tqn, exh
+        i, p,                                          # max_probes, stream
+    ]
+    lib.hako_dda_launch.argtypes = [
+        p, p, p, p, p, i,                              # rows, bounds, ro, rd, idx, n
+        p, p, p, p,                                    # go, child, bt1, tqe
+        p, p, p, p, p, p, p, p,                        # 8 outputs
+        f, i, i, i, p,                                 # dt_factor, leaf, shadow, iters, stream
+    ]
+    lib.hako_merge_launch.argtypes = [
+        p, i,                                          # idx, n
+        p, p, p, p, p, p, p, p, p, p,                  # emit, bt1, tqn, exh, hit, t, nmaj, vr, more, tqr
+        p, p, p, p, p,                                 # state: resolved, tq, t, nmaj, vrank
+        p,                                             # stream
+    ]
+    for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
+               lib.hako_dda_launch, lib.hako_merge_launch):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -88,25 +152,21 @@ def load():
         return _lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    tmp = f"{LIB_PATH}.tmp.{os.getpid()}"
-    digest = _digest(nvcc_command(nvcc, LIB_PATH, sources()))
-    stamp = LIB_PATH + ".sha256"
-    fresh = os.path.exists(LIB_PATH) and os.path.exists(stamp)
-    if fresh:
-        with open(stamp) as f:
-            fresh = f.read().strip() == digest
-    if not fresh:
+    srcs = sources()
+    compile_cmds, link_cmd = nvcc_commands(nvcc, LIB_PATH, srcs)
+    want = digest(compile_cmds + [link_cmd],
+                  srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
+    if not is_fresh(LIB_PATH, want):
         t0 = time.time()
-        proc = subprocess.run(
-            nvcc_command(nvcc, tmp, sources()), capture_output=True, text=True
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, LIB_PATH)
-        with open(stamp, "w") as f:
-            f.write(digest)
+        tag = f".tmp{os.getpid()}"
+        tmp = LIB_PATH + tag
+        compile_cmds, link_cmd = nvcc_commands(nvcc, tmp, srcs, tag)
+        log = _run_parallel(compile_cmds)
+        _run_parallel([link_cmd])
+        for cmd in compile_cmds:
+            os.remove(cmd[cmd.index("-o") + 1])
+        install(tmp, LIB_PATH, want)
         last_build_seconds = time.time() - t0
-        last_build_log = proc.stderr
+        last_build_log = log
     _lib = _bind(ctypes.CDLL(LIB_PATH))
     return _lib

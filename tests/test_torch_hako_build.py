@@ -136,7 +136,7 @@ def test_from_numpy_equals_port_build(built):
     d["color"] = color
     d["emission"] = color[::-1].copy()
     d["has_emission"] = True
-    got = hako.from_numpy(d)
+    got = hako.from_numpy(d, device="cpu")
     want = dataclasses.replace(
         pt,
         color=torch.from_numpy(color[: pt.n_voxels].view(np.int32)),

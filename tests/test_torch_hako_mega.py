@@ -249,6 +249,8 @@ def test_wrapper_refuses_other_devices():
         hako_mega.intersect_rays_hako_mega(
             rows, None, (), (1, 0), torch.zeros(3), torch.ones(3), rays,
             rays, T=1)
+    # the refused call leaves no counter behind on that device
+    assert hako_mega.unresolved_lanes() == 0
 
 
 def test_default_max_rounds():

@@ -1,8 +1,9 @@
 """The PyTorch port stands without JAX: it imports none (a subprocess with
-`jax` blocked builds and renders a tiny scene), no module of it names
-jax, its only imports from the JAX package are the shared host utilities,
-the nvcc command keeps IEEE float semantics for sm_90a, and chip_smoke.py
-refuses to run without a card or without the repository."""
+`jax` and the JAX package blocked builds a tiny scene, renders a frame and
+runs a path-tracer step), no module of it names jax or imports anything of
+the JAX package, the nvcc commands keep IEEE float semantics for sm_90a,
+and chip_smoke.py refuses to run without a card or without the
+repository."""
 
 import os
 import re
@@ -13,7 +14,7 @@ import sys
 import pytest
 import torch
 
-from massivevoxelraytracing_torch.utils import cuda_build
+from massivevoxelraytracing_torch.utils import cuda_build, host_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "massivevoxelraytracing_torch")
@@ -23,12 +24,14 @@ ONE_THREAD = dict(os.environ, OMP_NUM_THREADS="1")
 
 NO_JAX_RUN = r"""
 import sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+# any `import jax` or `import massivevoxelraytracing_tpu...` now raises
+sys.modules["jax"] = None
+sys.modules["massivevoxelraytracing_tpu"] = None
 import numpy as np
-from massivevoxelraytracing_torch.models import raycast, scene
+import torch
+from massivevoxelraytracing_torch.models import pathtracer, raycast, scene
 from massivevoxelraytracing_torch.ops import camera, hako_mega
-from massivevoxelraytracing_torch.utils import cuda_build
-from massivevoxelraytracing_tpu.utils import meshgen
+from massivevoxelraytracing_torch.utils import cuda_build, meshgen
 
 tri = meshgen.icosphere(2, radius=0.3, center=(0.5, 0.5, 0.5))
 tree = scene.build_scene(tri, origin=np.zeros(3, np.float32), dps=1 / 32,
@@ -37,9 +40,18 @@ cam = camera.Camera.look_at(eye=(0.5, 0.6, 2.0), target=(0.5, 0.5, 0.5))
 img, depth = raycast.render_frame(tree, cam, 16, 12, device="cpu")
 assert tuple(img.shape) == (12, 16, 3)
 assert 0 < int((depth < 1e37).sum()) < 16 * 12
+pt = pathtracer.PathTracer(width=16, height=12, packet=1024, max_bounces=2,
+                           device="cpu")
+pt.pmj_table = torch.from_numpy(
+    np.random.default_rng(0).random((128, 4096, 2), np.float32))
+pt.setup()
+pt.load_hdri(np.ones((8, 16, 3), np.float32))
+pt.update_scene(tree)
+pt.step(cam, n_spp=2)
+assert bool(torch.isfinite(pt.accum).all()) and float(pt.accum[:, :3].sum()) > 0
 assert hako_mega.LAUNCHES == 0
-loaded = [m for m, v in sys.modules.items()
-          if v is not None and (m.split(".")[0] in ("jax", "jaxlib"))]
+loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0]
+          in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
 assert not loaded, loaded
 print("no-jax ok")
 """
@@ -64,8 +76,8 @@ def test_no_module_imports_jax():
     jax_import = re.compile(r"^\s*(import\s+jax|from\s+jax[\s.])", re.M)
     tpu_import = re.compile(
         r"^\s*(?:from|import)\s+(massivevoxelraytracing_tpu[\w.]*)", re.M)
-    shared = {"massivevoxelraytracing_tpu.utils"}
-    for path in _python_files():
+    shared = set()  # the port keeps its own copy of any host code it needs
+    for path in [*_python_files(), os.path.join(ROOT, "chip_smoke.py")]:
         with open(path) as f:
             src = f.read()
         assert not jax_import.search(src), path
@@ -75,16 +87,31 @@ def test_no_module_imports_jax():
 
 def test_nvcc_command_keeps_ieee_floats():
     srcs = cuda_build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["hako_mega.cu"]
-    cmd = cuda_build.nvcc_command("nvcc", cuda_build.LIB_PATH, srcs)
-    line = " ".join(cmd)
-    assert "-fmad=false" in cmd
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    for flag in ("use_fast_math", "-ftz=true", "-prec-div=false",
-                 "-prec-sqrt=false"):
-        assert flag not in line
+    assert [os.path.basename(s) for s in srcs] == ["hako_mega.cu", "hako_rounds.cu"]
+    compile_cmds, link_cmd = cuda_build.nvcc_commands(
+        "nvcc", cuda_build.LIB_PATH, srcs)
+    assert [c[-1] for c in compile_cmds] == srcs  # one nvcc per source
+    for cmd in compile_cmds:
+        line = " ".join(cmd)
+        assert "-fmad=false" in cmd
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        for flag in ("use_fast_math", "-ftz=true", "-prec-div=false",
+                     "-prec-sqrt=false"):
+            assert flag not in line
+    assert "arch=compute_90a,code=sm_90a" in link_cmd
     assert cuda_build.LIB_PATH.endswith(
         os.path.join("build", "torch_kernels", "libhako_torch.so"))
+
+
+def test_host_command_keeps_ieee_floats():
+    """The host split is built without contraction and without
+    -march=native, so it gives the same triangles on every host."""
+    srcs = host_build.sources()
+    assert [os.path.basename(s) for s in srcs] == ["host_pmj.cpp", "host_split.cpp"]
+    cmd = host_build.gxx_command(host_build.LIB_PATH, srcs)
+    assert "-ffp-contract=off" in cmd
+    assert not any(a.startswith("-march") or "fast-math" in a or a == "-Ofast"
+                   for a in cmd)
 
 
 @pytest.fixture
