@@ -29,10 +29,16 @@ Phases (any failure raises, and the script exits non-zero):
      (the inputs the step gives the kernels): each of hako_probe /
      hako_dda / hako_merge against its plain version, round by round, and
      hako_mega against its plain version. Every kernel's time, plain time
-     and bound are taken on that BSDF batch.
+     and bound are taken on that BSDF batch;
+  counters: hako_mega's counting variant (equal outputs) on the frame and
+     both batches;
+  5. the probes (row chase, walk vs fetch), each held against its plain
+     version before its rate is printed, and the frame's and batches'
+     latency and walk floors from them.
 
-Prints the card's name and power limit beside every timing, one JSON line
-of kernel results, and as its last line
+Prints the card's name and power limit beside every timing, a JSON line
+of the probes' numbers, one JSON line of kernel results, and as its last
+line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -65,6 +71,10 @@ PT_MEAN_RTOL = 0.01
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ROW_BYTES = 164 * 4
+HOT_ROWS = 4096            # the row chase's L2-resident table (2.7 MB)
+LATENCY_HOPS = 256
+RATE_HOPS = 32
+PROBE_ITERS = 32
 
 
 def card() -> str:
@@ -208,6 +218,8 @@ def kernel_vs_plain(tree, ro, rd, shadow: bool, what: str, device):
         *args, T=T, shadow=shadow), reps=1, warm=False)
     if int(plain[3].item()) != 0:
         raise AssertionError(f"{what}: plain version left lanes unresolved")
+    counted = hako_mega.intersect_rays_hako_mega_counted(*args, T=T, shadow=shadow)
+    assert_bits_equal(counted[:3], kern, f"{what}: counting variant vs kernel")
     return compare(kern, plain, what), k_ms, p_ms
 
 
@@ -350,8 +362,23 @@ def phase_main_path(device, smi: str, rng):
           f"equal, max |dt| {st2['max_abs_err']:.3g}, max ulp {st2['max_ulp']}; "
           f"kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms; kernel alone on the full "
           f"frame {frame_kernel_ms:.3f} ms [{smi}]", flush=True)
+
+    # the frame's bound, from the rows its traversal reads, and the kernel's
+    # counters on every frame ray
+    args = (*meta, tree.lower, tree.upper, ro, rd)
+    ref = hako_mega.intersect_rays_hako_mega(*args, T=T)
+    distinct, visits = hako_mega.rows_touched(*args, T=T)
+    n_bytes, n_ops = hako_mega.traversal_traffic(
+        ro.shape[0], distinct, visits, sum(t.shape[0] for t in meta[2]))
+    frame_bound = bound(n_bytes, n_ops)
+    print(f"[phase3] frame bound: {ro.shape[0]} rays, {distinct} distinct rows, "
+          f"{visits} row visits: {n_bytes} bytes, {n_ops} float ops -> "
+          f"{frame_bound[0]:.4f} ms ({frame_bound[1]})", flush=True)
+    counters = counter_summary(args, T, False, ref, "1080p frame", smi)
     result = dict(launches=launches, max_abs_err=st2["max_abs_err"],
-                  frame_kernel_ms=frame_kernel_ms, frame_ms=frame_ms)
+                  frame_kernel_ms=frame_kernel_ms, frame_ms=frame_ms,
+                  frame_bound=frame_bound, frame_rows=(distinct, visits),
+                  counters=counters, frame_args=args)
     return tree, cam, img, depth, result
 
 
@@ -683,10 +710,15 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     if sb or not ss:
         raise AssertionError("recorded batches are not BSDF then NEE")
     err = {"hako_mega": 0.0, "hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0}
+    counters, lanes = {}, {}
     for ro, rd, shadow, name in ((ro_b, rd_b, False, "BSDF"), (ro_s, rd_s, True, "NEE")):
         what = f"bounce-1 {name} batch"
         chk = checked_rounds(tree, ro, rd, shadow, what)
         st, k_ms, p_ms = kernel_vs_plain(tree, ro, rd, shadow, what, device)
+        args, T = tree_args(tree, ro, rd, device)
+        ref = hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow)
+        counters[name] = counter_summary(args, T, shadow, ref, what, smi)
+        lanes[name] = int(ro.shape[0])
         for k, v in chk.err.items():
             err[k] = max(err[k], v)
         err["hako_mega"] = max(err["hako_mega"], st["max_abs_err"])
@@ -702,17 +734,161 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     return dict(step_s=step_s, mrays=mrays, mean=mean, peak_gb=peak_gb,
                 mega_launches=mega_launches, rounds_launches=launches,
                 rounds=rounds, rounds_s=rounds_s, timing=timing, err=err,
-                busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms)
+                busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms,
+                counters=counters, lanes=lanes)
 
 
 def mega_bound(tree, chk: Checked, n: int) -> tuple:
-    """hako_mega's bound on n rays: rays in (24 B), results out (12 B),
-    every distinct row the traversal reads (from the checked round driver
-    run `chk` on the same rays; both routes walk the same rows), the level
-    tables."""
-    lv = sum(t.numel() * 4 for t in tree.levels)
-    return bound(n * 36 + chk.distinct_rows() * ROW_BYTES + lv,
-                 30 * n + 100 * chk.row_visits())
+    """hako_mega's bound on n rays (ops/hako_mega.traversal_traffic), with
+    the distinct rows and row visits of the checked round driver run `chk`
+    on the same rays (both routes walk the same rows)."""
+    from massivevoxelraytracing_torch.ops import hako_mega
+
+    return bound(*hako_mega.traversal_traffic(
+        n, chk.distinct_rows(), chk.row_visits(),
+        sum(t.shape[0] for t in tree.levels)))
+
+
+def quantile(v, q: float) -> float:
+    import torch
+
+    return float(torch.quantile(v, q))
+
+
+def counter_summary(args, T, shadow: bool, ref, what: str, smi: str) -> dict:
+    """The kernel's counting variant on these rays: its outputs must equal
+    `ref`; returns (and prints) the means and 99th percentiles of the
+    per-ray counters, and per warp the SIMT efficiency of the round loop
+    and of the probe / DDA loops (active lanes over 32 x passes), the share
+    of the warp's clock64 life its lanes spent before their rays resolved,
+    its life and its passes."""
+    from massivevoxelraytracing_torch.ops import hako_mega
+
+    out = hako_mega.intersect_rays_hako_mega_counted(*args, T=T, shadow=shadow)
+    assert_bits_equal(out[:3], ref, f"{what}: counting variant")
+    counts = out[3].double()
+    ws = out[4][out[4][:, 1] > 0].double()
+    summary = {name: dict(mean=float(counts[k].mean()), p99=quantile(counts[k], 0.99))
+               for k, name in enumerate(hako_mega.RAY_COUNTS)}
+    life = ws[:, 3] - ws[:, 2]
+    inner = ws[ws[:, 6] > 0]
+    for name, v in (("simt_efficiency", ws[:, 0] / (32 * ws[:, 1])),
+                    ("inner_simt_efficiency", inner[:, 5] / (32 * inner[:, 6])),
+                    ("lane_busy_share", ws[:, 4] / (32 * life)),
+                    ("warp_life_cycles", life), ("warp_passes", ws[:, 1])):
+        summary[name] = dict(mean=float(v.mean()), p1=quantile(v, 0.01),
+                             p99=quantile(v, 0.99))
+    summary["warps"] = int(ws.shape[0])
+    text = ", ".join(f"{k} {v['mean']:.3f} (p99 {v['p99']:.3f})"
+                     for k, v in summary.items() if isinstance(v, dict))
+    print(f"[counters] {what}, {summary['warps']} warps: {text} "
+          f"[{smi}]", flush=True)
+    return summary
+
+
+def flush_l2(device) -> None:
+    """Overwrite the 50 MB L2 with a 128 MB buffer."""
+    import torch
+
+    torch.empty(32 << 20, dtype=torch.float32, device=device).fill_(1.0)
+
+
+def phase_probes(tree, ro, rd, device, smi: str) -> dict:
+    """Phase 5: the Hopper ports of the TPU probes the traversal's design
+    asks about, each checked against its plain version before its time is
+    taken. Row chase: a table of the lattice tree's row count (above the
+    L2, flushed before each timed launch) and an L2-resident hot set; three
+    read widths; 1, 2, 4 chains a thread; one warp an SM (ns per dependent
+    hop) and full occupancy (rows/s). Walk vs fetch at the frame's lanes."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import probes
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rng = np.random.default_rng(SEED)
+    n_rows = tree.bricks.shape[0] + (0 if tree.snodes is None else tree.snodes.shape[0])
+    chase = []
+    for table, rows_n in (("lattice", n_rows), ("hot", HOT_ROWS)):
+        rows = torch.from_numpy(probes.make_chase_table(rows_n, rng)).to(device)
+        cold = table == "lattice"
+        for mode in probes.CHASE_MODES:
+            for chains in (1, 2, 4):
+                for shape, blocks, threads, hops in (
+                        ("one warp an SM", sms, 32, LATENCY_HOPS),
+                        ("full occupancy", sms * 8, 256, RATE_HOPS)):
+                    n = probes.chase_chains(mode, chains, blocks, threads)
+                    start = torch.from_numpy(
+                        rng.integers(0, rows_n, n).astype(np.int32)).to(device)
+                    kw = dict(hops=hops, mode=mode, chains=chains, blocks=blocks,
+                              threads=threads)
+                    got = probes.row_chase(rows, start, **kw)
+                    want = probes.row_chase_plain(rows, start, hops=hops, mode=mode)
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"row chase {table} {mode} x{chains}: "
+                                             "differs from the plain version")
+                    ms = timed_each(lambda _: probes.row_chase(rows, start, **kw),
+                                    (lambda: flush_l2(device)) if cold else (lambda: None),
+                                    reps=5)
+                    chase.append(dict(table=table, mode=mode, chains=chains,
+                                      shape=shape, n_chains=n, hops=hops, ms=ms,
+                                      ns_per_hop=ms * 1e6 / hops,
+                                      rows_per_s=n * hops / (ms * 1e-3)))
+                    print(f"[phase5] row chase, {table} table ({rows_n} rows, "
+                          f"{rows_n * ROW_BYTES / 1e6:.1f} MB), {mode}, {chains} "
+                          f"chain(s), {shape} ({n} chains x {hops} hops): == plain "
+                          f"version; {ms:.4f} ms, {ms * 1e6 / hops:.1f} ns per "
+                          f"dependent hop, {n * hops / (ms * 1e-3) / 1e9:.3f} G rows/s "
+                          f"[{smi}]", flush=True)
+        del rows
+    n = ro.shape[0]
+    _t0, t1, dt, _vm6, _ok = hk._ray_preamble(tree.lower, tree.upper, ro, rd)
+    t1 = t1.contiguous()
+    dc = (dt * 0.25).contiguous()
+
+    def words(size):
+        return torch.from_numpy(rng.integers(0, 1 << 32, size, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)).to(device)
+
+    lo, hi = words(n), words(n)
+    got = probes.walk_probe(lo, hi, t1, dc, iters=PROBE_ITERS)
+    if not torch.equal(got, probes.walk_probe_plain(lo, hi, t1, dc, iters=PROBE_ITERS)):
+        raise AssertionError("walk probe differs from the plain version")
+    _, walk_ms = timed(lambda: probes.walk_probe(lo, hi, t1, dc, iters=PROBE_ITERS),
+                       reps=5)
+    row_of = torch.from_numpy(rng.integers(0, tree.bricks.shape[0], n)
+                              .astype(np.int32)).to(device)
+    got = probes.fetch_probe(tree.bricks, row_of, iters=PROBE_ITERS)
+    if not torch.equal(got, probes.fetch_probe_plain(tree.bricks, row_of,
+                                                     iters=PROBE_ITERS)):
+        raise AssertionError("fetch probe differs from the plain version")
+    fetch_ms = timed_each(
+        lambda _: probes.fetch_probe(tree.bricks, row_of, iters=PROBE_ITERS),
+        lambda: flush_l2(device), reps=5)
+    per = n * PROBE_ITERS
+    print(f"[phase5] walk vs fetch on {n} lanes x {PROBE_ITERS} (== plain versions): "
+          f"walk64 {walk_ms:.4f} ms = {walk_ms * 1e6 / per:.4f} ns per lane-walk "
+          f"over the card; row-word fetch (L2 flushed first) {fetch_ms:.4f} ms = "
+          f"{fetch_ms * 1e6 / per:.4f} ns per lane-fetch [{smi}]", flush=True)
+    return dict(chase=chase, walk_ms=walk_ms, fetch_ms=fetch_ms,
+                walk_ns=walk_ms * 1e6 / per, fetch_ns=fetch_ms * 1e6 / per,
+                lanes=n, iters=PROBE_ITERS, sms=sms)
+
+
+def floors(counters: dict, n_rays: int, pr: dict) -> dict:
+    """Time floors of a traversal of n_rays from its counters and the
+    probes: the latency floor (each ray's row loads as a chain of
+    dependent 16-byte hops at the one-chain hop time, over every thread
+    the SMs can hold, 2048 each), from the hot (L2) and lattice (HBM)
+    tables; and the walk floor (its walk64 calls at the walk probe's time
+    per lane-walk over the whole card)."""
+    hop = {c["table"]: c["ns_per_hop"] for c in pr["chase"]
+           if c["mode"] == "16B" and c["chains"] == 1 and c["shape"] == "one warp an SM"}
+    slots = pr["sms"] * 2048
+    loads = counters["row_loads"]["mean"] * n_rays
+    return dict(latency_floor_l2_ms=loads * hop["hot"] / slots * 1e-6,
+                latency_floor_hbm_ms=loads * hop["lattice"] / slots * 1e-6,
+                walk_floor_ms=counters["walks"]["mean"] * n_rays * pr["walk_ns"] * 1e-6)
 
 
 def main() -> int:
@@ -742,6 +918,14 @@ def main() -> int:
     tree, cam, img, depth, main_path = phase_main_path(device, smi, rng)
     rframe = phase_rounds_frame(tree, cam, img, depth, device, smi)
     pt = phase_pt(tree, cam, device, smi)
+    frame_args = main_path["frame_args"]
+    pr = phase_probes(tree, frame_args[6], frame_args[7], device, smi)
+    floor = {}
+    for label, cnt, n in (("frame", main_path["counters"], int(frame_args[6].shape[0])),
+                          ("BSDF", pt["counters"]["BSDF"], pt["lanes"]["BSDF"]),
+                          ("NEE", pt["counters"]["NEE"], pt["lanes"]["NEE"])):
+        floor[label] = floors(cnt, n, pr)
+        print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
@@ -770,7 +954,14 @@ def main() -> int:
             bound_by=tm["bound"][1], library_ms=None,
             frame_launches=frame_launches,
         ))
-    kernels[0]["frame_kernel_ms"] = main_path["frame_kernel_ms"]
+    kernels[0].update(
+        frame_kernel_ms=main_path["frame_kernel_ms"],
+        frame_bound_ms=main_path["frame_bound"][0],
+        frame_bound_by=main_path["frame_bound"][1],
+        frame_rows=main_path["frame_rows"],
+        counters={"frame": main_path["counters"], **pt["counters"]},
+        floors=floor)
+    print(json.dumps({"probes": pr}))
     print(json.dumps({"kernels": kernels, "pt": {
         "s_per_step": pt["step_s"], "mrays": pt["mrays"], "mean": pt["mean"],
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],

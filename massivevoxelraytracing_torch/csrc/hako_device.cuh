@@ -11,6 +11,11 @@
 // resume keys. Build with -fmad=false and IEEE division (no fast math):
 // a contracted FMA would drift those comparisons by an ulp. min/max
 // propagate NaN like jnp.minimum/maximum and torch.minimum/maximum.
+//
+// Counters: Probe and Dda also return how many descents, sub-brick visits,
+// walk64 calls, row / table words and row loads a call took. Callers that
+// do not read them (every kernel but the megakernel's counting variant) let
+// the compiler drop them.
 #pragma once
 
 #include <cfloat>
@@ -21,11 +26,17 @@ namespace hako {
 constexpr int kRowWords = 164;
 constexpr float kMaxFloat = FLT_MAX;
 
+// NaN-propagating max / min in one instruction each (sm_80+): equal to
+// fmaxf / fminf unless an operand is NaN, and then NaN.
 __device__ __forceinline__ float jmax(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fmaxf(a, b));
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float jmin(float a, float b) {
-  return (a != a) ? a : ((b != b) ? b : fminf(a, b));
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float min3(float a, float b, float c) {
   return jmin(a, jmin(b, c));
@@ -63,6 +74,22 @@ __device__ __forceinline__ uint32_t pc64_below(uint32_t lo, uint32_t hi,
     return __popc(lo) + __popc(hi & ((1u << (cell - 32)) - 1u));
   }
   return __popc(lo & ((1u << cell) - 1u));
+}
+
+// A warp's passes through a loop and the active lanes summed over them
+// (their ratio over 32 is the loop's SIMT efficiency): the lowest active
+// lane of each pass counts it. Callers pass nullptr to count nothing.
+struct WarpPass {
+  unsigned long long popc, passes;
+};
+
+__device__ __forceinline__ void count_pass(WarpPass* wp) {
+  if (wp == nullptr) return;
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(m) - 1)) {
+    wp->popc += __popc(m);
+    ++wp->passes;
+  }
 }
 
 struct Ray {
@@ -161,6 +188,7 @@ struct Probe {
   int child;
   float bt1[3];
   float tqe, tqn;
+  int descents, walks, words;  // root descents, walk64 calls, table words
 };
 
 // Up to max_probes restart descents from the root through the top tree,
@@ -170,15 +198,18 @@ struct Probe {
 __device__ __forceinline__ Probe probe_from_root(
     const uint32_t* levels, const int* level_off, int T, uint32_t root_lo,
     uint32_t root_hi, const float t1[3], const float dt[3], int vm6,
-    float t_q, int max_probes) {
-  Probe r{false, false, 0, {0.0f, 0.0f, 0.0f}, t_q, t_q};
+    float t_q, int max_probes, WarpPass* wp = nullptr) {
+  Probe r{false, false, 0, {0.0f, 0.0f, 0.0f}, t_q, t_q, 0, 0, 0};
   for (int p = 0; p < max_probes; ++p) {
+    ++r.descents;
     uint32_t mlo = root_lo, mhi = root_hi, base = 0;
     float cur[3] = {t1[0], t1[1], t1[2]};
     float dc[3] = {dt[0] * 0.25f, dt[1] * 0.25f, dt[2] * 0.25f};
     float tq_new = t_q;
     for (int depth = 0; depth < T; ++depth) {
+      count_pass(wp);
       const Walk w = walk64(mlo, mhi, vm6, cur, dc, t_q);
+      ++r.walks;
       if (w.c >= 64) {  // dead subtree: resume past this node's exit
         tq_new = min3(cur[0], cur[1], cur[2]);
         if (depth == 0) r.exh = true;
@@ -203,6 +234,7 @@ __device__ __forceinline__ Probe probe_from_root(
         mlo = node[0];
         mhi = node[1];
         base = node[2];
+        r.words += 3;
         for (int a = 0; a < 3; ++a) {
           cur[a] = nt1[a];
           dc[a] = dc[a] * 0.25f;
@@ -222,6 +254,8 @@ struct Dda {
   int nmaj;
   uint32_t vr;
   float p3, tqp, tqr;
+  int iters, walks, words, loads;  // sub-brick visits, walk64 calls, row
+                                   // words read, row load instructions
 };
 
 // Hierarchical DDA inside one 16^3 row: the coarse 4^3 sub-bricks (words
@@ -235,7 +269,8 @@ template <bool LEAF, bool SHADOW>
 __device__ __forceinline__ Dda dda_rows(const uint32_t* row,
                                         const float dt[3], float dt_factor,
                                         int vm6, const float bt1[3],
-                                        float tqe0, int max_iters) {
+                                        float tqe0, int max_iters,
+                                        WarpPass* wp = nullptr) {
   float dcs[3], dcv[3];
   for (int a = 0; a < 3; ++a) {
     const float dtb = dt[a] * dt_factor;
@@ -246,10 +281,13 @@ __device__ __forceinline__ Dda dda_rows(const uint32_t* row,
   const uint32_t coarse_hi = row[129];
   const uint32_t base = row[130];
 
-  Dda r{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, tqe0};
+  Dda r{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, tqe0, 0, 0, 3, 1};
   float sub_tq = tqe0;
   bool active = true;
   for (int i = 0; i < max_iters && active; ++i) {
+    count_pass(wp);
+    ++r.iters;
+    ++r.walks;
     const Walk ws = walk64(coarse_lo, coarse_hi, vm6, bt1, dcs, sub_tq);
     if (ws.c >= 64) {
       active = false;
@@ -258,12 +296,15 @@ __device__ __forceinline__ Dda dda_rows(const uint32_t* row,
     const int s_real = ws.c ^ vm6;
     const uint32_t w_lo = row[2 * s_real];
     const uint32_t w_hi = row[2 * s_real + 1];
+    r.words += 2;
+    r.loads += 1;
     int sx, sy, sz;
     coords(ws.c, sx, sy, sz);
     const float st1[3] = {plane(bt1[0], dcs[0], min(sx + 1, 4)),
                           plane(bt1[1], dcs[1], min(sy + 1, 4)),
                           plane(bt1[2], dcs[2], min(sz + 1, 4))};
     const Walk wv = walk64(w_lo, w_hi, vm6, st1, dcv, sub_tq);
+    ++r.walks;
     const bool found_v = wv.c < 64;
     // leaf: a voxel behind the origin is skipped (entry strictly ahead);
     // supernode: any child row past the resume key is next
@@ -274,6 +315,8 @@ __device__ __forceinline__ Dda dda_rows(const uint32_t* row,
       r.hit = true;
       if (!(LEAF && SHADOW)) {
         const uint32_t pk = row[132 + (s_real >> 1)];
+        r.words += 1;
+        r.loads += 1;
         const uint32_t pref = (s_real & 1) ? (pk >> 16) : (pk & 0xFFFFu);
         r.vr = base + pref + pc64_below(w_lo, w_hi, wv.c ^ vm6);
       }

@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(kThreads) hako_probe_kernel(const ProbeParams 
   const int lane = p.idx[j];
   const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, lane);
   const float tq0 = p.tq[lane];
-  Probe r{false, !ray.enter_ok, 0, {0.0f, 0.0f, 0.0f}, tq0, tq0};
+  Probe r{false, !ray.enter_ok, 0, {0.0f, 0.0f, 0.0f}, tq0, tq0, 0, 0, 0};
   if (ray.enter_ok) {
     r = probe_from_root(p.levels, p.level_off, p.T, p.root_lo, p.root_hi,
                         ray.t1, ray.dt, ray.vm6, tq0, p.max_probes);
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) hako_dda_kernel(const DdaParams p) {
   using namespace hako;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= p.n) return;
-  Dda d{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, p.tqe[j]};
+  Dda d{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, p.tqe[j], 0, 0, 0, 0};
   if (p.go[j]) {
     const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, p.idx[j]);
     const float bt1[3] = {p.bt1[j], p.bt1[p.n + j], p.bt1[2 * p.n + j]};

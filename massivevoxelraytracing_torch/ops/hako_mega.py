@@ -22,6 +22,11 @@ same traversal).
 Counters: `LAUNCHES` counts kernel launches of the wrapper; unresolved
 lanes (a lane still unresolved after max_rounds is a bug, not a miss) are
 accumulated on the device per call, read with `unresolved_lanes()`.
+
+For measurement only (chip_smoke.py): `intersect_rays_hako_mega_counted`
+runs the kernel's counting variant (per-ray and per-warp counters, the
+same outputs), and `rows_touched` / `traversal_traffic` give the bytes and
+operations of a traversal's bound.
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ from .hako_kernels import (
 
 MEGA_PROBES = 4      # probe descents per round
 MEGA_DDA = 24        # DDA iterations (sub-bricks) per row stage per round
+ROW_BYTES = 164 * 4
+
+# per-ray counters of the counting variant, in row order
+RAY_COUNTS = ("rounds", "descents", "snode_iters", "brick_iters", "walks",
+              "row_words", "row_loads", "level_words")
 
 LAUNCHES = 0
 _UNRESOLVED: dict = {}  # device -> int32 [1] accumulator
@@ -154,10 +164,12 @@ def _check_rows(name, rows, device):
 
 
 def _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T,
-            shadow, max_probes, max_dda, max_rounds, unresolved):
+            shadow, max_probes, max_dda, max_rounds, unresolved,
+            count=False):
     """Validate, allocate the outputs and launch the CUDA kernel on the
     current stream (counted in LAUNCHES). The kernel adds its unresolved
-    lanes to `unresolved`."""
+    lanes to `unresolved`. With count=True the counting variant runs and
+    its counters follow (t, nmaj, vrank)."""
     global LAUNCHES
     from ..utils import cuda_build
 
@@ -181,8 +193,13 @@ def _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T,
     t = torch.empty(n, dtype=torch.float32, device=device)
     nmaj = torch.empty(n, dtype=torch.int32, device=device)
     vrank = torch.empty(n, dtype=torch.int32, device=device)
+    counts = warp_stats = None
+    if count:
+        counts = torch.zeros((len(RAY_COUNTS), n), dtype=torch.int32, device=device)
+        warp_stats = torch.zeros((-(-n // 32), 7), dtype=torch.int64, device=device)
+        warp_stats[:, 2] = -1  # running minimum of the first clock
     if n == 0:
-        return t, nmaj, vrank
+        return (t, nmaj, vrank, counts, warp_stats) if count else (t, nmaj, vrank)
     levels = torch.cat(tabs) if tabs else None
     offs = [0]
     for tab in tabs:
@@ -200,12 +217,14 @@ def _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T,
             t.data_ptr(), nmaj.data_ptr(), vrank.data_ptr(),
             unresolved.data_ptr(), int(shadow), max_probes, max_dda,
             max_rounds, float(0.25 ** T), float(0.25 ** (T + 2 if fat else T)),
+            counts.data_ptr() if count else None,
+            warp_stats.data_ptr() if count else None,
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"hako_mega kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
-    return t, nmaj, vrank
+    return (t, nmaj, vrank, counts, warp_stats) if count else (t, nmaj, vrank)
 
 
 def intersect_rays_hako_mega(bricks, snodes, tabs, root_mask, lower, upper,
@@ -232,6 +251,64 @@ def intersect_rays_hako_mega(bricks, snodes, tabs, root_mask, lower, upper,
         return t, nmaj, vrank
     return _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
                    unresolved=acc, **kw)
+
+
+def intersect_rays_hako_mega_counted(bricks, snodes, tabs, root_mask, lower,
+                                     upper, ro, rd, *, T: int,
+                                     shadow: bool = False):
+    """The counting variant of the kernel (CUDA tensors only), with the
+    default caps. Returns (t, nmajor, vrank) -- equal to the kernel's --
+    then per-ray counters int32 [len(RAY_COUNTS), R] and per-warp stats
+    int64 [warps, 7]: the round loop's active-lane sum and passes (their
+    ratio over 32 is its SIMT efficiency), first and last clock64, the sum
+    of the warp's lanes' ray lives in clock64 cycles (each from the lane's
+    first clock to the pass that resolved its ray), and the probe and DDA
+    loops' active-lane sum and passes. Warp rows with 0 passes held no
+    ray."""
+    if ro.device.type != "cuda":
+        raise ValueError(f"the counting variant runs on CUDA tensors, not {ro.device}")
+    return _launch(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, T=T,
+                   shadow=shadow, max_probes=MEGA_PROBES, max_dda=MEGA_DDA,
+                   max_rounds=_rounds_for(snodes, T, MEGA_PROBES, MEGA_DDA),
+                   unresolved=_unresolved_acc(ro.device), count=True)
+
+
+def rows_touched(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
+                 T: int, shadow: bool = False) -> tuple:
+    """(distinct rows, row visits) of the traversal of these rays: the rows
+    its DDA stages read, each counted once (per table) and at every visit.
+    Runs the round driver (its kernels for CUDA tensors, its plain versions
+    for CPU tensors) with a recording DDA stage; it walks the same rows as
+    the megakernel."""
+    from . import hako_kernels as hk
+
+    seen = {}
+    dda_stage = hk.hako_dda if ro.device.type == "cuda" else hk.hako_dda_plain
+
+    def dda(rows, *a, **k):
+        go, child = a[4], a[5]
+        seen.setdefault(k["leaf"], []).append(child[go].long())
+        return dda_stage(rows, *a, **k)
+
+    kernels = ((hk.hako_probe, dda, hk.hako_merge) if ro.device.type == "cuda"
+               else (hk.hako_probe_plain, dda, hk.hako_merge_plain))
+    hk.drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
+             T=T, shadow=shadow, max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
+             max_rounds=hk.default_max_rounds(snodes, T, hk.PROBES, hk.DDA_ITERS))
+    distinct = sum(int(torch.unique(torch.cat(v)).numel()) for v in seen.values())
+    visits = sum(int(x.numel()) for v in seen.values() for x in v)
+    return distinct, visits
+
+
+def traversal_traffic(n_rays: int, distinct_rows: int, row_visits: int,
+                      level_nodes: int) -> tuple:
+    """(bytes, float ops) that any traversal of n_rays must spend: each
+    ray's origin and direction read once (24 B) and its t, nmajor and vrank
+    written once (12 B), each distinct row read once (656 B), the level
+    tables once (12 B a node); ~30 float ops a ray (its preamble) and ~100
+    a row visit (the walks over the row's masks)."""
+    return (n_rays * 36 + distinct_rows * ROW_BYTES + level_nodes * 12,
+            30 * n_rays + 100 * row_visits)
 
 
 def hako_mega_args(tree: HakoTree):

@@ -118,6 +118,7 @@ def _bind(lib):
         p, p, p, p,                                    # t, nmaj, vrank, unres
         i, i, i, i,                                    # shadow, caps, rounds
         f, f,                                          # dt factors
+        p, p,                                          # counts, warp stats
         p,                                             # stream
     ]
     lib.hako_probe_launch.argtypes = [
@@ -138,8 +139,16 @@ def _bind(lib):
         p, p, p, p, p,                                 # state: resolved, tq, t, nmaj, vrank
         p,                                             # stream
     ]
+    lib.row_chase_launch.argtypes = [
+        p, p, p, i, i,                                 # rows, start, end, chains, hops
+        i, i, i, i, p,                                 # mode, chains/thread, blocks, threads, stream
+    ]
+    lib.walk_probe_launch.argtypes = [p, p, p, p, i, i, p, p]
+    lib.fetch_probe_launch.argtypes = [p, p, i, i, p, p]
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
-               lib.hako_dda_launch, lib.hako_merge_launch):
+               lib.hako_dda_launch, lib.hako_merge_launch,
+               lib.row_chase_launch, lib.walk_probe_launch,
+               lib.fetch_probe_launch):
         fn.restype = ctypes.c_int
     return lib
 

@@ -4,7 +4,8 @@ driver's hako_probe / hako_dda / hako_merge round by round, against their
 plain PyTorch versions on the same device tensors, plain and fat layouts,
 primary and shadow rays, bit for bit; the whole slice on the card
 (build_scene + render_frame through the kernel) against the same slice on
-the CPU (plain version); a path-tracer step through both routes. Imports
+the CPU (plain version); a path-tracer step through both routes; the kernel
+at small ray counts and on permuted rays, and its counting variant. Imports
 nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -208,3 +209,49 @@ def test_pt_step_rounds_equals_mega_on_card(cuda):
     assert bool(torch.isfinite(accum["mega"]).all())
     assert float(accum["mega"][:, :3].mean()) > 0
     assert torch.equal(accum["rounds"], accum["mega"])
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000])
+def test_kernel_at_small_counts(cuda, monkeypatch, n):
+    """Ray counts around a warp and inside one block, and none: equal to
+    the plain version, one launch for n > 0."""
+    args, T = case_args(cuda, monkeypatch, 512, 8000, 128)
+    args = (*args[:6], args[6][:n].contiguous(), args[7][:n].contiguous())
+    hako_mega.reset_counters()
+    got = hako_mega.intersect_rays_hako_mega(*args, T=T)
+    want = hako_mega.intersect_rays_hako_mega_plain(*args, T=T)
+    torch.cuda.synchronize()
+    assert int(want[3]) == 0
+    assert_equal(got, want[:3], "kernel vs plain")
+    assert got[0].shape == (n,)
+    assert hako_mega.LAUNCHES == (1 if n else 0)
+    assert hako_mega.unresolved_lanes() == 0
+
+
+def test_permuted_rays_give_permuted_outputs(cuda, monkeypatch):
+    """Results are per ray, whichever warp takes a ray."""
+    args, T = case_args(cuda, monkeypatch, 256, 6144, None)
+    got = hako_mega.intersect_rays_hako_mega(*args, T=T)
+    perm = torch.from_numpy(np.random.default_rng(5).permutation(
+        args[6].shape[0])).to(cuda)
+    shuffled = (*args[:6], args[6][perm].contiguous(), args[7][perm].contiguous())
+    assert_equal(hako_mega.intersect_rays_hako_mega(*shuffled, T=T),
+                 tuple(x[perm] for x in got), "permuted rays")
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("grid_res,n_vox,snodes_above", CASES)
+def test_counting_variant_equals_kernel(cuda, monkeypatch, grid_res, n_vox,
+                                        snodes_above, shadow):
+    args, T = case_args(cuda, monkeypatch, grid_res, n_vox, snodes_above)
+    got = hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow)
+    counted = hako_mega.intersect_rays_hako_mega_counted(*args, T=T, shadow=shadow)
+    assert_equal(counted[:3], got, "counting variant")
+    counts, warps = counted[3], counted[4]
+    rounds = counts[hako_mega.RAY_COUNTS.index("rounds")]
+    assert bool((rounds >= 1).any()) and int(counts.min()) >= 0
+    busy = warps[warps[:, 1] > 0]
+    assert int(busy[:, 1].sum()) > 0
+    assert bool((busy[:, 0] <= 32 * busy[:, 1]).all())
+    # the lanes' lives end where their rays resolve, inside the warp's life
+    assert bool((busy[:, 4] <= 32 * (busy[:, 3] - busy[:, 2])).all())
