@@ -34,11 +34,21 @@ Phases (any failure raises, and the script exits non-zero):
      both batches;
   5. the probes (row chase, walk vs fetch), each held against its plain
      version before its rate is printed, and the frame's and batches'
-     latency and walk floors from them.
+     latency and walk floors from them;
+  6. the apps on the card, each through its main(argv) into build/:
+     rtcamp (the animated lattice, frames 0-2 of 24 at 1440x900, a full
+     rebuild a frame at 512^3 then 1024^3, one 16-spp step; every PNG
+     read back, the last frame bit-equal to a PathTracer driven directly
+     on the same tree and camera), voxrt (torus 256^3, 640x360, voxel
+     colors, --oracle: the app fails past 2% disagreeing pixels) and voxpt
+     (torus 256^3, 640x360: 3 steps with --checkpoint, then --resume for a
+     4th, bit-equal to 4 uninterrupted steps; and one step at
+     EngineConfig's 65,536-lane packet). hako_mega's counter is set to 0
+     just before each app and read just after: each must launch it.
 
 Prints the card's name and power limit beside every timing, a JSON line
-of the probes' numbers, one JSON line of kernel results, and as its last
-line
+of the probes' numbers, one JSON line of kernel results (with the apps'
+numbers), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -47,6 +57,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -68,6 +79,16 @@ HIT_BAND = (0.62, 0.64)
 # its samples are the same, so the port's must agree within 1%
 JAX_PT_MEAN = 37.1021
 PT_MEAN_RTOL = 0.01
+REPO = os.path.dirname(os.path.abspath(__file__))
+APPS_OUT = os.path.join(REPO, "build", "chip_smoke_apps")
+RTCAMP_ARGV = ["--scene", "lattice", "--frames", "24", "--frame-range", "0", "3",
+               "--width", "1440", "--height", "900", "--steps", "1",
+               "--from-res", "512", "--to-res", "1024", "--hdri", "procedural"]
+VOXRT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
+              "360", "--mode", "color", "--oracle"]
+VOXPT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
+              "360", "--snapshot-every", "0"]
+VOXPT_PACKET = ["--ray-packet", str(1 << 21)]  # the PathTracer's own default
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ROW_BYTES = 164 * 4
@@ -891,6 +912,177 @@ def floors(counters: dict, n_rays: int, pr: dict) -> dict:
                 walk_floor_ms=counters["walks"]["mean"] * n_rays * pr["walk_ns"] * 1e-6)
 
 
+def flag(argv: list, name: str) -> str:
+    return argv[argv.index(name) + 1]
+
+
+def app_launches(what: str, fn):
+    """fn() with hako_mega's launch counter set to 0 just before it and
+    read just after; the app must have launched the kernel."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import hako_mega
+
+    torch.cuda.synchronize()
+    hako_mega.reset_counters()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = hako_mega.LAUNCHES
+    if n < 1:
+        raise AssertionError(f"{what} launched no hako_mega kernel")
+    if hako_mega.unresolved_lanes():
+        raise AssertionError(f"{what}: unresolved lanes")
+    return out, n, wall
+
+
+def phase_apps(smi: str, device: str = "cuda") -> dict:
+    """Phase 6: rtcamp, voxrt and voxpt on `device` through main(argv)."""
+    import torch
+
+    from massivevoxelraytracing_torch.apps import rtcamp, voxpt, voxrt
+    from massivevoxelraytracing_torch.models import pathtracer, scene
+    from massivevoxelraytracing_torch.utils import hdr, png
+
+    shutil.rmtree(APPS_OUT, ignore_errors=True)
+    out = {}
+    dev = ["--device", device]
+
+    # rtcamp: keep the last frame's tree for the direct tracer
+    kept = []
+    real_build = scene.build_scene
+
+    def build(*a, **k):
+        kept[:] = [real_build(*a, **k)]
+        return kept[0]
+
+    rt_dir = os.path.join(APPS_OUT, "rtcamp")
+    scene.build_scene = build
+    try:
+        records, n, wall = app_launches(
+            "rtcamp", lambda: rtcamp.main(RTCAMP_ARGV + dev + ["--out", rt_dir]))
+    finally:
+        scene.build_scene = real_build
+    frames = []
+    for r in records:
+        st = r["build_stats"]
+        frames.append(dict(frame=r["frame"], grid_res=r["grid_res"],
+                           update_s=r["update_s"], render_s=r["render_s"],
+                           n_voxels=st["n_unique"], n_triangles=st["n_triangles"],
+                           split_s=st["t_split_s"], count_s=st["t_count_s"],
+                           unique_s=st["t_unique_s"], accel_s=st["t_accel_s"]))
+        print(f"[phase6] rtcamp frame {r['frame']}: grid {r['grid_res']}^3, "
+              f"update {r['update_s']:.3f} s (split {st['t_split_s']:.3f}, count "
+              f"{st['t_count_s']:.3f}, unique {st['t_unique_s']:.3f}, accel "
+              f"{st['t_accel_s']:.3f}; {st['n_triangles']} triangles -> "
+              f"{st['n_unique']} voxels), render {r['render_s']:.3f} s [{smi}]",
+              flush=True)
+    width, height = int(flag(RTCAMP_ARGV, "--width")), int(flag(RTCAMP_ARGV, "--height"))
+    for r in records:
+        img = png.read(os.path.join(rt_dir, f"{r['frame']:03d}.png"))
+        if img.shape != (height, width, 3) or img.min() == img.max():
+            raise AssertionError(f"rtcamp frame {r['frame']}: image {img.shape}, "
+                                 f"values {img.min()}..{img.max()}")
+    last = records[-1]
+    pt = pathtracer.PathTracer(width=width, height=height, device=device)
+    pt.setup()
+    env = hdr.procedural_sky(512, 256)
+    pt.load_hdri(env, env)
+    pt.update_scene(kept[0])
+    pt.clear_frame_buffer()
+    for _ in range(int(flag(RTCAMP_ARGV, "--steps"))):
+        pt.step(last["cam"])
+    direct = pt.resolve()
+    if not np.array_equal(direct, png.read(os.path.join(rt_dir, f"{last['frame']:03d}.png"))):
+        raise AssertionError("rtcamp's last frame differs from the PathTracer driven directly")
+    del kept[:], pt
+    print(f"[phase6] rtcamp: {len(records)} frames in {wall:.1f} s, every PNG "
+          f"{height}x{width}x3 and not constant, the last == PathTracer driven "
+          f"directly bit for bit; {n} hako_mega launches [{smi}]", flush=True)
+    out["rtcamp"] = dict(frames=frames, wall_s=wall, launches=n)
+
+    # voxrt: the app itself fails past 2% disagreeing oracle pixels
+    st, n, wall = app_launches("voxrt", lambda: voxrt.main(
+        VOXRT_ARGV + dev + ["--out", os.path.join(APPS_OUT, "voxrt")]))
+    print(f"[phase6] voxrt: build {st['build_s'] * 1e3:.1f} ms, frame "
+          f"{st['render_s'] * 1e3:.3f} ms (first in its process), oracle "
+          f"{st['oracle_agree']}/{st['oracle_checked']} pixels agree; {n} "
+          f"hako_mega launches; {wall:.1f} s in all [{smi}]", flush=True)
+    out["voxrt"] = dict(build_ms=st["build_s"] * 1e3, frame_ms=st["render_s"] * 1e3,
+                        oracle_agree=st["oracle_agree"],
+                        oracle_checked=st["oracle_checked"], wall_s=wall, launches=n)
+
+    # voxpt: 3 steps + checkpoint, resume for a 4th == 4 uninterrupted steps
+    vp = os.path.join(APPS_OUT, "voxpt")
+    ck = os.path.join(vp, "ck.npz")
+    _, n1, wall1 = app_launches("voxpt 3 steps", lambda: voxpt.main(
+        VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "3", "--checkpoint", ck,
+                                     "--out", os.path.join(vp, "part")]))
+    resumed, n2, wall2 = app_launches("voxpt resume", lambda: voxpt.main(
+        VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "4", "--resume", ck,
+                                     "--out", os.path.join(vp, "part")]))
+    with StepTimer() as timer:
+        full, n3, wall3 = app_launches("voxpt 4 steps", lambda: voxpt.main(
+            VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "4", "--out",
+                                         os.path.join(vp, "full")]))
+    if not torch.equal(resumed.accum, full.accum) or resumed.spp_done != 64:
+        raise AssertionError("voxpt: resumed run differs from 4 uninterrupted steps")
+    with open(os.path.join(vp, "part", "render_final.png"), "rb") as a, \
+            open(os.path.join(vp, "full", "render_final.png"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("voxpt: resumed render_final.png differs")
+    if not os.path.exists(os.path.join(vp, "full", "render_first.png")):
+        raise AssertionError("voxpt wrote no render_first.png")
+    step_ms = timer.ms
+    with StepTimer() as timer:
+        _, n4, wall4 = app_launches("voxpt default packet", lambda: voxpt.main(
+            VOXPT_ARGV + dev + ["--steps", "1", "--out", os.path.join(vp, "default")]))
+    default_ms = timer.ms[0]
+    print(f"[phase6] voxpt 640x360 at 256^3: resume after 3 steps == 4 uninterrupted "
+          f"steps bit for bit; steps at {1 << 21}-lane packets "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (CUDA events; the 4-step "
+          f"run {wall3:.1f} s in all); one step at EngineConfig's 65536-lane "
+          f"packets {default_ms:.1f} ms; hako_mega launches {n1} / {n2} / {n3} / "
+          f"{n4} [{smi}]", flush=True)
+    out["voxpt"] = dict(step_ms=step_ms, default_packet_step_ms=default_ms,
+                        wall_4_steps_s=wall3, wall_default_packet_s=wall4,
+                        launches=[n1, n2, n3, n4])
+    return out
+
+
+class StepTimer:
+    """Times each PathTracer.step while installed (CUDA events around the
+    step, then a sync: the apps sync after each step anyway)."""
+
+    def __init__(self):
+        from massivevoxelraytracing_torch.models import pathtracer
+
+        self.cls = pathtracer.PathTracer
+        self.real = self.cls.step
+        self.ms = []
+
+    def __enter__(self):
+        import torch
+
+        real, ms = self.real, self.ms
+
+        def step(pt, *a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            real(pt, *a, **k)
+            stop.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(stop))
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.real
+
+
 def main() -> int:
     import torch
 
@@ -926,6 +1118,7 @@ def main() -> int:
                           ("NEE", pt["counters"]["NEE"], pt["lanes"]["NEE"])):
         floor[label] = floors(cnt, n, pr)
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
+    apps = phase_apps(smi)
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
@@ -960,13 +1153,15 @@ def main() -> int:
         frame_bound_by=main_path["frame_bound"][1],
         frame_rows=main_path["frame_rows"],
         counters={"frame": main_path["counters"], **pt["counters"]},
-        floors=floor)
+        floors=floor,
+        apps_launches={k: apps[k]["launches"] for k in ("rtcamp", "voxrt", "voxpt")})
     print(json.dumps({"probes": pr}))
     print(json.dumps({"kernels": kernels, "pt": {
         "s_per_step": pt["step_s"], "mrays": pt["mrays"], "mean": pt["mean"],
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
-        "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]}}))
+        "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
+        "apps": apps}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,15 +11,21 @@ Layout:
            (hako_kernels), the wrappers of the hand-written CUDA kernels
            (hako_mega, hako_kernels)
   models/  scene build, acceleration-structure dispatch (traversal "mega"
-           or "rounds"), primary frames, the path tracer
+           or "rounds"), primary frames, the path tracer, the host
+           oracle of voxrt
+  apps/    the command lines: rtcamp, voxpt, voxrt, launch_frames, and
+           their scenes (`python -m massivevoxelraytracing_torch.apps.X`)
+  config.py  EngineConfig
   csrc/    CUDA C++ sources (sm_90a) and host C++ (triangle split, PMJ
-           table), compiled at first use
+           table, HDR / OBJ decoders), compiled at first use
   utils/   nvcc / g++ builds + ctypes bindings of csrc/, mesh generation
-           and mesh preparation
+           and preparation, image / mesh / Alembic I/O, the tree cache,
+           timers, the wireframe overlay
 
 The port imports nothing of `massivevoxelraytracing_tpu` (nor `jax`):
 where it needs host code of the reference that imports no JAX (mesh
-generation, the triangle split, the PMJ generator), it keeps its own copy.
+generation, the triangle split, the PMJ generator, the apps' I/O), it
+keeps its own copy.
 
 Types: Morton codes are one int64 (63 bits). Every u32 word that reaches
 the kernel (brick and supernode rows, node masks, packed colors) is held

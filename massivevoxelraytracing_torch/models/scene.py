@@ -75,18 +75,19 @@ def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
     origin_t = torch.as_tensor(np.asarray(origin, np.float32), device=device)
     dps_t = torch.tensor(dps, dtype=torch.float32, device=device)
 
-    def vox_chunk(k):
+    def vox_chunk(k, valid_only=False):
         sl = slice(k * chunk, (k + 1) * chunk)
         return vox_ops.voxelize_dense(
             *(torch.from_numpy(np.ascontiguousarray(a[sl])).to(device)
               for a in (tri, col, emi)),
             origin_t, dps_t, grid_res=grid_res,
-            six_separating=six_separating, cap=cap,
+            six_separating=six_separating, cap=cap, valid_only=valid_only,
         )
 
-    # pass 1: counts (voxCount)
+    # pass 1: counts (voxCount; the coverage mask alone)
     counts = torch.stack(
-        [vox_ops.count_voxels(vox_chunk(k)) for k in range(n_chunks)]
+        [vox_ops.count_voxels(vox_chunk(k, valid_only=True))
+         for k in range(n_chunks)]
     ).cpu().numpy()  # readback 1
     t_count = time.time()
     total_dumped = int(counts.sum())

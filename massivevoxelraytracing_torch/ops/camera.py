@@ -1,6 +1,6 @@
-"""Pinhole camera (the reference's ops/camera.py: Camera.look_at and
-np_frame_rays). Host numpy only; the thin lens waits for the path-tracer
-slice."""
+"""Pinhole camera (the reference's ops/camera.py: Camera.look_at,
+np_frame_rays on the host, and `shoot`, pixel rays on tensors). The thin
+lens is models/pathtracer.pt_sample's primary ray."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import dataclasses
 import math
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -59,4 +60,30 @@ def np_frame_rays(cam: Camera, width: int, height: int, off_x=0.5, off_y=0.5):
         + cam.front[None, :]
     ).astype(np.float32)
     ro = np.broadcast_to(cam.o, rd.shape).astype(np.float32)
+    return ro, rd
+
+
+def shoot(cam: Camera, px, py, off_x: float, off_y: float, width: int,
+          height: int):
+    """Pixel rays (CameraPinhole::shoot): px / py integer tensors [R], off
+    in [0, 1). Returns (ro, rd) f32 [R, 3] on px's device, with the
+    reference's float32 operations in its order; every divisor is a
+    device tensor (on CUDA a Python-scalar divisor becomes a reciprocal
+    multiply)."""
+    dev = px.device
+    f32 = torch.float32
+
+    def c(x):
+        return torch.tensor(x, dtype=f32, device=dev)
+
+    xf = (px.to(f32) + c(off_x)) / c(float(width))
+    yf = (py.to(f32) + c(off_y)) / c(float(height))
+    th = c(np.float32(cam.tan_half_fovy))
+    u = (-th + (2.0 * th) * xf) * c(np.float32(width / height))
+    v = th - (2.0 * th) * yf
+    right, up, front = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                        for a in (cam.right, cam.up, cam.front))
+    rd = u[:, None] * right + v[:, None] * up + front
+    ro = torch.as_tensor(np.asarray(cam.o, np.float32), device=dev).expand(
+        rd.shape).contiguous()
     return ro, rd

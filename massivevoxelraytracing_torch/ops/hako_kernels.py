@@ -100,6 +100,8 @@ def _walk64_impl(mask_lo, mask_hi, vm6, t1, dc, t_q):
     best_ex = torch.full_like(node_ex, MAX_FLOAT)
     best_c = torch.full_like(vm6, 64)
     for slot in range(10):
+        if slot and not bool(alive.any()):
+            break  # no lane walks on: the later slots change nothing
         ex = _min3(n)
         cell = _cell_of(c[0], c[1], c[2])
         occ = _bit_at(mask_lo, mask_hi, cell ^ vm6)
@@ -227,39 +229,45 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
     origin (t, face axis, rank); a supernode row (leaf=False) emits the
     first child brick past the resume key, with its exit planes (the y
     plane bit-cast into nmaj). Stops after max_iters sub-bricks with a
-    resume key.
+    resume key. Each iteration serves only the lanes still walking,
+    gathered densely (lanes are independent: the same bits as serving
+    every lane).
 
     Returns (hit, t_hit, nmaj int32, vr, p3, tqp, more, tqr)."""
     dtb = dt * dt_factor
     dcs = dtb * 0.25     # coarse (4^3-of-cells) dt
     dcv = dtb * 0.0625   # fine cell dt
 
-    row = rows[torch.where(go, child, 0)].to(torch.int64)
-    coarse_lo = row[:, 128]
-    coarse_hi = row[:, 129]
-    base = row[:, 130]
+    ch_all = torch.where(go, child, 0)
+    coarse_lo = rows[ch_all, 128].to(torch.int64)
+    coarse_hi = rows[ch_all, 129].to(torch.int64)
+    base = rows[ch_all, 130].to(torch.int64)
 
-    def word(idx):
-        return row.gather(1, idx[:, None])[:, 0]
-
-    active = go
-    sub_tq = tqe0
+    active = go.clone()
+    sub_tq = tqe0.clone()
     hit = torch.zeros_like(go)
     t_hit = torch.full_like(tqe0, MAX_FLOAT)
     nmaj = torch.full_like(vm6, -1, dtype=torch.int32)
     vr = torch.zeros_like(vm6)
     p3 = torch.zeros_like(tqe0)
     tqp = torch.zeros_like(tqe0)
+    a = torch.nonzero(go).reshape(-1)  # the lanes still walking
     i = 0
-    while i < max_iters and bool(active.any()):
-        _en_s, ex_s, cs = _walk64_impl(coarse_lo, coarse_hi, vm6, bt1, dcs, sub_tq)
-        found_s = active & (cs < 64)
-        s_real = torch.where(found_s, cs ^ vm6, 0)
+    while i < max_iters and a.numel() > 0:
+        ch, m6, tq = ch_all[a], vm6[a], sub_tq[a]
+        b1, ds, dv = bt1[:, a], dcs[:, a], dcv[:, a]
+
+        def word(idx):
+            return rows[ch, idx].to(torch.int64)
+
+        _en_s, ex_s, cs = _walk64_impl(coarse_lo[a], coarse_hi[a], m6, b1, ds, tq)
+        found_s = cs < 64
+        s_real = torch.where(found_s, cs ^ m6, 0)
         w_lo = word(2 * s_real)
         w_hi = word(2 * s_real + 1)
-        st1 = _plane(bt1, dcs, torch.clamp(_coords(cs) + 1, max=4))
+        st1 = _plane(b1, ds, torch.clamp(_coords(cs) + 1, max=4))
 
-        en_v, ex_v, cv = _walk64_impl(w_lo, w_hi, vm6, st1, dcv, sub_tq)
+        en_v, ex_v, cv = _walk64_impl(w_lo, w_hi, m6, st1, dv, tq)
         found_v = found_s & (cv < 64)
         # leaf: a voxel behind the origin is skipped (entry strictly
         # ahead); supernode: any child row past the resume key is next
@@ -269,30 +277,32 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
         if not (leaf and shadow):
             pk = word(132 + (s_real >> 1)) & MASK32
             pref = torch.where((s_real & 1) == 1, pk >> 16, pk & 0xFFFF)
-            vrank = base + pref + _pc64_below(w_lo, w_hi, cv ^ vm6)
-            vr = torch.where(is_hit, vrank, vr)
-        hit = hit | is_hit
+            vrank = base[a] + pref + _pc64_below(w_lo, w_hi, cv ^ m6)
+            vr[a] = torch.where(is_hit, vrank, vr[a])
+        hit[a] = is_hit
         if leaf:
-            en_xa = _plane(st1[0], dcv[0], vc[0])
-            en_ya = _plane(st1[1], dcv[1], vc[1])
+            en_xa = _plane(st1[0], dv[0], vc[0])
+            en_ya = _plane(st1[1], dv[1], vc[1])
             nm = torch.where(en_v == en_xa, 1, torch.where(en_v == en_ya, 2, 0))
-            t_hit = torch.where(is_hit, en_v, t_hit)
-            nmaj = torch.where(is_hit, nm.to(torch.int32), nmaj)
+            t_hit[a] = torch.where(is_hit, en_v, t_hit[a])
+            nmaj[a] = torch.where(is_hit, nm.to(torch.int32), nmaj[a])
         else:
             # child-row cell EXIT planes become the next stage's bt1
-            cp = _plane(st1, dcv, torch.clamp(vc + 1, max=4))
-            t_hit = torch.where(is_hit, cp[0], t_hit)
-            nmaj = torch.where(is_hit, cp[1].view(torch.int32), nmaj)
-            p3 = torch.where(is_hit, cp[2], p3)
-            tqp = torch.where(is_hit, sub_tq, tqp)
+            cp = _plane(st1, dv, torch.clamp(vc + 1, max=4))
+            t_hit[a] = torch.where(is_hit, cp[0], t_hit[a])
+            nmaj[a] = torch.where(is_hit, cp[1].view(torch.int32), nmaj[a])
+            p3[a] = torch.where(is_hit, cp[2], p3[a])
+            tqp[a] = torch.where(is_hit, tq, tqp[a])
 
         skipped = found_v & ~is_hit          # origin-inside voxel
         no_vox = found_s & ~found_v          # coarse cell had nothing left
-        sub_tq = torch.where(
+        sub_tq[a] = torch.where(
             skipped, ex_v,
-            torch.where(no_vox, torch.maximum(sub_tq, ex_s), sub_tq),
+            torch.where(no_vox, torch.maximum(tq, ex_s), tq),
         )
-        active = found_s & ~is_hit
+        still = found_s & ~is_hit
+        active[a] = still
+        a = a[still]
         i += 1
     return hit, t_hit, nmaj, vr, p3, tqp, active, sub_tq
 

@@ -7,7 +7,10 @@ Two halves:
   * `intersect_rays_hako_mega_plain`, the plain PyTorch version: a lane's
     rounds (root probe -> supernode-row DDA if the tree is fat -> brick-row
     DDA -> merge, hako_mega.py:332-403 of the reference) as masked
-    lockstep tensor code, with every lane served every round;
+    lockstep tensor code; each round gathers the unresolved lanes into a
+    dense batch and serves only those (lanes are independent, so this
+    gives the same bits as serving every lane, in time that follows the
+    live lanes);
   * `intersect_rays_hako_mega`, the wrapper: the plain version for CPU
     tensors, the hand-written CUDA kernel (csrc/hako_mega.cu, one thread
     per ray running to completion) for CUDA tensors, and an error for
@@ -116,19 +119,21 @@ def intersect_rays_hako_mega_plain(bricks, snodes, tabs, root_mask, lower,
     t_out = torch.full_like(t_q, MAX_FLOAT)
     nm_out = torch.full_like(vm6, -1, dtype=torch.int32)
     vi_out = torch.zeros_like(vm6)
-    no = torch.zeros_like(resolved)
     rnd = 0
     while rnd < max_rounds and not bool(resolved.all()):
-        act = ~resolved
+        # this round's lanes: the unresolved ones, gathered densely
+        idx = torch.nonzero(~resolved).reshape(-1)
+        l_t1, l_dt, l_vm6 = t1[:, idx], dt[:, idx], vm6[idx]
+        act = torch.ones_like(idx, dtype=torch.bool)
         need, tqn, emit, child, bt1, tqe, exh = _probe_from_root(
-            tabs, T, t1, dt, vm6, rt_ml, rt_mh, act, no, t_q,
-            max_probes=max_probes,
+            tabs, T, l_t1, l_dt, l_vm6, rt_ml, rt_mh, act,
+            torch.zeros_like(act), t_q[idx], max_probes=max_probes,
         )
         if fat:
             # stage 1: the supernode row walk emits the next brick + planes
             go_s = emit
             (emit2, bp1, bp2i, brick, bp3, btq, more_s,
-             tqr_s) = _dda_rows(snodes, child, dt, vm6, bt1, tqe, go_s,
+             tqr_s) = _dda_rows(snodes, child, l_dt, l_vm6, bt1, tqe, go_s,
                                 dt_factor=0.25 ** T, shadow=shadow,
                                 leaf=False, max_iters=max_dda)
             tqn = torch.where(
@@ -140,18 +145,17 @@ def intersect_rays_hako_mega_plain(bricks, snodes, tabs, root_mask, lower,
 
         go = emit
         hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = _dda_rows(
-            bricks, child, dt, vm6, bt1, tqe, go,
+            bricks, child, l_dt, l_vm6, bt1, tqe, go,
             dt_factor=0.25 ** (T + 2 if fat else T), shadow=shadow,
             leaf=True, max_iters=max_dda,
         )
-        # merge (the reference's expressions with every lane served)
+        # merge (the reference's expressions, every lane of the round active)
         tqn = torch.where(go, torch.where(more, tqr, _min3(bt1)), tqn)
-        newhit = act & hit
-        resolved = resolved | (act & (newhit | exh))
-        t_q = torch.where(act, tqn, t_q)
-        t_out = torch.where(newhit, t_hit, t_out)
-        nm_out = torch.where(newhit, nmaj, nm_out)
-        vi_out = torch.where(newhit, vr, vi_out)
+        resolved[idx] = hit | exh
+        t_q[idx] = tqn
+        t_out[idx] = torch.where(hit, t_hit, t_out[idx])
+        nm_out[idx] = torch.where(hit, nmaj, nm_out[idx])
+        vi_out[idx] = torch.where(hit, vr, vi_out[idx])
         rnd += 1
     unresolved = (~resolved).sum().to(torch.int32).reshape(1)
     return t_out, nm_out, vi_out.to(torch.int32), unresolved

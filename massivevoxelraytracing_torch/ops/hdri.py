@@ -84,9 +84,11 @@ def _build_alias(weights: np.ndarray):
         weights = np.ones_like(weights)
         total = float(n)
     p = weights / total
-    scaled = p * n
-    prob = np.ones(n, np.float64)
-    alias = np.arange(n, dtype=np.int64)
+    # the loop runs on python floats (the same f64 arithmetic as numpy
+    # scalars, without their per-element overhead)
+    scaled = (p * n).tolist()
+    prob = [1.0] * n
+    alias = list(range(n))
     small = [i for i in range(n) if scaled[i] < 1.0]
     large = [i for i in range(n) if scaled[i] >= 1.0]
     while small and large:
@@ -96,7 +98,8 @@ def _build_alias(weights: np.ndarray):
         alias[s] = l
         scaled[l] = scaled[l] - (1.0 - scaled[s])
         (small if scaled[l] < 1.0 else large).append(l)
-    return prob.astype(np.float32), alias.astype(np.int32), p.astype(np.float32)
+    return (np.asarray(prob, np.float64).astype(np.float32),
+            np.asarray(alias, np.int32), p.astype(np.float32))
 
 
 def _solid_angle_weights(width: int, height: int) -> np.ndarray:

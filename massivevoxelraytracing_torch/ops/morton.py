@@ -5,11 +5,13 @@ of u32 limbs only because JAX runs with x64 off. Here the code is a
 single int64 tensor with the same bit layout: coordinate bit i of x, y, z
 lands at bit 3i, 3i+1, 3i+2. Every code is below 2^63, so the signed
 shifts below never see a sign bit. `to_pair` / `from_pair` convert to and
-from the reference's limbs.
+from the reference's limbs; `np_encode` / `np_decode` take and give host
+numpy arrays.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MAX_COORD_BITS = 21
@@ -58,3 +60,15 @@ def to_pair(code: torch.Tensor):
 def from_pair(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """(hi, lo) limbs (any integer dtype, u32 values) -> int64 code."""
     return ((hi.to(torch.int64) & 0xFFFFFFFF) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
+
+
+def np_encode(x, y, z) -> np.ndarray:
+    """`encode` on host numpy arrays or scalars: int64 Morton codes."""
+    return encode(*(torch.as_tensor(np.asarray(a).astype(np.int64))
+                    for a in (x, y, z))).numpy()
+
+
+def np_decode(code):
+    """`decode` on host numpy arrays: int64 (x, y, z)."""
+    c = torch.as_tensor(np.asarray(code).astype(np.int64))
+    return tuple(v.numpy() for v in decode(c))

@@ -272,13 +272,15 @@ def closest_barycentric(v0, v1, v2, p):
 
 
 def voxelize_dense(tri_verts, tri_colors, tri_emissions, origin, dps, *,
-                   grid_res: int, six_separating: bool = True, cap: int = 4):
+                   grid_res: int, six_separating: bool = True, cap: int = 4,
+                   valid_only: bool = False):
     """Candidate voxels of T triangles whose voxel bbox fits cap^3.
 
     tri_verts/colors/emissions: f32[T, 3, 3] tensors on one device;
     origin f32[3] and dps (0-d f32) tensors on that device. Returns a dict
     of flattened [T * cap^3] tensors: valid bool, code int64 Morton,
-    color/emission packed u32 as int32 bit patterns."""
+    color/emission packed u32 as int32 bit patterns; with valid_only (the
+    count pass) the coverage mask alone."""
     ctx = triangle_contexts(tri_verts, six_separating, origin, dps, grid_res)
     C = cap * cap * cap
     dev = tri_verts.device
@@ -290,6 +292,8 @@ def voxelize_dense(tri_verts, tri_colors, tri_emissions, origin, dps, *,
     Z = ctx["lo_w"][:, None] + OZ.reshape(1, C)
 
     ok, (r0, r1, r2) = coverage_mask(ctx, X, Y, Z, six_separating)
+    if valid_only:
+        return dict(valid=ok.reshape(-1))
 
     # integer grid coords (unproject)
     major = ctx["major"][:, None]

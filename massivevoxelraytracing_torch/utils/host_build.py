@@ -1,7 +1,9 @@
 """Build the port's host library with g++ and bind it with ctypes.
 
 The sources are `massivevoxelraytracing_torch/csrc/*.cpp` (the triangle
-split to the voxelizer's cap and the PMJ table generator). They are
+split to the voxelizer's cap, the PMJ table generator, and the HDR / OBJ
+decoders of host_io.cpp). The library links nothing but the C++ runtime
+(no zlib: PNG compression is the standard library's). They are
 compiled at first use into `build/torch_kernels/libhako_host.so` at the
 repository root and rebuilt whenever the hash of the sources and the
 command changes (`cuda_build`'s stamp). A failed build raises: there is no
@@ -44,6 +46,10 @@ def _bind(lib):
     lib.hako_pmj02_table.argtypes = [ctypes.c_int32, ctypes.c_int32,
                                      ctypes.c_uint64, ctypes.c_uint64, p]
     lib.hako_pmj02_table.restype = None
+    lib.hako_hdr_decode.argtypes = [p, i64, ctypes.c_int32, ctypes.c_int32, p]
+    lib.hako_hdr_decode.restype = ctypes.c_int32
+    lib.hako_obj_parse.argtypes = [p, i64, p, i64]
+    lib.hako_obj_parse.restype = i64
     return lib
 
 

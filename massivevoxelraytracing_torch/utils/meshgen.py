@@ -1,6 +1,7 @@
-"""Procedural test meshes (the port's copy of the part of the JAX package's
+"""Procedural meshes (the port's copy of the part of the JAX package's
 utils/meshgen.py that the port uses): the bench's sphere lattice, the
-icosphere of the tests, a quad and grid fitting. Host numpy; the arrays
+apps' scenes (icosphere, bumpy sphere, torus knot, random soup), a quad,
+position-derived vertex colors and grid fitting. Host numpy; the arrays
 equal the reference's bit for bit."""
 
 from __future__ import annotations
@@ -68,6 +69,40 @@ def bumpy_sphere(subdiv: int = 4, radius: float = 1.0, bump: float = 0.18,
     return p.reshape(-1, 3, 3).astype(F)
 
 
+def torus_knot(p: int = 2, q: int = 3, n_seg: int = 512, n_ring: int = 32,
+               R: float = 1.0, tube: float = 0.25, center=(0, 0, 0)):
+    """(p, q) torus-knot tube; returns triangle soup f32[T, 3, 3]."""
+    t = np.linspace(0, 2 * np.pi, n_seg, endpoint=False)
+    r = np.cos(q * t) + 2.0
+    path = np.stack(
+        [r * np.cos(p * t), r * np.sin(p * t), -np.sin(q * t)], axis=1
+    ) * (R / 3.0)
+    # frames
+    dt = np.roll(path, -1, axis=0) - path
+    tangent = dt / np.linalg.norm(dt, axis=1, keepdims=True)
+    up = np.array([0.0, 0.0, 1.0])
+    side = np.cross(tangent, up)
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    up2 = np.cross(side, tangent)
+    theta = np.linspace(0, 2 * np.pi, n_ring, endpoint=False)
+    ring = (
+        path[:, None, :]
+        + tube * (np.cos(theta)[None, :, None] * side[:, None, :]
+                  + np.sin(theta)[None, :, None] * up2[:, None, :])
+    )  # [n_seg, n_ring, 3]
+    tris = []
+    for i in range(n_seg):
+        i2 = (i + 1) % n_seg
+        a = ring[i]
+        b = ring[i2]
+        for j in range(n_ring):
+            j2 = (j + 1) % n_ring
+            tris.append([a[j], a[j2], b[j]])
+            tris.append([a[j2], b[j2], b[j]])
+    tri = np.asarray(tris, np.float64) + np.asarray(center, np.float64)
+    return tri.astype(F)
+
+
 def sphere_lattice(nsp: int = 6, subdiv: int = 4, radius_frac: float = 0.44,
                    bump: float = 0.15, freq: float = 5.0, seed: int = 11):
     """nsp^3 jittered bumpy spheres filling the unit cube: the bench scene.
@@ -98,6 +133,20 @@ def quad_plane(y: float = 0.0, half: float = 1.0, center=(0, 0, 0)):
         ]
     ) + c
     return v.reshape(2, 3, 3).astype(F)
+
+
+def random_soup(n: int, seed: int = 0, scale: float = 1.0, center=(0, 0, 0)):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-1, 1, (n, 1, 3))
+    off = rng.uniform(-0.3, 0.3, (n, 3, 3))
+    return ((base + off) * scale + np.asarray(center)).astype(F)
+
+
+def vertex_colors_from_position(tri, lo, hi):
+    """Simple position-derived vertex colors in [0, 1], f32[T, 3, 3]."""
+    lo = np.asarray(lo, F)
+    hi = np.asarray(hi, F)
+    return ((tri - lo) / np.maximum(hi - lo, 1e-6)).clip(0, 1).astype(F)
 
 
 def mesh_bounds(tri):

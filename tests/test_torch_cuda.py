@@ -5,8 +5,9 @@ plain PyTorch versions on the same device tensors, plain and fat layouts,
 primary and shadow rays, bit for bit; the whole slice on the card
 (build_scene + render_frame through the kernel) against the same slice on
 the CPU (plain version); a path-tracer step through both routes; the kernel
-at small ray counts and on permuted rays, and its counting variant. Imports
-nothing of JAX. Run on a card with
+at small ray counts and on permuted rays, and its counting variant; the
+rtcamp app for two tiny frames on the card against the same run on the
+CPU (u8 images exact). Imports nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -255,3 +256,26 @@ def test_counting_variant_equals_kernel(cuda, monkeypatch, grid_res, n_vox,
     assert bool((busy[:, 0] <= 32 * busy[:, 1]).all())
     # the lanes' lives end where their rays resolve, inside the warp's life
     assert bool((busy[:, 4] <= 32 * (busy[:, 3] - busy[:, 2])).all())
+
+
+def test_rtcamp_on_card_equals_cpu_run(cuda, tmp_path):
+    """Two tiny rtcamp frames (16^3 and 32^3) on the card: the same grids,
+    voxels and PNGs, byte for byte, as the run on the CPU's plain
+    versions; the card run launches the megakernel."""
+    from massivevoxelraytracing_torch.apps import rtcamp
+
+    argv = ["--scene", "torus", "--frames", "2", "--width", "24", "--height",
+            "16", "--steps", "1", "--from-res", "16", "--to-res", "32"]
+    hako_mega.reset_counters()
+    on_card = rtcamp.main(argv + ["--device", "cuda", "--out", str(tmp_path / "gpu")])
+    assert hako_mega.LAUNCHES > 0
+    launches = hako_mega.LAUNCHES
+    on_cpu = rtcamp.main(argv + ["--device", "cpu", "--out", str(tmp_path / "cpu")])
+    assert hako_mega.LAUNCHES == launches  # the CPU run launches no kernel
+    assert [r["grid_res"] for r in on_card] == [r["grid_res"] for r in on_cpu] == [16, 32]
+    for a, b in zip(on_card, on_cpu):
+        assert a["build_stats"]["n_unique"] == b["build_stats"]["n_unique"]
+        name = f"{a['frame']:03d}.png"
+        with open(tmp_path / "gpu" / name, "rb") as fa, \
+                open(tmp_path / "cpu" / name, "rb") as fb:
+            assert fa.read() == fb.read(), name

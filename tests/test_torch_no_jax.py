@@ -1,9 +1,9 @@
 """The PyTorch port stands without JAX: it imports none (a subprocess with
-`jax` and the JAX package blocked builds a tiny scene, renders a frame and
-runs a path-tracer step), no module of it names jax or imports anything of
-the JAX package, the nvcc commands keep IEEE float semantics for sm_90a,
-and chip_smoke.py refuses to run without a card or without the
-repository."""
+`jax` and the JAX package blocked builds a tiny scene, renders a frame,
+runs a path-tracer step and renders one rtcamp frame), no module of it
+names jax or imports anything of the JAX package, the nvcc commands keep
+IEEE float semantics for sm_90a, the host library links no zlib, and
+chip_smoke.py refuses to run without a card or without the repository."""
 
 import os
 import re
@@ -50,6 +50,15 @@ pt.update_scene(tree)
 pt.step(cam, n_spp=2)
 assert bool(torch.isfinite(pt.accum).all()) and float(pt.accum[:, :3].sum()) > 0
 assert hako_mega.LAUNCHES == 0
+# the rtcamp app, one tiny frame
+import os, tempfile
+from massivevoxelraytracing_torch.apps import rtcamp
+with tempfile.TemporaryDirectory() as out:
+    rec = rtcamp.main(["--scene", "soup", "--frames", "1", "--width", "16",
+                       "--height", "12", "--steps", "1", "--from-res", "16",
+                       "--to-res", "16", "--device", "cpu", "--out", out])
+    assert [r["grid_res"] for r in rec] == [16]
+    assert os.path.getsize(os.path.join(out, "000.png")) > 0
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0]
           in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
 assert not loaded, loaded
@@ -106,10 +115,16 @@ def test_nvcc_command_keeps_ieee_floats():
 
 def test_host_command_keeps_ieee_floats():
     """The host split is built without contraction and without
-    -march=native, so it gives the same triangles on every host."""
+    -march=native, so it gives the same triangles on every host; the
+    library links no zlib (a host without its headers still builds it)."""
     srcs = host_build.sources()
-    assert [os.path.basename(s) for s in srcs] == ["host_pmj.cpp", "host_split.cpp"]
+    assert [os.path.basename(s) for s in srcs] == [
+        "host_io.cpp", "host_pmj.cpp", "host_split.cpp"]
     cmd = host_build.gxx_command(host_build.LIB_PATH, srcs)
+    assert not any(a.startswith("-l") for a in cmd)
+    for src in srcs:
+        with open(src) as f:
+            assert "zlib" not in f.read()
     assert "-ffp-contract=off" in cmd
     assert not any(a.startswith("-march") or "fast-math" in a or a == "-Ofast"
                    for a in cmd)
