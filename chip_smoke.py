@@ -44,11 +44,27 @@ Phases (any failure raises, and the script exits non-zero):
      (torus 256^3, 640x360: 3 steps with --checkpoint, then --resume for a
      4th, bit-equal to 4 uninterrupted steps; and one step at
      EngineConfig's 65,536-lane packet). hako_mega's counter is set to 0
-     just before each app and read just after: each must launch it.
+     just before each app and read just after: each must launch it;
+  7. the other structures and the streamed build: (a) the bench lattice
+     at 1024^3 built as a brick tree and as an octree (DAG on, then off):
+     voxels equal to the hako build's, nodes, bytes, build time, a 1080p
+     frame through each (plain tensor walks; no kernel), every ray held
+     against the megakernel's frame up to classified ties, grazes and
+     plane drifts (utils/tiecheck.py), 16,384 sampled rays on the card
+     equal to the CPU's; one 16-spp PT step through the brick tree at
+     640x360 (cut from 1080p), its mean within 1% of the megakernel's step;
+     (b) the terrain shell through the streamed build: park="device" ==
+     park="host" at 2048^3, then apps/scale_shell.py at 16384^3 (the JAX
+     package's a1 = 0.0395 run): n_voxels == the column pass, build time,
+     rows, peak memory, a 1920x1088 frame, hako_mega on it with its bytes
+     bound, and the kernel against its plain version on 16,384 sampled
+     rays of that frame (T = 3); (c) voxrt through the brick tree and the
+     octree with --oracle, voxmesh (the PLY read back) and voxtriangle
+     (the PNG read back).
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers, one JSON line of kernel results (with the apps'
-numbers), and as its last line
+numbers, and phase 7's under "accel" and "shell"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -89,6 +105,16 @@ VOXRT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
 VOXPT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
               "360", "--snapshot-every", "0"]
 VOXPT_PACKET = ["--ray-packet", str(1 << 21)]  # the PathTracer's own default
+STRUCTURES = (("brick", dict(accel="brick")), ("octree", dict(accel="octree")),
+              ("octree_nodag", dict(accel="octree", dag=False)))
+TIE_SHARE = 0.01           # classified ties allowed across structures
+PT7_W, PT7_H = 640, 360    # the brick PT step's frame (cut from 1920x1080)
+SHELL_RES = 16384          # the reference's headline scale
+SHELL_A1 = 0.0395          # the JAX package's 16384^3 run (docs/logs/r5_scale16k.log)
+PARK_RES = 2048            # park="device" vs park="host", bit for bit
+SHELL_W, SHELL_H = 1920, 1088
+VOXRT7_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
+               "360", "--mode", "color", "--oracle"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ROW_BYTES = 164 * 4
@@ -366,12 +392,7 @@ def phase_main_path(device, smi: str, rng):
         raise AssertionError(f"hit fraction {hit_frac} outside {HIT_BAND}")
 
     # kernel vs plain on rays sampled across the frame
-    ro, rd = raycast._gen_rays_tiled(
-        *(torch_from(np.asarray(v, np.float32), device)
-          for v in (cam.o, cam.right, cam.up, cam.front)),
-        torch_from(np.float32(cam.tan_half_fovy), device),
-        width=width, height=height,
-    )
+    ro, rd = camera_rays(cam, width, height, device)
     kind, T, meta, root = accel.accel_args(tree)
     _, frame_kernel_ms = timed(lambda: accel.intersect_with(
         kind, T, meta, root, tree.lower, tree.upper, ro, rd), reps=frames)
@@ -1051,6 +1072,280 @@ def phase_apps(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the brick tree and the octree on the main scene, the streamed
+# shell, the apps of slice 5
+# ---------------------------------------------------------------------------
+
+def tree_to(tree, device):
+    """A copy of a tree (any structure) with every tensor on `device`."""
+    import dataclasses
+
+    import torch
+
+    kw = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, torch.Tensor):
+            v = v.to(device)
+        elif isinstance(v, tuple) and v and isinstance(v[0], torch.Tensor):
+            v = tuple(x.to(device) for x in v)
+        kw[f.name] = v
+    return type(tree)(**kw)
+
+
+def camera_rays(cam, width: int, height: int, device):
+    """The tile-major rays render_frame traces for this camera."""
+    from massivevoxelraytracing_torch.models import raycast
+
+    return raycast._gen_rays_tiled(
+        *(torch_from(np.asarray(v, np.float32), device)
+          for v in (cam.o, cam.right, cam.up, cam.front)),
+        torch_from(np.float32(cam.tan_half_fovy), device),
+        width=width, height=height)
+
+
+def trace(tree, ro, rd):
+    from massivevoxelraytracing_torch.models import accel
+
+    kind, depth, meta, root = accel.accel_args(tree)
+    return accel.intersect_with(kind, depth, meta, root, tree.lower, tree.upper,
+                                ro, rd)
+
+
+def card_vs_cpu(tree, ro, rd, what: str) -> int:
+    """The same traversal on the card and on a CPU copy of the tree: the
+    discrete outputs must be equal. Returns the largest t difference in
+    ulps (0 expected: the same ops in the same order)."""
+    got = [x.cpu().numpy() for x in trace(tree, ro, rd)]
+    want = [x.numpy() for x in trace(tree_to(tree, "cpu"), ro.cpu(), rd.cpu())]
+    hit = want[0] < 1e37
+    if not np.array_equal(got[0] < 1e37, hit):
+        raise AssertionError(f"{what}: hit masks differ between card and CPU")
+    for i, name in ((1, "nmajor"), (2, "vrank")):
+        if not np.array_equal(got[i], want[i]):
+            raise AssertionError(f"{what}: {name} differs between card and CPU")
+    return int(np.abs(got[0][hit].view(np.int32).astype(np.int64)
+                      - want[0][hit].view(np.int32)).max()) if hit.any() else 0
+
+
+def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
+    """Phase 7a: the bench lattice at 1024^3 as a brick tree and an octree
+    (DAG on, then off), on the card: voxels, nodes, bytes, build; a 1080p
+    frame through each, held against the megakernel's frame up to
+    classified ties; 16,384 sampled rays on the card == on the CPU; one
+    16-spp PT step through the brick tree at 640x360."""
+    import torch
+
+    from massivevoxelraytracing_torch.models import pathtracer, raycast, scene
+    from massivevoxelraytracing_torch.ops import hako
+    from massivevoxelraytracing_torch.utils import meshgen
+    from massivevoxelraytracing_torch.utils.tiecheck import classify_structures
+
+    tri, cols = meshgen.sphere_lattice(6, 4)
+    ro, rd = camera_rays(cam, WIDTH, HEIGHT, device)
+    ro_np, rd_np = ro.cpu().numpy(), rd.cpu().numpy()
+    mega = [x.cpu().numpy() for x in trace(hako_tree, ro, rd)]
+    codes = hako.voxels_from_tree(hako_tree).astype(np.int64)
+    idx = torch.as_tensor(np.sort(rng.choice(ro.shape[0], SAMPLE_RAYS, replace=False)),
+                          device=device)
+    out = {}
+    brick_tree = None
+    for name, kw in STRUCTURES:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tree = scene.build_scene(tri, cols, origin=np.zeros(3, np.float32),
+                                 dps=1.0 / GRID, grid_res=GRID, chunk_tris=262144,
+                                 device=device, **kw)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        if tree.n_voxels != hako_tree.n_voxels:
+            raise AssertionError(f"{name}: {tree.n_voxels} voxels, the hako build "
+                                 f"{hako_tree.n_voxels}")
+        img, depth = raycast.render_frame(tree, cam, WIDTH, HEIGHT, device=device)
+        (img, depth), frame_ms = timed(lambda: raycast.render_frame(
+            tree, cam, WIDTH, HEIGHT, device=device), reps=3)
+        got = [x.cpu().numpy() for x in trace(tree, ro, rd)]
+        kinds = classify_structures(*mega, *got, codes, (0.0, 0.0, 0.0), 1.0 / GRID,
+                                    1.0, ro_np, rd_np)
+        n_tie = sum(kinds.values())
+        n_px = int((img != mega_img).any(-1).sum())
+        if n_tie > TIE_SHARE * ro.shape[0] or n_px > n_tie:
+            raise AssertionError(f"{name}: {kinds} classified, {n_px} pixels differ")
+        max_ulp = card_vs_cpu(tree, ro[idx], rd[idx], f"{name} sample")
+        st = tree.build_stats
+        rec = dict(n_voxels=tree.n_voxels, n_nodes=tree.n_nodes,
+                   bytes=tree.memory_bytes(), build_s=build_s,
+                   accel_s=st["t_accel_s"], frame_ms=frame_ms, classified=kinds,
+                   pixels_differ=n_px, sample_max_ulp=max_ulp)
+        out[name] = rec
+        print(f"[phase7] {name} {GRID}^3 lattice: {tree.n_voxels} voxels, "
+              f"{tree.n_nodes} nodes, {tree.memory_bytes()} bytes; build "
+              f"{build_s:.3f} s (accel {st['t_accel_s'] * 1e3:.1f} ms); frame "
+              f"{WIDTH}x{HEIGHT} {frame_ms:.1f} ms (mean of 3); vs the megakernel "
+              f"frame, of {ro.shape[0]} rays: {kinds['tie']} ties, {kinds['graze']} "
+              f"grazes, {kinds['drift']} plane drifts (classified), {n_px} "
+              f"pixels differ; {SAMPLE_RAYS} sampled rays card == CPU (t max "
+              f"ulp {max_ulp}) [{smi}]", flush=True)
+        if name == "brick":
+            brick_tree = tree
+        del tree, img, depth
+        torch.cuda.empty_cache()
+
+    # one 16-spp PT step through the brick tree, and the same step through
+    # the megakernel for its mean, at a frame cut to 640x360
+    means = {}
+    for name, tree in (("brick", brick_tree), ("hako", hako_tree)):
+        pt = pathtracer.PathTracer(width=PT7_W, height=PT7_H, device=device)
+        pt.setup()
+        pt.load_hdri(bench_sky())
+        pt.update_scene(tree)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        pt.step(cam)
+        torch.cuda.synchronize()
+        step_s = time.time() - t0
+        if not bool(torch.isfinite(pt.accum).all()):
+            raise AssertionError(f"{name} PT step: non-finite radiance")
+        means[name] = float(pt.accum[:, :3].mean())
+        out[f"pt_{name}_s"] = step_s
+        print(f"[phase7] PT {name} {PT7_W}x{PT7_H} 16 spp: {step_s:.3f} s/step, "
+              f"mean radiance {means[name]:.6f} [{smi}]", flush=True)
+        del pt
+    rel = abs(means["brick"] - means["hako"]) / means["hako"]
+    if rel > PT_MEAN_RTOL:
+        raise AssertionError(f"brick PT mean {means['brick']} vs hako {means['hako']}")
+    out["pt_mean"] = means
+    return out
+
+
+def phase_shell(device, smi: str, rng) -> dict:
+    """Phase 7b: the terrain shell through the streamed build; park="device"
+    == park="host" at 2048^3; apps/scale_shell.py at SHELL_RES (n_voxels ==
+    the column pass, a 1920x1088 frame); hako_mega on the shell frame, its
+    bytes bound, and the kernel against its plain version on 16,384
+    sampled frame rays."""
+    import torch
+
+    from massivevoxelraytracing_torch.apps import scale_shell
+    from massivevoxelraytracing_torch.ops import hako_mega, hako_stream
+    from massivevoxelraytracing_torch.utils import png, shellgen
+
+    terrain = shellgen.Terrain(PARK_RES, device=device)
+    on_dev = hako_stream.build_hako_stream(terrain.chunks(), PARK_RES, park="device")
+    on_host = hako_stream.build_hako_stream(terrain.chunks(), PARK_RES, park="host")
+    assert_bits_equal([x for x in (on_dev.bricks, on_dev.snodes, *on_dev.levels)
+                       if x is not None],
+                      [x for x in (on_host.bricks, on_host.snodes, *on_host.levels)
+                       if x is not None], f"{PARK_RES}^3 shell, park device vs host")
+    if (on_dev.n_voxels, on_dev.root_mask_lo, on_dev.root_mask_hi) != (
+            on_host.n_voxels, on_host.root_mask_lo, on_host.root_mask_hi):
+        raise AssertionError("park device vs host: counts or root differ")
+    print(f"[phase7] shell {PARK_RES}^3: park device == park host bit for bit "
+          f"({on_dev.n_voxels} voxels, {on_dev.n_bricks} bricks)", flush=True)
+    del on_dev, on_host
+    torch.cuda.empty_cache()
+
+    path = os.path.join(APPS_OUT, "scale_shell.png")
+    torch.cuda.synchronize()
+    hako_mega.reset_counters()
+    st = scale_shell.main(["--res", str(SHELL_RES), "--a1", str(SHELL_A1),
+                           "--width", str(SHELL_W), "--height", str(SHELL_H),
+                           "--device", str(device), "--out", path])
+    torch.cuda.synchronize()
+    launches = hako_mega.LAUNCHES
+    if launches < 1 or hako_mega.unresolved_lanes():
+        raise AssertionError(f"shell frame: {launches} launches, unresolved lanes")
+    tree = st["tree"]
+    img = png.read(path)
+    if img.shape != (SHELL_H, SHELL_W, 3) or img.min() == img.max():
+        raise AssertionError(f"shell PNG {img.shape}, values {img.min()}..{img.max()}")
+    ro, rd = camera_rays(st["cam"], SHELL_W, SHELL_H, device)
+    args, T = tree_args(tree, ro, rd, device)
+    _, kernel_ms = timed(lambda: hako_mega.intersect_rays_hako_mega(*args, T=T))
+    distinct, visits = hako_mega.rows_touched(*args, T=T)
+    n_bytes, n_ops = hako_mega.traversal_traffic(
+        ro.shape[0], distinct, visits, sum(t.shape[0] for t in args[2]))
+    sb = bound(n_bytes, n_ops)
+    idx = torch.as_tensor(np.sort(rng.choice(ro.shape[0], SAMPLE_RAYS, replace=False)),
+                          device=device)
+    chk, k_ms, p_ms = kernel_vs_plain(tree, ro[idx], rd[idx], False,
+                                      f"{SHELL_RES}^3 shell frame sample", device)
+    out = dict(res=SHELL_RES, n_voxels=tree.n_voxels, analytic=st["analytic"],
+               n_bricks=tree.n_bricks, n_snodes=tree.n_snodes,
+               levels=list(tree.n_per_level), T=tree.T, build_s=st["build_s"],
+               rows_gb=st["rows_bytes"] / 1e9, peak_gib=(st["peak_bytes"] or 0) / 2**30,
+               frame_ms=st["frame_ms"], hit=st["hit"], launches=launches,
+               kernel_ms=kernel_ms, bound_ms=sb[0], bound_by=sb[1],
+               rows=(distinct, visits), max_abs_err=chk["max_abs_err"],
+               sample_hits=chk["hits"])
+    print(f"[phase7] shell {SHELL_RES}^3 (T={tree.T}, {tree.n_snodes} supernodes, "
+          f"levels {tree.n_per_level}): {tree.n_voxels} voxels == the column pass, "
+          f"{tree.n_bricks} bricks, rows {out['rows_gb']:.3f} GB; streamed build "
+          f"{st['build_s']:.1f} s (park device), peak {out['peak_gib']:.2f} GiB; "
+          f"frame {SHELL_W}x{SHELL_H} {st['frame_ms']:.2f} ms (mean of 4, hit "
+          f"{st['hit']:.3f}), hako_mega {kernel_ms:.3f} ms on its {ro.shape[0]} "
+          f"rays (bound {sb[0]:.4f} ms, {sb[1]}; {distinct} distinct rows, {visits} "
+          f"visits), {launches} launches; kernel == plain on {chk['n']} sampled rays "
+          f"({chk['hits']} hits, max |dt| {chk['max_abs_err']:.3g}; kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.1f} ms) [{smi}]", flush=True)
+    del st, tree, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_apps7(smi: str, device: str = "cuda") -> dict:
+    """Phase 7c: voxrt through the brick tree and the octree (the app fails
+    past 2% disagreeing oracle pixels), voxmesh (the PLY read back) and
+    voxtriangle (the PNG read back)."""
+    import torch
+
+    from massivevoxelraytracing_torch.apps import voxmesh, voxrt, voxtriangle
+    from massivevoxelraytracing_torch.ops import hako_mega
+    from massivevoxelraytracing_torch.utils import png
+
+    out = {}
+    dev = ["--device", device]
+    for name, extra in (("voxrt_brick", ["--accel", "brick"]),
+                        ("voxrt_octree", ["--accel", "octree", "--dag", "1"])):
+        torch.cuda.synchronize()
+        hako_mega.reset_counters()
+        t0 = time.time()
+        st = voxrt.main(VOXRT7_ARGV + extra + dev
+                        + ["--out", os.path.join(APPS_OUT, name)])
+        wall = time.time() - t0
+        out[name] = dict(build_ms=st["build_s"] * 1e3, frame_ms=st["render_s"] * 1e3,
+                         n_nodes=st["n_nodes"], bytes=st["accel_bytes"],
+                         oracle_agree=st["oracle_agree"],
+                         oracle_checked=st["oracle_checked"], wall_s=wall,
+                         hako_mega_launches=hako_mega.LAUNCHES)
+        print(f"[phase7] {name}: build {st['build_s'] * 1e3:.1f} ms, frame "
+              f"{st['render_s'] * 1e3:.1f} ms, {st['n_nodes']} nodes, oracle "
+              f"{st['oracle_agree']}/{st['oracle_checked']} pixels agree; "
+              f"{wall:.1f} s in all [{smi}]", flush=True)
+    ply = os.path.join(APPS_OUT, "voxmesh", "voxels.ply")
+    t0 = time.time()
+    st = voxmesh.main(dev + ["--out", ply])
+    with open(ply, "rb") as f:
+        head = f.read(4096).split(b"end_header")[0].decode()
+    n_vert = int(head.split("element vertex ")[1].split()[0])
+    if n_vert <= 0:
+        raise AssertionError("voxmesh wrote no vertices")
+    out["voxmesh"] = dict(n_voxels=st["n_voxels"], vertices=n_vert,
+                          wall_s=time.time() - t0)
+    t0 = time.time()
+    st = voxtriangle.main(dev + ["--out", os.path.join(APPS_OUT, "voxtriangle")])
+    img = png.read(st["path"])
+    if img.min() == img.max():
+        raise AssertionError("voxtriangle wrote a constant PNG")
+    out["voxtriangle"] = dict(counts=st["counts"], shape=list(img.shape),
+                              wall_s=time.time() - t0)
+    print(f"[phase7] voxmesh: {out['voxmesh']['n_voxels']} voxels -> {n_vert} PLY "
+          f"vertices; voxtriangle: {st['counts']} voxels, PNG {img.shape} not "
+          f"constant [{smi}]", flush=True)
+    return out
+
+
 class StepTimer:
     """Times each PathTracer.step while installed (CUDA events around the
     step, then a sync: the apps sync after each step anyway)."""
@@ -1119,6 +1414,13 @@ def main() -> int:
         floor[label] = floors(cnt, n, pr)
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
     apps = phase_apps(smi)
+    t7 = time.time()
+    structures = phase_structures(tree, cam, img, device, smi, rng)
+    del tree
+    torch.cuda.empty_cache()
+    shell = phase_shell(device, smi, rng)
+    structures["apps"] = phase_apps7(smi, str(device))
+    print(f"[phase7] {time.time() - t7:.1f} s in all [{smi}]", flush=True)
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
@@ -1161,7 +1463,7 @@ def main() -> int:
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
-        "apps": apps}))
+        "apps": apps, "accel": structures, "shell": shell}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

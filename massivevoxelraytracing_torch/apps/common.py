@@ -10,10 +10,5 @@ def add_device_args(ap) -> None:
                     "(default cuda; cpu runs the plain tensor versions)")
     ap.add_argument("--accel", choices=["octree", "brick", "hako"],
                     default="hako",
-                    help="acceleration structure; only hako is ported")
-
-
-def check_accel(accel: str) -> None:
-    if accel != "hako":
-        raise NotImplementedError(
-            f"--accel {accel}: only 'hako' is ported (ROADMAP Queue 1 #11)")
+                    help="acceleration structure (default hako, on both "
+                    "devices: the megakernel on the card)")

@@ -29,7 +29,7 @@ from ..models import scene
 from ..models.pathtracer import PathTracer
 from ..ops import camera as camera_ops
 from ..utils import hdr, meshgen, png, runtime
-from .common import add_device_args, check_accel
+from .common import add_device_args
 from .scenes import animated_scene
 
 
@@ -96,7 +96,6 @@ def main(argv=None) -> list:
     ap.add_argument("--out", default="out/anim")
     add_device_args(ap)
     args = ap.parse_args(argv)
-    check_accel(args.accel)
     device = torch.device(args.device)
 
     begin, end = args.frame_range or (0, args.frames)

@@ -25,7 +25,7 @@ from ..models import scene
 from ..models.pathtracer import PathTracer
 from ..ops import camera as camera_ops
 from ..utils import hdr, meshgen, png, runtime
-from .common import add_device_args, check_accel
+from .common import add_device_args
 from .scenes import load_scene
 
 
@@ -37,6 +37,8 @@ def main(argv=None) -> PathTracer:
     ap.add_argument("--height", type=int, default=360)
     ap.add_argument("--steps", type=int, default=8, help="16 spp each")
     ap.add_argument("--six-separating", type=int, default=1)
+    ap.add_argument("--dag", type=int, default=1,
+                    help="octree DAG dedup (--accel octree)")
     ap.add_argument("--lens-r", type=float, default=0.0)
     ap.add_argument("--hdri", default="procedural",
                     help="'procedural', 'none', or a .hdr path")
@@ -51,12 +53,12 @@ def main(argv=None) -> PathTracer:
     ap.add_argument("--out", default="out/pt")
     add_device_args(ap)
     args = ap.parse_args(argv)
-    check_accel(args.accel)
     device = torch.device(args.device)
     os.makedirs(args.out, exist_ok=True)
 
     cfg = EngineConfig(
         six_separating=bool(args.six_separating),
+        dag=bool(args.dag),
         lens_r=args.lens_r,
         ray_packet=args.ray_packet,
     )
@@ -67,7 +69,7 @@ def main(argv=None) -> PathTracer:
     sw = runtime.Stopwatch()
     tree = scene.build_scene(
         tri, col, emi, origin=origin, dps=dps, grid_res=args.res,
-        six_separating=cfg.six_separating, cap=cfg.cap,
+        six_separating=cfg.six_separating, dag=cfg.dag, cap=cfg.cap,
         chunk_tris=cfg.chunk_tris, accel=args.accel, device=device,
     )
     t_build = sw.lap("build", tree)

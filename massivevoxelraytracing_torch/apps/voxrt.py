@@ -1,10 +1,12 @@
 """Headless ray-cast lab (the port of the JAX package's apps/voxrt.py, the
 voxRT / voxRTGPU apps of voxRT.cpp:59-428): voxelize a scene, build the
-HakoTree, render primary rays through the traversal kernel with normal or
-voxel-color shading, and write `voxrt.png`. `--wire` burns a depth-tested
-voxel wireframe into `voxrt_wire.png`; `--oracle` A/B's the frame's depth
-against the brute-force slab intersector over the oracle's own voxels
-(models/cpu_oracle.py) and fails when more than 2% of the pixels disagree.
+acceleration structure (`--accel`: the HakoTree by default, the brick
+tree, or the SVO/DAG with `--dag`), render primary rays through it with
+normal or voxel-color shading, and write `voxrt.png`. `--wire` burns a
+depth-tested voxel wireframe into `voxrt_wire.png`; `--oracle` A/B's the
+frame's depth against the brute-force slab intersector over the oracle's
+own voxels (models/cpu_oracle.py) and fails when more than 2% of the
+pixels disagree.
 
 Usage:
   python -m massivevoxelraytracing_torch.apps.voxrt --scene torus --res 256 \
@@ -22,7 +24,7 @@ import torch
 from ..models import cpu_oracle, raycast, scene
 from ..ops import camera as camera_ops
 from ..utils import meshgen, png, runtime
-from .common import add_device_args, check_accel
+from .common import add_device_args
 from .scenes import load_scene
 
 
@@ -35,6 +37,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--height", type=int, default=360)
     ap.add_argument("--mode", choices=["normal", "color"], default="normal")
     ap.add_argument("--six-separating", type=int, default=1)
+    ap.add_argument("--dag", type=int, default=1,
+                    help="octree DAG dedup (--accel octree)")
     ap.add_argument("--wire", action="store_true",
                     help="burn a depth-tested voxel wireframe overlay into "
                     "voxrt_wire.png (drawVoxelsWire equivalent)")
@@ -49,7 +53,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default="out")
     add_device_args(ap)
     args = ap.parse_args(argv)
-    check_accel(args.accel)
     device = torch.device(args.device)
 
     os.makedirs(args.out, exist_ok=True)
@@ -59,8 +62,8 @@ def main(argv=None) -> dict:
     sw = runtime.Stopwatch()
     tree = scene.build_scene(
         tri, colors, emissions, origin=origin, dps=dps, grid_res=args.res,
-        six_separating=bool(args.six_separating), accel=args.accel,
-        device=device,
+        six_separating=bool(args.six_separating), dag=bool(args.dag),
+        accel=args.accel, device=device,
     )
     t_build = sw.lap("build", tree)
 
@@ -88,7 +91,8 @@ def main(argv=None) -> dict:
         f"build {t_build*1e3:.1f} ms / render {t_render*1e3:.1f} ms -> {out_path}"
     )
     stats = dict(build_s=t_build, render_s=t_render, n_voxels=tree.n_voxels,
-                 path=out_path)
+                 n_nodes=tree.n_nodes, accel_bytes=tree.memory_bytes(),
+                 path=out_path, depth=depth)
 
     m64 = None
     if args.wire or args.oracle:

@@ -1,5 +1,5 @@
-"""Host-side fidelity oracles of the apps (the port's copy of the part of
-the JAX package's models/cpu_oracle.py that voxrt uses).
+"""Host-side fidelity oracles (the port's copy of the JAX package's
+models/cpu_oracle.py).
 
   - `TriContext` / `voxelize_mesh`: Schwarz-Seidel conservative and
     6-separating triangle voxelization (closed-form predicate, float32
@@ -8,11 +8,14 @@ the JAX package's models/cpu_oracle.py that voxrt uses).
     user-geometry stand-in, the reference's `intersect_brute_force`) for
     many rays at once in tensor ops on any device, with the reference's
     float32 operations in its order: the ground truth of voxrt's
-    `--oracle`.
+    `--oracle`; `intersect_brute_force`, the same test for one ray in
+    numpy;
+  - `OracleOctree` / `build_octree` / `embed_masks`: the SVO/DAG built
+    voxel by voxel with a hash of (mask, children) for the dedup
+    (IntersectorOctree.hpp semantics), the oracle of ops/octree.py.
 
 Voxels are the port's int64 Morton codes. The range-loop formulation that
-cross-checks the closed form, and the octree oracle (the SVO/DAG build,
-ROADMAP Queue 1 #11), stay in the JAX package.
+cross-checks the closed form stays in the JAX package.
 """
 
 from __future__ import annotations
@@ -334,3 +337,123 @@ def brute_force_rays(morton_sorted, lower, dps, ro, rd, chunk_elems=1 << 24):
         t_out[a:a + step] = best_t
         v_out[a:a + step] = torch.where(first < n_vox, first, 0)
     return t_out, v_out
+
+
+# ---------------------------------------------------------------------------
+# Octree builders (IntersectorOctree.hpp semantics)
+# ---------------------------------------------------------------------------
+
+class OracleOctree:
+    """children / psum / mask arrays; children == 0xFFFFFFFF marks a leaf
+    voxel."""
+
+    def __init__(self, children, psum, mask, grid_res):
+        self.children = children  # uint32 [N, 8]
+        self.psum = psum  # uint32 [N, 8]
+        self.mask = mask  # uint32 [N]
+        self.grid_res = grid_res
+
+    @property
+    def n_nodes(self):
+        return len(self.mask)
+
+
+def build_octree(morton_sorted, grid_res, dag=True):
+    """Bottom-up build, one voxel at a time; returns an OracleOctree (root
+    = last node)."""
+    tasks = [(int(m), 0xFFFFFFFF, 1) for m in morton_sorted]  # (morton, child, nvox)
+    children_rows = []
+    psum_rows = []
+    masks = []
+    existing = {}
+    wide = int(grid_res)
+    while wide > 1:
+        # group by parent Morton
+        next_tasks = []
+        i = 0
+        n = len(tasks)
+        while i < n:
+            pm = tasks[i][0] >> 3
+            j = i
+            ch = [0xFFFFFFFF] * 8
+            ps = [0] * 8
+            mask = 0
+            while j < n and (tasks[j][0] >> 3) == pm:
+                slot = tasks[j][0] & 7
+                mask |= 1 << slot
+                ch[slot] = tasks[j][1]
+                ps[slot] = tasks[j][2]
+                j += 1
+            total = 0
+            for k in range(8):
+                c = ps[k]
+                ps[k] = total
+                total += c
+            key = (mask, tuple(ch))
+            if dag and key in existing:
+                idx = existing[key]
+            else:
+                idx = len(masks)
+                children_rows.append(ch)
+                psum_rows.append(ps)
+                masks.append(mask)
+                if dag:
+                    existing[key] = idx
+            next_tasks.append((pm, idx, total))
+            i = j
+        tasks = next_tasks
+        wide //= 2
+    return OracleOctree(
+        np.array(children_rows, np.uint32).reshape(-1, 8),
+        np.array(psum_rows, np.uint32).reshape(-1, 8),
+        np.array(masks, np.uint32),
+        grid_res,
+    )
+
+
+def embed_masks(tree: OracleOctree):
+    """Pack each child's mask into bits 24..31 of the parent's pointer
+    (voxCommon.hpp:183-195)."""
+    ch = tree.children.copy()
+    for i in range(tree.n_nodes):
+        for j in range(8):
+            c = ch[i, j]
+            if c == 0xFFFFFFFF:
+                continue
+            ch[i, j] = c | (np.uint32(tree.mask[c & 0xFFFFFF]) << np.uint32(24))
+    return OracleOctree(ch, tree.psum, tree.mask, tree.grid_res)
+
+
+def intersect_brute_force(morton_sorted, lower, dps, ro, rd):
+    """Slab-test every voxel AABB for one ray (numpy); returns (t, n_major,
+    v_index) with the reference conventions: t = entry distance (must be
+    > 0), n_major in {1: x, 2: y, 0: z}, v_index = Morton rank of the hit
+    voxel. A miss gives t = inf."""
+    x, y, z = morton_ops.np_decode(morton_sorted)
+    lo = np.asarray(lower, F) + np.stack([x, y, z], -1).astype(F) * F(dps)
+    hi = lo + F(dps)
+    ro = np.asarray(ro, F)
+    rd = np.asarray(rd, F)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = F(1.0) / rd
+        t0 = (lo - ro) * inv
+        t1 = (hi - ro) * inv
+    tmin = np.minimum(t0, t1)
+    tmax = np.maximum(t0, t1)
+    # rd == 0 on an axis: the ray is parallel; inside the slab iff
+    # lo <= ro <= hi
+    for a in range(3):
+        if rd[a] == 0.0:
+            inside = (lo[:, a] <= ro[a]) & (ro[a] <= hi[:, a])
+            tmin[:, a] = np.where(inside, -np.inf, np.inf)
+            tmax[:, a] = np.where(inside, np.inf, -np.inf)
+    t_enter = tmin.max(axis=1)
+    t_exit = tmax.min(axis=1)
+    hit = (t_enter <= t_exit) & (t_enter > 0.0)
+    if not hit.any():
+        return np.inf, -1, 0
+    idx = np.where(hit)[0]
+    best = idx[np.argmin(t_enter[idx])]
+    axis = int(np.argmax(tmin[best]))  # the axis achieving the entry
+    n_major = {0: 1, 1: 2, 2: 0}[axis]
+    return float(t_enter[best]), n_major, int(best)

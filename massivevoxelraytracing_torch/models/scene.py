@@ -1,5 +1,6 @@
-"""Scene build: triangle soup -> voxels -> HakoTree (the reference's
-models/scene.py, `accel="hako"` only).
+"""Scene build: triangle soup -> voxels -> traversal structure (the
+reference's models/scene.py): a HakoTree ("hako"), a BrickTree ("brick")
+or an SVO/DAG ("octree", `dag` on or off).
 
 The reference's two-pass structure:
   pass 1 (voxCount): per-chunk dumped-voxel counts, one host readback
@@ -19,7 +20,9 @@ import time
 import numpy as np
 import torch
 
+from ..ops import bricktree as brick_ops
 from ..ops import hako as hako_ops
+from ..ops import octree as octree_ops
 from ..ops import voxelize as vox_ops
 from ..ops.octree import bucket
 from ..utils import meshprep
@@ -48,13 +51,34 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def build_accel_from_unique(uniq, *, origin, dps, grid_res: int, accel: str,
+                            device, dag: bool = True):
+    """Unique-voxel stream (sort_and_unique's dict) -> traversal structure
+    on `device` (the tail of the build, IntersectorOctreeGPU.hpp:163-239):
+    accel "hako", "brick" or "octree"."""
+    attrs = dict(color=uniq["color"], emission=uniq["emission"],
+                 has_emission=uniq["has_emission"])
+    lower = np.asarray(origin, np.float32)
+    if accel == "hako":
+        return hako_ops.build_hako(uniq["code"], grid_res, device=device,
+                                   lower=lower, dps=float(dps), **attrs)
+    if accel == "brick":
+        return brick_ops.build_bricktree(uniq["code"], grid_res, device=device,
+                                         lower=lower, dps=float(dps), **attrs)
+    lower_t = torch.as_tensor(lower, device=device)
+    upper = lower_t + torch.tensor(dps, dtype=torch.float32, device=device) * grid_res
+    return octree_ops.build_octree(uniq["code"], grid_res, device=device,
+                                   dag=dag, lower=lower_t, upper=upper, **attrs)
+
+
 def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
                 dps, grid_res: int, device, six_separating: bool = True,
-                cap: int = 4, chunk_tris: int = 65536, accel: str = "hako"):
-    """Voxelize + build on `device`. tri_*: f32 [T, 3, 3] host arrays."""
-    if accel != "hako":
-        raise NotImplementedError(
-            f"accel={accel!r}: only 'hako' is ported (ROADMAP Queue 1 #11)")
+                cap: int = 4, chunk_tris: int = 65536, accel: str = "hako",
+                dag: bool = True):
+    """Voxelize + build on `device`. tri_*: f32 [T, 3, 3] host arrays;
+    accel: "hako", "brick" or "octree" (`dag`: the octree's dedup)."""
+    if accel not in ("hako", "brick", "octree"):
+        raise ValueError(f"accel must be 'hako', 'brick' or 'octree', not {accel!r}")
     device = torch.device(device)
     tri_verts = np.asarray(tri_verts, np.float32).reshape(-1, 3, 3)
     if tri_colors is None:
@@ -137,11 +161,9 @@ def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
         n_unique=n_unique,
         grid_res=grid_res,
     )
-    tree = hako_ops.build_hako(
-        uniq["code"], grid_res, device=device, lower=np.asarray(origin, np.float32),
-        dps=float(dps), color=uniq["color"], emission=uniq["emission"],
-        has_emission=uniq["has_emission"],
-    )
+    tree = build_accel_from_unique(uniq, origin=origin, dps=dps,
+                                   grid_res=grid_res, accel=accel,
+                                   device=device, dag=dag)
     _sync(device)
     t_accel = time.time()
     stats["n_nodes"] = tree.n_nodes

@@ -1,0 +1,196 @@
+"""Traversal v2: one iteration per node visit (the port of the reference's
+ops/traverse2.py).
+
+v1 (traverse.py) advances a lane by at most one child slot an iteration.
+v2 walks the same tree in the same order with the same results, around a
+per-node child selection: all 8 children's entry / exit times at once
+(static selects of t0 / tM / t1), masked by occupancy, behind-ness and the
+resume key (entry time, octant), and the lexicographic minimum (entry,
+octant) taken. Each iteration then descends, records a leaf hit, or pops.
+No push when no other sibling is valid (the reference's hasNext,
+voxCommon.hpp:368), so the stack stays shallow. One row read a visit:
+meta = children ++ psum.
+
+The reference's `block` / lax.map sub-blocking keeps a while-loop carry
+resident in TPU VMEM and changes no result; it is not ported. The walk
+steps the live lanes only (traverse.run_walk).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bits import MASK32
+from .traverse import (
+    INVALID,
+    MAX_FLOAT,
+    NEG_INF,
+    F32,
+    I64,
+    _min3,
+    _max3,
+    root_entry_of,
+    run_walk,
+    stack_push,
+    stack_read,
+    walk_state,
+)
+
+# child c's per-axis half: bit a of c
+_BITS = [[(c >> a) & 1 for c in range(8)] for a in range(3)]
+
+
+def _select_child(en, ex, occ, rk_t, rk_c, c, n_cells: int, strict: bool):
+    """The walks' child selection over [n, k] candidates, column j being
+    cell c[0, j] of n_cells: valid = occupied, non-empty, in front, after
+    the resume key; the best is the lexicographic minimum (entry, cell).
+    Returns (best_t, best_c, n_valid); best_c == n_cells when none is
+    valid. `strict` is the brick walk's `en < best_t` (a valid entry of
+    MAX_FLOAT is never taken); otherwise ties at MAX_FLOAT go to the
+    lowest cell, as the octree walk's (en, c) < (best_t, best_c) does."""
+    after = (en > rk_t[:, None]) | ((en == rk_t[:, None]) & (c > rk_c[:, None]))
+    valid = occ & (en < ex) & (ex > 0.0) & after
+    best_t = torch.where(valid, en, MAX_FLOAT).amin(1)
+    pick = valid & (en == best_t[:, None])
+    if strict:
+        pick = pick & (en < MAX_FLOAT)
+    best_c = torch.where(pick, c, n_cells).amin(1)
+    return best_t, best_c, valid.sum(1)
+
+
+def _v2_body(meta, shadow: bool):
+    last = meta.shape[0] - 1
+    sel = [torch.tensor(b, device=meta.device) for b in _BITS]
+    octant = torch.arange(8, device=meta.device)
+
+    def body(st):
+        active = st["active"]
+        node = st["node"]
+        t1x, t1y, t1z = st["t1x"], st["t1y"], st["t1z"]
+        scale = st["scale"]
+        dtx, dty, dtz = st["dtx"], st["dty"], st["dtz"]
+
+        hs = 0.5 * scale
+        tmx = t1x - dtx * hs
+        tmy = t1y - dty * hs
+        tmz = t1z - dtz * hs
+        tx0 = t1x - dtx * scale
+        ty0 = t1y - dty * scale
+        tz0 = t1z - dtz * scale
+
+        # --- 8-wide child selection
+        exs = [torch.stack(p, 1) for p in ((tmx, t1x), (tmy, t1y), (tmz, t1z))]
+        ens = [torch.stack(p, 1) for p in ((tx0, tmx), (ty0, tmy), (tz0, tmz))]
+        ex = _min3(exs[0][:, sel[0]], exs[1][:, sel[1]], exs[2][:, sel[2]])
+        en = _max3(ens[0][:, sel[0]], ens[1][:, sel[1]], ens[2][:, sel[2]])
+        real = octant[None, :] ^ st["vmask"][:, None]
+        occ = (((node >> 24)[:, None] >> real) & 1) == 1
+        best_t, best_c, n_valid = _select_child(
+            en, ex, occ, st["rk_t"], st["rk_c"], octant[None, :], 8, strict=False)
+        any_other = n_valid > 1  # a sibling remains after taking the best
+
+        found = active & (best_c < 8)
+        pop = active & ~found
+
+        # one row read: the node record children[8] ++ psum[8]
+        real_best = (best_c ^ st["vmask"]) & 7
+        nrow = torch.clamp(torch.where(found, node & 0xFFFFFF, 0), 0, last)
+        row = meta[nrow]
+        child_ptr = row.gather(1, real_best[:, None])[:, 0].to(I64) & MASK32
+        child_psum = row.gather(1, 8 + real_best[:, None])[:, 0].to(I64) & MASK32
+        is_leaf_child = child_ptr == INVALID
+
+        # --- leaf: the in-order first hit with a positive entry wins
+        hit = found & is_leaf_child & (best_t > 0.0)
+        t_out = torch.where(hit, best_t, st["t"])
+        bx = (best_c & 1) != 0
+        by = (best_c & 2) != 0
+        bz = (best_c & 4) != 0
+        ex_x = torch.where(bx, t1x, tmx)
+        ex_y = torch.where(by, t1y, tmy)
+        ex_z = torch.where(bz, t1z, tmz)
+        en_xa = torch.where(bx, tmx, tx0)
+        en_ya = torch.where(by, tmy, ty0)
+        nmaj_new = torch.where(best_t == en_xa, 1, torch.where(best_t == en_ya, 2, 0))
+        nmajor = torch.where(hit, nmaj_new, st["nmajor"])
+        skipped = st["skipped"]
+        skipped_here = skipped if shadow else (skipped + child_psum) & MASK32
+        vidx = torch.where(hit, skipped_here, st["vidx"])
+        active = active & ~hit
+
+        # a leaf behind the origin: stay on this node, resume past it
+        skip_leaf = found & is_leaf_child & ~hit
+        descend = found & ~is_leaf_child & active
+        push = descend & any_other
+
+        # --- push the current node with the taken child as resume key
+        stack_push(st, push, [("s_node", node), ("s_t1x", t1x), ("s_t1y", t1y),
+                              ("s_t1z", t1z), ("s_scale", scale),
+                              ("s_rkt", best_t), ("s_rkc", best_c),
+                              ("s_skip", skipped)])
+        sp = st["sp"] + push.to(I64)
+
+        node = torch.where(descend, child_ptr, node)
+        t1x = torch.where(descend, ex_x, t1x)
+        t1y = torch.where(descend, ex_y, t1y)
+        t1z = torch.where(descend, ex_z, t1z)
+        scale = torch.where(descend, hs, scale)
+        rk_t = torch.where(descend, NEG_INF,
+                           torch.where(skip_leaf, best_t, st["rk_t"]))
+        rk_c = torch.where(descend, -1, torch.where(skip_leaf, best_c, st["rk_c"]))
+        if not shadow:  # only a real descend accumulates the prefix sum
+            skipped = torch.where(descend, skipped_here, skipped)
+
+        # --- pop
+        exhausted = pop & (sp == 0)
+        active = active & ~exhausted
+        do_pop = pop & (sp > 0) & active
+        sp = sp - do_pop.to(I64)
+        st.update(
+            node=stack_read(st["s_node"], sp, node, do_pop),
+            t1x=stack_read(st["s_t1x"], sp, t1x, do_pop),
+            t1y=stack_read(st["s_t1y"], sp, t1y, do_pop),
+            t1z=stack_read(st["s_t1z"], sp, t1z, do_pop),
+            scale=stack_read(st["s_scale"], sp, scale, do_pop),
+            rk_t=stack_read(st["s_rkt"], sp, rk_t, do_pop),
+            rk_c=stack_read(st["s_rkc"], sp, rk_c, do_pop),
+            skipped=stack_read(st["s_skip"], sp, skipped, do_pop),
+            sp=sp, active=active, t=t_out, nmajor=nmajor, vidx=vidx)
+        return st
+
+    return body
+
+
+def intersect_rays2(meta, root_entry: int, lower, upper, ro, rd, *,
+                    stack_depth: int, shadow: bool = False,
+                    max_iters: int = 100_000):
+    """The v2 walk. meta: int32 [N, 16] (children ++ psum, u32 patterns);
+    root_entry: rootIndex | mask[root] << 24; ro/rd f32 [R, 3] on the
+    tree's device. Returns (t f32 [R], n_major int32 [R], v_index int32
+    [R]) as traverse.intersect_rays."""
+    st = walk_state(ro, rd, lower, upper, stack_depth, (1, 2, 4),
+                    ("s_node", "s_rkc", "s_skip"),
+                    ("s_t1x", "s_t1y", "s_t1z", "s_scale", "s_rkt"))
+    st.update(node=torch.full_like(st["sp"], int(root_entry) & MASK32),
+              rk_t=torch.full_like(st["t"], NEG_INF),
+              rk_c=torch.full_like(st["sp"], -1),
+              skipped=torch.zeros_like(st["sp"]))
+    return run_walk(st, _v2_body(meta, shadow), ro.shape[0], max_iters)
+
+
+def tree_meta(tree) -> torch.Tensor:
+    if tree.meta is not None:
+        return tree.meta
+    return torch.cat([tree.children, tree.psum], dim=1)
+
+
+def intersect_octree2(tree, ro, rd, shadow: bool = False,
+                      max_iters: int = 100_000):
+    """The v2 walk over a VoxelOctree (ro / rd: anything torch takes)."""
+    depth = max(int(tree.grid_res).bit_length() - 1, 1)
+    dev = tree.device
+    return intersect_rays2(
+        tree_meta(tree), root_entry_of(tree), tree.lower, tree.upper,
+        torch.as_tensor(ro, dtype=F32, device=dev).reshape(-1, 3),
+        torch.as_tensor(rd, dtype=F32, device=dev).reshape(-1, 3),
+        stack_depth=depth, shadow=shadow, max_iters=max_iters)

@@ -7,7 +7,10 @@ primary and shadow rays, bit for bit; the whole slice on the card
 the CPU (plain version); a path-tracer step through both routes; the kernel
 at small ray counts and on permuted rays, and its counting variant; the
 rtcamp app for two tiny frames on the card against the same run on the
-CPU (u8 images exact). Imports nothing of JAX. Run on a card with
+CPU (u8 images exact); the brick tree, the octree (DAG on and off), their
+walks, the streamed build, the terrain generator and the voxmesh /
+voxtriangle apps on the card against the same on the CPU. Imports nothing
+of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -279,3 +282,106 @@ def test_rtcamp_on_card_equals_cpu_run(cuda, tmp_path):
         with open(tmp_path / "gpu" / name, "rb") as fa, \
                 open(tmp_path / "cpu" / name, "rb") as fb:
             assert fa.read() == fb.read(), name
+
+
+# ---------------------------------------------------------------------------
+# the brick tree, the octree and the streamed build (tensor code on the
+# card; the same ops as on the CPU, so the same bits)
+# ---------------------------------------------------------------------------
+
+def structure_case(grid_res, n_vox, n_rays=4096):
+    rng = np.random.default_rng(grid_res + n_vox)
+    c = torch.as_tensor(rng.integers(0, grid_res, size=(n_vox, 3)))
+    codes = morton.encode(c[:, 0], c[:, 1], c[:, 2]).unique()
+    ro = rng.uniform(-1.0, 2.0, (n_rays, 3)).astype(np.float32)
+    x, y, z = (v.numpy() for v in morton.decode(codes[rng.integers(0, codes.shape[0], n_rays)]))
+    rd = ((np.stack([x, y, z], -1) + 0.5) / grid_res - ro).astype(np.float32)
+    return codes, ro, rd
+
+
+def build_structure(kind, codes, grid_res, device, dag=True):
+    from massivevoxelraytracing_torch.ops import bricktree, octree
+
+    lower = np.zeros(3, np.float32)
+    if kind == "brick":
+        return bricktree.build_bricktree(codes.to(device), grid_res,
+                                         lower=lower, dps=1.0 / grid_res)
+    return octree.build_octree(codes.to(device), grid_res, dag=dag, lower=lower,
+                               upper=lower + np.float32(1.0 / grid_res) * grid_res)
+
+
+@pytest.mark.parametrize("kind,dag", [("brick", True), ("octree", True),
+                                      ("octree", False)])
+def test_structures_on_card_equal_cpu(cuda, kind, dag):
+    """Builds and walks (brick; octree v1 and v2, primary and shadow) on the
+    card == on the CPU, bit for bit."""
+    from massivevoxelraytracing_torch.ops import bricktree, traverse, traverse2
+
+    codes, ro, rd = structure_case(256, 20000)
+    on_card = build_structure(kind, codes, 256, cuda, dag)
+    on_cpu = build_structure(kind, codes, 256, "cpu", dag)
+    fields = ("meta",) if kind == "brick" else ("children", "psum", "mask", "meta")
+    for name in fields + ("upper",):
+        np.testing.assert_array_equal(getattr(on_card, name).cpu().numpy(),
+                                      getattr(on_cpu, name).numpy(), err_msg=name)
+    walks = ([bricktree.intersect_bricktree] if kind == "brick"
+             else [traverse.intersect_octree, traverse2.intersect_octree2])
+    for walk in walks:
+        for shadow in (False, True):
+            got = [x.cpu() for x in walk(on_card, ro, rd, shadow=shadow)]
+            want = walk(on_cpu, ro, rd, shadow=shadow)
+            assert int((want[0] < 1e37).sum()) > 1000
+            assert_equal(got, want, f"{walk.__name__} shadow={shadow}")
+
+
+@pytest.mark.parametrize("accel", ["brick", "octree"])
+def test_structure_frames_on_card_equal_cpu(cuda, accel):
+    tri, cols = meshgen.sphere_lattice(2, 2)
+    kw = dict(origin=np.zeros(3, np.float32), dps=1.0 / 128, grid_res=128,
+              accel=accel)
+    on_card = scene.build_scene(tri, cols, device="cuda", **kw)
+    on_cpu = scene.build_scene(tri, cols, device="cpu", **kw)
+    assert on_card.n_nodes == on_cpu.n_nodes
+    center = np.full(3, 0.5, np.float32)
+    cam = camera.Camera.look_at(eye=center + np.array([0.9, 0.4, 1.4]) * 0.9,
+                                target=center, fovy_deg=40.0)
+    img, depth = raycast.render_frame(on_card, cam, 160, 96, device="cuda")
+    img_c, depth_c = raycast.render_frame(on_cpu, cam, 160, 96, device="cpu")
+    np.testing.assert_array_equal(img.cpu().numpy(), img_c.numpy())
+    np.testing.assert_array_equal(depth.cpu().numpy(), depth_c.numpy())
+
+
+@pytest.mark.parametrize("park", ["host", "device"])
+def test_stream_build_on_card_equals_cpu(cuda, park):
+    """The streamed build of the same chunks on the card == on the CPU; the
+    terrain generator on the card stays in its tie band of the CPU's (f32
+    sin / cos, then floor)."""
+    from massivevoxelraytracing_torch.ops import hako_stream
+    from massivevoxelraytracing_torch.utils import shellgen
+
+    cpu_chunks = [c[0] for c in shellgen.Terrain(256, 64, device="cpu").chunks()]
+    card_chunks = [c[0] for c in shellgen.Terrain(256, 64, device=cuda).chunks()]
+    a, b = torch.cat(cpu_chunks).numpy(), torch.cat(card_chunks).cpu().numpy()
+    assert len(np.setxor1d(a, b)) <= 1e-4 * len(a)
+    got = hako_stream.build_hako_stream(((c.to(cuda),) for c in cpu_chunks), 256,
+                                        park=park)
+    want = hako_stream.build_hako_stream(((c,) for c in cpu_chunks), 256)
+    assert got.bricks.device.type == "cuda"
+    assert torch.equal(got.bricks.cpu(), want.bricks)
+    for x, y in zip(got.levels, want.levels):
+        assert torch.equal(x.cpu(), y)
+    assert (got.root_mask_lo, got.root_mask_hi) == (want.root_mask_lo, want.root_mask_hi)
+
+
+def test_mesh_apps_on_card_equal_cpu(cuda, tmp_path):
+    from massivevoxelraytracing_torch.apps import voxmesh, voxtriangle
+
+    for dev in ("cuda", "cpu"):
+        voxmesh.main(["--scene", "sphere", "--res", "32", "--device", dev,
+                      "--out", str(tmp_path / f"{dev}.ply")])
+        voxtriangle.main(["--res", "32", "--device", dev,
+                          "--out", str(tmp_path / dev)])
+    for a, b in (("cuda.ply", "cpu.ply"),
+                 ("cuda/coverage.png", "cpu/coverage.png")):
+        assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes(), a
+

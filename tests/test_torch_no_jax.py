@@ -1,6 +1,7 @@
 """The PyTorch port stands without JAX: it imports none (a subprocess with
 `jax` and the JAX package blocked builds a tiny scene, renders a frame,
-runs a path-tracer step and renders one rtcamp frame), no module of it
+runs a path-tracer step, renders one rtcamp frame, builds and renders the
+brick tree and the octree, and streams a terrain shell), no module of it
 names jax or imports anything of the JAX package, the nvcc commands keep
 IEEE float semantics for sm_90a, the host library links no zlib, and
 chip_smoke.py refuses to run without a card or without the repository."""
@@ -59,6 +60,20 @@ with tempfile.TemporaryDirectory() as out:
                        "--to-res", "16", "--device", "cpu", "--out", out])
     assert [r["grid_res"] for r in rec] == [16]
     assert os.path.getsize(os.path.join(out, "000.png")) > 0
+# the other structures, the streamed build and the apps of slice 5
+from massivevoxelraytracing_torch.apps import scale_shell, voxmesh, voxtriangle
+from massivevoxelraytracing_torch.ops import bricktree, hako_stream, octree
+from massivevoxelraytracing_torch.ops import traverse, traverse2
+from massivevoxelraytracing_torch.utils import shellgen
+for accel in ("brick", "octree"):
+    t2 = scene.build_scene(tri, origin=np.zeros(3, np.float32), dps=1 / 32,
+                           grid_res=32, device="cpu", accel=accel)
+    img2, depth2 = raycast.render_frame(t2, cam, 16, 12, device="cpu")
+    assert torch.equal(depth2 < 1e37, depth < 1e37), accel
+assert isinstance(t2, octree.VoxelOctree) and t2.n_nodes > 0
+terrain = shellgen.Terrain(64, 16, device="cpu")
+shell = hako_stream.build_hako_stream(terrain.chunks(), 64)
+assert shell.n_voxels == terrain.total_voxels() > 0
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0]
           in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
 assert not loaded, loaded
