@@ -35,6 +35,27 @@ Phases (any failure raises, and the script exits non-zero):
   5. the probes (row chase, walk vs fetch), each held against its plain
      version before its rate is printed, and the frame's and batches'
      latency and walk floors from them;
+  5b. this slice's path, the issue-cost probes through their scripts'
+     main(argv) with the probe and round kernels' counts set to 0 just
+     before the phase and read just after it (each must have launched):
+     scripts/hako_kernel_micro.py (calib_probe, walk64 / scan64,
+     node_gather_probe in global / shared / constant memory at 128, 1024
+     and 4096 nodes, table_select_probe from constant / shared /
+     registers, fetch_probe) and scripts/construct_micro.py
+     (construct_probe, 8 constructs) on one meter, so calibrated once;
+     every case held bit for bit against its plain version at each
+     launch shape (one warp an SM, full occupancy, the JAX scripts' 64 x
+     2048 lanes) and at each repeat count that is timed, with its ns per
+     dependent repeat,
+     G repeats/s and the SASS instructions of its loop a repeat
+     (cuobjdump -sass of the built library); then
+     scripts/hako_phase_timing.py on bumpy_sphere at 256^3 (plain top
+     levels) and 1024^3 (fat: the supernode stage) and on the phase-3
+     lattice: each round kernel alone on its first quarter of the
+     frame's blocks, equal to its plain version, the host round work,
+     and the full frame's rounds with its wall split into kernel and
+     host time; the runs' launches (the isolated phases' among them)
+     must add up to the phase's;
   6. the apps on the card, each through its main(argv) into build/:
      rtcamp (the animated lattice, frames 0-2 of 24 at 1440x900, a full
      rebuild a frame at 512^3 then 1024^3, one 16-spp step; every PNG
@@ -63,7 +84,8 @@ Phases (any failure raises, and the script exits non-zero):
      (the PNG read back).
 
 Prints the card's name and power limit beside every timing, a JSON line
-of the probes' numbers, one JSON line of kernel results (with the apps'
+of the probes' numbers (phase 5b's under "slice"), one JSON line of
+kernel results, one entry for each hand-written kernel (with the apps'
 numbers, and phase 7's under "accel" and "shell"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
@@ -134,38 +156,10 @@ def card() -> str:
 
 
 def timed(fn, reps: int = 3, warm: bool = True):
-    """(result, ms per call) with CUDA events, after one warm call."""
-    import torch
+    """(result, ms per call): scripts/common.timed, 3 calls by default."""
+    from massivevoxelraytracing_torch.scripts import common
 
-    if warm:
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        out = fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop) / reps
-
-
-def timed_each(fn, setup, reps: int = 10) -> float:
-    """ms per call of fn(setup()) with CUDA events around each call only
-    (setup, e.g. copying a state that fn updates in place, untimed)."""
-    import torch
-
-    fn(setup())
-    total = 0.0
-    for _ in range(reps):
-        args = setup()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(args)
-        stop.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(stop)
-    return total / reps
+    return common.timed(fn, reps, warm)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -547,11 +541,12 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     import torch
 
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.scripts import common
 
     out = {}
     a, k = chk.first["hako_probe"]
     n = int(a[7].shape[0])  # idx
-    ms = timed_each(lambda _: hk.hako_probe(*a, **k), lambda: None)
+    ms = common.event_ms_each(lambda _: hk.hako_probe(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_probe_plain(*a, **k), reps=1, warm=False)
     # every lane: in idx 4, ro/rd 24, tq 4; out emit 1, child 4, bt1 12,
     # tqe/tqn 8, exh 1; the level tables once
@@ -562,7 +557,7 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     n = int(a[4].shape[0])
     go, child = a[5], a[6]
     rows = int(torch.unique(child[go]).numel())
-    ms = timed_each(lambda _: hk.hako_dda(*a, **k), lambda: None)
+    ms = common.event_ms_each(lambda _: hk.hako_dda(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_dda_plain(*a, **k), reps=1, warm=False)
     n_go = int(go.sum())
     # every lane: in go 1, tqe 4; out hit 1, t/nmaj/vr/p3/tqp/tqr 24, more 1;
@@ -578,7 +573,7 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     n_more = int((act & emit & more).sum())
     n_plane = int((act & emit & ~more).sum())
     n_hit = int((act & hit).sum())
-    ms = timed_each(lambda s: hk.hako_merge(s, *a),
+    ms = common.event_ms_each(lambda s: hk.hako_merge(s, *a),
                     lambda: tuple(x.clone() for x in state0))
     _, p_ms = timed(lambda: hk.hako_merge_plain(
         tuple(x.clone() for x in state0), *a), reps=1, warm=False)
@@ -846,6 +841,7 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
 
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import common
 
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     rng = np.random.default_rng(SEED)
@@ -869,13 +865,22 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
                     if not torch.equal(got, want):
                         raise AssertionError(f"row chase {table} {mode} x{chains}: "
                                              "differs from the plain version")
-                    ms = timed_each(lambda _: probes.row_chase(rows, start, **kw),
+                    ms = common.event_ms_each(lambda _: probes.row_chase(rows, start, **kw),
                                     (lambda: flush_l2(device)) if cold else (lambda: None),
                                     reps=5)
-                    chase.append(dict(table=table, mode=mode, chains=chains,
-                                      shape=shape, n_chains=n, hops=hops, ms=ms,
-                                      ns_per_hop=ms * 1e6 / hops,
-                                      rows_per_s=n * hops / (ms * 1e-3)))
+                    rec = dict(table=table, mode=mode, chains=chains,
+                               shape=shape, n_chains=n, hops=hops, ms=ms,
+                               ns_per_hop=ms * 1e6 / hops,
+                               rows_per_s=n * hops / (ms * 1e-3))
+                    if (table, mode, chains, shape) == ("lattice", "16B", 1,
+                                                        "full occupancy"):
+                        # the kernels line's case: the plain version's time;
+                        # the bound: each hop's 16 bytes and each chain's
+                        # start and end read or written once
+                        _, rec["plain_ms"] = timed(lambda: probes.row_chase_plain(
+                            rows, start, hops=hops, mode=mode), reps=1, warm=False)
+                        rec["bound"] = bound(n * hops * 16 + n * 8, 0)
+                    chase.append(rec)
                     print(f"[phase5] row chase, {table} table ({rows_n} rows, "
                           f"{rows_n * ROW_BYTES / 1e6:.1f} MB), {mode}, {chains} "
                           f"chain(s), {shape} ({n} chains x {hops} hops): == plain "
@@ -904,7 +909,7 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
     if not torch.equal(got, probes.fetch_probe_plain(tree.bricks, row_of,
                                                      iters=PROBE_ITERS)):
         raise AssertionError("fetch probe differs from the plain version")
-    fetch_ms = timed_each(
+    fetch_ms = common.event_ms_each(
         lambda _: probes.fetch_probe(tree.bricks, row_of, iters=PROBE_ITERS),
         lambda: flush_l2(device), reps=5)
     per = n * PROBE_ITERS
@@ -915,6 +920,74 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
     return dict(chase=chase, walk_ms=walk_ms, fetch_ms=fetch_ms,
                 walk_ns=walk_ms * 1e6 / per, fetch_ns=fetch_ms * 1e6 / per,
                 lanes=n, iters=PROBE_ITERS, sms=sms)
+
+
+SLICE_KERNELS = ("construct_probe", "node_gather_probe", "table_select_probe",
+                 "calib_probe", "walk_probe", "fetch_probe")
+
+
+def phase_slice(tree, cam, smi: str) -> dict:
+    """Phase 5b: the issue-cost probe scripts and the round phase timing,
+    through their entry points, with the kernels' counts set to 0 just
+    before and read just after."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import (common, construct_micro,
+                                                      hako_kernel_micro,
+                                                      hako_phase_timing)
+
+    t0 = time.time()
+    meter = common.Meter(torch.device("cuda", 0))  # one calibration for both scripts
+    torch.cuda.synchronize()
+    probes.reset_counters()
+    hk.reset_counters()
+    hako_kernel_micro.main([], meter=meter)
+    records = construct_micro.main([], meter=meter)
+    timing = [hako_phase_timing.main(["--res", str(res)]) for res in (256, GRID)]
+    timing.append(hako_phase_timing.run(tree, cam, WIDTH, 1088,
+                                        label=f"lattice {GRID}^3", card=smi))
+    torch.cuda.synchronize()
+    launches = {k: probes.LAUNCHES[k] for k in SLICE_KERNELS}
+    round_launches = dict(hk.LAUNCHES)
+    for name, n in {**launches, **round_launches}.items():
+        if n < 1:
+            raise AssertionError(f"phase 5b launched no {name} kernel")
+    cases = [(r["name"], r["shape"]) for r in records]
+    if len(set(cases)) != len(cases):
+        raise AssertionError("phase 5b measured a probe case twice")
+    if not timing[1]["fat"] or timing[0]["fat"]:
+        raise AssertionError("phase timing: 256^3 must be plain and 1024^3 fat")
+    if sum(sum(t["launches"].values()) for t in timing) != sum(round_launches.values()):
+        raise AssertionError("phase timing: its runs' launches do not add up to the "
+                             "phase's")
+    # the isolated phases' own launches (the reference's kernel A alone,
+    # its :91, and kernel B alone, its :137), summed over the three runs
+    isolated = {k: sum(rec["launches"][k] for t in timing for rec in t["phases"].values())
+                for k in round_launches}
+    for t in timing:
+        t.pop("outputs")
+    print(f"[phase5b] {len(records)} probe cases == plain versions; launches "
+          f"{launches}, round kernels {round_launches} (of them in the isolated "
+          f"phases {isolated}); {time.time() - t0:.1f} s [{smi}]", flush=True)
+    return dict(records=records, timing=timing, launches=launches,
+                round_launches=round_launches, isolated_launches=isolated)
+
+
+def slice_entry(sl: dict, prefix) -> dict:
+    """A kernel's numbers on the JAX scripts' shape, summed over its cases
+    (names starting with `prefix`, a string or a tuple of them): ms, plain
+    ms, bound; the largest error over every shape."""
+    recs = [r for r in sl["records"] if r["name"].startswith(prefix)]
+    script = [r for r in recs if r["shape"] == "script"]
+    ops = sum(r["issue_floor_ms"] for r in script)
+    byt = sum(r["bytes_floor_ms"] for r in script)
+    return dict(ms=sum(r["ms"] for r in script),
+                plain_ms=sum(r["plain_ms"] for r in script),
+                bound_ms=max(ops, byt), bound_by="operations" if ops >= byt else "bytes",
+                max_abs_err=max(r["max_abs_err"] for r in recs),
+                cases=sorted({r["name"] for r in recs}))
 
 
 def floors(counters: dict, n_rays: int, pr: dict) -> dict:
@@ -1406,13 +1479,20 @@ def main() -> int:
     rframe = phase_rounds_frame(tree, cam, img, depth, device, smi)
     pt = phase_pt(tree, cam, device, smi)
     frame_args = main_path["frame_args"]
+    from massivevoxelraytracing_torch.ops import probes
+
+    probes.reset_counters()
     pr = phase_probes(tree, frame_args[6], frame_args[7], device, smi)
+    torch.cuda.synchronize()
+    chase_launches = probes.LAUNCHES["row_chase"]
     floor = {}
     for label, cnt, n in (("frame", main_path["counters"], int(frame_args[6].shape[0])),
                           ("BSDF", pt["counters"]["BSDF"], pt["lanes"]["BSDF"]),
                           ("NEE", pt["counters"]["NEE"], pt["lanes"]["NEE"])):
         floor[label] = floors(cnt, n, pr)
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
+    sl = phase_slice(tree, cam, smi)
+    pr["slice"] = sl
     apps = phase_apps(smi)
     t7 = time.time()
     structures = phase_structures(tree, cam, img, device, smi, rng)
@@ -1449,6 +1529,37 @@ def main() -> int:
             bound_by=tm["bound"][1], library_ms=None,
             frame_launches=frame_launches,
         ))
+    # the probes: the row chase (phase 5) and the issue-cost probes (phase
+    # 5b; the JAX scripts' shape, summed over each kernel's cases)
+    chase = next(c for c in pr["chase"] if "bound" in c)
+    kernels.append(dict(
+        name="row_chase", route="cuda", source=src + "hako_probes.cu",
+        replaces="scripts/dma_gather_probe3.py:87", launches=chase_launches,
+        max_abs_err=0.0, ms=chase["ms"], plain_ms=chase["plain_ms"],
+        bound_ms=chase["bound"][0], bound_by=chase["bound"][1], library_ms=None))
+    for name, prefix, replaces in (
+            ("walk_probe", ("walk64", "scan64"),
+             "scripts/hako_kernel_micro.py:52 (k_walk :77, scan64 :90)"),
+            ("fetch_probe", ("fetch",), "scripts/hako_kernel_micro.py:52 (k_words :147)"),
+            ("construct_probe", ("construct",), "scripts/construct_micro.py:42"),
+            ("node_gather_probe", ("gather",),
+             "scripts/hako_kernel_micro.py:52 (k_gflat :100, k_gsplit :113)"),
+            ("table_select_probe", ("select",),
+             "scripts/hako_kernel_micro.py:52 (k_fold :127)"),
+            ("calib_probe", ("calib",), "scripts/hako_kernel_micro.py:188")):
+        e = slice_entry(sl, prefix)
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "hako_probes.cu",
+            replaces=replaces, launches=sl["launches"][name],
+            max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
+            cases=e["cases"]))
+    for k in kernels[1:4]:
+        k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91",
+                          "hako_dda": "; scripts/hako_phase_timing.py:137",
+                          "hako_merge": ""}[k["name"]]
+        k["phase_timing_launches"] = sl["round_launches"][k["name"]]
+        k["phase_timing_isolated_launches"] = sl["isolated_launches"][k["name"]]
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],

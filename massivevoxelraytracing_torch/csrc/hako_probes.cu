@@ -1,4 +1,4 @@
-// Hopper microbenchmarks of two questions the megakernel's design asks,
+// Hopper microbenchmarks of the questions the megakernel's design asks,
 // ports of the reference's Pallas probes in scripts/:
 //
 // * row chase (gather_probe3.py "chase" / "chase_rows", dma_gather_probe3.py:
@@ -10,14 +10,35 @@
 //   thread (a warp, for the whole-row read) are interleaved, so their loads
 //   are in flight together. Launched with one warp an SM it gives the time
 //   of one dependent hop; at full occupancy, the rate of independent rows.
-// * walk vs fetch (hako_kernel_micro.py): walk64 alone on masks held in
-//   registers (the masks step through an LCG, so nothing is hoisted), and
-//   the row-word fetch alone (words 2s, 2s+1 of the lane's row, s taken from
+// * walk / scan vs fetch (hako_kernel_micro.py k_walk, scan64, k_words):
+//   walk64 (or the 64-cell scan64 sweep) alone on masks held in registers
+//   (the masks step through an LCG, so nothing is hoisted), and the
+//   row-word fetch alone (words 2s, 2s+1 of the lane's row, s taken from
 //   the words read before), each looped in the kernel.
+// * construct_probe<C> (construct_micro.py run): K dependent repeats of one
+//   vector construct a lane, each written the way Hopper computes it
+//   (fminf / fmaxf, a select, integer ops, a variable shift, the literal
+//   5-step barrel shift, int <-> float converts, bit_at and pc64_below of
+//   hako_device.cuh with __popc).
+// * node_gather_probe<SPACE> (hako_kernel_micro.py k_gflat / k_gsplit): a
+//   chain of dependent node fetches (mask_lo, mask_hi, base) from a table
+//   in global memory (__ldg), in shared memory (copied in by each block)
+//   or in constant memory (uploaded on the launch stream).
+// * table_select_probe<FORM> (hako_kernel_micro.py k_fold, fold_select
+//   over 64 x 3 words in SMEM): the 64-entry select from constant memory,
+//   from shared memory, or from registers across the warp (each word of
+//   the 64 entries as 2 registers a lane) with __shfl_sync.
+// * calib_probe<KIND> (hako_kernel_micro.py calibrate): K dependent
+//   a * 1.0000001f + b (a separate multiply and add under -fmad=false;
+//   the reference's K = 1024) against 8 independent chains of K (128).
 //
 // What bounds them is what they measure: load latency (the chase, the
-// fetch) and issue rate (the walk). Plain PyTorch versions that compute the
-// same outputs are in ops/probes.py.
+// fetch, the gathers) and issue rate or dependent-op latency (the walk, the
+// constructs, the selects, the calibration). The repeat loops keep every
+// repeat data-dependent; the outer loop is `#pragma unroll 1` around a
+// fixed inner unroll of kUnroll, so the outer loop body's SASS
+// instructions over kUnroll are the cost of one repeat. Plain PyTorch
+// versions that compute the same outputs are in ops/probes.py.
 
 #include <cuda_runtime.h>
 
@@ -89,6 +110,36 @@ int launch_chase(const uint32_t* rows, const int* start, int* end,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The 64-cell in-order sweep with walk64's contract (the reference's
+// _scan64_impl): every cell's entry / exit from the 5 planes an axis, the
+// occupied cell of least entry (the lowest cell index on equal entries).
+__device__ __forceinline__ hako::Walk scan64(uint32_t lo, uint32_t hi, int vm6,
+                                             const float t1[3], const float dc[3],
+                                             float t_q) {
+  using hako::jmax;
+  using hako::jmin;
+  const float tq0 = jmax(t_q, 0.0f);
+  float tb[3][5];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) tb[a][k] = hako::plane(t1[a], dc[a], k);
+  }
+  hako::Walk best{hako::kMaxFloat, hako::kMaxFloat, 64};
+#pragma unroll
+  for (int c = 0; c < 64; ++c) {
+    int cx, cy, cz;
+    hako::coords(c, cx, cy, cz);
+    const float en = jmax(tb[0][cx], jmax(tb[1][cy], tb[2][cz]));
+    const float ex = jmin(tb[0][cx + 1], jmin(tb[1][cy + 1], tb[2][cz + 1]));
+    if (hako::bit_at(lo, hi, vm6 ^ c) && en < ex && ex > tq0 && en < best.en) {
+      best = hako::Walk{en, ex, c};
+    }
+  }
+  return best;
+}
+
+template <bool SCAN>
 __global__ void walk_probe_kernel(const uint32_t* lo0, const uint32_t* hi0,
                                   const float* t1, const float* dc, int n,
                                   int iters, int* out) {
@@ -98,8 +149,10 @@ __global__ void walk_probe_kernel(const uint32_t* lo0, const uint32_t* hi0,
   const float t1v[3] = {t1[i], t1[n + i], t1[2 * n + i]};
   const float dcv[3] = {dc[i], dc[n + i], dc[2 * n + i]};
   int acc = 0;
+#pragma unroll 1
   for (int k = 0; k < iters; ++k) {
-    acc += hako::walk64(lo, hi, 0, t1v, dcv, 0.0f).c;
+    acc += SCAN ? scan64(lo, hi, 0, t1v, dcv, 0.0f).c
+                : hako::walk64(lo, hi, 0, t1v, dcv, 0.0f).c;
     lo = lo * 1664525u + 1013904223u;
     hi = hi * 22695477u + 1u;
   }
@@ -113,12 +166,243 @@ __global__ void fetch_probe_kernel(const uint32_t* rows, const int* row_of,
   const uint2* row = reinterpret_cast<const uint2*>(
       rows + static_cast<size_t>(row_of[i]) * hako::kRowWords);
   uint32_t s = i & 63, acc = 0;
+#pragma unroll 1
   for (int k = 0; k < iters; ++k) {
     const uint2 w = __ldg(row + s);
     acc ^= w.x ^ w.y;
     s = (w.x ^ w.y ^ static_cast<uint32_t>(k)) & 63u;
   }
   out[i] = static_cast<int>(acc);
+}
+
+constexpr int kUnroll = 8;  // repeats in one pass of a probe's outer loop
+
+enum Construct { kMinMax, kCmpSel, kInt, kVShift, kBarrel, kI2F, kBitAt, kPc64 };
+
+// One lane: K = outer * kUnroll dependent repeats of construct C.
+// fa / fb f32, ia i32, ua / ub u32 inputs; fout (f32 constructs) or iout.
+template <int C>
+__global__ void construct_probe_kernel(const float* fa, const float* fb,
+                                       const int* ia, const uint32_t* ua,
+                                       const uint32_t* ub, int n, int outer,
+                                       float* fout, int* iout) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if constexpr (C == kMinMax || C == kCmpSel) {
+    float x = fa[i];
+    const float y = fb[i];
+#pragma unroll 1
+    for (int o = 0; o < outer; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if constexpr (C == kMinMax) {
+          x = fminf(fmaxf(x, y), y + x);
+        } else {
+          x = x < y ? x + y : y;
+        }
+      }
+    }
+    fout[i] = x;
+  } else if constexpr (C == kI2F) {
+    int x = ia[i];
+    float acc = 0.0f;
+#pragma unroll 1
+    for (int o = 0; o < outer; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        acc = acc + static_cast<float>(x & 255);
+        x = x ^ static_cast<int>(acc);
+      }
+    }
+    fout[i] = acc;
+  } else {
+    // integer chains in u32 (wrap-around adds); >> 3 of kInt is arithmetic
+    uint32_t x = static_cast<uint32_t>(ia[i]);
+    const uint32_t m0 = C == kInt ? 0u : ua[i];
+    const uint32_t m1 = (C == kBitAt || C == kPc64) ? ub[i] : 0u;
+#pragma unroll 1
+    for (int o = 0; o < outer; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if constexpr (C == kInt) {
+          x = ((x + 7u) & 0x7FFFFFFu) ^
+              static_cast<uint32_t>(static_cast<int>(x) >> 3);
+        } else if constexpr (C == kVShift) {
+          x += (m0 >> (x & 31u)) & 1u;
+        } else if constexpr (C == kBarrel) {
+          const uint32_t sh = x & 31u;
+          uint32_t v = m0;
+          v = (sh & 1u) ? v >> 1 : v;
+          v = (sh & 2u) ? v >> 2 : v;
+          v = (sh & 4u) ? v >> 4 : v;
+          v = (sh & 8u) ? v >> 8 : v;
+          v = (sh & 16u) ? v >> 16 : v;
+          x += v & 1u;
+        } else if constexpr (C == kBitAt) {
+          x += hako::bit_at(m0, m1, static_cast<int>(x & 63u)) ? 1u : 0u;
+        } else {
+          x += hako::pc64_below(m0, m1, static_cast<int>(x & 63u));
+        }
+      }
+    }
+    iout[i] = static_cast<int>(x);
+  }
+}
+
+template <int C>
+int launch_construct(const float* fa, const float* fb, const int* ia,
+                     const uint32_t* ua, const uint32_t* ub, int n, int outer,
+                     void* out, int threads, cudaStream_t s) {
+  construct_probe_kernel<C><<<(n + threads - 1) / threads, threads, 0, s>>>(
+      fa, fb, ia, ua, ub, n, outer, static_cast<float*>(out),
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Space { kGlobal, kShared, kConstant };
+constexpr int kMaxNodes = 4096;  // 4096 x 12 B = 48 KB of constant memory
+__constant__ uint32_t c_nodes[3 * kMaxNodes];
+__constant__ uint32_t c_select[3 * 64];
+
+// One lane: K dependent node fetches, idx = (idx0 + acc) & (n_nodes - 1),
+// acc = (acc + base) & 31, fold ^= mask_lo ^ mask_hi. Every thread of a
+// block runs the loop (the shared table is copied in by all of them).
+template <int SPACE>
+__global__ void node_gather_probe_kernel(const uint32_t* table, int n_nodes,
+                                         const int* idx0, int n, int outer,
+                                         int* acc_out, int* fold_out) {
+  extern __shared__ uint32_t s_nodes[];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if constexpr (SPACE == kShared) {
+    for (int j = threadIdx.x; j < 3 * n_nodes; j += blockDim.x) s_nodes[j] = table[j];
+    __syncthreads();
+  }
+  const bool live = i < n;
+  const uint32_t start = live ? static_cast<uint32_t>(idx0[i]) : 0u;
+  const uint32_t wrap = static_cast<uint32_t>(n_nodes - 1);
+  uint32_t acc = 0, fold = 0;
+#pragma unroll 1
+  for (int o = 0; o < outer; ++o) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t w = 3u * ((start + acc) & wrap);
+      uint32_t lo, hi, base;
+      if constexpr (SPACE == kGlobal) {
+        lo = __ldg(table + w);
+        hi = __ldg(table + w + 1);
+        base = __ldg(table + w + 2);
+      } else if constexpr (SPACE == kShared) {
+        lo = s_nodes[w];
+        hi = s_nodes[w + 1];
+        base = s_nodes[w + 2];
+      } else {
+        lo = c_nodes[w];
+        hi = c_nodes[w + 1];
+        base = c_nodes[w + 2];
+      }
+      acc = (acc + base) & 31u;
+      fold ^= lo ^ hi;
+    }
+  }
+  if (live) {
+    acc_out[i] = static_cast<int>(acc);
+    fold_out[i] = static_cast<int>(fold);
+  }
+}
+
+enum Form { kSelConstant, kSelShared, kSelShuffle };
+
+// One lane: K dependent selects from 64 entries of 3 words,
+// sel = (idx0 + acc) & 63, acc = (acc + (w0 ^ w1 ^ w2)) & 31. Every
+// thread runs the loop (the shuffle form needs the whole warp).
+template <int FORM>
+__global__ void table_select_probe_kernel(const uint32_t* tab, const int* idx0,
+                                          int n, int outer, int* out) {
+  __shared__ uint32_t s_tab[3 * 64];
+  constexpr unsigned kFull = 0xffffffffu;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  uint32_t reg[3][2];
+  if constexpr (FORM == kSelShared) {
+    for (int j = threadIdx.x; j < 3 * 64; j += blockDim.x) s_tab[j] = tab[j];
+    __syncthreads();
+  } else if constexpr (FORM == kSelShuffle) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      reg[j][0] = __ldg(tab + 3 * lane + j);
+      reg[j][1] = __ldg(tab + 3 * (lane + 32) + j);
+    }
+  }
+  const bool live = i < n;
+  const uint32_t start = live ? static_cast<uint32_t>(idx0[i]) : 0u;
+  uint32_t acc = 0;
+#pragma unroll 1
+  for (int o = 0; o < outer; ++o) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t sel = (start + acc) & 63u;
+      uint32_t w[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        if constexpr (FORM == kSelConstant) {
+          w[j] = c_select[3 * sel + j];
+        } else if constexpr (FORM == kSelShared) {
+          w[j] = s_tab[3 * sel + j];
+        } else {
+          const uint32_t a = __shfl_sync(kFull, reg[j][0], sel & 31u);
+          const uint32_t b = __shfl_sync(kFull, reg[j][1], sel & 31u);
+          w[j] = (sel & 32u) ? b : a;
+        }
+      }
+      acc = (acc + (w[0] ^ w[1] ^ w[2])) & 31u;
+    }
+  }
+  if (live) out[i] = static_cast<int>(acc);
+}
+
+enum Calib { kChain, kPar8 };
+
+// kChain: K dependent x = x * 1.0000001f + b (the reference: K = 1024);
+// kPar8: 8 independent chains of K (the reference: 128) from x_j = a + j
+// with b = a, then summed in order.
+template <int KIND>
+__global__ void calib_probe_kernel(const float* a, const float* b, int n,
+                                   int outer, float* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float c = 1.0000001f;
+  if constexpr (KIND == kChain) {
+    float x = a[i];
+    const float y = b[i];
+#pragma unroll 1
+    for (int o = 0; o < outer; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) x = x * c + y;
+    }
+    out[i] = x;
+  } else {
+    const float y = a[i];
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = a[i] + static_cast<float>(j);
+#pragma unroll 1
+    for (int o = 0; o < outer; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) x[j] = x[j] * c + y;
+      }
+    }
+    float r = x[0];
+#pragma unroll
+    for (int j = 1; j < 8; ++j) r = r + x[j];
+    out[i] = r;
+  }
+}
+
+bool launch_shape_ok(int n, int k, int threads) {
+  return n > 0 && k > 0 && k % kUnroll == 0 && threads > 0 && threads <= 1024 &&
+         threads % 32 == 0;
 }
 
 }  // namespace
@@ -143,21 +427,151 @@ extern "C" int row_chase_launch(const void* rows, const void* start, void* end,
 }
 
 extern "C" int walk_probe_launch(const void* lo, const void* hi, const void* t1,
-                                 const void* dc, int n, int iters, void* out,
-                                 void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  walk_probe_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
-      static_cast<const float*>(t1), static_cast<const float*>(dc), n, iters,
-      static_cast<int*>(out));
+                                 const void* dc, int n, int iters, int scan,
+                                 int threads, void* out, void* stream) {
+  if (n <= 0 || threads <= 0 || threads > 1024 || threads % 32)
+    return cudaErrorInvalidValue;
+  const auto* l = static_cast<const uint32_t*>(lo);
+  const auto* h = static_cast<const uint32_t*>(hi);
+  const auto* a = static_cast<const float*>(t1);
+  const auto* d = static_cast<const float*>(dc);
+  auto* o = static_cast<int*>(out);
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scan) {
+    walk_probe_kernel<true><<<blocks, threads, 0, s>>>(l, h, a, d, n, iters, o);
+  } else {
+    walk_probe_kernel<false><<<blocks, threads, 0, s>>>(l, h, a, d, n, iters, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int fetch_probe_launch(const void* rows, const void* row_of, int n,
-                                  int iters, void* out, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  fetch_probe_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+                                  int iters, int threads, void* out, void* stream) {
+  if (n <= 0 || threads <= 0 || threads > 1024 || threads % 32)
+    return cudaErrorInvalidValue;
+  fetch_probe_kernel<<<(n + threads - 1) / threads, threads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), static_cast<const int*>(row_of), n,
       iters, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int construct_probe_launch(int kind, const void* fa, const void* fb,
+                                      const void* ia, const void* ua,
+                                      const void* ub, int n, int k, void* out,
+                                      int threads, void* stream) {
+  if (!launch_shape_ok(n, k, threads)) return cudaErrorInvalidValue;
+  const auto* a = static_cast<const float*>(fa);
+  const auto* b = static_cast<const float*>(fb);
+  const auto* x = static_cast<const int*>(ia);
+  const auto* m0 = static_cast<const uint32_t*>(ua);
+  const auto* m1 = static_cast<const uint32_t*>(ub);
+  const int outer = k / kUnroll;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kMinMax: return launch_construct<kMinMax>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kCmpSel: return launch_construct<kCmpSel>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kInt: return launch_construct<kInt>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kVShift: return launch_construct<kVShift>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kBarrel: return launch_construct<kBarrel>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kI2F: return launch_construct<kI2F>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kBitAt: return launch_construct<kBitAt>(a, b, x, m0, m1, n, outer, out, threads, s);
+    case kPc64: return launch_construct<kPc64>(a, b, x, m0, m1, n, outer, out, threads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// table: int32 [n_nodes, 3] on the device, n_nodes a power of two <= 4096.
+extern "C" int node_gather_probe_launch(int space, const void* table,
+                                        int n_nodes, const void* idx0, int n,
+                                        int k, void* acc, void* fold,
+                                        int threads, void* stream) {
+  if (!launch_shape_ok(n, k, threads) || n_nodes <= 0 || n_nodes > kMaxNodes ||
+      (n_nodes & (n_nodes - 1)))
+    return cudaErrorInvalidValue;
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto* start = static_cast<const int*>(idx0);
+  auto* a = static_cast<int*>(acc);
+  auto* f = static_cast<int*>(fold);
+  const int outer = k / kUnroll;
+  const int blocks = (n + threads - 1) / threads;
+  const size_t bytes = static_cast<size_t>(n_nodes) * 3 * sizeof(uint32_t);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (space) {
+    case kGlobal:
+      node_gather_probe_kernel<kGlobal><<<blocks, threads, 0, s>>>(
+          tab, n_nodes, start, n, outer, a, f);
+      break;
+    case kShared: {
+      if (bytes > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            node_gather_probe_kernel<kShared>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        if (e != cudaSuccess) return static_cast<int>(e);
+      }
+      node_gather_probe_kernel<kShared><<<blocks, threads, bytes, s>>>(
+          tab, n_nodes, start, n, outer, a, f);
+      break;
+    }
+    case kConstant: {
+      const cudaError_t e = cudaMemcpyToSymbolAsync(
+          c_nodes, tab, bytes, 0, cudaMemcpyDeviceToDevice, s);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      node_gather_probe_kernel<kConstant><<<blocks, threads, 0, s>>>(
+          tab, n_nodes, start, n, outer, a, f);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tab: int32 [64, 3] on the device.
+extern "C" int table_select_probe_launch(int form, const void* tab,
+                                         const void* idx0, int n, int k,
+                                         void* out, int threads, void* stream) {
+  if (!launch_shape_ok(n, k, threads)) return cudaErrorInvalidValue;
+  const auto* t = static_cast<const uint32_t*>(tab);
+  const auto* start = static_cast<const int*>(idx0);
+  auto* o = static_cast<int*>(out);
+  const int outer = k / kUnroll;
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (form) {
+    case kSelConstant: {
+      const cudaError_t e = cudaMemcpyToSymbolAsync(
+          c_select, t, sizeof(c_select), 0, cudaMemcpyDeviceToDevice, s);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      table_select_probe_kernel<kSelConstant><<<blocks, threads, 0, s>>>(t, start, n, outer, o);
+      break;
+    }
+    case kSelShared:
+      table_select_probe_kernel<kSelShared><<<blocks, threads, 0, s>>>(t, start, n, outer, o);
+      break;
+    case kSelShuffle:
+      table_select_probe_kernel<kSelShuffle><<<blocks, threads, 0, s>>>(t, start, n, outer, o);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int calib_probe_launch(int kind, const void* a, const void* b, int n,
+                                  int k, void* out, int threads, void* stream) {
+  if (!launch_shape_ok(n, k, threads)) return cudaErrorInvalidValue;
+  const auto* x = static_cast<const float*>(a);
+  const auto* y = static_cast<const float*>(b);
+  auto* o = static_cast<float*>(out);
+  const int outer = k / kUnroll;
+  const int blocks = (n + threads - 1) / threads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case kChain: calib_probe_kernel<kChain><<<blocks, threads, 0, s>>>(x, y, n, outer, o); break;
+    case kPar8: calib_probe_kernel<kPar8><<<blocks, threads, 0, s>>>(x, y, n, outer, o); break;
+    default: return cudaErrorInvalidValue;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -552,6 +552,21 @@ def default_max_rounds(snodes, T: int, max_probes: int, max_dda: int) -> int:
     return _rounds_for(snodes, T, max_probes, max_dda)
 
 
+def round_lanes(state):
+    """The round's one host sync: the lanes still unresolved (int32)."""
+    return torch.nonzero(~state[0]).reshape(-1).to(torch.int32)
+
+
+def supernode_handoff(emit, bt1, tqn, sn):
+    """The supernode stage's outputs `sn` -> the leaf stage's (emit,
+    child, bt1, tqe) and the lanes' resume keys tqn: lanes whose supernode
+    held nothing past tq resume at its exit (or at the DDA's resume key
+    when capped)."""
+    emit2, bp1, bp2i, brick, bp3, btq, more_s, tqr_s = sn
+    tqn = torch.where(emit & ~emit2, torch.where(more_s, tqr_s, _min3(bt1)), tqn)
+    return emit2, brick, torch.stack([bp1, bp2i.view(torch.float32), bp3]), btq, tqn
+
+
 def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
            T, shadow, max_probes, max_dda, max_rounds):
     """The round loop with the given (probe, dda, merge): the kernel
@@ -571,25 +586,18 @@ def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
     rays = (bounds, ro, rd)
     rounds = 0
     while rounds < max_rounds:
-        # the round's one host sync: how many lanes are still active
-        idx = torch.nonzero(~state[0]).reshape(-1).to(torch.int32)
+        idx = round_lanes(state)
         if idx.shape[0] == 0:
             break
         emit, child, bt1, tqe, tqn, exh = probe(
             levels, level_off, T, root_mask, *rays, idx, state[1],
             max_probes=max_probes)
         if fat:
-            # stage 1: the supernode row walk emits the next brick + planes;
-            # lanes whose supernode held nothing past tq resume at its exit
-            # (or at the DDA's resume key when capped)
-            (emit2, bp1, bp2i, brick, bp3, btq, more_s, tqr_s) = dda(
-                snodes, *rays, idx, emit, child, bt1, tqe,
-                dt_factor=0.25 ** T, leaf=False, shadow=shadow,
-                max_iters=max_dda)
-            tqn = torch.where(emit & ~emit2,
-                              torch.where(more_s, tqr_s, _min3(bt1)), tqn)
-            emit, child, tqe = emit2, brick, btq
-            bt1 = torch.stack([bp1, bp2i.view(torch.float32), bp3])
+            # stage 1: the supernode row walk emits the next brick + planes
+            emit, child, bt1, tqe, tqn = supernode_handoff(
+                emit, bt1, tqn, dda(snodes, *rays, idx, emit, child, bt1, tqe,
+                                    dt_factor=0.25 ** T, leaf=False,
+                                    shadow=shadow, max_iters=max_dda))
         hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = dda(
             bricks, *rays, idx, emit, child, bt1, tqe,
             dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, shadow=shadow,

@@ -1,20 +1,33 @@
-"""Hopper microbenchmarks of two questions the megakernel's design asks
+"""Hopper microbenchmarks of the questions the megakernel's design asks
 (csrc/hako_probes.cu; ports of the reference's Pallas probes
-scripts/gather_probe3.py, scripts/dma_gather_probe3.py and
-scripts/hako_kernel_micro.py):
+scripts/gather_probe3.py, scripts/dma_gather_probe3.py,
+scripts/construct_micro.py and scripts/hako_kernel_micro.py):
 
   * `row_chase`: chains of dependent brick-row gathers, each row's index
     read from the row before, three ways (CHASE_MODES): 4 B a thread
     (word 0), 16 B a thread (the xor of words 0-3) and a whole 656-byte
     row a warp (the xor of all 164 words), 1, 2 or 4 chains a thread (or
     warp) in flight. Output: each chain's final row.
-  * `walk_probe` / `fetch_probe`: walk64 alone on register-resident masks,
-    and the row-word fetch alone, each looped `iters` times a lane.
-    Output: a checksum a lane.
+  * `walk_probe` / `fetch_probe`: walk64 (or the 64-cell scan64 sweep)
+    alone on register-resident masks, and the row-word fetch alone, each
+    looped `iters` times a lane. Output: a checksum a lane.
+  * `construct_probe`: k dependent repeats of one vector construct a lane
+    (CONSTRUCTS: construct_micro.py's eight kernels).
+  * `node_gather_probe`: k dependent node fetches from an int32 [n, 3]
+    node table (mask_lo, mask_hi, base) in global, shared or constant
+    memory (SPACES; hako_kernel_micro.py k_gflat / k_gsplit).
+  * `table_select_probe`: k dependent selects from 64 entries of 3 words
+    in constant memory, shared memory or registers with warp shuffles
+    (FORMS; hako_kernel_micro.py k_fold).
+  * `calib_probe`: k dependent multiply-adds against 8 independent
+    chains of k (CALIBS; hako_kernel_micro.py calibrate, k = 1024 / 128).
 
-Each has a plain PyTorch version computing the same output. The wrappers
-run the plain version for CPU tensors and launch the kernel for CUDA
-tensors (counted in LAUNCHES), and raise for anything else.
+Each has a plain PyTorch version computing the same output (u32 kept as
+int64 & MASK32, every float op rounded on its own). The wrappers run the
+plain version for CPU tensors and launch the kernel for CUDA tensors
+(counted in LAUNCHES), and raise for anything else. `threads` is the
+block size of a launch (a multiple of 32): 32 with one block an SM
+measures a dependent repeat's latency, 256 the card's rate.
 """
 
 from __future__ import annotations
@@ -22,12 +35,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bits import MASK32
-from .hako_kernels import _walk64_impl
+from .bits import MASK32, to_i32_bits, u32
+from .hako_kernels import _bit_at, _pc64_below, _scan64_impl, _walk64_impl
 
 ROW_WORDS = 164
 CHASE_MODES = ("4B", "16B", "warp_row")
-LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0}
+WALK_IMPLS = ("walk", "scan")
+# construct -> its inputs: f f32, i i32, u u32 bit patterns (as int32)
+CONSTRUCTS = {"minmax": "ff", "cmpsel": "ff", "int": "i", "vshift": "iu",
+              "barrel": "iu", "i2f": "i", "bitat": "iuu", "pc64": "iuu"}
+FLOAT_CONSTRUCTS = ("minmax", "cmpsel", "i2f")
+SPACES = ("global", "shared", "constant")
+MAX_NODES = 4096  # the constant-memory node table: 4096 x 12 B = 48 KB
+FORMS = ("constant", "shared", "shuffle")
+CALIBS = ("chain", "par8")
+CALIB_MUL = 1.0000001  # 1 + 2^-23 as f32
+UNROLL = 8  # repeats a pass of the kernels' outer loop: k is a multiple
+N_TAB_SEG = 11  # byte segments of a reference node: 4 + 4 + 3
+LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
+            "construct_probe": 0, "node_gather_probe": 0,
+            "table_select_probe": 0, "calib_probe": 0}
 
 
 def reset_counters() -> None:
@@ -93,6 +120,16 @@ def _check(name, x, device, dtype, shape):
                          f"{device}, got {x.dtype} {list(x.shape)} on {x.device}")
 
 
+def _check_threads(threads):
+    if threads <= 0 or threads > 1024 or threads % 32:
+        raise ValueError(f"threads must be a multiple of 32 up to 1024, not {threads}")
+
+
+def _check_repeats(k):
+    if k <= 0 or k % UNROLL:
+        raise ValueError(f"k must be a positive multiple of {UNROLL}, not {k}")
+
+
 def _launched(name, rc):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -128,25 +165,30 @@ def row_chase(rows, start, *, hops: int, mode: str, chains: int, blocks: int,
     return end
 
 
-def walk_probe_plain(lo, hi, t1, dc, *, iters: int):
-    """Sum over `iters` of walk64's cell (64 = none) on masks (lo, hi)
-    stepped by an LCG; t1 / dc f32 [3, N] held fixed, vm6 = 0, t_q = 0."""
+def walk_probe_plain(lo, hi, t1, dc, *, iters: int, impl: str = "walk"):
+    """Sum over `iters` of walk64's cell (64 = none; impl "scan": the
+    64-cell sweep's) on masks (lo, hi) stepped by an LCG; t1 / dc f32
+    [3, N] held fixed, vm6 = 0, t_q = 0."""
+    walk = {"walk": _walk64_impl, "scan": _scan64_impl}[impl]
     lo = lo.long() & MASK32
     hi = hi.long() & MASK32
     zero = torch.zeros_like(lo)
     tq = torch.zeros_like(t1[0])
     acc = torch.zeros_like(lo)
     for _ in range(iters):
-        acc = acc + _walk64_impl(lo, hi, zero, t1, dc, tq)[2]
+        acc = acc + walk(lo, hi, zero, t1, dc, tq)[2]
         lo = (lo * 1664525 + 1013904223) & MASK32
         hi = (hi * 22695477 + 1) & MASK32
     return acc.to(torch.int32)
 
 
-def walk_probe(lo, hi, t1, dc, *, iters: int):
+def walk_probe(lo, hi, t1, dc, *, iters: int, impl: str = "walk",
+               threads: int = 256):
     """As walk_probe_plain; lo / hi int32 [N] (u32 bit patterns)."""
+    if impl not in WALK_IMPLS:
+        raise ValueError(f"no walk probe {impl!r}")
     if _device_of(lo, "walk_probe") == "cpu":
-        return walk_probe_plain(lo, hi, t1, dc, iters=iters)
+        return walk_probe_plain(lo, hi, t1, dc, iters=iters, impl=impl)
     from ..utils import cuda_build
 
     dev = lo.device
@@ -155,13 +197,15 @@ def walk_probe(lo, hi, t1, dc, *, iters: int):
     _check("hi", hi, dev, torch.int32, (n,))
     _check("t1", t1, dev, torch.float32, (3, n))
     _check("dc", dc, dev, torch.float32, (3, n))
+    _check_threads(threads)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     with torch.cuda.device(dev):
         rc = cuda_build.load().walk_probe_launch(
             lo.data_ptr(), hi.data_ptr(), t1.data_ptr(), dc.data_ptr(), n,
-            int(iters), out.data_ptr(), _stream(dev))
+            int(iters), WALK_IMPLS.index(impl), int(threads), out.data_ptr(),
+            _stream(dev))
     _launched("walk_probe", rc)
     return out
 
@@ -179,7 +223,7 @@ def fetch_probe_plain(rows, row_of, *, iters: int):
     return acc.to(torch.int32)
 
 
-def fetch_probe(rows, row_of, *, iters: int):
+def fetch_probe(rows, row_of, *, iters: int, threads: int = 256):
     """As fetch_probe_plain; rows int32 [N, 164], row_of int32 [lanes]."""
     if _device_of(row_of, "fetch_probe") == "cpu":
         return fetch_probe_plain(rows, row_of, iters=iters)
@@ -189,6 +233,7 @@ def fetch_probe(rows, row_of, *, iters: int):
     n = row_of.shape[0]
     _check("rows", rows, dev, torch.int32, (rows.shape[0], ROW_WORDS))
     _check("row_of", row_of, dev, torch.int32, (n,))
+    _check_threads(threads)
     if rows.data_ptr() % 16:
         raise ValueError("rows: need a 16-byte aligned table")
     out = torch.empty(n, dtype=torch.int32, device=dev)
@@ -196,7 +241,240 @@ def fetch_probe(rows, row_of, *, iters: int):
         return out
     with torch.cuda.device(dev):
         rc = cuda_build.load().fetch_probe_launch(
-            rows.data_ptr(), row_of.data_ptr(), n, int(iters), out.data_ptr(),
-            _stream(dev))
+            rows.data_ptr(), row_of.data_ptr(), n, int(iters), int(threads),
+            out.data_ptr(), _stream(dev))
     _launched("fetch_probe", rc)
+    return out
+
+
+def construct_plain(kind: str, inputs, k: int):
+    """k dependent repeats of construct_micro.py's construct `kind` on
+    `inputs` (one [N] tensor per letter of CONSTRUCTS[kind]). Returns f32
+    [N] (FLOAT_CONSTRUCTS) or int32 [N]."""
+    if kind in ("minmax", "cmpsel"):
+        x, y = inputs
+        for _ in range(k):
+            if kind == "minmax":
+                x = torch.minimum(torch.maximum(x, y), y + x)
+            else:
+                x = torch.where(x < y, x + y, y)
+        return x
+    x = inputs[0].long()
+    if kind == "i2f":
+        acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        for _ in range(k):
+            acc = acc + (x & 255).to(torch.float32)
+            x = x ^ acc.long()  # acc < 2^24 and integral: the cast is exact
+        return acc
+    m = [u32(v) for v in inputs[1:]]
+    for _ in range(k):
+        if kind == "int":
+            x = ((x + 7) & 0x7FFFFFF) ^ (x >> 3)
+        elif kind == "vshift":
+            x = x + ((m[0] >> (x & 31)) & 1)
+        elif kind == "barrel":
+            sh = x & 31
+            v = m[0]
+            for b in (1, 2, 4, 8, 16):
+                v = torch.where((sh & b) != 0, v >> b, v)
+            x = x + (v & 1)
+        elif kind == "bitat":
+            x = x + _bit_at(m[0], m[1], x & 63).long()
+        else:
+            x = x + _pc64_below(m[0], m[1], x & 63)
+    return to_i32_bits(x)
+
+
+def construct_probe(kind: str, inputs, *, k: int, threads: int = 256):
+    """As construct_plain; k a multiple of UNROLL."""
+    if kind not in CONSTRUCTS:
+        raise ValueError(f"no construct {kind!r}")
+    letters = CONSTRUCTS[kind]
+    if len(inputs) != len(letters):
+        raise ValueError(f"{kind} takes {len(letters)} inputs, not {len(inputs)}")
+    _check_repeats(k)
+    if _device_of(inputs[0], "construct_probe") == "cpu":
+        return construct_plain(kind, inputs, k)
+    from ..utils import cuda_build
+
+    dev = inputs[0].device
+    n = inputs[0].shape[0]
+    for j, (x, c) in enumerate(zip(inputs, letters)):
+        _check(f"input {j}", x, dev, torch.float32 if c == "f" else torch.int32, (n,))
+    _check_threads(threads)
+    slots = {"f": [], "i": [], "u": []}
+    for x, c in zip(inputs, letters):
+        slots[c].append(x.data_ptr())
+    fa, fb = (slots["f"] + [None, None])[:2]
+    ua, ub = (slots["u"] + [None, None])[:2]
+    ia = (slots["i"] + [None])[0]
+    out = torch.empty(n, dtype=torch.float32 if kind in FLOAT_CONSTRUCTS
+                      else torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().construct_probe_launch(
+            list(CONSTRUCTS).index(kind), fa, fb, ia, ua, ub, n, int(k),
+            out.data_ptr(), int(threads), _stream(dev))
+    _launched("construct_probe", rc)
+    return out
+
+
+def node_table_from_segments(tab, device="cpu"):
+    """The reference's byte-segment node tables -> the port's int32
+    [n, 3] (mask_lo, mask_hi, base) table. tab (numpy) is either the flat
+    f32 [n, 16] of hako_kernels._gather_node_flat (segment k in column k)
+    or the split f32 [rows, 11 * 128] of _gather_node (node r * 128 + j's
+    segment k at [r, k * 128 + j]); a segment is a byte value, truncated
+    to an integer as the reference's gathers do (astype(int32))."""
+    tab = np.asarray(tab, np.float32)
+    if tab.ndim == 2 and tab.shape[1] == 16:
+        seg = tab[:, :N_TAB_SEG]
+    elif tab.ndim == 2 and tab.shape[1] == N_TAB_SEG * 128:
+        seg = tab.reshape(-1, N_TAB_SEG, 128).transpose(0, 2, 1).reshape(-1, N_TAB_SEG)
+    else:
+        raise ValueError(f"not a flat [n, 16] or split [rows, {N_TAB_SEG * 128}] "
+                         f"table: {tab.shape}")
+    b = seg.astype(np.int32).astype(np.uint32)
+    lo = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    hi = b[:, 4] | (b[:, 5] << 8) | (b[:, 6] << 16) | (b[:, 7] << 24)
+    base = b[:, 8] | (b[:, 9] << 8) | (b[:, 10] << 16)
+    nodes = np.stack([lo, hi, base], 1).view(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(nodes)).to(device)
+
+
+def node_gather_plain(table, idx0, k: int):
+    """k dependent node fetches a lane: idx = (idx0 + acc) & (n - 1),
+    acc = (acc + base[idx]) & 31, fold ^= mask_lo[idx] ^ mask_hi[idx].
+    table int32 [n, 3], n a power of two. Returns (acc, fold) int32 [N]."""
+    n = table.shape[0]
+    words = u32(table)
+    start = idx0.long()
+    acc = torch.zeros_like(start)
+    fold = torch.zeros_like(start)
+    for _ in range(k):
+        node = words[(start + acc) & (n - 1)]
+        acc = (acc + node[:, 2]) & 31
+        fold = fold ^ node[:, 0] ^ node[:, 1]
+    return acc.to(torch.int32), to_i32_bits(fold)
+
+
+def node_gather_probe(table, idx0, *, k: int, space: str, threads: int = 256):
+    """As node_gather_plain, with the table in `space` (SPACES); n a power
+    of two up to MAX_NODES, k a multiple of UNROLL."""
+    n = table.shape[0]
+    if space not in SPACES:
+        raise ValueError(f"no node table space {space!r}")
+    if n <= 0 or n > MAX_NODES or n & (n - 1):
+        raise ValueError(f"node table of {n} nodes: need a power of two up to "
+                         f"{MAX_NODES}")
+    _check_repeats(k)
+    if _device_of(idx0, "node_gather_probe") == "cpu":
+        return node_gather_plain(table, idx0, k)
+    from ..utils import cuda_build
+
+    dev = idx0.device
+    m = idx0.shape[0]
+    _check("table", table, dev, torch.int32, (n, 3))
+    _check("idx0", idx0, dev, torch.int32, (m,))
+    _check_threads(threads)
+    acc = torch.empty(m, dtype=torch.int32, device=dev)
+    fold = torch.empty_like(acc)
+    if m == 0:
+        return acc, fold
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().node_gather_probe_launch(
+            SPACES.index(space), table.data_ptr(), n, idx0.data_ptr(), m,
+            int(k), acc.data_ptr(), fold.data_ptr(), int(threads), _stream(dev))
+    _launched("node_gather_probe", rc)
+    return acc, fold
+
+
+def table_select_plain(tab, idx0, k: int):
+    """k dependent selects a lane from tab int32 [64, 3]: sel = (idx0 +
+    acc) & 63, acc = (acc + (w0 ^ w1 ^ w2)) & 31 of row sel. Returns acc
+    int32 [N]."""
+    words = u32(tab)
+    start = idx0.long()
+    acc = torch.zeros_like(start)
+    for _ in range(k):
+        row = words[(start + acc) & 63]
+        acc = (acc + (row[:, 0] ^ row[:, 1] ^ row[:, 2])) & 31
+    return acc.to(torch.int32)
+
+
+def table_select_probe(tab, idx0, *, k: int, form: str, threads: int = 256):
+    """As table_select_plain, with the table in `form` (FORMS); k a
+    multiple of UNROLL."""
+    if form not in FORMS:
+        raise ValueError(f"no table form {form!r}")
+    _check_repeats(k)
+    if _device_of(idx0, "table_select_probe") == "cpu":
+        return table_select_plain(tab, idx0, k)
+    from ..utils import cuda_build
+
+    dev = idx0.device
+    m = idx0.shape[0]
+    _check("tab", tab, dev, torch.int32, (64, 3))
+    _check("idx0", idx0, dev, torch.int32, (m,))
+    _check_threads(threads)
+    out = torch.empty(m, dtype=torch.int32, device=dev)
+    if m == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().table_select_probe_launch(
+            FORMS.index(form), tab.data_ptr(), idx0.data_ptr(), m, int(k),
+            out.data_ptr(), int(threads), _stream(dev))
+    _launched("table_select_probe", rc)
+    return out
+
+
+CALIB_REPEATS = {"chain": 1024, "par8": 128}  # the reference's
+
+
+def calib_plain(kind: str, a, b, k: int | None = None):
+    """calibrate()'s kernels, every multiply and add rounded on its own:
+    "chain" k dependent a = a * CALIB_MUL + b; "par8" 8 chains of k from
+    a + j with b = a, summed in order. k defaults to CALIB_REPEATS[kind].
+    f32 [N]."""
+    k = CALIB_REPEATS[kind] if k is None else k
+    c = torch.tensor(CALIB_MUL, dtype=torch.float32, device=a.device)
+    if kind == "chain":
+        x = a
+        for _ in range(k):
+            x = x * c + b
+        return x
+    xs = [a + torch.tensor(float(j), dtype=torch.float32, device=a.device)
+          for j in range(8)]
+    for _ in range(k):
+        xs = [x * c + a for x in xs]
+    r = xs[0]
+    for x in xs[1:]:
+        r = r + x
+    return r
+
+
+def calib_probe(kind: str, a, b, *, k: int | None = None, threads: int = 256):
+    """As calib_plain; a / b f32 [N], k a multiple of UNROLL."""
+    if kind not in CALIBS:
+        raise ValueError(f"no calibration kernel {kind!r}")
+    k = CALIB_REPEATS[kind] if k is None else k
+    _check_repeats(k)
+    if _device_of(a, "calib_probe") == "cpu":
+        return calib_plain(kind, a, b, k)
+    from ..utils import cuda_build
+
+    dev = a.device
+    n = a.shape[0]
+    _check("a", a, dev, torch.float32, (n,))
+    _check("b", b, dev, torch.float32, (n,))
+    _check_threads(threads)
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().calib_probe_launch(
+            CALIBS.index(kind), a.data_ptr(), b.data_ptr(), n, int(k),
+            out.data_ptr(), int(threads), _stream(dev))
+    _launched("calib_probe", rc)
     return out

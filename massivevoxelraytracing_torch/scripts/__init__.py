@@ -1,0 +1,5 @@
+"""The port's measurement scripts, run as `python -m
+massivevoxelraytracing_torch.scripts.<name>`: construct_micro,
+hako_kernel_micro and hako_phase_timing (the JAX package's scripts of
+those names, on the card; `--device cpu` runs the plain versions at a
+small size)."""

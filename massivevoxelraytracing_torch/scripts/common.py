@@ -1,0 +1,251 @@
+"""What the probe scripts share: the device they run on, the card's name,
+its launch shapes, CUDA-event timing, and one probe case measured against
+its plain version with its instruction counts and floors."""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+SCHEDULERS = 4             # warp instructions an SM issues a cycle
+# repeats a lane, at least, at the one-warp-an-SM and full-occupancy
+# shapes: enough for the k-to-2k difference to stand well above the
+# events' noise, few enough that checking every timed launch against its
+# plain version (a few eager ops a repeat) stays short
+LATENCY_REPEATS = 1024
+RATE_REPEATS = 256
+SCRIPT_LANES = 64 * 2048   # the JAX scripts' grid of 64 blocks of 2048 lanes
+CPU_LANES = 256            # the plain versions' size on the CPU
+
+
+def add_device_arg(ap) -> None:
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default): the kernels on the card; cpu: the "
+                    "plain versions at a small size (no device times)")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device to run on; raises for a card that is not there."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: run on the card, or pass --device cpu "
+                           "for the plain versions")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no probe kernels for device {dev}")
+    return dev
+
+
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits" if "clocks" in query
+                          else "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card(device) -> str:
+    """The card's name and power limit as nvidia-smi gives them; on the
+    CPU, a note that no number is a device time."""
+    if device.type != "cuda":
+        return "CPU: plain versions, no device time"
+    return _smi("name,power.limit")
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    return float(_smi("clocks.max.sm")) * 1e6
+
+
+def shapes(device, k: int, latency_k: int = LATENCY_REPEATS,
+           rate_k: int = RATE_REPEATS) -> list:
+    """The launch shapes of a probe whose script repeats k times a lane:
+    one warp an SM (a dependent repeat's latency, at least latency_k
+    repeats), full occupancy (the card's rate, at least rate_k) and the
+    JAX script's own 131,072 lanes at its k."""
+    if device.type != "cuda":
+        return [dict(shape="cpu", lanes=CPU_LANES, threads=32, k=k)]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return [dict(shape="one warp an SM", lanes=sms * 32, threads=32,
+                 k=max(k, latency_k)),
+            dict(shape="full occupancy", lanes=sms * 2048, threads=256,
+                 k=max(k, rate_k)),
+            dict(shape="script", lanes=SCRIPT_LANES, threads=256, k=k)]
+
+
+HOST_CYCLES_A_CALL = 400_000  # ~0.2 ms of the card's clock: a wrapper call's host time
+
+
+def queue_ahead(calls: int) -> None:
+    """Park the stream on a spin kernel long enough for the host to queue
+    `calls` launches behind it, so that the events time the card and not
+    the host's launch overhead (a wrapper call costs tens of microseconds
+    of Python, longer than a short probe launch)."""
+    torch.cuda._sleep(HOST_CYCLES_A_CALL * calls)
+
+
+def timed(fn, reps: int = 20, warm: bool = True):
+    """(the last call's result, ms a call) with CUDA events around `reps`
+    calls queued behind a spin kernel, after one warm call unless `warm`
+    is false."""
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    queue_ahead(reps)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop) / reps
+
+
+def best_ms(fns, trials: int = 3, reps: int = 10) -> list:
+    """The least of `trials` timed ms of each fn, taken in turns."""
+    best = [float("inf")] * len(fns)
+    for _ in range(trials):
+        for j, fn in enumerate(fns):
+            best[j] = min(best[j], timed(fn, reps)[1])
+    return best
+
+
+def warm_up(device, seconds: float = 0.3) -> None:
+    """Keep the card busy for about `seconds` so its clocks leave idle
+    before anything is timed (8 independent multiply-add chains a lane,
+    the calibration kernel, over the whole card)."""
+    from ..ops import probes
+
+    lanes = torch.cuda.get_device_properties(device).multi_processor_count * 2048
+    a = torch.ones(lanes, dtype=torch.float32, device=device)
+    t0 = time.time()
+    while time.time() - t0 < seconds:
+        probes.calib_probe("par8", a, a, k=8192)
+        torch.cuda.synchronize()
+
+
+def event_ms_each(fn, setup, reps: int = 10) -> float:
+    """ms a call of fn(setup()) with CUDA events around fn alone, queued
+    behind a spin kernel (setup, e.g. a copy of a state that fn updates
+    in place, untimed)."""
+    fn(setup())
+    total = 0.0
+    for _ in range(reps):
+        arg = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        queue_ahead(1)
+        start.record()
+        fn(arg)
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+class Meter:
+    """Measures probe cases on one device: each case's kernel against its
+    plain version, bit for bit, at every repeat count that is then timed;
+    then on the card its time at k and 2k repeats (the least of 3 turns
+    of 10 launches each), its loop's SASS instructions a repeat, and its
+    floors: the issue floor (warp instructions over SMS x SCHEDULERS a
+    cycle at the maximum clock), the bytes floor and, once `dep_ns` is
+    set, the latency floor (the dependent chain a repeat at dep_ns a
+    dependent instruction).
+
+    What a repeat costs comes from the difference of the two times, over
+    k, whatever the launch's fixed costs: at one warp an SM the ns of a
+    dependent repeat, at full occupancy the card's G repeats/s. At the
+    JAX scripts' shape the launch is short, so it is timed at k alone and
+    its numbers are those of the whole launch: ns a block-repeat (a block
+    of 2048 lanes, as the scripts count) and G repeats/s."""
+
+    def __init__(self, device):
+        self.device = device
+        self.card = card(device)
+        self.dep_ns = None
+        self.calibrated = False
+        self.records = []
+        if device.type == "cuda":
+            from ..utils import cuda_build, sass
+
+            cuda_build.load()
+            self.funcs = sass.functions(sass.dump(cuda_build.LIB_PATH))
+            self.sms = torch.cuda.get_device_properties(device).multi_processor_count
+            self.clock = sm_clock_hz()
+            warm_up(device)
+
+    def counts(self, kernel: str, *targs, repeats: int) -> dict:
+        from ..utils import sass
+
+        return sass.loop_counts(self.funcs, kernel, *targs, repeats=repeats)
+
+    def case(self, name: str, kernel: str, targs: tuple, shape: dict, run, plain,
+             n_bytes: int, repeats: int) -> dict:
+        """run(k) launches the kernel, plain(k) its plain version on the
+        same inputs. repeats: the repeats one pass of the kernel's loop
+        holds."""
+        lanes, threads, k = shape["lanes"], shape["threads"], shape["k"]
+        cuda = self.device.type == "cuda"
+        two_k = cuda and shape["shape"] != "script"
+        ks = (k, 2 * k) if two_k else (k,)
+        err = 0.0
+        for kk in ks:
+            for g, w in zip(_outputs(run(kk)), _outputs(plain(kk))):
+                if g.dtype.is_floating_point:
+                    err = max(err, float((g - w).abs().max()))
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{name} ({shape['shape']}, k={kk}): the "
+                                         "kernel differs from its plain version")
+        rec = dict(name=name, kernel=kernel, shape=shape["shape"], lanes=lanes,
+                   threads=threads, k=k, checked_k=list(ks), max_abs_err=err)
+        if not cuda:
+            print(f"{name:36s} {lanes} lanes x {k}: == plain version "
+                  f"[{self.card}]", flush=True)
+            self.records.append(rec)
+            return rec
+        ms, *ms2 = best_ms([lambda kk=kk: run(kk) for kk in ks])
+        c = self.counts(kernel, *targs, repeats=repeats)
+        warp_instr = lanes / 32 * k * c["per_repeat"]
+        issue_ms = warp_instr / (self.sms * SCHEDULERS * self.clock) * 1e3
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        rec.update(ms=ms, sass_per_repeat=c["per_repeat"],
+                   chain_per_repeat=c["chain_per_repeat"], sass_body=c["body"],
+                   issue_floor_ms=issue_ms, bytes_floor_ms=bytes_ms,
+                   bound_ms=max(issue_ms, bytes_ms),
+                   bound_by="operations" if issue_ms >= bytes_ms else "bytes")
+        if self.dep_ns is not None:
+            rec["latency_floor_ms"] = k * c["chain_per_repeat"] * self.dep_ns * 1e-6
+        if shape["shape"] == "script":
+            rec["plain_ms"] = timed(lambda: plain(k), reps=1)[1]
+            rec["ns_per_block_repeat"] = ms * 1e6 / (k * lanes / 2048)
+            rec["g_repeats_per_s"] = lanes * k / (ms * 1e-3) / 1e9
+            what = (f"{rec['ns_per_block_repeat']:9.3f} ns a block-repeat, "
+                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s (whole launch)")
+        else:
+            rec["ms_2k"] = ms2[0]
+            slope = ms2[0] - ms
+            rec["ns_per_repeat"] = slope * 1e6 / k
+            rec["g_repeats_per_s"] = lanes * k / (slope * 1e-3) / 1e9
+            what = (f"{rec['ns_per_repeat']:9.3f} ns a dependent repeat "
+                    f"({rec['ns_per_repeat'] * self.clock * 1e-9:.1f} cycles)"
+                    if shape["shape"] == "one warp an SM" else
+                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s")
+        print(f"{name:26s} {shape['shape']:14s} {lanes:6d} x {k:4d}: == plain at "
+              f"{' and '.join(map(str, ks))}; "
+              f"{ms:9.4f} ms, {what}; SASS {c['per_repeat']:.2f} a repeat (chain "
+              f"{c['chain_per_repeat']:.2f}); floors: issue {issue_ms:.4f} ms, bytes "
+              f"{bytes_ms:.4f} ms"
+              + (f", latency {rec['latency_floor_ms']:.4f} ms"
+                 if "latency_floor_ms" in rec else "")
+              + f" [{self.card}]", flush=True)
+        self.records.append(rec)
+        return rec

@@ -143,12 +143,24 @@ def _bind(lib):
         p, p, p, i, i,                                 # rows, start, end, chains, hops
         i, i, i, i, p,                                 # mode, chains/thread, blocks, threads, stream
     ]
-    lib.walk_probe_launch.argtypes = [p, p, p, p, i, i, p, p]
-    lib.fetch_probe_launch.argtypes = [p, p, i, i, p, p]
+    lib.walk_probe_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
+    lib.fetch_probe_launch.argtypes = [p, p, i, i, i, p, p]
+    lib.construct_probe_launch.argtypes = [
+        i, p, p, p, p, p,                              # kind, fa, fb, ia, ua, ub
+        i, i, p, i, p,                                 # n, k, out, threads, stream
+    ]
+    lib.node_gather_probe_launch.argtypes = [
+        i, p, i, p, i, i,                              # space, table, nodes, idx0, n, k
+        p, p, i, p,                                    # acc, fold, threads, stream
+    ]
+    lib.table_select_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
+    lib.calib_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
                lib.hako_dda_launch, lib.hako_merge_launch,
                lib.row_chase_launch, lib.walk_probe_launch,
-               lib.fetch_probe_launch):
+               lib.fetch_probe_launch, lib.construct_probe_launch,
+               lib.node_gather_probe_launch, lib.table_select_probe_launch,
+               lib.calib_probe_launch):
         fn.restype = ctypes.c_int
     return lib
 

@@ -20,7 +20,11 @@ a third case appears on rays nearly parallel to an axis:
     axis' t extent over the root box (extent / |rd_a|): the structures
     compute the entry plane by different chains of f32 operations.
 
-Every disagreement must prove it is one of these, or the check fails.
+Every disagreement must prove it is one of these, or the check fails. A
+tie proves itself from the voxels' slabs: the same voxel reached through
+another face is entered on two axes at once (an edge or corner entry,
+`assert_face_tie`); two different voxels are each met by the ray and
+entered at their own t, within the tie tolerance.
 """
 
 from __future__ import annotations
@@ -32,11 +36,16 @@ from ..ops import morton as morton_ops
 F = np.float32
 
 
-def _slab(m_voxel, lower, dps, ro, rd):
-    """(entry, exit) of one voxel's AABB along the ray (inclusive slab)."""
+def _box(m_voxel, lower, dps):
+    """(lo, hi) corners of one voxel's AABB (f32 [3] each)."""
     x, y, z = morton_ops.np_decode(np.asarray([m_voxel], np.int64))
     lo = np.asarray(lower, F) + np.stack([x, y, z], -1).astype(F)[0] * F(dps)
-    hi = lo + F(dps)
+    return lo, lo + F(dps)
+
+
+def _slab(m_voxel, lower, dps, ro, rd):
+    """(entry, exit) of one voxel's AABB along the ray (inclusive slab)."""
+    lo, hi = _box(m_voxel, lower, dps)
     en, ex = -np.inf, np.inf
     for a in range(3):
         if rd[a] == 0.0:
@@ -76,6 +85,45 @@ def classify_vs_each_other(t1, m1, v1, t2, m2, v2, rtol=1e-5, atol=1e-7):
     return int((~agree).sum())
 
 
+def _axis_entries(m_voxel, lower, dps, ro, rd):
+    """Sorted per-axis slab entry times of one voxel (axes with rd = 0
+    left out)."""
+    lo, hi = _box(m_voxel, lower, dps)
+    tmins = []
+    for a in range(3):
+        if rd[a] == 0.0:
+            continue
+        t0 = (lo[a] - ro[a]) / rd[a]
+        t1 = (hi[a] - ro[a]) / rd[a]
+        tmins.append(min(t0, t1))
+    return sorted(tmins)
+
+
+def _is_face_tie(m_voxel, lower, dps, ro, rd, rtol=1e-5):
+    tmins = _axis_entries(m_voxel, lower, dps, ro, rd)
+    return len(tmins) >= 2 and bool(
+        np.isclose(tmins[-1], tmins[-2], rtol=rtol, atol=1e-7))
+
+
+def assert_face_tie(i, m_voxel, lower, dps, ro, rd, rtol=1e-5):
+    """A differing face axis at the same hit voxel and t is only legitimate
+    when the voxel is entered on two or more axes at once (an edge or
+    corner entry): checked from the per-axis slab entry times."""
+    assert _is_face_tie(m_voxel, lower, dps, ro, rd, rtol), (
+        f"ray {i}: face-axis mismatch without an axis tie "
+        f"(tmins={_axis_entries(m_voxel, lower, dps, ro, rd)})")
+
+
+def _entered_at(m_voxel, t, lower, dps, ro, rd, rtol, atol):
+    """The ray meets the voxel (its inclusive slab is not empty) and enters
+    it at t, both within the tie tolerance: at an edge the two voxels'
+    crossings are an ulp apart, and the f32 slab of the voxel that the
+    other walker's rounding skipped can come out empty by that ulp."""
+    en, ex = _slab(m_voxel, lower, dps, ro, rd)
+    return (ex >= en - (atol + rtol * abs(en))
+            and bool(np.isclose(en, t, rtol=rtol, atol=atol)))
+
+
 def classify_vs_oracle(i, m_sorted, lower, dps, ro, rd, t_dev, v_dev, t_ora,
                        v_ora, rtol=2e-5, atol=1e-6, graze_eps=1e-4):
     """A walker vs the inclusive brute-force slab oracle: a disagreement must
@@ -106,7 +154,14 @@ def _classify_pair(i, t1, m1, v1, t2, m2, v2, codes, lower, dps, extent, ro,
                    rd, rtol, atol, drift_ulps, graze_eps):
     hit1, hit2 = t1 < 1e37, t2 < 1e37
     if hit1 and hit2 and np.isclose(t1, t2, rtol=rtol, atol=atol):
-        return "tie"
+        c1, c2 = codes[int(v1)], codes[int(v2)]
+        if v1 == v2:
+            # the same voxel through another face: an edge / corner entry
+            if _is_face_tie(c1, lower, dps, ro, rd, rtol):
+                return "tie"
+        elif (_entered_at(c1, t1, lower, dps, ro, rd, rtol, atol)
+              and _entered_at(c2, t2, lower, dps, ro, rd, rtol, atol)):
+            return "tie"  # two voxels both entered at that t
     if hit1 and hit2 and v1 == v2 and m1 == m2:
         a = _AXIS_OF_NMAJOR[int(m1)]
         plane_scale = F(extent / max(abs(float(rd[a])), 1e-30))
@@ -133,7 +188,8 @@ def classify_structures(t1, m1, v1, t2, m2, v2, codes, lower, dps, extent,
                         graze_eps=1e-4) -> dict:
     """Two structures' walks over the same voxels (vidx = rank into the
     sorted int64 `codes`) on many rays (numpy): every disagreement must be
-    a tie, a graze or plane drift. extent: the root box's side. Returns
+    a proven tie (an axis tie at the same voxel, or two voxels each entered
+    at its t), a graze or plane drift. extent: the root box's side. Returns
     the counts of each."""
     hit1 = t1 < 1e37
     hit2 = t2 < 1e37

@@ -9,8 +9,11 @@ at small ray counts and on permuted rays, and its counting variant; the
 rtcamp app for two tiny frames on the card against the same run on the
 CPU (u8 images exact); the brick tree, the octree (DAG on and off), their
 walks, the streamed build, the terrain generator and the voxmesh /
-voxtriangle apps on the card against the same on the CPU. Imports nothing
-of JAX. Run on a card with
+voxtriangle apps on the card against the same on the CPU; the issue-cost
+probes (construct_probe, node_gather_probe, table_select_probe,
+calib_probe, the scan64 walk probe) against their plain versions on the
+card, bit for bit, at two block sizes and a ragged lane count. Imports
+nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -385,3 +388,76 @@ def test_mesh_apps_on_card_equal_cpu(cuda, tmp_path):
                  ("cuda/coverage.png", "cpu/coverage.png")):
         assert (tmp_path / a).read_bytes() == (tmp_path / b).read_bytes(), a
 
+
+
+PROBE_LANES = 1000  # not a multiple of 32: the last warp is partial
+PROBE_K = 24
+
+
+@pytest.mark.parametrize("threads", [32, 256])
+@pytest.mark.parametrize("kind", ["minmax", "cmpsel", "int", "vshift", "barrel",
+                                  "i2f", "bitat", "pc64"])
+def test_construct_probe_matches_plain(cuda, kind, threads):
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import construct_micro
+
+    xs = construct_micro.inputs(kind, PROBE_LANES, cuda, np.random.default_rng(5))
+    probes.reset_counters()
+    got = probes.construct_probe(kind, xs, k=PROBE_K, threads=threads)
+    assert probes.LAUNCHES["construct_probe"] == 1
+    assert torch.equal(got, probes.construct_plain(kind, xs, PROBE_K))
+
+
+@pytest.mark.parametrize("space", ["global", "shared", "constant"])
+@pytest.mark.parametrize("n_nodes,rows", [(128, None), (1024, 8), (4096, 32)])
+def test_node_gather_probe_matches_plain(cuda, space, n_nodes, rows):
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import hako_kernel_micro as km
+
+    rng = np.random.default_rng(n_nodes)
+    table = probes.node_table_from_segments(km.segment_table(n_nodes, rows, rng), cuda)
+    idx0 = torch.as_tensor(rng.integers(0, n_nodes - 31, PROBE_LANES)
+                           .astype(np.int32), device=cuda)
+    got = probes.node_gather_probe(table, idx0, k=PROBE_K, space=space)
+    for a, b in zip(got, probes.node_gather_plain(table, idx0, PROBE_K)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("form", ["constant", "shared", "shuffle"])
+def test_table_select_probe_matches_plain(cuda, form):
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(9)
+    tab = torch.as_tensor(rng.integers(0, 1 << 32, (64, 3), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=cuda)
+    idx0 = torch.as_tensor(rng.integers(0, 64, PROBE_LANES).astype(np.int32),
+                           device=cuda)
+    for threads in (32, 256):
+        got = probes.table_select_probe(tab, idx0, k=PROBE_K, form=form,
+                                        threads=threads)
+        assert torch.equal(got, probes.table_select_plain(tab, idx0, PROBE_K))
+
+
+@pytest.mark.parametrize("kind", ["chain", "par8"])
+def test_calib_probe_matches_plain(cuda, kind):
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(10)
+    a, b = (torch.as_tensor(rng.uniform(0.5, 2.0, PROBE_LANES).astype(np.float32),
+                            device=cuda) for _ in range(2))
+    assert torch.equal(probes.calib_probe(kind, a, b), probes.calib_plain(kind, a, b))
+
+
+@pytest.mark.parametrize("impl", ["walk", "scan"])
+def test_walk_probe_matches_plain(cuda, impl):
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import hako_kernel_micro as km
+
+    rng = np.random.default_rng(11)
+    t1, dc = km.ray_planes(PROBE_LANES, cuda, rng)
+    lo, hi = (torch.as_tensor(rng.integers(0, 1 << 32, PROBE_LANES, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32), device=cuda)
+              for _ in range(2))
+    got = probes.walk_probe(lo, hi, t1, dc, iters=PROBE_K, impl=impl, threads=32)
+    assert torch.equal(got, probes.walk_probe_plain(lo, hi, t1, dc, iters=PROBE_K,
+                                                    impl=impl))
