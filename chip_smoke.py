@@ -35,7 +35,7 @@ Phases (any failure raises, and the script exits non-zero):
   5. the probes (row chase, walk vs fetch), each held against its plain
      version before its rate is printed, and the frame's and batches'
      latency and walk floors from them;
-  5b. this slice's path, the issue-cost probes through their scripts'
+  5b. the issue-cost probes through their scripts'
      main(argv) with the probe and round kernels' counts set to 0 just
      before the phase and read just after it (each must have launched):
      scripts/hako_kernel_micro.py (calib_probe, walk64 / scan64,
@@ -56,6 +56,19 @@ Phases (any failure raises, and the script exits non-zero):
      and the full frame's rounds with its wall split into kernel and
      host time; the runs' launches (the isolated phases' among them)
      must add up to the phase's;
+  5c. this slice's path, with the probe and round kernels' counts set to
+     0 just before and read just after (each must have launched, and the
+     scripts' own counts must add up to the phase's):
+     scripts/hako_shell_micro.py --staged (kernel A's I/O shell in both
+     layouts with torch.add beside it, the shell + ray preamble, the real
+     kernel A at 1 and 2 probes, the probe body unrolled and by stage, on
+     the reference's 524,288 lanes and 256^3 tree) and
+     scripts/r3_phase_split.run on the phase-3 lattice (kernel A,
+     supernode rows, kernel B uncached and through the row cache of
+     hako_dda_cached in the round's order and sorted by row, the sort
+     alone, the distinct rows a block, the bookkeeping, one round against
+     the sum of its phases, the full frame); every case held bit for bit
+     against its plain version before it is timed;
   6. the apps on the card, each through its main(argv) into build/:
      rtcamp (the animated lattice, frames 0-2 of 24 at 1440x900, a full
      rebuild a frame at 512^3 then 1024^3, one 16-spp step; every PNG
@@ -84,7 +97,8 @@ Phases (any failure raises, and the script exits non-zero):
      (the PNG read back).
 
 Prints the card's name and power limit beside every timing, a JSON line
-of the probes' numbers (phase 5b's under "slice"), one JSON line of
+of the probes' numbers (phase 5b's under "slice", 5c's under "split"),
+one JSON line of
 kernel results, one entry for each hand-written kernel (with the apps'
 numbers, and phase 7's under "accel" and "shell"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -137,8 +151,6 @@ PARK_RES = 2048            # park="device" vs park="host", bit for bit
 SHELL_W, SHELL_H = 1920, 1088
 VOXRT7_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
                "360", "--mode", "color", "--oracle"]
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 ROW_BYTES = 164 * 4
 HOT_ROWS = 4096            # the row chase's L2-resident table (2.7 MB)
 LATENCY_HOPS = 256
@@ -163,11 +175,10 @@ def timed(fn, reps: int = 3, warm: bool = True):
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 rate."""
-    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = n_ops / F32_OPS_PER_S * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+    """(bound_ms, bound_by): scripts/common.bound."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    return common.bound(n_bytes, n_ops)
 
 
 def compare(kern, plain, what: str) -> dict:
@@ -280,7 +291,7 @@ def rounds_vs_plain(tree, ro, rd, shadow: bool, what: str, device) -> int:
     assert_bits_equal(got, mega, f"{what}: rounds vs megakernel")
     if hk.unresolved_lanes() or int(want[3].item()):
         raise AssertionError(f"{what}: rounds left lanes unresolved")
-    if min(hk.LAUNCHES.values()) < 1:
+    if min(hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS) < 1:
         raise AssertionError(f"{what}: a round kernel was not launched")
     return hk.ROUNDS
 
@@ -435,7 +446,7 @@ def phase_rounds_frame(tree, cam, img_mega, depth_mega, device, smi: str):
     img, depth = frame()
     torch.cuda.synchronize(device)
     wall_ms = (time.time() - t0) * 1e3
-    rounds, launches = hk.ROUNDS, dict(hk.LAUNCHES)
+    rounds, launches = hk.ROUNDS, {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
     unresolved = hk.unresolved_lanes()
     _, frame_ms = timed(frame, reps=2, warm=False)
     if not torch.equal(img, img_mega) or not torch.equal(depth, depth_mega):
@@ -533,13 +544,8 @@ def checked_rounds(tree, ro, rd, shadow: bool, what: str) -> Checked:
 
 def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     """Each kernel on its first-round inputs: ms (CUDA events), plain ms,
-    and its bound from these inputs. Bytes: what the kernel reads and
-    writes on these inputs, each once, counted by the lanes that take each
-    branch (a lane's idx, rays and row are read only where the kernel
-    reads them), each distinct row once; operations: a lower bound, the
-    ray preamble's ~30 float ops per lane and ~100 per row walked."""
-    import torch
-
+    and its bound from these inputs (scripts/common.probe_bound,
+    dda_bound, merge_bound)."""
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.scripts import common
 
@@ -548,41 +554,25 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     n = int(a[7].shape[0])  # idx
     ms = common.event_ms_each(lambda _: hk.hako_probe(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_probe_plain(*a, **k), reps=1, warm=False)
-    # every lane: in idx 4, ro/rd 24, tq 4; out emit 1, child 4, bt1 12,
-    # tqe/tqn 8, exh 1; the level tables once
-    lv = 0 if a[0] is None else a[0].numel() * 4
-    out["hako_probe"] = dict(ms=ms, plain_ms=p_ms, n=n,
-                             bound=bound(n * (32 + 26) + lv, 30 * n))
+    out["hako_probe"] = dict(ms=ms, plain_ms=p_ms, n=n, bound=common.probe_bound(
+        n, 0 if a[0] is None else a[0].numel()))
     a, k = chk.first[("hako_dda", True)]
     n = int(a[4].shape[0])
-    go, child = a[5], a[6]
-    rows = int(torch.unique(child[go]).numel())
+    n_go, rows = common.dda_counts(a[5], a[6])
     ms = common.event_ms_each(lambda _: hk.hako_dda(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_dda_plain(*a, **k), reps=1, warm=False)
-    n_go = int(go.sum())
-    # every lane: in go 1, tqe 4; out hit 1, t/nmaj/vr/p3/tqp/tqr 24, more 1;
-    # go lanes: in idx 4, ro/rd 24, child 4, bt1 12, and their rows
     out["hako_dda"] = dict(ms=ms, plain_ms=p_ms, n=n, rows=rows, n_go=n_go,
-                           bound=bound(n * (5 + 26) + n_go * 44
-                                       + rows * ROW_BYTES, 130 * n_go))
+                           bound=common.dda_bound(n, n_go, rows))
     state0, a = chk.first["hako_merge"]
     idx, emit, _bt1, _tqn, _exh, hit, _t, _nm, _vr, more, _tqr = a
-    n = int(idx.shape[0])
-    act = ~state0[0][idx.long()]
-    n_act = int(act.sum())
-    n_more = int((act & emit & more).sum())
-    n_plane = int((act & emit & ~more).sum())
-    n_hit = int((act & hit).sum())
+    counts = common.merge_counts(state0, idx, emit, hit, more)
+    n, n_hit = counts[0], counts[4]
     ms = common.event_ms_each(lambda s: hk.hako_merge(s, *a),
                     lambda: tuple(x.clone() for x in state0))
     _, p_ms = timed(lambda: hk.hako_merge_plain(
         tuple(x.clone() for x in state0), *a), reps=1, warm=False)
-    # every lane: in idx 4, resolved 1; active lanes: in tqn 4, emit/hit/exh
-    # 3, out resolved 1, tq 4; emitting lanes: in more 1, then tqr 4 (more)
-    # or bt1 12; hit lanes: in t/nmaj/vr 12, out t/nmaj/vrank 12
     out["hako_merge"] = dict(ms=ms, plain_ms=p_ms, n=n, n_hit=n_hit,
-                             bound=bound(n * 5 + n_act * 12 + n_more * 5
-                                         + n_plane * 13 + n_hit * 24, 3 * n_act))
+                             bound=common.merge_bound(*counts))
     for name, v in out.items():
         extra = "".join(f", {v[key]} {label}" for key, label in (
             ("n_go", "go lanes"), ("rows", "distinct rows"), ("n_hit", "hit lanes"))
@@ -724,7 +714,7 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     rpt.step(cam)
     torch.cuda.synchronize()
     rounds_s = time.time() - t0
-    launches = dict(hk.LAUNCHES)
+    launches = {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
     rounds = hk.ROUNDS
     if not torch.equal(rpt.accum, after_one):
         d = (rpt.accum - after_one).abs()
@@ -950,7 +940,7 @@ def phase_slice(tree, cam, smi: str) -> dict:
                                         label=f"lattice {GRID}^3", card=smi))
     torch.cuda.synchronize()
     launches = {k: probes.LAUNCHES[k] for k in SLICE_KERNELS}
-    round_launches = dict(hk.LAUNCHES)
+    round_launches = {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
     for name, n in {**launches, **round_launches}.items():
         if n < 1:
             raise AssertionError(f"phase 5b launched no {name} kernel")
@@ -973,6 +963,102 @@ def phase_slice(tree, cam, smi: str) -> dict:
           f"phases {isolated}); {time.time() - t0:.1f} s [{smi}]", flush=True)
     return dict(records=records, timing=timing, launches=launches,
                 round_launches=round_launches, isolated_launches=isolated)
+
+
+SHELL_KERNELS = ("shell_copy_probe", "preamble_probe", "probe_stage_probe")
+
+
+def phase_split(tree, smi: str) -> dict:
+    """Phase 5c: kernel A's fixed cost (scripts/hako_shell_micro.py, both
+    parts) and the round's phases with the row-cached kernel B
+    (scripts/r3_phase_split.run on the phase-3 lattice under the script's
+    camera), through their entry points, with the kernels' counts set to 0
+    just before and read just after."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import hako_shell_micro, r3_phase_split
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    probes.reset_counters()
+    hk.reset_counters()
+    shell = hako_shell_micro.main(["--staged"])
+    split = r3_phase_split.run(tree, r3_phase_split.script_camera(tree), WIDTH, 1088,
+                               label=f"lattice {GRID}^3", card=smi)
+    torch.cuda.synchronize()
+    launches = {k: probes.LAUNCHES[k] for k in SHELL_KERNELS}
+    round_launches = dict(hk.LAUNCHES)
+    for name, n in {**launches, **round_launches}.items():
+        if n < 1:
+            raise AssertionError(f"phase 5c launched no {name} kernel")
+    counted = sum(r["launches"] for r in shell["cases"])
+    if counted != sum(launches.values()) + shell_probe_launches(shell):
+        raise AssertionError("phase 5c: the shell cases' launches do not add up")
+    if sum(split["launches"].values()) + shell_probe_launches(shell) != sum(
+            round_launches.values()):
+        raise AssertionError("phase 5c: the split's launches do not add up")
+    split.pop("outputs")
+    print(f"[phase5c] {len(shell['cases'])} shell cases and {len(split['phases'])} round "
+          f"phases == plain versions; launches {launches}, round kernels "
+          f"{round_launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
+    return dict(shell=shell, split=split, launches=launches,
+                round_launches=round_launches)
+
+
+def shell_probe_launches(shell: dict) -> int:
+    """The shell micro's kernel A launches (its real kernel A cases)."""
+    return sum(r["launches"] for r in shell["cases"] if r["kernel"] == "hako_probe")
+
+
+def shell_entry(shell: dict, kernel: str) -> dict:
+    """A kernel's numbers summed over its shell-micro cases."""
+    recs = [r for r in shell["cases"] if r["kernel"] == kernel]
+    lib = [r["library_ms"] for r in recs if r["library_ms"] is not None]
+    b_ms = sum(r["bound_ms"] for r in recs)
+    return dict(ms=sum(r["ms"] for r in recs), plain_ms=sum(r["plain_ms"] for r in recs),
+                bound_ms=b_ms,
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in recs)
+                else "operations",
+                library_ms=sum(lib) if lib else None,
+                cases={r["name"]: {k: r[k] for k in ("ms", "us_per_block", "plain_ms",
+                                                     "bound_ms", "library_ms")}
+                       for r in recs})
+
+
+def split_entries(sp: dict, src: str) -> list:
+    """Phase 5c's kernels line entries: kernel A's shell, preamble and
+    stages (the shell micro's 524,288 lanes, summed over each kernel's
+    cases), and the row-cached kernel B on the lattice round's brick rows
+    in the round's order (the uncached and sorted times beside it)."""
+    out = []
+    for name, replaces in (
+            ("shell_copy_probe", "scripts/hako_shell_micro.py:64,78"),
+            ("preamble_probe", "scripts/hako_shell_micro.py:102"),
+            ("probe_stage_probe", "scripts/hako_shell_micro.py:200,287")):
+        out.append(dict(name=name, route="cuda", source=src + "hako_probes.cu",
+                        replaces=replaces, launches=sp["launches"][name], max_abs_err=0.0,
+                        **shell_entry(sp["shell"], name)))
+    spl = sp["split"]
+    u = spl["uniq"]
+    ph = spl["phases"]
+    rec = ph[f"B cached U={u}, round order"]
+    rows = spl["rows"]
+    from massivevoxelraytracing_torch.scripts import common
+
+    b_ms, b_by = common.dda_bound(spl["lanes"], rows["round order"]["go_lanes"],
+                                  rows["distinct_rows_round"])
+    out.append(dict(
+        name="hako_dda_cached", route="cuda", source=src + "hako_rounds.cu",
+        replaces="scripts/r3_phase_split.py:212",
+        launches=sp["round_launches"]["hako_dda_cached"], max_abs_err=0.0, ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        row_cache=u, uncached_ms=ph["B rows, round order"]["ms"],
+        sorted_ms=ph[f"B cached U={u}, sorted by row"]["ms"],
+        sorted_uncached_ms=ph["B rows, sorted by row"]["ms"],
+        sort_ms=ph["sort, gathers, scatter back"]["ms"], rows=rows))
+    return out
 
 
 def slice_entry(sl: dict, prefix) -> dict:
@@ -1493,6 +1579,8 @@ def main() -> int:
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
     sl = phase_slice(tree, cam, smi)
     pr["slice"] = sl
+    sp = phase_split(tree, smi)
+    pr["split"] = sp
     apps = phase_apps(smi)
     t7 = time.time()
     structures = phase_structures(tree, cam, img, device, smi, rng)
@@ -1555,11 +1643,14 @@ def main() -> int:
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             cases=e["cases"]))
     for k in kernels[1:4]:
-        k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91",
+        k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
+                          "scripts/r3_phase_split.py:130; scripts/hako_shell_micro.py:134",
                           "hako_dda": "; scripts/hako_phase_timing.py:137",
                           "hako_merge": ""}[k["name"]]
         k["phase_timing_launches"] = sl["round_launches"][k["name"]]
         k["phase_timing_isolated_launches"] = sl["isolated_launches"][k["name"]]
+        k["split_launches"] = sp["round_launches"][k["name"]]
+    kernels += split_entries(sp, src)
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],

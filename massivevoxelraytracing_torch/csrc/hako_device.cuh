@@ -76,6 +76,16 @@ __device__ __forceinline__ uint32_t pc64_below(uint32_t lo, uint32_t hi,
   return __popc(lo & ((1u << cell) - 1u));
 }
 
+// pc64_below for any cell in [0, 128), as the reference's _pc64_below
+// clips its shifts: a cell of 64 or more (a walk that found nothing,
+// mirrored) counts every bit of lo and the bits of hi below bit 31, which
+// is cell 63's count. The traversal never asks for such a cell; the
+// probes of the walk's stages do, and give the reference's value.
+__device__ __forceinline__ uint32_t pc64_below_clipped(uint32_t lo,
+                                                       uint32_t hi, int cell) {
+  return pc64_below(lo, hi, cell < 63 ? cell : 63);
+}
+
 // A warp's passes through a loop and the active lanes summed over them
 // (their ratio over 32 is the loop's SIMT efficiency): the lowest active
 // lane of each pass counts it. Callers pass nullptr to count nothing.
@@ -98,21 +108,21 @@ struct Ray {
   bool enter_ok;
 };
 
-// Mirrored parametrization of ray i (the reference's _ray_preamble):
+// Mirrored parametrization of one ray (the reference's _ray_preamble):
 // per-axis entry / exit planes of the root box and their span, the XOR
 // mirror mask vm6, and whether the ray enters the box at all. bounds:
-// lower[3], upper[3]; ro / rd: [n, 3].
+// lower[3], upper[3]; o / d: the ray's origin and direction.
 __device__ __forceinline__ Ray ray_preamble(const float* bounds,
-                                            const float* ro, const float* rd,
-                                            int i) {
+                                            const float o3[3],
+                                            const float d3[3]) {
   Ray r;
   r.vm6 = 0;
   const int pat[3] = {0b001001, 0b010010, 0b100100};
   for (int a = 0; a < 3; ++a) {
     const float lo = bounds[a];
     const float up = bounds[3 + a];
-    const float o = ro[3 * i + a];
-    const float inv = 1.0f / rd[3 * i + a];
+    const float o = o3[a];
+    const float inv = 1.0f / d3[a];
     const bool neg = inv < 0.0f;
     const float rom = neg ? (lo + up) - o : o;
     const float bound =
@@ -125,6 +135,15 @@ __device__ __forceinline__ Ray ray_preamble(const float* bounds,
   }
   r.enter_ok = min3(r.t1[0], r.t1[1], r.t1[2]) >= max3(r.t0[0], r.t0[1], r.t0[2]);
   return r;
+}
+
+// Ray i of ro / rd [n, 3].
+__device__ __forceinline__ Ray ray_preamble(const float* bounds,
+                                            const float* ro, const float* rd,
+                                            int i) {
+  const float o[3] = {ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]};
+  const float d[3] = {rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]};
+  return ray_preamble(bounds, o, d);
 }
 
 struct Walk {

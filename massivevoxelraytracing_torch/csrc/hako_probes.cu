@@ -31,14 +31,42 @@
 // * calib_probe<KIND> (hako_kernel_micro.py calibrate): K dependent
 //   a * 1.0000001f + b (a separate multiply and add under -fmad=false;
 //   the reference's K = 1024) against 8 independent chains of K (128).
+// * shell_copy_probe<AOS> (hako_shell_micro.py :64 and :78): kernel A's
+//   I/O without its work, o = i + 1 over 8 float arrays of a lane each
+//   (8 separate streams in and 8 out, kernel A's own layout) or over one
+//   consolidated [G, 8, L] array. The TPU question was the per-grid-step
+//   cost of 16 pipelined VMEM blocks; here it is what 16 streams cost
+//   against one array of the same bytes. A thread takes 4 consecutive
+//   floats of each array (one 16-byte load and store an array).
+// * preamble_probe (hako_shell_micro.py :102): the shell plus
+//   hako::ray_preamble on the unit box, 6 arrays in (the ray's SoA
+//   origin and direction, read straight into the preamble's value
+//   overload: no [n, 3] interleave) and its 8 outputs (t0 + t1 an axis,
+//   dt an axis, vm6 and enter_ok as floats).
+// * probe_stage_probe<STAGE> (hako_shell_micro.py :200 k_body and :287
+//   staged): kernel A's probe body cut into stages, from the device
+//   functions the traversal runs (ray_preamble, walk64, coords, plane,
+//   pc64_below) and the level-table fetch. STAGE 0: preamble + the root
+//   walk; 1: + the cell's coords, exit planes and rank; 2: + the node
+//   fetch at the rank (clipped to [0, clip], the reference's literal);
+//   3: + the walk of the fetched node. STAGE 4: the body unrolled over
+//   the T levels, no probe loop. Where a walk finds no cell (c = 64) the
+//   reference still ranks c ^ vm6 (64-127) with its shifts clipped, and
+//   fetches child indices past a level: pc64_below_clipped gives its rank
+//   and level_node the node its table form gives (a clipped index or
+//   zeros past the level's nodes).
 //
 // What bounds them is what they measure: load latency (the chase, the
 // fetch, the gathers) and issue rate or dependent-op latency (the walk, the
-// constructs, the selects, the calibration). The repeat loops keep every
-// repeat data-dependent; the outer loop is `#pragma unroll 1` around a
-// fixed inner unroll of kUnroll, so the outer loop body's SASS
-// instructions over kUnroll are the cost of one repeat. Plain PyTorch
-// versions that compute the same outputs are in ops/probes.py.
+// constructs, the selects, the calibration). The shell and the preamble
+// are bound by their bytes (16 and 14 floats a lane, each read or written
+// once); so are the stages where most rays miss the box (a missing ray's
+// walk ends at its first test), else by the walks' issue. The repeat
+// loops keep every repeat data-dependent; the outer loop is `#pragma
+// unroll 1` around a fixed inner unroll of kUnroll, so the outer loop
+// body's SASS instructions over kUnroll are the cost of one repeat.
+// Plain PyTorch versions that compute the same outputs are in
+// ops/probes.py.
 
 #include <cuda_runtime.h>
 
@@ -400,6 +428,167 @@ __global__ void calib_probe_kernel(const float* a, const float* b, int n,
   }
 }
 
+constexpr int kShellArrays = 8;
+constexpr int kLaneThreads = 128;  // the round kernels' block
+constexpr int kMaxStageLevels = 8;  // must match utils/cuda_build.py MAX_LEVELS
+
+struct ShellParams {
+  const float* in[kShellArrays];
+  float* out[kShellArrays];
+  int n;  // floats an array
+};
+
+// o = i + 1 over the first ARRAYS arrays of n floats: four consecutive
+// floats of each array a thread, the tail of n % 4 one at a time.
+template <int ARRAYS>
+__global__ void __launch_bounds__(kLaneThreads) shell_copy_kernel(const ShellParams p) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = 4 * t;
+  if (i + 3 < p.n) {
+#pragma unroll
+    for (int a = 0; a < ARRAYS; ++a) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p.in[a]) + t);
+      reinterpret_cast<float4*>(p.out[a])[t] =
+          make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
+    }
+  } else {
+    for (int k = i; k < p.n; ++k) {
+#pragma unroll
+      for (int a = 0; a < ARRAYS; ++a) p.out[a][k] = p.in[a][k] + 1.0f;
+    }
+  }
+}
+
+struct PreambleParams {
+  const float* ray[6];  // ox, oy, oz, dx, dy, dz [n]
+  const float* bounds;  // lower[3], upper[3]
+  int n;
+  float* out[8];
+};
+
+__global__ void __launch_bounds__(kLaneThreads) preamble_probe_kernel(const PreambleParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const float o[3] = {p.ray[0][i], p.ray[1][i], p.ray[2][i]};
+  const float d[3] = {p.ray[3][i], p.ray[4][i], p.ray[5][i]};
+  const hako::Ray r = hako::ray_preamble(p.bounds, o, d);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    p.out[a][i] = r.t0[a] + r.t1[a];
+    p.out[3 + a][i] = r.dt[a];
+  }
+  p.out[6][i] = static_cast<float>(r.vm6);
+  p.out[7][i] = r.enter_ok ? 1.0f : 0.0f;
+}
+
+// The reference's node-table forms (hako_kernels._gather_node_any), which
+// decide what a child index past a level fetches.
+enum NodeForm { kFormSmem, kFormTaa, kFormSplit };
+
+struct StageParams {
+  const float* ray[7];  // ox, oy, oz, dx, dy, dz, tq [n]
+  const float* bounds;
+  uint32_t root_lo, root_hi;
+  const uint32_t* levels;  // root-down (mask_lo, mask_hi, base) triples
+  int level_off[kMaxStageLevels], level_n[kMaxStageLevels];
+  int level_form[kMaxStageLevels], level_rows[kMaxStageLevels];
+  int T, clip, n;
+  int* out_i[3];    // child, cell, rank (stages 0-3: child)
+  float* out_f[5];  // en, ex, exit planes x y z (stages 0-3: en, ex)
+};
+
+// The node the reference's gather gives for `child` at root-down level d:
+// the smem form clips the index to [0, 63], the taa form its row to
+// [0, rows - 1]; every form reads zeros past the level's nodes.
+__device__ __forceinline__ void level_node(const StageParams& p, int d, int child,
+                                           uint32_t& lo, uint32_t& hi, uint32_t& base) {
+  int i = child;
+  if (p.level_form[d] == kFormSmem) {
+    i = min(max(child, 0), 63);
+  } else if (p.level_form[d] == kFormTaa) {
+    i = min(max(child >> 7, 0), p.level_rows[d] - 1) * 128 + (child & 127);
+  }
+  if (i < 0 || i >= p.level_n[d]) {
+    lo = hi = base = 0u;
+    return;
+  }
+  const uint32_t* node = p.levels + 3 * (p.level_off[d] + i);
+  lo = node[0];
+  hi = node[1];
+  base = node[2];
+}
+
+template <int STAGE>
+__global__ void __launch_bounds__(kLaneThreads) probe_stage_kernel(const StageParams p) {
+  using namespace hako;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.n) return;
+  const float o[3] = {p.ray[0][i], p.ray[1][i], p.ray[2][i]};
+  const float d[3] = {p.ray[3][i], p.ray[4][i], p.ray[5][i]};
+  const Ray r = ray_preamble(p.bounds, o, d);
+  const float tq = p.ray[6][i];
+  float cur[3] = {r.t1[0], r.t1[1], r.t1[2]};
+  float dc[3] = {r.dt[0] * 0.25f, r.dt[1] * 0.25f, r.dt[2] * 0.25f};
+  if constexpr (STAGE == 4) {
+    uint32_t mlo = p.root_lo, mhi = p.root_hi, base = 0u;
+    Walk w{kMaxFloat, kMaxFloat, 64};
+    float nt1[3] = {0.0f, 0.0f, 0.0f};
+    int rank = 0, child = 0;
+    for (int depth = 0; depth < p.T; ++depth) {
+      w = walk64(mlo, mhi, r.vm6, cur, dc, tq);
+      int cx, cy, cz;
+      coords(w.c, cx, cy, cz);
+      nt1[0] = plane(cur[0], dc[0], min(cx + 1, 4));
+      nt1[1] = plane(cur[1], dc[1], min(cy + 1, 4));
+      nt1[2] = plane(cur[2], dc[2], min(cz + 1, 4));
+      rank = static_cast<int>(pc64_below_clipped(mlo, mhi, w.c ^ r.vm6));
+      child = static_cast<int>(base) + rank;
+      if (depth < p.T - 1) {
+        level_node(p, depth, child, mlo, mhi, base);
+        for (int a = 0; a < 3; ++a) {
+          cur[a] = nt1[a];
+          dc[a] = dc[a] * 0.25f;
+        }
+      }
+    }
+    p.out_i[0][i] = child;
+    p.out_i[1][i] = w.c;
+    p.out_i[2][i] = rank;
+    p.out_f[0][i] = w.en;
+    p.out_f[1][i] = w.ex;
+    p.out_f[2][i] = nt1[0];
+    p.out_f[3][i] = nt1[1];
+    p.out_f[4][i] = nt1[2];
+  } else {
+    const Walk w = walk64(p.root_lo, p.root_hi, r.vm6, cur, dc, tq);
+    int child = w.c;
+    if constexpr (STAGE >= 1) {
+      int cx, cy, cz;
+      coords(w.c, cx, cy, cz);
+      const float nt1[3] = {plane(cur[0], dc[0], min(cx + 1, 4)),
+                            plane(cur[1], dc[1], min(cy + 1, 4)),
+                            plane(cur[2], dc[2], min(cz + 1, 4))};
+      const int rank =
+          static_cast<int>(pc64_below_clipped(p.root_lo, p.root_hi, w.c ^ r.vm6));
+      child = rank;
+      if constexpr (STAGE >= 2) {
+        uint32_t ml2, mh2, b2;
+        level_node(p, 0, min(max(child, 0), p.clip), ml2, mh2, b2);
+        child = static_cast<int>(b2) + rank;
+        if constexpr (STAGE >= 3) {
+          const float dc2[3] = {dc[0] * 0.25f, dc[1] * 0.25f, dc[2] * 0.25f};
+          child = child + walk64(ml2, mh2, r.vm6, nt1, dc2, tq).c;
+        }
+      }
+    }
+    p.out_i[0][i] = child;
+    p.out_f[0][i] = w.en;
+    p.out_f[1][i] = w.ex;
+  }
+}
+
+inline int lane_blocks(int n) { return (n + kLaneThreads - 1) / kLaneThreads; }
+
 bool launch_shape_ok(int n, int k, int threads) {
   return n > 0 && k > 0 && k % kUnroll == 0 && threads > 0 && threads <= 1024 &&
          threads % 32 == 0;
@@ -571,6 +760,84 @@ extern "C" int calib_probe_launch(int kind, const void* a, const void* b, int n,
   switch (kind) {
     case kChain: calib_probe_kernel<kChain><<<blocks, threads, 0, s>>>(x, y, n, outer, o); break;
     case kPar8: calib_probe_kernel<kPar8><<<blocks, threads, 0, s>>>(x, y, n, outer, o); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in / out: host arrays of 8 device pointers (AOS: the first of each);
+// n floats an array.
+extern "C" int shell_copy_probe_launch(int aos, const void* const* in,
+                                       void* const* out, int n, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  ShellParams p{};
+  for (int a = 0; a < (aos ? 1 : kShellArrays); ++a) {
+    p.in[a] = static_cast<const float*>(in[a]);
+    p.out[a] = static_cast<float*>(out[a]);
+  }
+  p.n = n;
+  const int threads = (n + 3) / 4;
+  const int blocks = (threads + kLaneThreads - 1) / kLaneThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aos) {
+    shell_copy_kernel<1><<<blocks, kLaneThreads, 0, s>>>(p);
+  } else {
+    shell_copy_kernel<kShellArrays><<<blocks, kLaneThreads, 0, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ray: host array of 6 device pointers, out of 8; bounds a device [6].
+extern "C" int preamble_probe_launch(const void* const* ray, const void* bounds,
+                                     int n, void* const* out, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  PreambleParams p{};
+  for (int a = 0; a < 6; ++a) p.ray[a] = static_cast<const float*>(ray[a]);
+  for (int a = 0; a < 8; ++a) p.out[a] = static_cast<float*>(out[a]);
+  p.bounds = static_cast<const float*>(bounds);
+  p.n = n;
+  preamble_probe_kernel<<<lane_blocks(n), kLaneThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ray: host array of 7 device pointers (origin, direction, tq); out_i of
+// 3 and out_f of 5 (stages 0-3 write the first 1 and 2); levels a device
+// table, the per-level arrays host arrays of n_levels ints.
+extern "C" int probe_stage_probe_launch(
+    int stage, const void* const* ray, const void* bounds, unsigned root_lo,
+    unsigned root_hi, const void* levels, const int* level_off,
+    const int* level_n, const int* level_form, const int* level_rows,
+    int n_levels, int T, int clip, int n, void* const* out_i,
+    void* const* out_f, void* stream) {
+  if (n <= 0 || n_levels < 0 || n_levels > kMaxStageLevels ||
+      (stage == 4 ? T - 1 > n_levels || T < 1 : stage >= 2 && n_levels < 1))
+    return cudaErrorInvalidValue;
+  StageParams p{};
+  for (int a = 0; a < 7; ++a) p.ray[a] = static_cast<const float*>(ray[a]);
+  p.bounds = static_cast<const float*>(bounds);
+  p.root_lo = root_lo;
+  p.root_hi = root_hi;
+  p.levels = static_cast<const uint32_t*>(levels);
+  for (int d = 0; d < n_levels; ++d) {
+    p.level_off[d] = level_off[d];
+    p.level_n[d] = level_n[d];
+    p.level_form[d] = level_form[d];
+    p.level_rows[d] = level_rows[d];
+  }
+  p.T = T;
+  p.clip = clip;
+  p.n = n;
+  for (int a = 0; a < 3; ++a) p.out_i[a] = static_cast<int*>(out_i[a]);
+  for (int a = 0; a < 5; ++a) p.out_f[a] = static_cast<float*>(out_f[a]);
+  const int b = lane_blocks(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (stage) {
+    case 0: probe_stage_kernel<0><<<b, kLaneThreads, 0, s>>>(p); break;
+    case 1: probe_stage_kernel<1><<<b, kLaneThreads, 0, s>>>(p); break;
+    case 2: probe_stage_kernel<2><<<b, kLaneThreads, 0, s>>>(p); break;
+    case 3: probe_stage_kernel<3><<<b, kLaneThreads, 0, s>>>(p); break;
+    case 4: probe_stage_kernel<4><<<b, kLaneThreads, 0, s>>>(p); break;
     default: return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());

@@ -24,8 +24,9 @@
 // host-sync latency (one "any lane active?" read per round). The design
 // keeps state per lane in flat arrays indexed by the round's list, so the
 // reads are dense in the list's order; rows go through L1/L2 as in the
-// megakernel. Fusing a round into one launch, persistent lanes and a row
-// cache are later work.
+// megakernel. Fusing a round into one launch and persistent lanes are
+// later work; a row cache is hako_dda_cached_kernel below, measured beside
+// hako_dda_kernel (scripts/r3_phase_split.py) and not on the route.
 //
 // Exactness: the kernels share every __device__ function with the
 // megakernel (hako_device.cuh), so both routes give identical bits.
@@ -128,6 +129,137 @@ __global__ void __launch_bounds__(kThreads) hako_dda_kernel(const DdaParams p) {
   p.tqr[j] = d.tqr;
 }
 
+// Kernel B through a block-local row cache (the reference's uniq-regather
+// path, _make_kernel_b(dedup_u=U), measured by scripts/r3_phase_split.py
+// :212): each 128-lane block finds the distinct rows among its go-lanes,
+// stages the first `cache` of them (by row id) in shared memory with one
+// coalesced copy, and each lane runs dda_rows on its staged row, or on its
+// row in global memory when it did not fit. dda_rows reads either through
+// the same generic pointer, so the results are hako_dda_kernel's bit for
+// bit whatever `cache` is (the reference defers the lanes that do not fit
+// instead; deferral is a round rung, which the port leaves out).
+//
+// Finding the distinct rows: a bitonic sort of the block's 128 (row id,
+// lane) keys in shared memory (28 compare-exchange steps), then the
+// boundaries of the sorted ids counted with a ballot and a prefix over the
+// 4 warps: the counterpart of the reference's per-block sort, boundary
+// cumsum and unique take (r3_phase_split.py dedup :152). The sort was
+// chosen over __match_any_sync because a warp's match finds duplicates only
+// within its 32 lanes, and merging the 4 warps' leaders needs the same
+// block-wide step again; the sort also gives each row its rank, the slot
+// it is staged at, in one pass. Cost: ~30 barriers and ~200 instructions a
+// lane before the first row word, against one row copy a distinct row
+// instead of one row read a lane. stats [blocks, 3]: the block's go-lanes,
+// its distinct rows, the go-lanes that read the cache.
+constexpr int kRowVec = hako::kRowWords / 4;  // 16-byte vectors a row
+
+size_t cached_smem_bytes(int cache) {
+  return static_cast<size_t>(cache) * hako::kRowWords * 4 + kThreads * 8 +
+         kThreads * 4 + static_cast<size_t>(cache > 0 ? cache : 1) * 4 + 16;
+}
+
+template <bool LEAF, bool SHADOW>
+__global__ void __launch_bounds__(kThreads) hako_dda_cached_kernel(
+    const DdaParams p, int cache, int* stats) {
+  using namespace hako;
+  extern __shared__ uint4 s_mem[];
+  uint4* s_rows = s_mem;  // [cache][41]
+  auto* s_key = reinterpret_cast<unsigned long long*>(s_rows + cache * kRowVec);
+  int* s_slot = reinterpret_cast<int*>(s_key + kThreads);  // by lane
+  int* s_id = s_slot + kThreads;                           // by slot
+  int* s_warp = s_id + (cache > 0 ? cache : 1);            // 4 warp counts
+  const int t = threadIdx.x;
+  const int j = blockIdx.x * kThreads + t;
+  const bool live = j < p.n;
+  const bool go = live && p.go[j];
+  const uint32_t none = 0xFFFFFFFFu;
+  const uint32_t id = go ? static_cast<uint32_t>(p.child[j]) : none;
+  s_key[t] = (static_cast<unsigned long long>(id) << 32) | static_cast<unsigned>(t);
+  __syncthreads();
+  for (int k = 2; k <= kThreads; k <<= 1) {
+    for (int h = k >> 1; h > 0; h >>= 1) {
+      const int q = t ^ h;
+      if (q > t) {
+        const unsigned long long a = s_key[t], b = s_key[q];
+        if ((a > b) == ((t & k) == 0)) {
+          s_key[t] = b;
+          s_key[q] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  // sorted position t: a row's first key is a boundary; its rank counts
+  // the boundaries up to it
+  const unsigned long long key = s_key[t];
+  const uint32_t kid = static_cast<uint32_t>(key >> 32);
+  const bool real = kid != none;
+  const bool bnd = real && (t == 0 || static_cast<uint32_t>(s_key[t - 1] >> 32) != kid);
+  const unsigned ball = __ballot_sync(0xffffffffu, bnd);
+  const int warp = t >> 5, lane = t & 31;
+  if (lane == 0) s_warp[warp] = __popc(ball);
+  __syncthreads();
+  int rank = __popc(ball & ((2u << lane) - 1u)) - 1;
+  int distinct = 0;
+  for (int w = 0; w < kThreads / 32; ++w) {
+    if (w < warp) rank += s_warp[w];
+    distinct += s_warp[w];
+  }
+  if (bnd && rank < cache) s_id[rank] = static_cast<int>(kid);
+  s_slot[key & (kThreads - 1)] = real && rank < cache ? rank : -1;
+  __syncthreads();
+  const int staged = min(distinct, cache);
+  const uint4* rows4 = reinterpret_cast<const uint4*>(p.rows);
+  for (int v = t; v < staged * kRowVec; v += kThreads) {
+    const int r = v / kRowVec;
+    s_rows[v] = __ldg(rows4 + static_cast<size_t>(s_id[r]) * kRowVec + (v - r * kRowVec));
+  }
+  const int slot = s_slot[t];
+  const int n_go = __syncthreads_count(go);
+  const int n_cached = __syncthreads_count(go && slot >= 0);
+  if (t == 0) {
+    stats[3 * blockIdx.x] = n_go;
+    stats[3 * blockIdx.x + 1] = distinct;
+    stats[3 * blockIdx.x + 2] = n_cached;
+  }
+  if (!live) return;
+  Dda d{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, p.tqe[j], 0, 0, 0, 0};
+  if (go) {
+    const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, p.idx[j]);
+    const float bt1[3] = {p.bt1[j], p.bt1[p.n + j], p.bt1[2 * p.n + j]};
+    const uint32_t* row = slot >= 0
+        ? reinterpret_cast<const uint32_t*>(s_rows + slot * kRowVec)
+        : p.rows + static_cast<size_t>(p.child[j]) * kRowWords;
+    d = dda_rows<LEAF, SHADOW>(row, ray.dt, p.dt_factor, ray.vm6, bt1, p.tqe[j],
+                               p.max_iters);
+  }
+  p.hit[j] = d.hit;
+  p.t[j] = d.t_hit;
+  p.nmaj[j] = d.nmaj;
+  p.vr[j] = static_cast<int>(d.vr);
+  p.p3[j] = d.p3;
+  p.tqp[j] = d.tqp;
+  p.more[j] = d.more;
+  p.tqr[j] = d.tqr;
+}
+
+template <bool LEAF, bool SHADOW>
+int launch_cached(const DdaParams& p, int cache, int* stats, cudaStream_t s) {
+  const size_t bytes = cached_smem_bytes(cache);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hako_dda_cached_kernel<LEAF, SHADOW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // leave no error for the next launch's check
+      return static_cast<int>(e);
+    }
+  }
+  hako_dda_cached_kernel<LEAF, SHADOW><<<(p.n + kThreads - 1) / kThreads, kThreads,
+                                         bytes, s>>>(p, cache, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
 struct MergeParams {
   const int* idx;
   int n;
@@ -209,13 +341,14 @@ extern "C" int hako_probe_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hako_dda_launch(
-    const void* rows, const void* bounds, const void* ro, const void* rd,
-    const void* idx, int n, const void* go, const void* child,
-    const void* bt1, const void* tqe, void* hit, void* t, void* nmaj,
-    void* vr, void* p3, void* tqp, void* more, void* tqr, float dt_factor,
-    int leaf, int shadow, int max_iters, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
+namespace {
+
+DdaParams dda_params(const void* rows, const void* bounds, const void* ro,
+                     const void* rd, const void* idx, int n, const void* go,
+                     const void* child, const void* bt1, const void* tqe,
+                     void* hit, void* t, void* nmaj, void* vr, void* p3,
+                     void* tqp, void* more, void* tqr, float dt_factor,
+                     int max_iters) {
   DdaParams p{};
   p.rows = static_cast<const uint32_t*>(rows);
   p.bounds = static_cast<const float*>(bounds);
@@ -237,6 +370,21 @@ extern "C" int hako_dda_launch(
   p.tqp = static_cast<float*>(tqp);
   p.more = static_cast<bool*>(more);
   p.tqr = static_cast<float*>(tqr);
+  return p;
+}
+
+}  // namespace
+
+extern "C" int hako_dda_launch(
+    const void* rows, const void* bounds, const void* ro, const void* rd,
+    const void* idx, int n, const void* go, const void* child,
+    const void* bt1, const void* tqe, void* hit, void* t, void* nmaj,
+    void* vr, void* p3, void* tqp, void* more, void* tqr, float dt_factor,
+    int leaf, int shadow, int max_iters, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const DdaParams p = dda_params(rows, bounds, ro, rd, idx, n, go, child, bt1,
+                                 tqe, hit, t, nmaj, vr, p3, tqp, more, tqr,
+                                 dt_factor, max_iters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int b = blocks_for(n);
   if (leaf && shadow) hako_dda_kernel<true, true><<<b, kThreads, 0, s>>>(p);
@@ -244,6 +392,28 @@ extern "C" int hako_dda_launch(
   else if (shadow) hako_dda_kernel<false, true><<<b, kThreads, 0, s>>>(p);
   else hako_dda_kernel<false, false><<<b, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// hako_dda_launch's arguments, the row cache's size in rows and its stats
+// (device int32 [blocks of 128 lanes, 3]). A cache whose shared memory
+// the card refuses returns that error without a launch.
+extern "C" int hako_dda_cached_launch(
+    const void* rows, const void* bounds, const void* ro, const void* rd,
+    const void* idx, int n, const void* go, const void* child,
+    const void* bt1, const void* tqe, void* hit, void* t, void* nmaj,
+    void* vr, void* p3, void* tqp, void* more, void* tqr, float dt_factor,
+    int leaf, int shadow, int max_iters, int cache, void* stats,
+    void* stream) {
+  if (n <= 0 || cache < 0) return cudaErrorInvalidValue;
+  const DdaParams p = dda_params(rows, bounds, ro, rd, idx, n, go, child, bt1,
+                                 tqe, hit, t, nmaj, vr, p3, tqp, more, tqr,
+                                 dt_factor, max_iters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* st = static_cast<int*>(stats);
+  if (leaf && shadow) return launch_cached<true, true>(p, cache, st, s);
+  if (leaf) return launch_cached<true, false>(p, cache, st, s);
+  if (shadow) return launch_cached<false, true>(p, cache, st, s);
+  return launch_cached<false, false>(p, cache, st, s);
 }
 
 extern "C" int hako_merge_launch(

@@ -327,7 +327,11 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
 PROBES = 4      # kernel A: root descents per round
 DDA_ITERS = 24  # kernel B: sub-brick visits per row stage per round
 
-LAUNCHES = {"hako_probe": 0, "hako_dda": 0, "hako_merge": 0}
+ROUTE_KERNELS = ("hako_probe", "hako_dda", "hako_merge")  # what a round runs
+# ... and kernel B through a block-local row cache, measured beside
+# hako_dda (scripts/r3_phase_split.py), not on the route
+LAUNCHES = {**dict.fromkeys(ROUTE_KERNELS, 0), "hako_dda_cached": 0}
+CACHE_BLOCK = 128  # lanes a block of hako_dda_cached dedups its rows over
 ROUNDS = 0      # rounds run by intersect_rays_hako since the last reset
 _UNRESOLVED: dict = {}  # device -> int32 [1] accumulator
 
@@ -348,12 +352,14 @@ def unresolved_lanes() -> int:
 
 def level_pack(tabs):
     """Root-down level tables -> (one int32 [sum n_l, 3] table or None,
-    offsets of each level in it)."""
+    offsets of each level in it); a single table is its own pack."""
     offs = []
     n = 0
     for tab in tabs:
         offs.append(n)
         n += tab.shape[0]
+    if len(tabs) == 1:
+        return tabs[0], (0,)
     return (torch.cat(tabs) if tabs else None), tuple(offs)
 
 
@@ -507,6 +513,69 @@ def hako_dda(rows, bounds, ro, rd, idx, go, child, bt1, tqe, *, dt_factor,
             _stream(dev))
     _launched("hako_dda", rc)
     return out
+
+
+def block_rows_plain(go, child, cache: int, block: int = CACHE_BLOCK):
+    """What hako_dda_cached's blocks find: for each block of `block` lanes,
+    its go-lanes, its distinct rows among them and the go-lanes whose row
+    is among the block's `cache` smallest row ids (those it stages).
+    Returns int32 [blocks, 3]."""
+    n = go.shape[0]
+    nb = -(-n // block)
+    big = torch.iinfo(torch.int64).max
+    ids = torch.full((nb * block,), big, dtype=torch.int64, device=go.device)
+    ids[:n] = torch.where(go, child.long(), big)
+    s, _ = torch.sort(ids.reshape(nb, block), dim=1)
+    real = s != big
+    first = torch.ones_like(real)
+    first[:, 1:] = s[:, 1:] != s[:, :-1]
+    bnd = real & first
+    rank = torch.cumsum(bnd.to(torch.int64), 1) - 1
+    return torch.stack([real.sum(1), bnd.sum(1), (real & (rank < cache)).sum(1)],
+                       1).to(torch.int32)
+
+
+def hako_dda_cached(rows, bounds, ro, rd, idx, go, child, bt1, tqe, *,
+                    dt_factor, leaf, shadow, max_iters, cache):
+    """Kernel B through a block-local row cache of `cache` rows: the
+    outputs of hako_dda, and the blocks' row counts. Its plain version is
+    hako_dda_plain with block_rows_plain. Raises where the card refuses
+    the cache's shared memory."""
+    if _device_of(ro, "hako_dda_cached") == "cpu":
+        return (hako_dda_plain(rows, bounds, ro, rd, idx, go, child, bt1, tqe,
+                               dt_factor=dt_factor, leaf=leaf, shadow=shadow,
+                               max_iters=max_iters),
+                block_rows_plain(go, child, cache))
+    from ..utils import cuda_build
+
+    dev = ro.device
+    n = idx.shape[0]
+    _check_rays(bounds, ro, rd, idx, dev)
+    _check("rows", rows, dev, torch.int32, (rows.shape[0], 164))
+    _check("go", go, dev, torch.bool, (n,))
+    _check("child", child, dev, torch.int32, (n,))
+    _check("bt1", bt1, dev, torch.float32, (3, n))
+    _check("tqe", tqe, dev, torch.float32, (n,))
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: need a 16-byte aligned table")
+    if cache < 0:
+        raise ValueError(f"cache must be 0 or more rows, not {cache}")
+    f = dict(dtype=torch.float32, device=dev)
+    i = dict(dtype=torch.int32, device=dev)
+    b = dict(dtype=torch.bool, device=dev)
+    out = (torch.empty(n, **b), torch.empty(n, **f), torch.empty(n, **i),
+           torch.empty(n, **i), torch.empty(n, **f), torch.empty(n, **f),
+           torch.empty(n, **b), torch.empty(n, **f))
+    stats = torch.empty((-(-n // CACHE_BLOCK), 3), **i)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().hako_dda_cached_launch(
+            rows.data_ptr(), bounds.data_ptr(), ro.data_ptr(), rd.data_ptr(),
+            idx.data_ptr(), n, go.data_ptr(), child.data_ptr(),
+            bt1.data_ptr(), tqe.data_ptr(), *(o.data_ptr() for o in out),
+            float(dt_factor), int(leaf), int(shadow), int(max_iters),
+            int(cache), stats.data_ptr(), _stream(dev))
+    _launched("hako_dda_cached", rc)
+    return out, stats
 
 
 def hako_merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more,

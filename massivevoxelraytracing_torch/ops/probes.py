@@ -21,6 +21,11 @@ scripts/construct_micro.py and scripts/hako_kernel_micro.py):
     (FORMS; hako_kernel_micro.py k_fold).
   * `calib_probe`: k dependent multiply-adds against 8 independent
     chains of k (CALIBS; hako_kernel_micro.py calibrate, k = 1024 / 128).
+  * `shell_copy_probe`: kernel A's I/O alone, o = i + 1 over 8 separate
+    float arrays or one consolidated array (hako_shell_micro.py :64,
+    :78); `preamble_probe`: the I/O plus the ray preamble on the unit box
+    (:102); `probe_stage_probe`: kernel A's probe body by stage, or
+    unrolled over the tree's levels (PROBE_STAGES; :200, :287).
 
 Each has a plain PyTorch version computing the same output (u32 kept as
 int64 & MASK32, every float op rounded on its own). The wrappers run the
@@ -35,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import hako_kernels as hk
 from .bits import MASK32, to_i32_bits, u32
 from .hako_kernels import _bit_at, _pc64_below, _scan64_impl, _walk64_impl
 
@@ -52,9 +58,20 @@ CALIBS = ("chain", "par8")
 CALIB_MUL = 1.0000001  # 1 + 2^-23 as f32
 UNROLL = 8  # repeats a pass of the kernels' outer loop: k is a multiple
 N_TAB_SEG = 11  # byte segments of a reference node: 4 + 4 + 3
+SHELL_ARRAYS = 8  # kernel A's lane arrays each way
+# probe_stage_probe's stages: staged()'s four kernels, then k_body
+PROBE_STAGES = ("preamble+walk", "+coords/planes/rank", "+node fetch",
+                "+second walk", "unrolled body")
+STAGE_CLIP = 55  # the stages' clip of the rank before the fetch (the reference's literal)
+# the reference's node-table forms by a level's node count (its ops/hako.py
+# SMEM_TABLE_MAX / TAA_TABLE_MAX; flat tables are off there)
+NODE_FORMS = ("smem", "taa", "split")
+SMEM_TABLE_MAX = 64
+TAA_TABLE_MAX = 2048
 LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
             "construct_probe": 0, "node_gather_probe": 0,
-            "table_select_probe": 0, "calib_probe": 0}
+            "table_select_probe": 0, "calib_probe": 0,
+            "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0}
 
 
 def reset_counters() -> None:
@@ -320,7 +337,7 @@ def construct_probe(kind: str, inputs, *, k: int, threads: int = 256):
     return out
 
 
-def node_table_from_segments(tab, device="cpu"):
+def node_table_from_segments(tab, device):
     """The reference's byte-segment node tables -> the port's int32
     [n, 3] (mask_lo, mask_hi, base) table. tab (numpy) is either the flat
     f32 [n, 16] of hako_kernels._gather_node_flat (segment k in column k)
@@ -478,3 +495,226 @@ def calib_probe(kind: str, a, b, *, k: int | None = None, threads: int = 256):
             out.data_ptr(), int(threads), _stream(dev))
     _launched("calib_probe", rc)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kernel A's fixed cost (hako_shell_micro.py): its I/O shell, the ray
+# preamble, and its probe body by stage
+# ---------------------------------------------------------------------------
+
+
+def _ptrs(xs, count):
+    """A host array of `count` device pointers (None past len(xs))."""
+    import ctypes
+
+    return (ctypes.c_void_p * count)(*[x.data_ptr() for x in xs],
+                                       *([None] * (count - len(xs))))
+
+
+def shell_copy_plain(*xs):
+    """o = i + 1 of each f32 array."""
+    return tuple(x + 1.0 for x in xs)
+
+
+def shell_copy_probe(*xs):
+    """As shell_copy_plain: 8 f32 [n] arrays (kernel A's 8 separate
+    streams each way), or one f32 array (the consolidated [G, 8, L]
+    block). The arrays' addresses must be 16-byte aligned."""
+    if len(xs) not in (1, SHELL_ARRAYS):
+        raise ValueError(f"the shell takes 1 or {SHELL_ARRAYS} arrays, not {len(xs)}")
+    if _device_of(xs[0], "shell_copy_probe") == "cpu":
+        return shell_copy_plain(*xs)
+    from ..utils import cuda_build
+
+    dev = xs[0].device
+    shape = tuple(xs[0].shape)
+    for j, x in enumerate(xs):
+        _check(f"array {j}", x, dev, torch.float32, shape)
+        if x.data_ptr() % 16:
+            raise ValueError(f"array {j}: need a 16-byte aligned address")
+    outs = tuple(torch.empty_like(x) for x in xs)
+    n = xs[0].numel()
+    if n == 0:
+        return outs
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().shell_copy_probe_launch(
+            int(len(xs) == 1), _ptrs(xs, SHELL_ARRAYS), _ptrs(outs, SHELL_ARRAYS),
+            n, _stream(dev))
+    _launched("shell_copy_probe", rc)
+    return outs
+
+
+def _stack_rays(rays):
+    return torch.stack(rays[:3], 1), torch.stack(rays[3:6], 1)
+
+
+def preamble_plain(rays, bounds):
+    """The ray preamble of the SoA rays (ox, oy, oz, dx, dy, dz) in the box
+    bounds (lower[3], upper[3]): 8 f32 arrays, t0 + t1 an axis, dt an
+    axis, vm6 and enter_ok as floats."""
+    ro, rd = _stack_rays(rays)
+    t0, t1, dt, vm6, ok = hk._ray_preamble(bounds[:3], bounds[3:], ro, rd)
+    tt = t0 + t1
+    return (tt[0], tt[1], tt[2], dt[0], dt[1], dt[2], vm6.to(torch.float32),
+            ok.to(torch.float32))
+
+
+def _check_lane_arrays(rays, count, dev):
+    if len(rays) != count:
+        raise ValueError(f"need {count} lane arrays, not {len(rays)}")
+    n = rays[0].shape[0]
+    for j, x in enumerate(rays):
+        _check(f"lane array {j}", x, dev, torch.float32, (n,))
+    return n
+
+
+def preamble_probe(rays, bounds):
+    """As preamble_plain; rays 6 f32 [n], bounds f32 [6]."""
+    if _device_of(rays[0], "preamble_probe") == "cpu":
+        return preamble_plain(rays, bounds)
+    from ..utils import cuda_build
+
+    dev = rays[0].device
+    n = _check_lane_arrays(rays, 6, dev)
+    _check("bounds", bounds, dev, torch.float32, (6,))
+    outs = tuple(torch.empty(n, dtype=torch.float32, device=dev) for _ in range(8))
+    if n == 0:
+        return outs
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().preamble_probe_launch(
+            _ptrs(rays, 6), bounds.data_ptr(), n, _ptrs(outs, 8), _stream(dev))
+    _launched("preamble_probe", rc)
+    return outs
+
+
+def level_forms(tabs) -> list:
+    """The reference's node-table form of each level table (int32 [n_l,
+    3]) by its node count: (form, rows) with rows the taa table's used
+    rows of 128 nodes (hako_kernels.hako_args' level_rows)."""
+    out = []
+    for tab in tabs:
+        n = tab.shape[0]
+        if n <= SMEM_TABLE_MAX:
+            out.append(("smem", 64))
+        elif n <= TAA_TABLE_MAX:
+            out.append(("taa", max(-(-n // 128), 1)))
+        else:
+            out.append(("split", -(-n // 128)))
+    return out
+
+
+def _level_node(tab, form, child):
+    """The node the reference's gather of `form` gives for each child
+    index: smem clips it to [0, 63], taa its row to [0, rows - 1]; every
+    form reads zeros past the level's nodes. Returns (mask_lo, mask_hi,
+    base) int64."""
+    kind, rows = form
+    if kind == "smem":
+        i = torch.clamp(child, 0, 63)
+    elif kind == "taa":
+        i = torch.clamp(child >> 7, 0, rows - 1) * 128 + (child & 127)
+    else:
+        i = child
+    ok = (i >= 0) & (i < tab.shape[0])
+    node = torch.where(ok[:, None], tab[torch.where(ok, i, 0)].long(), 0)
+    return node[:, 0], node[:, 1], node[:, 2]
+
+
+def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
+                      clip: int = STAGE_CLIP):
+    """Kernel A's probe body by stage on the lanes' rays (ox, oy, oz, dx,
+    dy, dz, tq; f32 [n]) in the box bounds, from the root masks
+    root_mask (lo, hi) through the root-down level tables `tabs` (int32
+    [n_l, 3]). Stages 0-3 (PROBE_STAGES): the root walk; + its cell's
+    coords, exit planes and rank; + the level-0 node at the rank clipped
+    to [0, clip]; + that node's walk. Returns (child int32, en, ex).
+    Stage 4: the body unrolled over T levels; returns (child, cell, en,
+    ex, exit planes x, y, z, rank) as hako_shell_micro.py's k_body
+    writes them."""
+    ro, rd = _stack_rays(rays)
+    tq = rays[6]
+    _t0, t1, dt, vm6, _ok = hk._ray_preamble(bounds[:3], bounds[3:], ro, rd)
+    forms = level_forms(tabs)
+    ml = torch.full_like(vm6, root_mask[0])
+    mh = torch.full_like(vm6, root_mask[1])
+    cur = t1
+    dc = dt * 0.25
+
+    def exit_planes(cur, dc, c):
+        return hk._plane(cur, dc, torch.clamp(hk._coords(c) + 1, max=4))
+
+    if stage == 4:
+        base = torch.zeros_like(vm6)
+        for depth in range(T):
+            en, ex, c = _walk64_impl(ml, mh, vm6, cur, dc, tq)
+            nt1 = exit_planes(cur, dc, c)
+            rank = _pc64_below(ml, mh, c ^ vm6)
+            child = base + rank
+            if depth < T - 1:
+                ml, mh, base = _level_node(tabs[depth], forms[depth], child)
+                cur = nt1
+                dc = dc * 0.25
+        i32 = torch.int32
+        return (child.to(i32), c.to(i32), en, ex, nt1[0], nt1[1], nt1[2],
+                rank.to(i32))
+    en, ex, c = _walk64_impl(ml, mh, vm6, cur, dc, tq)
+    child = c
+    if stage >= 1:
+        nt1 = exit_planes(cur, dc, c)
+        rank = _pc64_below(ml, mh, c ^ vm6)
+        child = rank
+    if stage >= 2:
+        ml2, mh2, b2 = _level_node(tabs[0], forms[0], torch.clamp(child, 0, clip))
+        child = b2 + rank
+    if stage >= 3:
+        child = child + _walk64_impl(ml2, mh2, vm6, nt1, dc * 0.25, tq)[2]
+    return child.to(torch.int32), en, ex
+
+
+def probe_stage_probe(stage: int, rays, bounds, root_mask, tabs, *, T: int,
+                      clip: int = STAGE_CLIP):
+    """As probe_stage_plain; rays 7 f32 [n], bounds f32 [6], tabs int32
+    [n_l, 3] root-down (at most cuda_build.MAX_LEVELS)."""
+    if stage not in range(len(PROBE_STAGES)):
+        raise ValueError(f"no probe stage {stage}")
+    if stage >= 2 and not tabs or stage == 4 and not 1 <= T <= len(tabs) + 1:
+        raise ValueError(f"stage {stage} with T = {T} needs more than {len(tabs)} "
+                         "level tables")
+    if _device_of(rays[0], "probe_stage_probe") == "cpu":
+        return probe_stage_plain(stage, rays, bounds, root_mask, tabs, T=T, clip=clip)
+    import ctypes
+
+    from ..utils import cuda_build
+
+    if len(tabs) > cuda_build.MAX_LEVELS:
+        raise ValueError(f"at most {cuda_build.MAX_LEVELS} level tables, not {len(tabs)}")
+
+    dev = rays[0].device
+    n = _check_lane_arrays(rays, 7, dev)
+    _check("bounds", bounds, dev, torch.float32, (6,))
+    for d, tab in enumerate(tabs):
+        _check(f"level {d}", tab, dev, torch.int32, (tab.shape[0], 3))
+    levels, level_off = hk.level_pack(list(tabs))
+    forms = level_forms(tabs)
+
+    def ints(vals):
+        return (ctypes.c_int * cuda_build.MAX_LEVELS)(*vals)
+
+    full = stage == 4
+    out_i = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3 if full else 1)]
+    out_f = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(5 if full else 2)]
+    if n:
+        offs, counts = ints(level_off), ints([t.shape[0] for t in tabs])
+        kinds, rows = ints([NODE_FORMS.index(f) for f, _ in forms]), ints([r for _, r in forms])
+        with torch.cuda.device(dev):
+            rc = cuda_build.load().probe_stage_probe_launch(
+                stage, _ptrs(rays, 7), bounds.data_ptr(), root_mask[0] & MASK32,
+                root_mask[1] & MASK32, None if levels is None else levels.data_ptr(),
+                ctypes.addressof(offs), ctypes.addressof(counts),
+                ctypes.addressof(kinds), ctypes.addressof(rows), len(tabs), T,
+                clip, n, _ptrs(out_i, 3), _ptrs(out_f, 5), _stream(dev))
+        _launched("probe_stage_probe", rc)
+    if full:
+        child, cell, rank = out_i
+        return (child, cell, *out_f, rank)
+    return (out_i[0], *out_f)

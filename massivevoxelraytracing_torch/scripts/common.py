@@ -10,6 +10,7 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 SCHEDULERS = 4             # warp instructions an SM issues a cycle
 # repeats a lane, at least, at the one-warp-an-SM and full-occupancy
 # shapes: enough for the k-to-2k difference to stand well above the
@@ -73,6 +74,57 @@ def shapes(device, k: int, latency_k: int = LATENCY_REPEATS,
             dict(shape="full occupancy", lanes=sms * 2048, threads=256,
                  k=max(k, rate_k)),
             dict(shape="script", lanes=SCRIPT_LANES, threads=256, k=k)]
+
+
+ROW_BYTES = 164 * 4
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / F32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+# The round kernels' bounds on their inputs: each byte read or written
+# once, counted by the lanes that take each branch; operations a lower
+# bound (the ray preamble's ~30 float ops a lane, ~100 more a row walked).
+
+
+def probe_bound(n: int, table_words: int) -> tuple:
+    """hako_probe on n lanes. Every lane: in idx 4, ro / rd 24, tq 4; out
+    emit 1, child 4, bt1 12, tqe / tqn 8, exh 1; the level tables once."""
+    return bound(n * (32 + 26) + 4 * table_words, 30 * n)
+
+
+def dda_bound(n: int, n_go: int, rows: int) -> tuple:
+    """hako_dda (or hako_dda_cached) on n lanes, n_go of them going, over
+    `rows` distinct rows. Every lane: in go 1, tqe 4; out hit 1, t / nmaj
+    / vr / p3 / tqp / tqr 24, more 1; go lanes: in idx 4, ro / rd 24,
+    child 4, bt1 12, and their rows."""
+    return bound(n * (5 + 26) + n_go * 44 + rows * ROW_BYTES, 130 * n_go)
+
+
+def dda_counts(go, child) -> tuple:
+    """(go lanes, distinct rows among them) of a kernel B launch."""
+    return int(go.sum()), int(torch.unique(child[go]).numel())
+
+
+def merge_bound(n: int, n_act: int, n_more: int, n_plane: int, n_hit: int) -> tuple:
+    """hako_merge on n lanes. Every lane: in idx 4, resolved 1; active
+    lanes: in tqn 4, emit / hit / exh 3, out resolved 1, tq 4; emitting
+    lanes: in more 1, then tqr 4 (more) or bt1 12; hit lanes: in t / nmaj
+    / vr 12, out t / nmaj / vrank 12."""
+    return bound(n * 5 + n_act * 12 + n_more * 5 + n_plane * 13 + n_hit * 24, 3 * n_act)
+
+
+def merge_counts(state, idx, emit, hit, more) -> tuple:
+    """(lanes, active, emitting with more, emitting without, hits) of a
+    hako_merge launch on the round state `state`."""
+    act = ~state[0][idx.long()]
+    return (int(idx.shape[0]), int(act.sum()), int((act & emit & more).sum()),
+            int((act & emit & ~more).sum()), int((act & hit).sum()))
 
 
 HOST_CYCLES_A_CALL = 400_000  # ~0.2 ms of the card's clock: a wrapper call's host time

@@ -8,7 +8,8 @@ rays in the port's tile order, padded as the renderer pads a packet.
 
 Phases, each on the first cap = nb // 4 blocks of 2048 rays (nb: the
 frame's blocks), each kernel's outputs held bit for bit against its plain
-version, then timed with CUDA events:
+version, then timed with CUDA events beside its bound on these inputs
+(scripts/common.probe_bound, dda_bound, merge_bound):
   * hako_probe (the reference's kernel A) from the root;
   * hako_dda over the supernode rows, on a fat tree (T stages above the
     bricks, grid above hako.USE_SNODES_ABOVE);
@@ -154,9 +155,10 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
 
     launches0 = dict(hk.LAUNCHES)
 
-    def phase(name, kernel, plain, setup=None):
+    def phase(name, kernel, plain, bound, setup=None):
         """kernel(x) / plain(x) of x = setup() (untimed), or of nothing;
-        records the phase's kernel launches (its check and its timing)."""
+        records the phase's kernel launches (its check and its timing) and
+        its bound(), a function of its outputs."""
         prep = setup or (lambda: None)
         k_fn, p_fn = ((kernel, plain) if setup else
                       (lambda _: kernel(), lambda _: plain()))
@@ -168,6 +170,7 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         if cuda:
             rec["ms"] = common.event_ms_each(k_fn, prep)
             rec["plain_ms"] = common.event_ms_each(p_fn, prep, reps=1)
+            rec["bound_ms"], rec["bound_by"] = bound(got)
         rec["launches"] = _launched_since(before)
         return got
 
@@ -175,20 +178,23 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     a = (levels, level_off, T, root, *rays, idx, state0[1])
     emit, child, bt1, tqe, tqn, exh = phase(
         "hako_probe", lambda: hk.hako_probe(*a, max_probes=max_probes),
-        lambda: hk.hako_probe_plain(*a, max_probes=max_probes))
+        lambda: hk.hako_probe_plain(*a, max_probes=max_probes),
+        lambda _: common.probe_bound(n, 0 if levels is None else levels.numel()))
     dda_kw = dict(shadow=False, max_iters=max_dda)
     if fat:
         s = (snodes, *rays, idx, emit, child, bt1, tqe)
         sn = phase("hako_dda supernodes",
                    lambda: hk.hako_dda(*s, dt_factor=0.25 ** T, leaf=False, **dda_kw),
                    lambda: hk.hako_dda_plain(*s, dt_factor=0.25 ** T, leaf=False,
-                                             **dda_kw))
+                                             **dda_kw),
+                   lambda _, e=emit, c=child: common.dda_bound(n, *common.dda_counts(e, c)))
         emit, child, bt1, tqe, tqn = hk.supernode_handoff(emit, bt1, tqn, sn)
     leaf_f = 0.25 ** (T + 2 if fat else T)
     b = (bricks, *rays, idx, emit, child, bt1, tqe)
     hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = phase(
         "hako_dda leaf", lambda: hk.hako_dda(*b, dt_factor=leaf_f, leaf=True, **dda_kw),
-        lambda: hk.hako_dda_plain(*b, dt_factor=leaf_f, leaf=True, **dda_kw))
+        lambda: hk.hako_dda_plain(*b, dt_factor=leaf_f, leaf=True, **dda_kw),
+        lambda _: common.dda_bound(n, *common.dda_counts(emit, child)))
     m = (idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more, tqr)
 
     def merged(fn):
@@ -198,6 +204,7 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         return call
 
     phase("hako_merge", merged(hk.hako_merge), merged(hk.hako_merge_plain),
+          lambda _: common.merge_bound(*common.merge_counts(state0, idx, emit, hit, more)),
           setup=lambda: tuple(x.clone() for x in state0))
 
     host = None
@@ -244,8 +251,8 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     for name, rec in phases.items():
         if cuda:
             print(f"[phase timing]   {name:20s} {rec['ms']:9.4f} ms == plain "
-                  f"({rec['plain_ms']:.2f} ms), launches {rec['launches']} "
-                  f"[{card}]", flush=True)
+                  f"({rec['plain_ms']:.2f} ms), bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}), launches {rec['launches']} [{card}]", flush=True)
         else:
             print(f"[phase timing]   {name:20s} == plain, launches {rec['launches']}",
                   flush=True)

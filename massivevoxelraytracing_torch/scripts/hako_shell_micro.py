@@ -1,0 +1,188 @@
+"""Kernel A's fixed cost on the card, after the JAX package's
+scripts/hako_shell_micro.py: its I/O shell, the ray preamble, the real
+kernel A at 1 and 2 probes, and its probe body unrolled and by stage.
+
+    python -m massivevoxelraytracing_torch.scripts.hako_shell_micro --staged
+    python -m massivevoxelraytracing_torch.scripts.hako_shell_micro --device cpu --staged
+
+Inputs, drawn as the reference draws them from default_rng(0): eight f32
+arrays of U(0.5, 2) over GRID x 2,048 lanes (GRID = 256 blocks: a full
+round's 524,288 lanes), then 60,000 voxel coordinates in 256^3, whose
+unique Morton codes build the tree (lower 0, dps 1/256: T = 2, one level
+table of 64 nodes). Arrays 0-2 are the origins, 3-5 the directions, all
+positive: a ray finds cells only where its origin lies inside the unit
+box on every axis, (1/3)^3 = 3.7% of lanes, though the line of ~59% of
+them meets the box behind the origin (the preamble's enter_ok); so the
+cases mostly measure I/O and the preamble (both shares are printed).
+
+Cases, each held bit for bit against its plain version, then timed with
+CUDA events (the least of 3 trains of 10 launches queued behind a spin
+kernel, beside the library call where there is one; ms and us a
+2,048-lane block, as the reference reports):
+  * the shell, o = i + 1: 8 separate arrays in and 8 out (the
+    reference's :64), and the same data as one [GRID, 8, 2048] array
+    each way (:78), with the time of torch.add on the same arrays;
+  * the shell + the ray preamble on the unit box (:102);
+  * the real kernel A (hako_probe) at P = 1 and 2 on every lane, tq = 0
+    (:134);
+  * the probe body unrolled over the T levels (:200; tq = array 6, as the
+    reference passes it);
+  * with --staged, the body by stage (:287; tq = 0): preamble + walk,
+    + coords / planes / rank, + node fetch, + second walk.
+The reference's body and stages read the low 16 bits of each root mask
+word (its scal_i[0, 0] and [0, 2]); they get the same masks here. Its
+stage 2 clips the rank to [0, 55] before the fetch, a literal of the
+script: the tree's level has 64 nodes. Kernel A gets the tree's full root
+masks, as the reference's real kernel does.
+
+--device cpu runs the plain versions on the first 2,048 lanes (one
+block) and prints no time; without a card and without that flag the
+script raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from ..ops import hako, morton, probes
+from ..ops import hako_kernels as hk
+from . import common
+
+GRID = 256         # blocks of the reference's grid
+BLOCK = 2048       # lanes a block (16 x 128)
+LANES = GRID * BLOCK
+N_VOXELS = 60000
+TREE_RES = 256
+F32 = 4            # bytes
+
+
+def script_inputs(device, lanes: int = LANES):
+    """(eight f32 [lanes] arrays, the tree) from default_rng(0) in the
+    reference's draw order (all GRID x 2,048 lanes are drawn; the first
+    `lanes` are kept)."""
+    rng = np.random.default_rng(0)
+    eight = [rng.uniform(0.5, 2.0, (LANES,)).astype(np.float32) for _ in range(8)]
+    c = torch.from_numpy(rng.integers(0, TREE_RES, size=(N_VOXELS, 3)))
+    codes = morton.encode(c[:, 0], c[:, 1], c[:, 2]).unique()
+    tree = hako.build_hako(codes, TREE_RES, device=device,
+                           lower=np.zeros(3, np.float32), dps=1.0 / TREE_RES)
+    return [torch.from_numpy(x[:lanes]).to(device) for x in eight], tree
+
+
+def _equal(name, got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: output {i} differs from the plain version")
+
+
+def run(device, *, staged: bool = False, card: str = "") -> dict:
+    """The cases on `device` (all lanes on the card, one block on the
+    CPU). Returns the case records, the tree's shape and the shares of
+    lanes whose line meets the box and whose walk finds a cell."""
+    cuda = device.type == "cuda"
+    lanes = LANES if cuda else BLOCK
+    eight, tree = script_inputs(device, lanes)
+    (_bricks, _snodes, tabs, root), T = hk.hako_args(tree)
+    forms = probes.level_forms(tabs)
+    blocks = lanes / BLOCK
+    tab_bytes = sum(t.numel() for t in tabs) * F32
+    pre_ops = 30 * lanes  # the ray preamble's float ops, a lower bound
+    print(f"[shell micro] tree: T={T} level nodes {[t.shape[0] for t in tabs]} "
+          f"forms {forms}; {lanes} lanes [{card}]", flush=True)
+    records = []
+
+    def case(name, site, kernel, fn, plain, n_bytes, n_ops, library=None):
+        before = dict(probes.LAUNCHES), dict(hk.LAUNCHES)
+        got = fn()
+        _equal(name, got, plain())
+        rec = dict(name=name, site=site, kernel=kernel, lanes=lanes)
+        if cuda:
+            ms = common.best_ms([fn, library] if library else [fn])
+            rec["ms"], rec["library_ms"] = ms[0], (ms[1] if library else None)
+            rec["plain_ms"] = common.timed(plain, reps=1, warm=False)[1]
+            rec["us_per_block"] = rec["ms"] * 1e3 / blocks
+            rec["bound_ms"], rec["bound_by"] = common.bound(n_bytes, n_ops)
+        rec["launches"] = (sum(probes.LAUNCHES[k] - before[0][k] for k in probes.LAUNCHES)
+                           + sum(hk.LAUNCHES[k] - before[1][k] for k in hk.LAUNCHES))
+        records.append(rec)
+        if cuda:
+            lib = (f", torch.add {rec['library_ms']:.4f} ms" if library else "")
+            print(f"[shell micro] {name:36s}: {rec['ms']:8.4f} ms ({rec['us_per_block']:6.3f} "
+                  f"us/block) == plain ({rec['plain_ms']:.2f} ms); bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib} [{card}]", flush=True)
+        else:
+            print(f"[shell micro] {name:36s}: == plain version [{card}]", flush=True)
+        return got
+
+    # (a) 8 separate arrays in and 8 out, (b) one consolidated block
+    outs8 = [torch.empty_like(x) for x in eight]
+    case("shell: 8 separate in + 8 out", ":64", "shell_copy_probe",
+         lambda: probes.shell_copy_probe(*eight), lambda: probes.shell_copy_plain(*eight),
+         16 * F32 * lanes, 0,
+         lambda: [torch.add(x, 1.0, out=o) for x, o in zip(eight, outs8)])
+    one = torch.stack([x.reshape(-1, BLOCK) for x in eight], 1).contiguous()
+    out1 = torch.empty_like(one)
+    case("shell: 1 consolidated in + 1 out", ":78", "shell_copy_probe",
+         lambda: probes.shell_copy_probe(one), lambda: probes.shell_copy_plain(one),
+         16 * F32 * lanes, 0, lambda: torch.add(one, 1.0, out=out1))
+    # (c) + the ray preamble on the unit box
+    unit = torch.tensor([0, 0, 0, 1, 1, 1], dtype=torch.float32, device=device)
+    pre = case("shell + ray preamble", ":102", "preamble_probe",
+               lambda: probes.preamble_probe(eight[:6], unit),
+               lambda: probes.preamble_plain(eight[:6], unit), 14 * F32 * lanes, pre_ops)
+    # (d) the real kernel A
+    bounds = torch.cat([tree.lower, tree.upper]).to(torch.float32)
+    ro = torch.stack(eight[:3], 1).contiguous()
+    rd = torch.stack(eight[3:6], 1).contiguous()
+    idx = torch.arange(lanes, dtype=torch.int32, device=device)
+    tq0 = torch.zeros(lanes, dtype=torch.float32, device=device)
+    levels, level_off = hk.level_pack(list(tabs))
+    a = (levels, level_off, T, root, bounds, ro, rd, idx, tq0)
+    for p in (1, 2):
+        got = case(f"real kernel A (P={p})", ":134", "hako_probe",
+                   lambda p=p: hk.hako_probe(*a, max_probes=p),
+                   lambda p=p: hk.hako_probe_plain(*a, max_probes=p),
+                   58 * lanes + tab_bytes, pre_ops)
+    # the line of most rays meets the box, but behind their origin
+    meets, ahead = float(pre[7].mean()), 1.0 - float(got[5].float().mean())
+    print(f"[shell micro]   lanes whose line meets the box (enter_ok): {meets:.4f}; "
+          f"whose root walk finds a cell ahead (kernel A, not exhausted): {ahead:.4f}",
+          flush=True)
+    # (e) the body unrolled; the reference's 16-bit root mask words
+    root16 = (root[0] & 0xFFFF, root[1] & 0xFFFF)
+    stage_rays = eight[:6] + [eight[6]]
+    case("unrolled probe body (no loop)", ":200", "probe_stage_probe",
+         lambda: probes.probe_stage_probe(4, stage_rays, bounds, root16, tabs, T=T),
+         lambda: probes.probe_stage_plain(4, stage_rays, bounds, root16, tabs, T=T),
+         15 * F32 * lanes + tab_bytes, pre_ops)
+    if staged:
+        zero_tq = eight[:6] + [tq0]
+        for stage in range(4):
+            case(f"stage {stage}: {probes.PROBE_STAGES[stage]}", ":287",
+                 "probe_stage_probe",
+                 lambda s=stage: probes.probe_stage_probe(s, zero_tq, bounds, root16,
+                                                          tabs, T=T),
+                 lambda s=stage: probes.probe_stage_plain(s, zero_tq, bounds, root16,
+                                                          tabs, T=T),
+                 10 * F32 * lanes + (tab_bytes if stage >= 2 else 0), pre_ops)
+    return dict(lanes=lanes, T=T, level_nodes=[t.shape[0] for t in tabs], forms=forms,
+                meets_box_share=meets, ahead_share=ahead, cases=records)
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    common.add_device_arg(ap)
+    ap.add_argument("--staged", action="store_true",
+                    help="also time the probe body by stage (the reference's STAGED run)")
+    args = ap.parse_args(argv)
+    dev = common.resolve_device(args.device)
+    card = common.card(dev)
+    print(card, flush=True)
+    return run(dev, staged=args.staged, card=card)
+
+
+if __name__ == "__main__":
+    main()

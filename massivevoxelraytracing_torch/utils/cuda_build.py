@@ -133,6 +133,8 @@ def _bind(lib):
         p, p, p, p, p, p, p, p,                        # 8 outputs
         f, i, i, i, p,                                 # dt_factor, leaf, shadow, iters, stream
     ]
+    lib.hako_dda_cached_launch.argtypes = (
+        lib.hako_dda_launch.argtypes[:-1] + [i, p, p])  # cache, stats, stream
     lib.hako_merge_launch.argtypes = [
         p, i,                                          # idx, n
         p, p, p, p, p, p, p, p, p, p,                  # emit, bt1, tqn, exh, hit, t, nmaj, vr, more, tqr
@@ -155,12 +157,21 @@ def _bind(lib):
     ]
     lib.table_select_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
     lib.calib_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
+    lib.shell_copy_probe_launch.argtypes = [i, p, p, i, p]  # aos, in[8], out[8], n
+    lib.preamble_probe_launch.argtypes = [p, p, i, p, p]    # ray[6], bounds, n, out[8]
+    lib.probe_stage_probe_launch.argtypes = [
+        i, p, p, u, u,                                 # stage, ray[7], bounds, root
+        p, p, p, p, p, i,                              # levels, off, n, form, rows, count
+        i, i, i, p, p, p,                              # T, clip, n, out_i[3], out_f[5], stream
+    ]
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
                lib.hako_dda_launch, lib.hako_merge_launch,
                lib.row_chase_launch, lib.walk_probe_launch,
                lib.fetch_probe_launch, lib.construct_probe_launch,
                lib.node_gather_probe_launch, lib.table_select_probe_launch,
-               lib.calib_probe_launch):
+               lib.calib_probe_launch, lib.hako_dda_cached_launch,
+               lib.shell_copy_probe_launch, lib.preamble_probe_launch,
+               lib.probe_stage_probe_launch):
         fn.restype = ctypes.c_int
     return lib
 

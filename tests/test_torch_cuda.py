@@ -12,7 +12,11 @@ walks, the streamed build, the terrain generator and the voxmesh /
 voxtriangle apps on the card against the same on the CPU; the issue-cost
 probes (construct_probe, node_gather_probe, table_select_probe,
 calib_probe, the scan64 walk probe) against their plain versions on the
-card, bit for bit, at two block sizes and a ragged lane count. Imports
+card, bit for bit, at two block sizes and a ragged lane count; kernel A's
+shell, preamble and stage probes (both shell layouts, all five stages,
+child indices past an smem- and a taa-form level) and kernel B through
+its row cache (leaf and supernode rows, primary and shadow, a cache small
+enough that lanes overflow it, and a cache the card refuses). Imports
 nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -154,7 +158,7 @@ def test_round_kernels_match_plain_bit_for_bit(cuda, monkeypatch, grid_res,
     assert int(got[3]) == 0 and n_rounds > 1
     n_stages = 2 if args[1] is not None else 1
     assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda": n_stages * n_rounds,
-                           "hako_merge": n_rounds}
+                           "hako_merge": n_rounds, "hako_dda_cached": 0}
     assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)[:3],
                  "round driver vs plain")
     assert_equal(got[:3], hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
@@ -210,7 +214,7 @@ def test_pt_step_rounds_equals_mega_on_card(cuda):
         if traversal == "mega":
             assert hako_mega.LAUNCHES > 0 and hk.ROUNDS == 0
         else:
-            assert hako_mega.LAUNCHES == 0 and min(hk.LAUNCHES.values()) > 0
+            assert hako_mega.LAUNCHES == 0 and min(hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS) > 0
         assert pt.accum.device.type == "cuda"
         accum[traversal] = pt.accum
     assert bool(torch.isfinite(accum["mega"]).all())
@@ -461,3 +465,117 @@ def test_walk_probe_matches_plain(cuda, impl):
     got = probes.walk_probe(lo, hi, t1, dc, iters=PROBE_K, impl=impl, threads=32)
     assert torch.equal(got, probes.walk_probe_plain(lo, hi, t1, dc, iters=PROBE_K,
                                                     impl=impl))
+
+
+@pytest.mark.parametrize("lanes", [PROBE_LANES, 4096])
+def test_shell_copy_probe_matches_plain(cuda, lanes):
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(lanes)
+    eight = [torch.as_tensor(rng.uniform(0.5, 2.0, lanes).astype(np.float32), device=cuda)
+             for _ in range(8)]
+    one = torch.stack(eight).reshape(1, 8, lanes)
+    probes.reset_counters()
+    for xs in (eight, [one]):
+        got = probes.shell_copy_probe(*xs)
+        for a, b in zip(got, probes.shell_copy_plain(*xs)):
+            assert torch.equal(a, b)
+    assert probes.LAUNCHES["shell_copy_probe"] == 2
+    with pytest.raises(ValueError, match="aligned"):
+        probes.shell_copy_probe(one.reshape(-1)[1:])
+
+
+def probe_rays(rng, n, cuda):
+    """Origins around the unit box, directions of every sign, resume keys
+    of either sign: 7 f32 [n]."""
+    return ([torch.as_tensor(rng.uniform(-0.5, 1.5, n).astype(np.float32), device=cuda)
+             for _ in range(3)]
+            + [torch.as_tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+               for _ in range(3)]
+            + [torch.as_tensor(rng.uniform(-0.2, 0.6, n).astype(np.float32), device=cuda)])
+
+
+def test_preamble_probe_matches_plain(cuda):
+    from massivevoxelraytracing_torch.ops import probes
+
+    rays = probe_rays(np.random.default_rng(12), PROBE_LANES, cuda)[:6]
+    unit = torch.tensor([0, 0, 0, 1, 1, 1], dtype=torch.float32, device=cuda)
+    for a, b in zip(probes.preamble_probe(rays, unit), probes.preamble_plain(rays, unit)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("stage", range(5))
+def test_probe_stage_probe_matches_plain(cuda, stage):
+    """Dense root masks over an smem-form level of 40 nodes and a taa-form
+    level of 300: ranks and child indices run past both."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(13)
+
+    def words(n):
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+    tabs = [torch.as_tensor(np.stack([words(n), words(n), rng.integers(lo, hi, n)
+                                      .astype(np.uint32)], 1).view(np.int32), device=cuda)
+            for n, lo, hi in ((40, 250, 420), (300, 0, 1 << 20))]
+    assert probes.level_forms(tabs) == [("smem", 64), ("taa", 3)]
+    root = tuple(int(words(1)[0] | words(1)[0] | words(1)[0]) for _ in range(2))
+    rays = probe_rays(rng, 4096 + 17, cuda)
+    bounds = torch.tensor([0, 0, 0, 1, 1, 1], dtype=torch.float32, device=cuda)
+    for T in ((2, 3) if stage == 4 else (3,)):
+        got = probes.probe_stage_probe(stage, rays, bounds, root, tabs, T=T)
+        want = probes.probe_stage_plain(stage, rays, bounds, root, tabs, T=T)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    child = got[0].cpu().numpy()
+    if stage == 4:
+        assert (child >= 300).any() and (got[1] == 64).any() and (got[1] < 64).any()
+
+
+def first_round_stages(cuda, monkeypatch, shadow):
+    """Kernel B's two stages on a fat tree's first round (supernode rows,
+    then brick rows after the handoff): [(args, keywords)]."""
+    args, T = case_args(cuda, monkeypatch, 512, 8000, 128)
+    bricks, snodes, tabs, root, lower, upper, ro, rd = args
+    levels, level_off = hk.level_pack(tabs)
+    bounds = torch.cat([lower, upper]).to(torch.float32)
+    n = ro.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=cuda)
+    tq = torch.zeros(n, dtype=torch.float32, device=cuda)
+    emit, child, bt1, tqe, tqn, _exh = hk.hako_probe(
+        levels, level_off, T, root, bounds, ro, rd, idx, tq, max_probes=hk.PROBES)
+    kw = dict(shadow=shadow, max_iters=hk.DDA_ITERS)
+    s = ((snodes, bounds, ro, rd, idx, emit, child, bt1, tqe),
+         dict(dt_factor=0.25 ** T, leaf=False, **kw))
+    emit2, child2, bt1_2, tqe2, _tqn = hk.supernode_handoff(
+        emit, bt1, tqn, hk.hako_dda_plain(*s[0], **s[1]))
+    b = ((bricks, bounds, ro, rd, idx, emit2, child2, bt1_2, tqe2),
+         dict(dt_factor=0.25 ** (T + 2), leaf=True, **kw))
+    return [s, b]
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("cache", [2, 64])
+def test_hako_dda_cached_matches_plain(cuda, monkeypatch, cache, shadow):
+    stages = first_round_stages(cuda, monkeypatch, shadow)
+    hk.reset_counters()
+    overflow = 0
+    for a, k in stages:
+        got, stats = hk.hako_dda_cached(*a, cache=cache, **k)
+        for x, y in zip(got, hk.hako_dda_plain(*a, **k)):
+            assert torch.equal(x, y)
+        assert torch.equal(stats, hk.block_rows_plain(a[5], a[6], cache))
+        assert int(stats[:, 2].sum()) > 0
+        overflow += int((stats[:, 0] - stats[:, 2]).sum())
+    assert hk.LAUNCHES["hako_dda_cached"] == 2
+    assert (overflow > 0) == (cache == 2)
+
+
+def test_hako_dda_cached_refuses_too_much_shared_memory(cuda, monkeypatch):
+    """400 rows of 656 B exceed a block's 227 KB: the launch is refused and
+    the wrapper raises (no plain version behind it)."""
+    (a, k), _ = first_round_stages(cuda, monkeypatch, False)
+    hk.reset_counters()
+    with pytest.raises(RuntimeError, match="hako_dda_cached kernel launch failed"):
+        hk.hako_dda_cached(*a, cache=400, **k)
+    assert hk.LAUNCHES["hako_dda_cached"] == 0

@@ -116,7 +116,7 @@ def test_node_gather_plain_matches_jax_gathers(rows):
         gather = jax.jit(lambda i: jk._gather_node(jnp.asarray(tab), rows, i))
     idx0 = rng.integers(0, n - 31, SHAPE).astype(np.int32)
     want = jax_gather_chain(gather, jnp.asarray(idx0))
-    table = probes.node_table_from_segments(tab)
+    table = probes.node_table_from_segments(tab, "cpu")
     assert table.dtype == torch.int32 and tuple(table.shape) == (n, 3)
     for space in probes.SPACES:
         got = probes.node_gather_probe(table, torch.from_numpy(idx0.reshape(-1)), k=K,
@@ -127,7 +127,7 @@ def test_node_gather_plain_matches_jax_gathers(rows):
 
 def test_node_table_refuses_other_shapes():
     with pytest.raises(ValueError):
-        probes.node_table_from_segments(np.zeros((4, 12), np.float32))
+        probes.node_table_from_segments(np.zeros((4, 12), np.float32), "cpu")
     with pytest.raises(ValueError):  # not a power of two
         probes.node_gather_probe(torch.zeros((96, 3), dtype=torch.int32),
                                  torch.zeros(4, dtype=torch.int32), k=K, space="global")
