@@ -69,6 +69,19 @@ Phases (any failure raises, and the script exits non-zero):
      alone, the distinct rows a block, the bookkeeping, one round against
      the sum of its phases, the full frame); every case held bit for bit
      against its plain version before it is timed;
+  5d. this slice's path, with the probe kernels' counts set to 0 just
+     before and read just after (each must have launched, and the
+     scripts' own counts must add up to the phase's):
+     scripts/dyngather_probe2.run (take_along_probe: the reference's four
+     take_along_axis bodies in each form, shared memory / warp shuffles /
+     L1, on one tile and on 8 tiles an SM, beside torch.gather and the
+     copy shell on the same bytes) and scripts/gather_probe3.main with
+     every probe (the torch chase loops; a0small, whose 1024-row table the
+     shared form refuses; smem_alloc_probe up to the opt-in limit, which
+     must launch, and one row more, which must be refused; ohg_probe from
+     shared memory, through L1 and on the tensor cores at 128 and 1024
+     rows, k and 2k hops); every case held bit for bit against its plain
+     version before it is timed;
   6. the apps on the card, each through its main(argv) into build/:
      rtcamp (the animated lattice, frames 0-2 of 24 at 1440x900, a full
      rebuild a frame at 512^3 then 1024^3, one 16-spp step; every PNG
@@ -97,7 +110,8 @@ Phases (any failure raises, and the script exits non-zero):
      (the PNG read back).
 
 Prints the card's name and power limit beside every timing, a JSON line
-of the probes' numbers (phase 5b's under "slice", 5c's under "split"),
+of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
+under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (with the apps'
 numbers, and phase 7's under "accel" and "shell"), and as its last line
@@ -1007,6 +1021,108 @@ def phase_split(tree, smi: str) -> dict:
                 round_launches=round_launches)
 
 
+GATHER_KERNELS = ("take_along_probe", "smem_alloc_probe", "ohg_probe")
+
+
+def phase_gather(smi: str, sl: dict) -> dict:
+    """Phase 5d: the 2D gather probes (scripts/dyngather_probe2.run and
+    scripts/gather_probe3.main with every probe), through their entry
+    points, with the probe kernels' counts set to 0 just before and read
+    just after; the one-hot chase's latency floors from phase 5b's
+    dependent node fetches of this run."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import dyngather_probe2, gather_probe3
+
+    t0 = time.time()
+    device = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    probes.reset_counters()
+    dyn = dyngather_probe2.run(device, card=smi)
+    g3 = gather_probe3.main(list(gather_probe3.ALL))
+    torch.cuda.synchronize()
+    launches = {k: probes.LAUNCHES[k] for k in dyngather_probe2.CASE_KERNELS}
+    for name in GATHER_KERNELS:
+        if launches[name] < 1:
+            raise AssertionError(f"phase 5d launched no {name} kernel")
+    cases = (dyn["cases"] + g3["a0small"]["cases"] + g3["ohg"]["cases"]
+             + g3["ohg1k"]["cases"])
+    counted = sum(r["launches"] for r in cases) + g3["vmem"]["launches"]
+    if counted != sum(launches.values()):
+        raise AssertionError(f"phase 5d: the scripts' launches ({counted}) do not add up "
+                             f"to the phase's {launches}")
+    cap = g3["vmem"]
+    if (cap["largest_launched_bytes"] != cap["optin_bytes"]
+            or cap["refused_rows"] != cap["optin_rows"] + 1):
+        raise AssertionError(f"phase 5d: capacity {cap['largest_launched_bytes']} B launched, "
+                             f"{cap['first_refused_bytes']} B refused, against the "
+                             f"opt-in limit {cap['optin_bytes']} B")
+    # the latency floor of k dependent loads: the least ns of a dependent
+    # node fetch at one warp an SM (phase 5b, node_gather_probe)
+    fetch_ns = {space: min(r["ns_per_repeat"] for r in sl["records"]
+                           if r["name"].startswith(f"gather {space} ")
+                           and r["shape"] == "one warp an SM")
+                for space in ("shared", "global")}
+    for rec in g3["ohg"]["cases"] + g3["ohg1k"]["cases"]:
+        if rec["mode"] in fetch_ns and not rec["refused"]:
+            rec["latency_floor_ms"] = rec["k"] * fetch_ns[rec["mode"]] * 1e-6
+            print(f"[phase5d] {rec['name']}: latency floor {rec['latency_floor_ms'] * 1e3:.3f} "
+                  f"us ({rec['k']} x {fetch_ns[rec['mode']]:.2f} ns) against "
+                  f"{rec['ms'] * 1e3:.3f} us [{smi}]", flush=True)
+    print(f"[phase5d] {len(cases)} gather cases == plain versions; capacity "
+          f"{cap['largest_launched_bytes']} B (the opt-in limit), {cap['refused_rows']} rows "
+          f"refused; launches {launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
+    return dict(dyngather=dyn, gather_probe3=g3, launches=launches, fetch_ns=fetch_ns)
+
+
+def gather_entries(gp: dict, src: str) -> list:
+    """Phase 5d's kernels line entries: take_along_probe summed over the
+    four dyngather bodies in the shared form on the card-filling batch;
+    smem_alloc_probe at the largest allocation; ohg_probe's tensor-core mode
+    summed over its 128- and 1024-row tables."""
+    big = [r for r in gp["dyngather"]["cases"]
+           if r["form"] == "shared" and r["batch"] > 1]
+    mma = [r for name in ("ohg", "ohg1k") for r in gp["gather_probe3"][name]["cases"]
+           if r["mode"] == "mma"]
+    cap = gp["gather_probe3"]["vmem"]
+
+    def total(recs, key):
+        return sum(r[key] for r in recs)
+
+    def brief(recs, keys):
+        return {f"{r['name']} {r['form'] if 'form' in r else r['mode']} B={r.get('batch', 1)}":
+                {k: r.get(k) for k in keys} for r in recs}
+
+    keys = ("ms", "plain_ms", "library_ms", "shell_ms", "bound_ms", "refused", "launches")
+    taa = gp["dyngather"]["cases"] + gp["gather_probe3"]["a0small"]["cases"]
+    ohg_keys = ("ms", "ms_2k", "us_per_hop", "plain_ms", "bound_ms", "bound_by",
+                "latency_floor_ms", "refused", "launches")
+    ohg = gp["gather_probe3"]["ohg"]["cases"] + gp["gather_probe3"]["ohg1k"]["cases"]
+    return [
+        dict(name="take_along_probe", route="cuda", source=src + "hako_probes.cu",
+             replaces="scripts/dyngather_probe2.py:19 (k_taa1 :41, k_taa1w :52, k_taa0 :59, "
+             "k_taa0t :70); scripts/gather_probe3.py:70",
+             launches=gp["launches"]["take_along_probe"], max_abs_err=0.0,
+             ms=total(big, "ms"), plain_ms=total(big, "plain_ms"),
+             bound_ms=total(big, "bound_ms"), bound_by="bytes",
+             library_ms=total(big, "library_ms"), shell_ms=total(big, "shell_ms"),
+             batch=big[0]["batch"], cases=brief(taa, keys)),
+        dict(name="smem_alloc_probe", route="cuda", source=src + "hako_probes.cu",
+             replaces="scripts/gather_probe3.py:101",
+             launches=gp["launches"]["smem_alloc_probe"], max_abs_err=0.0, ms=cap["ms"],
+             plain_ms=cap["plain_ms"], bound_ms=cap["bound_ms"], bound_by=cap["bound_by"],
+             library_ms=None, optin_bytes=cap["optin_bytes"],
+             largest_launched_bytes=cap["largest_launched_bytes"],
+             first_refused_bytes=cap["first_refused_bytes"]),
+        dict(name="ohg_probe", route="cuda", source=src + "hako_probes.cu",
+             replaces="scripts/gather_probe3.py:147", launches=gp["launches"]["ohg_probe"],
+             max_abs_err=0.0, ms=total(mma, "ms"), plain_ms=total(mma, "plain_ms"),
+             bound_ms=total(mma, "bound_ms"), bound_by="operations", library_ms=None,
+             cases=brief(ohg, ohg_keys)),
+    ]
+
+
 def shell_probe_launches(shell: dict) -> int:
     """The shell micro's kernel A launches (its real kernel A cases)."""
     return sum(r["launches"] for r in shell["cases"] if r["kernel"] == "hako_probe")
@@ -1581,6 +1697,8 @@ def main() -> int:
     pr["slice"] = sl
     sp = phase_split(tree, smi)
     pr["split"] = sp
+    gp = phase_gather(smi, sl)
+    pr["gather"] = gp
     apps = phase_apps(smi)
     t7 = time.time()
     structures = phase_structures(tree, cam, img, device, smi, rng)
@@ -1651,6 +1769,7 @@ def main() -> int:
         k["phase_timing_isolated_launches"] = sl["isolated_launches"][k["name"]]
         k["split_launches"] = sp["round_launches"][k["name"]]
     kernels += split_entries(sp, src)
+    kernels += gather_entries(gp, src)
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],

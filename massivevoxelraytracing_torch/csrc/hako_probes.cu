@@ -55,6 +55,43 @@
 //   fetches child indices past a level: pc64_below_clipped gives its rank
 //   and level_node the node its table form gives (a clipped index or
 //   zeros past the level's nodes).
+// * take_along_probe<AXIS, FORM> (dyngather_probe2.py :19, its k_taa1 /
+//   k_taa1w / k_taa0 / k_taa0t, and gather_probe3.py :70 probe_a0small):
+//   take_along_axis within a tile, out[i, j] = t[i, idx[i, j] % mod] (axis
+//   1) or t[idx[i, j] % mod, j] (axis 0), on a batch of independent tiles,
+//   a block a tile. The TPU question was which 2D dynamic gathers Mosaic
+//   lowers along lanes and sublanes; here it is what a block's gather
+//   within its tile costs three ways: FORM SHARED stages the tile in shared
+//   memory with coalesced 16-byte loads, then gathers from it (a tile over
+//   the block's opt-in shared memory is refused by the wrapper); FORM SHFL
+//   (axis 1) holds a row in a warp, C / 32 registers a lane, and gathers
+//   with one __shfl_sync a register and a select (a shuffle reaches 32
+//   lanes only); FORM GLOBAL gathers through L1 (__ldg). Bound: bytes (the
+//   tile, the indices and the output once); one tile is launch-bound,
+//   which is why the batch exists.
+// * smem_alloc_probe (gather_probe3.py :101 probe_vmem, the largest single
+//   VMEM scratch): n rows of 128 floats of dynamic shared memory, after
+//   cudaFuncSetAttribute raises the block's limit to them; 2x goes into
+//   row 0 and into row n - 1, and the output is row 0 + row n - 1 = 4x for
+//   every n. The reference never writes its last row, so its output is
+//   undefined (NaN when interpreted); writing it defines the output and
+//   proves the far end of the allocation is addressable. No bound: a
+//   capacity probe, answered by the largest n that launches.
+// * ohg_probe<MODE> (gather_probe3.py :147 probe_ohg): the dependent chase
+//   idx = (idx + flat[idx]) & (n - 1) over an int32 [n_rows, 128] table,
+//   k hops a lane. MODE SHARED stages the table in shared memory, MODE
+//   GLOBAL loads through L1 / L2: both are bound by the latency of k
+//   dependent loads. MODE MMA is the reference's MXU gather on the tensor
+//   cores: a warp chases 16 lanes; each hop builds the one-hot A fragment
+//   of the lanes' rows and multiplies it with the table's three byte planes
+//   (values < 2^24; split from the words with byte permutes as they are
+//   loaded) by mma.sync m16n8k32 u8 x u8 -> s32 over every 32-row chunk
+//   and 8-column tile, so the full 128-wide row of each lane is computed,
+//   as the reference computes it; p0 + (p1 << 8) + (p2 << 16) is exact
+//   (one non-zero term a sum), and each lane's column goes through shared
+//   memory to the threads that hold its index. Bound: operations (2 x 16
+//   x n_rows x 128 x 3 int8 operations a 16-lane group a hop); mma.sync is
+//   not wgmma, and the B fragments are re-read from L1 / L2 by every warp.
 //
 // What bounds them is what they measure: load latency (the chase, the
 // fetch, the gathers) and issue rate or dependent-op latency (the walk, the
@@ -587,6 +624,237 @@ __global__ void __launch_bounds__(kLaneThreads) probe_stage_kernel(const StagePa
   }
 }
 
+// ---------------------------------------------------------------------------
+// 2D gathers within a tile, shared-memory capacity, the one-hot gather
+// ---------------------------------------------------------------------------
+
+constexpr int kTaaThreads = 256;  // a block a tile (16 x 128 outputs: 8 a thread)
+enum TaaForm { kTaaShared, kTaaShfl, kTaaGlobal };
+
+struct TaaParams {
+  const int* t;    // [B, R, C]
+  const int* idx;  // [B, r, Ci]
+  int* out;        // [B, r, c_out]
+  int R, C, r, Ci, c_out;
+  int mask;        // the reference's modulus - 1 (a power of two), or -1: none
+};
+
+// One tile: out[i, j] = src[i, idx[i, j] & mask] (AXIS 1) or
+// src[idx[i, j] & mask, j] (AXIS 0), four outputs a thread a pass (one
+// 16-byte index load, one 16-byte store); src in shared memory, or the
+// tile in global memory read through L1.
+template <int AXIS, bool LDG>
+__device__ __forceinline__ void gather_tile(const TaaParams& p, const int* src, int b) {
+  const int quads = p.c_out / 4;
+  const int* idx = p.idx + static_cast<size_t>(b) * p.r * p.Ci;
+  int* out = p.out + static_cast<size_t>(b) * p.r * p.c_out;
+  for (int v = threadIdx.x; v < p.r * quads; v += blockDim.x) {
+    const int i = v / quads;
+    const int j = (v - i * quads) * 4;
+    const int4 x = __ldg(reinterpret_cast<const int4*>(idx + i * p.Ci + j));
+    int o[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = o[q] & p.mask;
+      const int at = AXIS == 1 ? i * p.C + m : m * p.C + j + q;
+      o[q] = LDG ? __ldg(src + at) : src[at];
+    }
+    *reinterpret_cast<int4*>(out + i * p.c_out + j) = make_int4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+// One tile along axis 1, a warp a row: lane l holds t[i, l + 32 q] for
+// q < Q (Q = C / 32), and takes column c as the shuffle of register c / 32
+// from lane c % 32 (every register is shuffled; a select keeps the one).
+template <int Q>
+__device__ __forceinline__ void shfl_rows(const TaaParams& p, int b) {
+  const int lane = threadIdx.x & 31;
+  const int* tile = p.t + static_cast<size_t>(b) * p.R * p.C;
+  const int* idx = p.idx + static_cast<size_t>(b) * p.r * p.Ci;
+  int* out = p.out + static_cast<size_t>(b) * p.r * p.c_out;
+  for (int i = threadIdx.x >> 5; i < p.r; i += blockDim.x >> 5) {
+    int reg[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) reg[q] = __ldg(tile + i * p.C + 32 * q + lane);
+    for (int j = lane; j < p.c_out; j += 32) {  // c_out % 32 == 0: warp-uniform
+      const int c = __ldg(idx + i * p.Ci + j) & p.mask;
+      int v = 0;
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int s = __shfl_sync(kFull, reg[q], c & 31);
+        v = (c >> 5) == q ? s : v;
+      }
+      out[i * p.c_out + j] = v;
+    }
+  }
+}
+
+template <int AXIS, int FORM>
+__global__ void __launch_bounds__(kTaaThreads) take_along_probe_kernel(const TaaParams p) {
+  extern __shared__ int4 s_taa_tile[];
+  const int b = blockIdx.x;
+  const int* tile = p.t + static_cast<size_t>(b) * p.R * p.C;
+  if constexpr (FORM == kTaaShared) {
+    const int4* t4 = reinterpret_cast<const int4*>(tile);
+    for (int v = threadIdx.x; v < p.R * p.C / 4; v += blockDim.x) s_taa_tile[v] = __ldg(t4 + v);
+    __syncthreads();
+    gather_tile<AXIS, false>(p, reinterpret_cast<const int*>(s_taa_tile), b);
+  } else if constexpr (FORM == kTaaGlobal) {
+    gather_tile<AXIS, true>(p, tile, b);
+  } else {
+    static_assert(AXIS == 1, "the shuffle form gathers along a row");
+    if (p.C == 128) {
+      shfl_rows<4>(p, b);
+    } else {
+      shfl_rows<8>(p, b);
+    }
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit where `bytes` needs it; on a
+// refusal, clear the error so that the next launch's check is not blamed.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
+}
+
+template <int AXIS, int FORM>
+int launch_taa(const TaaParams& p, int B, cudaStream_t s) {
+  const size_t smem = FORM == kTaaShared ? static_cast<size_t>(p.R) * p.C * sizeof(int) : 0;
+  const cudaError_t e = allow_smem(take_along_probe_kernel<AXIS, FORM>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  take_along_probe_kernel<AXIS, FORM><<<B, kTaaThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kSmemRowFloats = 128;  // the reference's scratch row
+
+__global__ void smem_alloc_probe_kernel(const float* x, float* out, int n_rows) {
+  extern __shared__ float s_alloc_rows[];  // n_rows x 128
+  const int j = threadIdx.x;
+  const size_t last = static_cast<size_t>(n_rows - 1) * kSmemRowFloats + j;
+  const float v = x[j] * 2.0f;
+  s_alloc_rows[j] = v;
+  s_alloc_rows[last] = v;
+  __syncthreads();
+  out[j] = s_alloc_rows[j] + s_alloc_rows[last];
+}
+
+enum OhgMode { kOhgShared, kOhgGlobal, kOhgMma };
+constexpr int kOhgCols = 128;   // the table's row
+constexpr int kOhgGroup = 16;   // lanes an mma's A fragment holds (its M)
+
+// Byte p of four words, packed from the low byte up: a B register of
+// byte plane p.
+__device__ __forceinline__ uint32_t byte_plane(uint32_t w0, uint32_t w1, uint32_t w2,
+                                               uint32_t w3, int p) {
+  const uint32_t sel = static_cast<uint32_t>(p) | (static_cast<uint32_t>(p + 4) << 4);
+  return __byte_perm(__byte_perm(w0, w1, sel), __byte_perm(w2, w3, sel), 0x5410);
+}
+
+// The one-hot byte of an A register: byte d (0-3) set to 1, or none.
+__device__ __forceinline__ uint32_t one_hot(int d) {
+  return static_cast<unsigned>(d) < 4u ? 1u << (8 * d) : 0u;
+}
+
+__device__ __forceinline__ void mma_u8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// k hops of idx = (idx + flat[idx]) & (n_rows * 128 - 1) a lane.
+// SHARED / GLOBAL: a thread a lane, kUnroll hops a pass of the outer loop.
+// MMA: a warp a group of 16 lanes, one hop a pass. Fragments of m16n8k32
+// (g = lane / 4, t = lane % 4): A's row g holds lane g's one-hot row index
+// and row g + 8 lane g + 8's, at columns 4t..4t+3 and 16+4t..16+4t+3 of
+// the 32-row chunk; B holds the chunk's table rows 4t..4t+3 and
+// 16+4t..16+4t+3 at column 8 nt + g; the accumulator rows g and g + 8 at
+// columns 2t and 2t + 1 of the 8-column tile nt.
+template <int MODE>
+__global__ void ohg_probe_kernel(const int* table, int n_rows, const int* idx0, int n,
+                                 int k, int* out) {
+  const uint32_t wrap = static_cast<uint32_t>(n_rows) * kOhgCols - 1u;
+  if constexpr (MODE == kOhgMma) {
+    __shared__ int s_sel[32][kOhgGroup];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int first = (blockIdx.x * (blockDim.x >> 5) + warp) * kOhgGroup;
+    const int la = first + g, lb = first + g + 8;
+    uint32_t xa = la < n ? static_cast<uint32_t>(idx0[la]) : 0u;
+    uint32_t xb = lb < n ? static_cast<uint32_t>(idx0[lb]) : 0u;
+    const int chunks = n_rows / 32;
+#pragma unroll 1
+    for (int h = 0; h < k; ++h) {
+      const int ra = static_cast<int>(xa >> 7), rb = static_cast<int>(xb >> 7);
+      const int ca = static_cast<int>(xa & 127u), cb = static_cast<int>(xb & 127u);
+#pragma unroll 1
+      for (int nt = 0; nt < kOhgCols / 8; ++nt) {
+        int acc[3][4] = {};
+        const int* col = table + 4 * t * kOhgCols + 8 * nt + g;
+#pragma unroll 2
+        for (int kc = 0; kc < chunks; ++kc) {
+          const int da = ra - 32 * kc - 4 * t, db = rb - 32 * kc - 4 * t;
+          const uint32_t a0 = one_hot(da), a1 = one_hot(db);
+          const uint32_t a2 = one_hot(da - 16), a3 = one_hot(db - 16);
+          const int* c0 = col + 32 * kc * kOhgCols;
+          uint32_t w[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            w[j] = static_cast<uint32_t>(__ldg(c0 + j * kOhgCols));
+            w[4 + j] = static_cast<uint32_t>(__ldg(c0 + (16 + j) * kOhgCols));
+          }
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            mma_u8(acc[p], a0, a1, a2, a3, byte_plane(w[0], w[1], w[2], w[3], p),
+                   byte_plane(w[4], w[5], w[6], w[7], p));
+          }
+        }
+        int v[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[r] = acc[0][r] + (acc[1][r] << 8) + (acc[2][r] << 16);
+        if ((ca >> 3) == nt && ((ca & 7) >> 1) == t) s_sel[warp][g] = (ca & 1) ? v[1] : v[0];
+        if ((cb >> 3) == nt && ((cb & 7) >> 1) == t) s_sel[warp][g + 8] = (cb & 1) ? v[3] : v[2];
+      }
+      __syncwarp();
+      xa = (xa + static_cast<uint32_t>(s_sel[warp][g])) & wrap;
+      xb = (xb + static_cast<uint32_t>(s_sel[warp][g + 8])) & wrap;
+      __syncwarp();
+    }
+    if (t == 0) {
+      if (la < n) out[la] = static_cast<int>(xa);
+      if (lb < n) out[lb] = static_cast<int>(xb);
+    }
+  } else {
+    extern __shared__ int4 s_ohg_table[];
+    const int* s_tab = reinterpret_cast<const int*>(s_ohg_table);
+    if constexpr (MODE == kOhgShared) {
+      const int4* t4 = reinterpret_cast<const int4*>(table);
+      for (int v = threadIdx.x; v < n_rows * kOhgCols / 4; v += blockDim.x)
+        s_ohg_table[v] = __ldg(t4 + v);
+      __syncthreads();
+    }
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    uint32_t x = i < n ? static_cast<uint32_t>(idx0[i]) : 0u;
+#pragma unroll 1
+    for (int o = 0; o < k / kUnroll; ++o) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int w = MODE == kOhgShared ? s_tab[x] : __ldg(table + x);
+        x = (x + static_cast<uint32_t>(w)) & wrap;
+      }
+    }
+    if (i < n) out[i] = static_cast<int>(x);
+  }
+}
+
 inline int lane_blocks(int n) { return (n + kLaneThreads - 1) / kLaneThreads; }
 
 bool launch_shape_ok(int n, int k, int threads) {
@@ -839,6 +1107,103 @@ extern "C" int probe_stage_probe_launch(
     case 3: probe_stage_kernel<3><<<b, kLaneThreads, 0, s>>>(p); break;
     case 4: probe_stage_kernel<4><<<b, kLaneThreads, 0, s>>>(p); break;
     default: return cudaErrorInvalidValue;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shared memory a block can opt in to (cudaDevAttrMaxSharedMemoryPerBlockOptin),
+// or -1 if the device does not answer.
+extern "C" int smem_optin_bytes(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return v;
+}
+
+extern "C" const char* cuda_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+// t int32 [B, R, C], idx int32 [B, r, Ci], out int32 [B, r, c_out], all
+// 16-byte aligned; mod 0 (none) or a power of two. Axis 1: r <= R, c_out
+// <= Ci; axis 0: c_out == C <= Ci. SHFL: axis 1, C 128 or 256, c_out % 32
+// == 0, mod <= C. SHARED: R x C x 4 bytes of shared memory.
+extern "C" int take_along_probe_launch(int axis, int form, const void* t, const void* idx,
+                                       void* out, int B, int R, int C, int r, int Ci,
+                                       int c_out, int mod, void* stream) {
+  const bool shapes = B > 0 && R > 0 && C > 0 && r > 0 && c_out > 0 && C % 4 == 0 &&
+                      Ci % 4 == 0 && c_out % 4 == 0 && mod >= 0 && (mod & (mod - 1)) == 0 &&
+                      (axis == 1 ? r <= R && c_out <= Ci : axis == 0 && c_out == C && C <= Ci);
+  const bool shfl_ok = axis == 1 && (C == 128 || C == 256) && c_out % 32 == 0 && mod <= C;
+  if (!shapes || form < kTaaShared || form > kTaaGlobal || (form == kTaaShfl && !shfl_ok))
+    return cudaErrorInvalidValue;
+  const TaaParams p{static_cast<const int*>(t), static_cast<const int*>(idx),
+                    static_cast<int*>(out), R, C, r, Ci, c_out, mod ? mod - 1 : -1};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (axis == 1) {
+    switch (form) {
+      case kTaaShared: return launch_taa<1, kTaaShared>(p, B, s);
+      case kTaaShfl: return launch_taa<1, kTaaShfl>(p, B, s);
+      default: return launch_taa<1, kTaaGlobal>(p, B, s);
+    }
+  }
+  return form == kTaaShared ? launch_taa<0, kTaaShared>(p, B, s)
+                            : launch_taa<0, kTaaGlobal>(p, B, s);
+}
+
+// x, out: f32 [128]. Returns the CUDA error of a refused allocation (of
+// the attribute or of the launch), cleared.
+extern "C" int smem_alloc_probe_launch(const void* x, void* out, int n_rows, void* stream) {
+  if (n_rows <= 0) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(n_rows) * kSmemRowFloats * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(smem_alloc_probe_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(bytes));
+  if (e == cudaSuccess) {
+    smem_alloc_probe_kernel<<<1, kSmemRowFloats, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<float*>(out), n_rows);
+    e = cudaGetLastError();
+  } else {
+    cudaGetLastError();
+  }
+  return static_cast<int>(e);
+}
+
+// table int32 [n_rows, 128] (n_rows a power of two, at least 32 for MMA),
+// idx0 / out int32 [n]; k a multiple of kUnroll (any k >= 1 for MMA).
+extern "C" int ohg_probe_launch(int mode, const void* table, int n_rows, const void* idx0,
+                                int n, int k, void* out, int threads, void* stream) {
+  if (n <= 0 || k <= 0 || threads <= 0 || threads > 1024 || threads % 32 || n_rows <= 0 ||
+      (n_rows & (n_rows - 1)) || (mode == kOhgMma ? n_rows < 32 : k % kUnroll != 0))
+    return cudaErrorInvalidValue;
+  const auto* tab = static_cast<const int*>(table);
+  const auto* start = static_cast<const int*>(idx0);
+  auto* o = static_cast<int*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kOhgShared: {
+      const size_t bytes = static_cast<size_t>(n_rows) * kOhgCols * sizeof(int);
+      const cudaError_t e = allow_smem(ohg_probe_kernel<kOhgShared>, bytes);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      ohg_probe_kernel<kOhgShared><<<(n + threads - 1) / threads, threads, bytes, s>>>(
+          tab, n_rows, start, n, k, o);
+      break;
+    }
+    case kOhgGlobal:
+      ohg_probe_kernel<kOhgGlobal><<<(n + threads - 1) / threads, threads, 0, s>>>(
+          tab, n_rows, start, n, k, o);
+      break;
+    case kOhgMma: {
+      const int lanes = threads / 32 * kOhgGroup;  // a block's lanes
+      ohg_probe_kernel<kOhgMma><<<(n + lanes - 1) / lanes, threads, 0, s>>>(
+          tab, n_rows, start, n, k, o);
+      break;
+    }
+    default:
+      return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,6 +26,14 @@ scripts/construct_micro.py and scripts/hako_kernel_micro.py):
     :78); `preamble_probe`: the I/O plus the ray preamble on the unit box
     (:102); `probe_stage_probe`: kernel A's probe body by stage, or
     unrolled over the tree's levels (PROBE_STAGES; :200, :287).
+  * `take_along_probe`: take_along_axis within a tile on a batch of
+    tiles, from shared memory, warp shuffles or L1 (TAA_FORMS;
+    dyngather_probe2.py :19, gather_probe3.py :70); `smem_alloc_probe`:
+    the largest dynamic shared memory a block launches with
+    (gather_probe3.py :101); `ohg_probe`: the dependent chase
+    idx = (idx + flat[idx]) & (n - 1), each hop a load from shared or
+    global memory or a one-hot product on the tensor cores (OHG_MODES;
+    gather_probe3.py :147).
 
 Each has a plain PyTorch version computing the same output (u32 kept as
 int64 & MASK32, every float op rounded on its own). The wrappers run the
@@ -68,10 +76,17 @@ STAGE_CLIP = 55  # the stages' clip of the rank before the fetch (the reference'
 NODE_FORMS = ("smem", "taa", "split")
 SMEM_TABLE_MAX = 64
 TAA_TABLE_MAX = 2048
+TAA_FORMS = ("shared", "shfl", "global")
+OHG_MODES = ("shared", "global", "mma")
+OHG_COLS = 128        # the one-hot gather's table row
+OHG_PLANES = 3        # its byte planes: table values below 2^24
+OHG_THREADS = 128     # its block: 128 lanes a block, 64 in the mma mode
+SMEM_ROW_FLOATS = 128  # a row of the shared-memory allocation probe
 LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
             "construct_probe": 0, "node_gather_probe": 0,
             "table_select_probe": 0, "calib_probe": 0,
-            "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0}
+            "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0,
+            "take_along_probe": 0, "smem_alloc_probe": 0, "ohg_probe": 0}
 
 
 def reset_counters() -> None:
@@ -718,3 +733,187 @@ def probe_stage_probe(stage: int, rays, bounds, root_mask, tabs, *, T: int,
         child, cell, rank = out_i
         return (child, cell, *out_f, rank)
     return (out_i[0], *out_f)
+
+
+# ---------------------------------------------------------------------------
+# 2D gathers within a tile, shared-memory capacity, the one-hot gather
+# (dyngather_probe2.py, gather_probe3.py)
+# ---------------------------------------------------------------------------
+
+
+def smem_optin_bytes(device) -> int:
+    """The shared memory a block of `device` can opt in to
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
+    from ..utils import cuda_build
+
+    index = torch.device(device).index
+    v = cuda_build.load().smem_optin_bytes(torch.cuda.current_device() if index is None
+                                           else index)
+    if v < 0:
+        raise RuntimeError(f"no shared memory limit for device {device}")
+    return v
+
+
+def _is_pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def take_along_plain(t, idx, *, axis: int, mod: int, c_out: int | None = None):
+    """take_along_axis on each tile of a batch: out[b, i, j] =
+    t[b, i, idx[b, i, j] % mod] (axis 1) or t[b, idx[b, i, j] % mod, j]
+    (axis 0), for j < c_out (default: idx's columns); mod 0 takes idx as
+    it is. t int [B, R, C], idx int [B, r, Ci]."""
+    c_out = idx.shape[2] if c_out is None else c_out
+    x = idx[:, :, :c_out].long()
+    if mod:
+        x = torch.remainder(x, mod)
+    b = torch.arange(x.shape[0], device=x.device)[:, None, None]
+    if axis == 1:
+        return t[b, torch.arange(x.shape[1], device=x.device)[None, :, None], x]
+    return t[b, x, torch.arange(c_out, device=x.device)[None, None, :]]
+
+
+def take_along_probe(t, idx, *, axis: int, mod: int, form: str, c_out: int | None = None):
+    """As take_along_plain, a block a tile; t int32 [B, R, C], idx int32
+    [B, r, Ci], mod 0 or a power of two (and idx % mod within the tile).
+    form "shared" needs R x C x 4 bytes of shared memory and raises a
+    ValueError naming them where they exceed what a block can have."""
+    if form not in TAA_FORMS:
+        raise ValueError(f"no take-along form {form!r}")
+    if axis not in (0, 1) or form == "shfl" and axis != 1:
+        raise ValueError(f"no {form} take-along on axis {axis}")
+    if mod and not _is_pow2(mod):
+        raise ValueError(f"the modulus must be 0 or a power of two, not {mod}")
+    c_out = idx.shape[2] if c_out is None else c_out
+    if _device_of(idx, "take_along_probe") == "cpu":
+        return take_along_plain(t, idx, axis=axis, mod=mod, c_out=c_out)
+    from ..utils import cuda_build
+
+    dev = idx.device
+    if t.dim() != 3 or idx.dim() != 3 or t.shape[0] != idx.shape[0]:
+        raise ValueError(f"take_along_probe: need [B, R, C] and [B, r, Ci], got "
+                         f"{list(t.shape)} and {list(idx.shape)}")
+    B, R, C = t.shape
+    r, Ci = idx.shape[1:]
+    _check("t", t, dev, torch.int32, (B, R, C))
+    _check("idx", idx, dev, torch.int32, (B, r, Ci))
+    fits = (r <= R and c_out <= Ci) if axis == 1 else c_out == C <= Ci
+    if not fits or C % 4 or Ci % 4 or c_out % 4 or t.data_ptr() % 16 or idx.data_ptr() % 16:
+        raise ValueError(f"take_along_probe: no axis-{axis} gather of {c_out} columns "
+                         f"from {list(t.shape)} by {list(idx.shape)} (columns a multiple "
+                         "of 4, 16-byte aligned)")
+    if form == "shfl" and (C not in (128, 256) or c_out % 32 or mod > C):
+        raise ValueError(f"take_along_probe: the shuffle form takes rows of 128 or 256, "
+                         f"not {C} (c_out {c_out}, mod {mod})")
+    if form == "shared":
+        need, limit = R * C * 4, smem_optin_bytes(dev)
+        if need > limit:
+            raise ValueError(f"take_along_probe: a {R} x {C} int32 tile is {need} bytes "
+                             f"of shared memory, over the {limit} bytes a block can have")
+    out = torch.empty(B, r, c_out, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().take_along_probe_launch(
+            axis, TAA_FORMS.index(form), t.data_ptr(), idx.data_ptr(), out.data_ptr(),
+            B, R, C, r, Ci, c_out, int(mod), _stream(dev))
+    _launched("take_along_probe", rc)
+    return out
+
+
+def smem_alloc_plain(x, n_rows: int):
+    """What the allocation probe returns: row 0 + row n_rows - 1 of its
+    scratch after 2x went into both, 4x."""
+    return x * 2.0 + x * 2.0
+
+
+def smem_alloc_probe(x, n_rows: int):
+    """As smem_alloc_plain, from n_rows x 128 f32 of dynamic shared memory
+    a block; x f32 [1, 128]. Raises RuntimeError with the CUDA error where
+    the card refuses the allocation."""
+    if n_rows <= 0:
+        raise ValueError(f"need a row or more, not {n_rows}")
+    if _device_of(x, "smem_alloc_probe") == "cpu":
+        return smem_alloc_plain(x, n_rows)
+    from ..utils import cuda_build
+
+    dev = x.device
+    _check("x", x, dev, torch.float32, (1, SMEM_ROW_FLOATS))
+    out = torch.empty_like(x)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.smem_alloc_probe_launch(x.data_ptr(), out.data_ptr(), int(n_rows),
+                                         _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"smem_alloc_probe: {n_rows} rows ({n_rows * SMEM_ROW_FLOATS * 4} "
+                           f"bytes) refused: CUDA error {rc} "
+                           f"({lib.cuda_error_string(rc).decode()})")
+    _launched("smem_alloc_probe", rc)
+    return out
+
+
+def ohg_plain(table, idx, k: int, mode: str = "gather"):
+    """k hops of idx = (idx + flat[idx]) & (n - 1) on the flat int32
+    [n_rows, 128] table (n = n_rows x 128, a power of two; values in [0,
+    n)). mode "gather" indexes the table; "mma" repeats the one-hot
+    kernel's arithmetic: each hop the one-hot rows of the indices times
+    the table's three byte planes (a float64 product, exact: one
+    non-zero term below 2^8 a sum), p0 + (p1 << 8) + (p2 << 16), then the
+    index's column."""
+    n_rows = table.shape[0]
+    wrap = n_rows * OHG_COLS - 1
+    x = idx.reshape(-1).long()
+    if mode == "gather":
+        flat = table.reshape(-1).long()
+        for _ in range(k):
+            x = (x + flat[x]) & wrap
+    elif mode == "mma":
+        words = table.long()
+        planes = [((words >> (8 * p)) & 255).double() for p in range(OHG_PLANES)]
+        rows = torch.arange(n_rows, device=x.device)
+        for _ in range(k):
+            one_hot = ((x >> 7)[:, None] == rows[None, :]).double()
+            full = sum((one_hot @ plane).long() << (8 * p) for p, plane in enumerate(planes))
+            x = (x + full.gather(1, (x & 127)[:, None])[:, 0]) & wrap
+    else:
+        raise ValueError(f"no plain chase mode {mode!r}")
+    return x.to(torch.int32).reshape(idx.shape)
+
+
+def ohg_probe(table, idx, *, k: int, mode: str):
+    """As ohg_plain (the "mma" mode's for mode "mma"); table int32
+    [n_rows, 128] with n_rows a power of two (at least 32 for "mma"), idx
+    int32 of any shape; k a multiple of UNROLL ("mma": any k >= 1).
+    "shared" needs the table in a block's shared memory and raises a
+    ValueError naming its bytes where they exceed what a block can have."""
+    if mode not in OHG_MODES:
+        raise ValueError(f"no one-hot gather mode {mode!r}")
+    n_rows = table.shape[0]
+    if not _is_pow2(n_rows) or mode == "mma" and n_rows < 32:
+        raise ValueError(f"a table of {n_rows} rows: need a power of two"
+                         + (", 32 or more" if mode == "mma" else ""))
+    if k <= 0 or mode != "mma" and k % UNROLL:
+        raise ValueError(f"k must be a positive multiple of {UNROLL}"
+                         f"{' (any k >= 1 for mma)' if mode != 'mma' else ''}, not {k}")
+    plain_mode = "mma" if mode == "mma" else "gather"
+    if _device_of(idx, "ohg_probe") == "cpu":
+        return ohg_plain(table, idx, k, plain_mode)
+    from ..utils import cuda_build
+
+    dev = idx.device
+    _check("table", table, dev, torch.int32, (n_rows, OHG_COLS))
+    _check("idx", idx, dev, torch.int32, tuple(idx.shape))
+    if mode == "shared":
+        need, limit = table.numel() * 4, smem_optin_bytes(dev)
+        if need > limit:
+            raise ValueError(f"ohg_probe: a {n_rows}-row table is {need} bytes of shared "
+                             f"memory, over the {limit} bytes a block can have")
+        if table.data_ptr() % 16:
+            raise ValueError("table: need a 16-byte aligned table")
+    out = torch.empty_like(idx)
+    if idx.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().ohg_probe_launch(
+            OHG_MODES.index(mode), table.data_ptr(), n_rows, idx.data_ptr(), idx.numel(),
+            int(k), out.data_ptr(), OHG_THREADS, _stream(dev))
+    _launched("ohg_probe", rc)
+    return out

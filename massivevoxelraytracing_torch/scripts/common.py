@@ -11,6 +11,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12   # H100 SXM int8 on the tensor cores, dense
 SCHEDULERS = 4             # warp instructions an SM issues a cycle
 # repeats a lane, at least, at the one-warp-an-SM and full-occupancy
 # shapes: enough for the k-to-2k difference to stand well above the

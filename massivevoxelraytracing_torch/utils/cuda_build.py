@@ -164,6 +164,15 @@ def _bind(lib):
         p, p, p, p, p, i,                              # levels, off, n, form, rows, count
         i, i, i, p, p, p,                              # T, clip, n, out_i[3], out_f[5], stream
     ]
+    lib.take_along_probe_launch.argtypes = [
+        i, i, p, p, p,                                 # axis, form, t, idx, out
+        i, i, i, i, i, i, i, p,                        # B, R, C, r, Ci, c_out, mod, stream
+    ]
+    lib.smem_alloc_probe_launch.argtypes = [p, p, i, p]  # x, out, rows, stream
+    lib.ohg_probe_launch.argtypes = [i, p, i, p, i, i, p, i, p]  # mode, table, rows, idx0, n, k, out
+    lib.smem_optin_bytes.argtypes = [i]
+    lib.cuda_error_string.argtypes = [i]
+    lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
                lib.hako_dda_launch, lib.hako_merge_launch,
                lib.row_chase_launch, lib.walk_probe_launch,
@@ -171,7 +180,9 @@ def _bind(lib):
                lib.node_gather_probe_launch, lib.table_select_probe_launch,
                lib.calib_probe_launch, lib.hako_dda_cached_launch,
                lib.shell_copy_probe_launch, lib.preamble_probe_launch,
-               lib.probe_stage_probe_launch):
+               lib.probe_stage_probe_launch, lib.take_along_probe_launch,
+               lib.smem_alloc_probe_launch, lib.ohg_probe_launch,
+               lib.smem_optin_bytes):
         fn.restype = ctypes.c_int
     return lib
 

@@ -16,7 +16,11 @@ card, bit for bit, at two block sizes and a ragged lane count; kernel A's
 shell, preamble and stage probes (both shell layouts, all five stages,
 child indices past an smem- and a taa-form level) and kernel B through
 its row cache (leaf and supernode rows, primary and shadow, a cache small
-enough that lanes overflow it, and a cache the card refuses). Imports
+enough that lanes overflow it, and a cache the card refuses); the gather
+probes (take_along_probe in each form on the reference's tiles, and the
+shared form's refusal of a table over a block's shared memory;
+smem_alloc_probe up to the opt-in limit and one row past it; ohg_probe in
+each mode at 32, 128 and 1024 rows). Imports
 nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -579,3 +583,100 @@ def test_hako_dda_cached_refuses_too_much_shared_memory(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="hako_dda_cached kernel launch failed"):
         hk.hako_dda_cached(*a, cache=400, **k)
     assert hk.LAUNCHES["hako_dda_cached"] == 0
+
+
+# the gather probes (scripts/dyngather_probe2.py, scripts/gather_probe3.py)
+TAA_CASES = [(body[1], body[2], body[3], body[4], body[5]) for body in (
+    ("taa axis=1 [16,128]", "k_taa1", 1, 128, ((16, 128), 1 << 30), ((16, 128), 128)),
+    ("taa axis=1 [16,256]", "k_taa1w", 1, 256, ((16, 256), 1 << 30), ((16, 256), 256)),
+    ("taa axis=0 [16,128]", "k_taa0", 0, 16, ((16, 128), 1 << 30), ((16, 128), 16)),
+    ("taa axis=0 [128,128] idx[16]", "k_taa0t", 0, 128, ((128, 128), 1 << 30),
+     ((16, 128), 128)),
+    ("a0small 8", "a0_8", 0, 0, ((8, 128), 99), ((16, 128), 8)),
+    ("a0small 128", "a0_128", 0, 0, ((128, 128), 99), ((16, 128), 128)))]
+
+
+@pytest.mark.parametrize("body,axis,mod,ts,xs,form", [
+    (*case, form) for case in TAA_CASES for form in ("shared", "shfl", "global")
+    if form != "shfl" or case[1] == 1])
+def test_take_along_probe_matches_plain(cuda, body, axis, mod, ts, xs, form):
+    """Every form that applies (the shuffle form along rows only) on 3
+    tiles of each reference body, tiles 1 and 2 with indices past the
+    modulus (the kernel reduces them)."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import dyngather_probe2 as dg
+
+    t, idx = (torch.from_numpy(a).to(cuda) for a in dg.draws((ts, xs), 3))
+    if mod:
+        idx = idx + mod * torch.arange(3, device=cuda, dtype=torch.int32)[:, None, None]
+    probes.reset_counters()
+    got = probes.take_along_probe(t, idx, axis=axis, mod=mod, form=form, c_out=128)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["take_along_probe"] == 1
+    assert torch.equal(got, probes.take_along_plain(t, idx, axis=axis, mod=mod, c_out=128))
+
+
+def test_take_along_shared_refuses_a_table_over_the_limit(cuda):
+    """a0small's 1024-row table is 512 KB, over a block's opt-in shared
+    memory: the shared form refuses it before launch; the L1 form runs."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(21)
+    t = torch.as_tensor(rng.integers(0, 99, (1, 1024, 128)).astype(np.int32), device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 1024, (1, 16, 128)).astype(np.int32), device=cuda)
+    probes.reset_counters()
+    with pytest.raises(ValueError, match="524288 bytes"):
+        probes.take_along_probe(t, idx, axis=0, mod=0, form="shared")
+    assert probes.LAUNCHES["take_along_probe"] == 0
+    got = probes.take_along_probe(t, idx, axis=0, mod=0, form="global")
+    assert torch.equal(got, probes.take_along_plain(t, idx, axis=0, mod=0))
+
+
+def test_smem_alloc_probe_capacity(cuda):
+    """Every size up to the opt-in limit launches and gives 4x; one row
+    more is refused with the CUDA error, and the next launch still runs."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    limit = probes.smem_optin_bytes(cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    if hasattr(props, "shared_memory_per_block_optin"):
+        assert limit == props.shared_memory_per_block_optin
+    rows = limit // 512
+    x = torch.as_tensor(np.random.default_rng(22).uniform(0.5, 2.0, (1, 128))
+                        .astype(np.float32), device=cuda)
+    probes.reset_counters()
+    for n in (1, 2, 96, 97, rows):
+        assert torch.equal(probes.smem_alloc_probe(x, n), 4 * x)
+    with pytest.raises(RuntimeError, match="refused: CUDA error"):
+        probes.smem_alloc_probe(x, rows + 1)
+    assert torch.equal(probes.smem_alloc_probe(x, 32), probes.smem_alloc_plain(x, 32))
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["smem_alloc_probe"] == 6
+
+
+@pytest.mark.parametrize("mode", ["shared", "global", "mma"])
+@pytest.mark.parametrize("n_rows", [32, 128, 1024])
+def test_ohg_probe_matches_plain(cuda, mode, n_rows):
+    """k = 1 (the mma form), 8 and 32 hops on the reference's draws and on
+    1000 lanes (a partial warp and 16-lane group); the mma form against
+    the plain one-hot arithmetic, the others against the plain chase."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import gather_probe3 as g3
+
+    tbln, idxn = g3.ohg_inputs(n_rows)
+    table = torch.from_numpy(tbln).to(cuda)
+    rng = np.random.default_rng(n_rows)
+    lanes = [torch.from_numpy(idxn).to(cuda),
+             torch.as_tensor(rng.integers(0, n_rows * 128, 1000).astype(np.int32),
+                             device=cuda)]
+    plain_mode = "mma" if mode == "mma" else "gather"
+    if mode == "shared" and n_rows == 1024:
+        with pytest.raises(ValueError, match="524288 bytes"):
+            probes.ohg_probe(table, lanes[0], k=8, mode=mode)
+        return
+    for idx in lanes:
+        for k in ((1, 8, 32) if mode == "mma" else (8, 32)):
+            got = probes.ohg_probe(table, idx, k=k, mode=mode)
+            assert torch.equal(got, probes.ohg_plain(table, idx, k, plain_mode))
+    assert np.array_equal(got.cpu().numpy(), probes.ohg_plain(
+        table.cpu(), lanes[1].cpu(), 32, "gather").numpy())
