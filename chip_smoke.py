@@ -74,8 +74,9 @@ Phases (any failure raises, and the script exits non-zero):
      scripts' own counts must add up to the phase's):
      scripts/dyngather_probe2.run (take_along_probe: the reference's four
      take_along_axis bodies in each form, shared memory / warp shuffles /
-     L1, on one tile and on 8 tiles an SM, beside torch.gather and the
-     copy shell on the same bytes) and scripts/gather_probe3.main with
+     L1, on one tile and on 8 tiles an SM, every timed launch reading its
+     inputs from HBM, beside torch.gather, the copy shell on the same
+     bytes and the bytes bound on the sectors the indices reach) and scripts/gather_probe3.main with
      every probe (the torch chase loops; a0small, whose 1024-row table the
      shared form refuses; smem_alloc_probe up to the opt-in limit, which
      must launch, and one row more, which must be refused; ohg_probe from
@@ -113,8 +114,9 @@ Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
 under "gather"),
 one JSON line of
-kernel results, one entry for each hand-written kernel (with the apps'
-numbers, and phase 7's under "accel" and "shell"), and as its last line
+kernel results, one entry for each hand-written kernel (take_along_probe
+one for each reference body it runs; with the apps' numbers, and phase
+7's under "accel" and "shell"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -1021,9 +1023,6 @@ def phase_split(tree, smi: str) -> dict:
                 round_launches=round_launches)
 
 
-GATHER_KERNELS = ("take_along_probe", "smem_alloc_probe", "ohg_probe")
-
-
 def phase_gather(smi: str, sl: dict) -> dict:
     """Phase 5d: the 2D gather probes (scripts/dyngather_probe2.run and
     scripts/gather_probe3.main with every probe), through their entry
@@ -1033,7 +1032,7 @@ def phase_gather(smi: str, sl: dict) -> dict:
     import torch
 
     from massivevoxelraytracing_torch.ops import probes
-    from massivevoxelraytracing_torch.scripts import dyngather_probe2, gather_probe3
+    from massivevoxelraytracing_torch.scripts import common, dyngather_probe2, gather_probe3
 
     t0 = time.time()
     device = torch.device("cuda", 0)
@@ -1042,8 +1041,8 @@ def phase_gather(smi: str, sl: dict) -> dict:
     dyn = dyngather_probe2.run(device, card=smi)
     g3 = gather_probe3.main(list(gather_probe3.ALL))
     torch.cuda.synchronize()
-    launches = {k: probes.LAUNCHES[k] for k in dyngather_probe2.CASE_KERNELS}
-    for name in GATHER_KERNELS:
+    launches = {k: probes.LAUNCHES[k] for k in common.GATHER_CASE_KERNELS}
+    for name in probes.GATHER_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"phase 5d launched no {name} kernel")
     cases = (dyn["cases"] + g3["a0small"]["cases"] + g3["ohg"]["cases"]
@@ -1077,12 +1076,15 @@ def phase_gather(smi: str, sl: dict) -> dict:
 
 
 def gather_entries(gp: dict, src: str) -> list:
-    """Phase 5d's kernels line entries: take_along_probe summed over the
-    four dyngather bodies in the shared form on the card-filling batch;
-    smem_alloc_probe at the largest allocation; ohg_probe's tensor-core mode
-    summed over its 128- and 1024-row tables."""
-    big = [r for r in gp["dyngather"]["cases"]
-           if r["form"] == "shared" and r["batch"] > 1]
+    """Phase 5d's kernels line entries: take_along_probe once for each
+    reference body (the four dyngather bodies in the shared form on the
+    card-filling batch, each beside its own bound; a0small's tables, one
+    tile, in the shared form or, where that is refused, through L1), with
+    that body's launches over every form and batch; smem_alloc_probe at
+    the largest allocation; ohg_probe's tensor-core mode summed over its
+    128- and 1024-row tables."""
+    dyn = gp["dyngather"]["cases"]
+    a0 = gp["gather_probe3"]["a0small"]["cases"]
     mma = [r for name in ("ohg", "ohg1k") for r in gp["gather_probe3"][name]["cases"]
            if r["mode"] == "mma"]
     cap = gp["gather_probe3"]["vmem"]
@@ -1094,20 +1096,32 @@ def gather_entries(gp: dict, src: str) -> list:
         return {f"{r['name']} {r['form'] if 'form' in r else r['mode']} B={r.get('batch', 1)}":
                 {k: r.get(k) for k in keys} for r in recs}
 
-    keys = ("ms", "plain_ms", "library_ms", "shell_ms", "bound_ms", "refused", "launches")
-    taa = gp["dyngather"]["cases"] + gp["gather_probe3"]["a0small"]["cases"]
+    keys = ("ms", "plain_ms", "library_ms", "shell_ms", "bound_ms", "bytes", "refused",
+            "take_along_launches")
+    taa = []
+    lines = {"k_taa1": 41, "k_taa1w": 52, "k_taa0": 59, "k_taa0t": 70}
+    bodies = [(r["body"], f"scripts/dyngather_probe2.py:19 ({r['body']} :{lines[r['body']]})",
+               [c for c in dyn if c["body"] == r["body"]],
+               r["batch"]) for r in dyn if r["form"] == "shared" and r["batch"] > 1]
+    bodies += [(f"a0small n_rows={n}", "scripts/gather_probe3.py:70",
+                [c for c in a0 if c["n_rows"] == n], 1)
+               for n in dict.fromkeys(r["n_rows"] for r in a0)]
+    for body, replaces, recs, batch in bodies:
+        e = next(r for r in recs if r["batch"] == batch and not r["refused"]
+                 and r["form"] in ("shared", "global"))
+        taa.append(dict(
+            name=f"take_along_probe {body}", kernel="take_along_probe", route="cuda",
+            source=src + "hako_probes.cu", replaces=replaces,
+            launches=total(recs, "take_along_launches"), max_abs_err=0.0, form=e["form"], batch=batch,
+            ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=e["library_ms"], shell_ms=e["shell_ms"],
+            bytes=e["bytes"], cases=brief(recs, keys)))
+    if total(taa, "launches") != gp["launches"]["take_along_probe"]:
+        raise AssertionError("phase 5d: the take-along bodies' launches do not add up")
     ohg_keys = ("ms", "ms_2k", "us_per_hop", "plain_ms", "bound_ms", "bound_by",
                 "latency_floor_ms", "refused", "launches")
     ohg = gp["gather_probe3"]["ohg"]["cases"] + gp["gather_probe3"]["ohg1k"]["cases"]
-    return [
-        dict(name="take_along_probe", route="cuda", source=src + "hako_probes.cu",
-             replaces="scripts/dyngather_probe2.py:19 (k_taa1 :41, k_taa1w :52, k_taa0 :59, "
-             "k_taa0t :70); scripts/gather_probe3.py:70",
-             launches=gp["launches"]["take_along_probe"], max_abs_err=0.0,
-             ms=total(big, "ms"), plain_ms=total(big, "plain_ms"),
-             bound_ms=total(big, "bound_ms"), bound_by="bytes",
-             library_ms=total(big, "library_ms"), shell_ms=total(big, "shell_ms"),
-             batch=big[0]["batch"], cases=brief(taa, keys)),
+    return taa + [
         dict(name="smem_alloc_probe", route="cuda", source=src + "hako_probes.cu",
              replaces="scripts/gather_probe3.py:101",
              launches=gp["launches"]["smem_alloc_probe"], max_abs_err=0.0, ms=cap["ms"],

@@ -87,6 +87,8 @@ LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
             "table_select_probe": 0, "calib_probe": 0,
             "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0,
             "take_along_probe": 0, "smem_alloc_probe": 0, "ohg_probe": 0}
+# the 2D gather probes' kernels (dyngather_probe2.py, gather_probe3.py)
+GATHER_KERNELS = ("take_along_probe", "smem_alloc_probe", "ohg_probe")
 
 
 def reset_counters() -> None:
@@ -775,24 +777,29 @@ def take_along_plain(t, idx, *, axis: int, mod: int, c_out: int | None = None):
 
 def take_along_probe(t, idx, *, axis: int, mod: int, form: str, c_out: int | None = None):
     """As take_along_plain, a block a tile; t int32 [B, R, C], idx int32
-    [B, r, Ci], mod 0 or a power of two (and idx % mod within the tile).
-    form "shared" needs R x C x 4 bytes of shared memory and raises a
-    ValueError naming them where they exceed what a block can have."""
+    [B, r, Ci], mod 0 or a power of two no larger than the gathered axis
+    (C along rows, R along columns). With mod 0 the kernel takes idx as it
+    is and does not check it: an index outside the tile reads past it,
+    where the plain version raises an IndexError. form "shared" needs
+    R x C x 4 bytes of shared memory and raises a ValueError naming them
+    where they exceed what a block can have."""
     if form not in TAA_FORMS:
         raise ValueError(f"no take-along form {form!r}")
     if axis not in (0, 1) or form == "shfl" and axis != 1:
         raise ValueError(f"no {form} take-along on axis {axis}")
-    if mod and not _is_pow2(mod):
-        raise ValueError(f"the modulus must be 0 or a power of two, not {mod}")
+    if t.dim() != 3 or idx.dim() != 3 or t.shape[0] != idx.shape[0]:
+        raise ValueError(f"take_along_probe: need [B, R, C] and [B, r, Ci], got "
+                         f"{list(t.shape)} and {list(idx.shape)}")
+    span = t.shape[2 if axis == 1 else 1]
+    if mod and not _is_pow2(mod) or mod > span:
+        raise ValueError(f"the modulus must be 0 or a power of two no larger than the "
+                         f"gathered axis ({span}), not {mod}")
     c_out = idx.shape[2] if c_out is None else c_out
     if _device_of(idx, "take_along_probe") == "cpu":
         return take_along_plain(t, idx, axis=axis, mod=mod, c_out=c_out)
     from ..utils import cuda_build
 
     dev = idx.device
-    if t.dim() != 3 or idx.dim() != 3 or t.shape[0] != idx.shape[0]:
-        raise ValueError(f"take_along_probe: need [B, R, C] and [B, r, Ci], got "
-                         f"{list(t.shape)} and {list(idx.shape)}")
     B, R, C = t.shape
     r, Ci = idx.shape[1:]
     _check("t", t, dev, torch.int32, (B, R, C))
@@ -802,7 +809,7 @@ def take_along_probe(t, idx, *, axis: int, mod: int, form: str, c_out: int | Non
         raise ValueError(f"take_along_probe: no axis-{axis} gather of {c_out} columns "
                          f"from {list(t.shape)} by {list(idx.shape)} (columns a multiple "
                          "of 4, 16-byte aligned)")
-    if form == "shfl" and (C not in (128, 256) or c_out % 32 or mod > C):
+    if form == "shfl" and (C not in (128, 256) or c_out % 32):
         raise ValueError(f"take_along_probe: the shuffle form takes rows of 128 or 256, "
                          f"not {C} (c_out {c_out}, mod {mod})")
     if form == "shared":

@@ -4,10 +4,14 @@ its plain version with its instruction counts and floors."""
 
 from __future__ import annotations
 
+import itertools
+import math
 import subprocess
 import time
 
 import torch
+
+from ..ops import probes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -169,15 +173,17 @@ def best_ms(fns, trials: int = 3, reps: int = 10) -> list:
 def warm_up(device, seconds: float = 0.3) -> None:
     """Keep the card busy for about `seconds` so its clocks leave idle
     before anything is timed (8 independent multiply-add chains a lane,
-    the calibration kernel, over the whole card)."""
-    from ..ops import probes
-
+    the calibration kernel, over the whole card); and load the spin kernel
+    of queue_ahead, whose first launch would otherwise stall the first
+    timing behind it."""
     lanes = torch.cuda.get_device_properties(device).multi_processor_count * 2048
     a = torch.ones(lanes, dtype=torch.float32, device=device)
     t0 = time.time()
     while time.time() - t0 < seconds:
         probes.calib_probe("par8", a, a, k=8192)
         torch.cuda.synchronize()
+    queue_ahead(1)
+    torch.cuda.synchronize()
 
 
 def event_ms_each(fn, setup, reps: int = 10) -> float:
@@ -302,3 +308,148 @@ class Meter:
               + f" [{self.card}]", flush=True)
         self.records.append(rec)
         return rec
+
+
+# ---------------------------------------------------------------------------
+# The 2D gather probes' cases (dyngather_probe2.py, gather_probe3.py)
+# ---------------------------------------------------------------------------
+
+# the kernels the two gather scripts launch in their cases (the copy shell
+# as the yardstick beside each take-along gather)
+GATHER_CASE_KERNELS = probes.GATHER_KERNELS + ("shell_copy_probe",)
+SECTOR_BYTES = 32  # what one access moves between HBM, L2 and L1
+COLD_L2S = 4       # L2s of other data that pass between two reads of one input
+
+
+def gather_case_launches() -> int:
+    return sum(probes.LAUNCHES[k] for k in GATHER_CASE_KERNELS)
+
+
+def l2_bytes(device) -> int:
+    """The card's L2 cache (50 MiB, an H100 SXM's, where torch does not say)."""
+    return getattr(torch.cuda.get_device_properties(device), "L2_cache_size", 50 << 20)
+
+
+def cold_copies(tensors: tuple, device) -> list:
+    """`tensors` and copies of them, enough that, taken in turn, COLD_L2S
+    of the card's L2 of other copies pass between two uses of one: each
+    use reads its inputs from HBM."""
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = 2 + math.ceil(COLD_L2S * l2_bytes(device) / n_bytes)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def in_turn(fn, sets: list):
+    """A function of no arguments that calls fn on the next of `sets`,
+    round and round."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def l2_flush(device):
+    """A function that evicts the L2: it reads and writes COLD_L2S L2s."""
+    buf = torch.zeros(COLD_L2S * l2_bytes(device) // 4, dtype=torch.float32, device=device)
+    return lambda: buf.add_(1.0)
+
+
+def smem_refusal(call, need: int, device):
+    """(call(), None); or (None, the ValueError) where call raises one and
+    `need` bytes of shared memory exceed what a block of `device` can opt
+    in to: the refusal is then the probe's answer. Any other error
+    propagates."""
+    try:
+        return call(), None
+    except ValueError as e:
+        if device.type != "cuda" or need <= probes.smem_optin_bytes(device):
+            raise
+        return None, e
+
+
+def take_along_bytes(t, idx, *, axis: int, mod: int, c_out: int) -> int:
+    """The bytes a take-along gather must move on this run's indices: each
+    32-byte sector of t that an index reaches, idx[:, :, :c_out] and the
+    output, each once. (A staged tile moves all of t: that is the form's
+    cost, not the function's.)"""
+    B, R, C = t.shape
+    r = idx.shape[1]
+    x = idx[:, :, :c_out].long()
+    if mod:
+        x = torch.remainder(x, mod)
+    at = torch.arange(B, device=x.device)[:, None, None] * (R * C)
+    if axis == 1:
+        at = at + torch.arange(r, device=x.device)[None, :, None] * C + x
+    else:
+        at = at + x * C + torch.arange(c_out, device=x.device)[None, None, :]
+    sectors = torch.unique(at // (SECTOR_BYTES // 4)).numel()
+    return SECTOR_BYTES * sectors + 2 * 4 * B * r * c_out
+
+
+def gather_case(name: str, t, idx, *, axis: int, mod: int, form: str, c_out: int,
+                card: str = "", refusable: bool = False) -> dict:
+    """One take-along case on t / idx (already on the device): the kernel
+    against its plain version, then (on the card) its time, torch.gather's,
+    the copy shell's on the same bytes, and the bytes bound at the HBM rate;
+    its launches of all GATHER_CASE_KERNELS and of take_along_probe alone.
+    Every timed launch reads its inputs from HBM: one tile after the L2 is
+    flushed, a batch from copies taken in turn (cold_copies). A shared-memory
+    refusal is the case's answer only where `refusable` and the tile exceeds
+    the block's opt-in limit; any other error propagates."""
+    dev = idx.device
+    cuda = dev.type == "cuda"
+    B = t.shape[0]
+    n_bytes = take_along_bytes(t, idx, axis=axis, mod=mod, c_out=c_out)
+    rec = dict(name=name, form=form, batch=B, bytes=n_bytes)
+    before = gather_case_launches()
+    before_taa = probes.LAUNCHES["take_along_probe"]
+
+    def run(tt, xx):
+        return probes.take_along_probe(tt, xx, axis=axis, mod=mod, form=form, c_out=c_out)
+
+    need = t.shape[1] * t.shape[2] * 4
+    got, refused = (smem_refusal(lambda: run(t, idx), need, dev) if refusable
+                    else (run(t, idx), None))
+    if refused is not None:
+        rec.update(refused=True, launches=gather_case_launches() - before,
+                   take_along_launches=probes.LAUNCHES["take_along_probe"] - before_taa,
+                   smem_bytes=need, optin_bytes=probes.smem_optin_bytes(dev))
+        print(f"{name:30s} {form:6s} B={B:5d}: refused, the {need}-byte tile is over the "
+              f"{rec['optin_bytes']} bytes a block can have [{card}]", flush=True)
+        return rec
+    want = probes.take_along_plain(t, idx, axis=axis, mod=mod, c_out=c_out)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} ({form}, B={B}): the kernel differs from its plain "
+                             "version")
+    rec["refused"] = False
+    if cuda:
+        x = idx[:, :, :c_out].long()
+        red = torch.remainder(x, mod) if mod else x
+        gathered = torch.empty_like(got)
+
+        def library(tt, rr):
+            return torch.gather(tt, 2 if axis == 1 else 1, rr, out=gathered)
+
+        if not torch.equal(library(t, red), want):
+            raise AssertionError(f"{name}: torch.gather differs from the plain version")
+        copy = torch.zeros(max(n_bytes // 8, 4), dtype=torch.float32, device=dev)
+        cases = ((run, (t, idx)), (library, (t, red)), (probes.shell_copy_probe, (copy,)))
+        if B == 1:
+            flush = l2_flush(dev)
+            ms, lib_ms, shell_ms = (event_ms_each(lambda _, f=f, a=a: f(*a), flush)
+                                    for f, a in cases)
+        else:
+            ms, lib_ms, shell_ms = best_ms([in_turn(f, cold_copies(a, dev))
+                                            for f, a in cases])
+        plain_ms = timed(lambda: probes.take_along_plain(
+            t, idx, axis=axis, mod=mod, c_out=c_out), reps=1, warm=False)[1]
+        b_ms, b_by = bound(n_bytes, 0)
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shell_ms=shell_ms,
+                   bound_ms=b_ms, bound_by=b_by)
+        print(f"{name:30s} {form:6s} B={B:5d}: == plain; {ms * 1e3:9.3f} us a launch, "
+              f"bound {b_ms * 1e3:.3f} us ({n_bytes} B), torch.gather {lib_ms * 1e3:.3f} "
+              f"us, copy shell on the same bytes {shell_ms * 1e3:.3f} us, plain "
+              f"{plain_ms:.3f} ms [{card}]", flush=True)
+    else:
+        print(f"{name:30s} {form:6s} B={B:5d}: == plain version [{card}]", flush=True)
+    rec["launches"] = gather_case_launches() - before
+    rec["take_along_launches"] = probes.LAUNCHES["take_along_probe"] - before_taa
+    return rec

@@ -17,13 +17,18 @@ Each runs through ops/probes.take_along_probe in every form that applies
 reference's call: the launch's fixed cost sets its time) and on a batch of
 TILES_AN_SM tiles for every SM (the batch's tiles are the same draws with
 a leading batch axis, so tile 0 is the reference's). Every case is held
-bit for bit against its plain version, then timed with CUDA events: one
-tile as single launches queued behind a spin kernel, the batch as the
-least of 3 trains of 10; beside it torch.gather on the same tiles (the
-indices reduced first, untimed), the copy shell (shell_copy_probe) on one
-f32 array whose read and write move the case's bytes, and the bytes bound
-at 3.35 TB/s. --device cpu runs the plain versions on one tile and prints
-no time; without a card and without that flag the script raises.
+bit for bit against its plain version, then timed with CUDA events
+(scripts/common.gather_case), every launch reading its inputs from HBM:
+one tile as single launches queued behind a spin kernel, each after the
+L2 is flushed; the batch as the least of 3 trains of 10 launches that take
+copies of the tiles in turn, 4 L2s of other copies between two uses of
+one. Beside it torch.gather on the same tiles (the indices reduced first,
+untimed), the copy shell (shell_copy_probe) on one f32 array whose read
+and write move the case's bytes, and the bytes bound at 3.35 TB/s: the
+32-byte sectors of the tile that this run's indices reach, the indices
+read and the output, each once. --device cpu runs the plain versions on
+one tile and prints no time; without a card and without that flag the
+script raises.
 """
 
 from __future__ import annotations
@@ -61,88 +66,6 @@ def forms(axis: int) -> tuple:
                                                      if f != "shfl")
 
 
-def case_bytes(t, idx, c_out: int) -> int:
-    """Each input read once, the output written once."""
-    return 4 * (t.numel() + idx.numel() + idx.shape[0] * idx.shape[1] * c_out)
-
-
-# the kernels this script and gather_probe3.py launch in their cases (the
-# copy shell as the yardstick beside each gather)
-CASE_KERNELS = ("take_along_probe", "smem_alloc_probe", "ohg_probe", "shell_copy_probe")
-
-
-def case_launches() -> int:
-    return sum(probes.LAUNCHES[k] for k in CASE_KERNELS)
-
-
-def gather_case(name: str, t, idx, *, axis: int, mod: int, form: str, c_out: int,
-                card: str = "", refusable: bool = False) -> dict:
-    """One take-along case on t / idx (already on the device): the kernel
-    against its plain version, then (on the card) its time, torch.gather's,
-    the copy shell's on the same bytes, and the bound. A shared-memory
-    refusal is the case's answer only where `refusable` and the tile exceeds
-    the block's opt-in limit; any other error propagates."""
-    dev = idx.device
-    cuda = dev.type == "cuda"
-    B = t.shape[0]
-    n_bytes = case_bytes(t, idx, c_out)
-    rec = dict(name=name, form=form, batch=B, bytes=n_bytes)
-    before = case_launches()
-
-    def run():
-        return probes.take_along_probe(t, idx, axis=axis, mod=mod, form=form, c_out=c_out)
-
-    try:
-        got = run()
-    except ValueError:
-        need = t.shape[1] * t.shape[2] * 4
-        if not (refusable and cuda and need > probes.smem_optin_bytes(dev)):
-            raise
-        rec.update(refused=True, launches=case_launches() - before,
-                   smem_bytes=need, optin_bytes=probes.smem_optin_bytes(dev))
-        print(f"{name:30s} {form:6s} B={B:5d}: refused, the {need}-byte tile is over the "
-              f"{rec['optin_bytes']} bytes a block can have [{card}]", flush=True)
-        return rec
-    want = probes.take_along_plain(t, idx, axis=axis, mod=mod, c_out=c_out)
-    if not torch.equal(got, want):
-        raise AssertionError(f"{name} ({form}, B={B}): the kernel differs from its plain "
-                             "version")
-    rec["refused"] = False
-    if cuda:
-        x = idx[:, :, :c_out].long()
-        red = torch.remainder(x, mod) if mod else x
-        gathered = torch.empty_like(got)
-
-        def library():
-            return torch.gather(t, 2 if axis == 1 else 1, red, out=gathered)
-
-        if not torch.equal(library(), want):
-            raise AssertionError(f"{name}: torch.gather differs from the plain version")
-        copy = torch.zeros(max(n_bytes // 8, 4), dtype=torch.float32, device=dev)
-
-        def shell():
-            return probes.shell_copy_probe(copy)
-
-        if B == 1:
-            ms, lib_ms, shell_ms = (common.event_ms_each(lambda _, f=f: f(), lambda: None)
-                                    for f in (run, library, shell))
-        else:
-            ms, lib_ms, shell_ms = common.best_ms([run, library, shell])
-        plain_ms = common.timed(lambda: probes.take_along_plain(
-            t, idx, axis=axis, mod=mod, c_out=c_out), reps=1, warm=False)[1]
-        b_ms, b_by = common.bound(n_bytes, 0)
-        rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, shell_ms=shell_ms,
-                   bound_ms=b_ms, bound_by=b_by)
-        print(f"{name:30s} {form:6s} B={B:5d}: == plain; {ms * 1e3:9.3f} us a launch, "
-              f"bound {b_ms * 1e3:.3f} us ({n_bytes} B), torch.gather {lib_ms * 1e3:.3f} "
-              f"us, copy shell on the same bytes {shell_ms * 1e3:.3f} us, plain "
-              f"{plain_ms:.3f} ms [{card}]", flush=True)
-    else:
-        print(f"{name:30s} {form:6s} B={B:5d}: == plain version [{card}]", flush=True)
-    rec["launches"] = case_launches() - before
-    return rec
-
-
 def run(device, card: str = "") -> dict:
     """The four bodies in every form that applies, on one tile and (on the
     card) on a batch of TILES_AN_SM tiles an SM. Returns the case records."""
@@ -157,8 +80,8 @@ def run(device, card: str = "") -> dict:
         for batch in batches:
             t, idx = (torch.from_numpy(a).to(device) for a in draws((ts, xs), batch))
             for form in forms(axis):
-                rec = gather_case(name, t, idx, axis=axis, mod=mod, form=form, c_out=C_OUT,
-                                  card=card)
+                rec = common.gather_case(name, t, idx, axis=axis, mod=mod, form=form,
+                                         c_out=C_OUT, card=card)
                 rec["body"] = body
                 cases.append(rec)
             del t, idx

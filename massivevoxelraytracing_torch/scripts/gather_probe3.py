@@ -41,7 +41,6 @@ import torch
 
 from ..ops import probes
 from . import common
-from .dyngather_probe2 import case_launches, gather_case
 
 A0_ROWS = (8, 32, 128, 1024)
 A0_INDEX_ROWS = 16
@@ -120,8 +119,8 @@ def probe_a0small(ctx) -> dict:
             raise AssertionError(f"a0small n_rows={n_rows}: the plain version differs "
                                  "from numpy")
         for form in ("shared", "global"):
-            rec = gather_case(f"a0 one-shot n_rows={n_rows:>5}", t, x, axis=0, mod=0,
-                              form=form, c_out=128, card=ctx.card, refusable=True)
+            rec = common.gather_case(f"a0 one-shot n_rows={n_rows:>5}", t, x, axis=0, mod=0,
+                                     form=form, c_out=128, card=ctx.card, refusable=True)
             rec["n_rows"] = n_rows
             cases.append(rec)
     return dict(cases=cases)
@@ -141,7 +140,7 @@ def probe_vmem(ctx) -> dict:
     if cuda and limit // row not in rows:
         rows.append(limit // row)
     sizes = []
-    before = case_launches()
+    before = common.gather_case_launches()
     for n in rows:
         got = probes.smem_alloc_probe(x, n)
         if not torch.equal(got, want):
@@ -176,7 +175,7 @@ def probe_vmem(ctx) -> dict:
               f"opt-in limit {limit} B), the first refused "
               f"{rec['first_refused_bytes']} B; {ms * 1e3:.3f} us a launch at the largest "
               f"[{ctx.card}]", flush=True)
-    rec["launches"] = case_launches() - before
+    rec["launches"] = common.gather_case_launches() - before
     return rec
 
 
@@ -219,40 +218,36 @@ def probe_ohg(ctx, n_rows: int = 128, r_rows: int = OHG_LANE_ROWS, k: int = OHG_
     cases = []
     for mode in probes.OHG_MODES:
         name = f"ohg n={n_rows * 128:>7} {mode}"
-        before = case_launches()
-        if mode == "shared" and dev.type == "cuda":
-            need, limit = table.numel() * 4, probes.smem_optin_bytes(dev)
-            if need > limit:
-                try:
-                    probes.ohg_probe(table, idx, k=k, mode=mode)
-                except ValueError as e:
-                    print(f"{name}: refused: {e} [{ctx.card}]", flush=True)
-                    cases.append(dict(name=name, mode=mode, n_rows=n_rows, refused=True,
-                                      smem_bytes=need, optin_bytes=limit,
-                                      launches=case_launches() - before))
-                    continue
-                raise AssertionError(f"{name}: a {need}-byte table launched over the "
-                                     f"{limit}-byte limit")
+        before = common.gather_case_launches()
         plain_mode = "mma" if mode == "mma" else "gather"
         shape = dict(shape="reference", lanes=lanes, threads=probes.OHG_THREADS, k=k)
-        rec = meter.case(name, "ohg_probe_kernel", (probes.OHG_MODES.index(mode),), shape,
-                         lambda kk, m=mode: probes.ohg_probe(table, idx, k=kk, mode=m),
-                         lambda kk, pm=plain_mode: probes.ohg_plain(table, idx, kk, pm),
-                         n_bytes=4 * (table.numel() + 2 * lanes),
-                         repeats=1 if mode == "mma" else probes.UNROLL)
+        need = table.numel() * 4 if mode == "shared" else 0
+        # the case is measured at once, so its closures may read the loop's names
+        rec, refused = common.smem_refusal(lambda: meter.case(
+            name, "ohg_probe_kernel", (probes.OHG_MODES.index(mode),), shape,
+            lambda kk: probes.ohg_probe(table, idx, k=kk, mode=mode),
+            lambda kk: probes.ohg_plain(table, idx, kk, plain_mode),
+            n_bytes=4 * (table.numel() + 2 * lanes),
+            repeats=1 if mode == "mma" else probes.UNROLL), need, dev)
+        if refused is not None:
+            print(f"{name}: refused: {refused} [{ctx.card}]", flush=True)
+            cases.append(dict(name=name, mode=mode, n_rows=n_rows, refused=True,
+                              smem_bytes=need, optin_bytes=probes.smem_optin_bytes(dev),
+                              launches=common.gather_case_launches() - before))
+            continue
         rec.update(mode=mode, n_rows=n_rows, refused=False)
         if dev.type == "cuda":
             if mode == "mma":
                 ops = ohg_ops(lanes, n_rows, k)
                 rec.update(bound_ms=ops / common.INT8_OPS_PER_S * 1e3, bound_by="operations")
-            rec["plain_ms"] = common.timed(lambda pm=plain_mode: probes.ohg_plain(
-                table, idx, k, pm), reps=1, warm=False)[1]
+            rec["plain_ms"] = common.timed(lambda: probes.ohg_plain(
+                table, idx, k, plain_mode), reps=1, warm=False)[1]
             rec["us_per_hop"] = (rec["ms_2k"] - rec["ms"]) * 1e3 / k
             print(f"{name}: {rec['ms'] * 1e3:9.2f} us at {k} hops, {rec['us_per_hop']:.4f} "
                   f"us a hop (2k - k), {lanes * k / (rec['ms'] * 1e-3) / 1e9:6.3f} G "
                   f"gathers/s; bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}); "
                   f"plain {rec['plain_ms']:.3f} ms [{ctx.card}]", flush=True)
-        rec["launches"] = case_launches() - before
+        rec["launches"] = common.gather_case_launches() - before
         cases.append(rec)
     return dict(n_rows=n_rows, lanes=lanes, k=k, cases=cases)
 

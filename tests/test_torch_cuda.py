@@ -33,6 +33,7 @@ import torch
 from massivevoxelraytracing_torch.models import pathtracer, raycast, scene
 from massivevoxelraytracing_torch.ops import camera, hako, hako_mega, morton
 from massivevoxelraytracing_torch.ops import hako_kernels as hk
+from massivevoxelraytracing_torch.scripts import dyngather_probe2 as dg
 from massivevoxelraytracing_torch.utils import meshgen
 
 pytestmark = pytest.mark.cuda
@@ -586,14 +587,11 @@ def test_hako_dda_cached_refuses_too_much_shared_memory(cuda, monkeypatch):
 
 
 # the gather probes (scripts/dyngather_probe2.py, scripts/gather_probe3.py)
-TAA_CASES = [(body[1], body[2], body[3], body[4], body[5]) for body in (
-    ("taa axis=1 [16,128]", "k_taa1", 1, 128, ((16, 128), 1 << 30), ((16, 128), 128)),
-    ("taa axis=1 [16,256]", "k_taa1w", 1, 256, ((16, 256), 1 << 30), ((16, 256), 256)),
-    ("taa axis=0 [16,128]", "k_taa0", 0, 16, ((16, 128), 1 << 30), ((16, 128), 16)),
-    ("taa axis=0 [128,128] idx[16]", "k_taa0t", 0, 128, ((128, 128), 1 << 30),
-     ((16, 128), 128)),
-    ("a0small 8", "a0_8", 0, 0, ((8, 128), 99), ((16, 128), 8)),
-    ("a0small 128", "a0_128", 0, 0, ((128, 128), 99), ((16, 128), 128)))]
+# (body, axis, mod, (t shape, bound), (idx shape, bound)): the script's four
+# bodies, then two of a0small's tables (no modulus)
+TAA_CASES = [body[1:] for body in dg.BODIES] + [
+    ("a0_8", 0, 0, ((8, 128), 99), ((16, 128), 8)),
+    ("a0_128", 0, 0, ((128, 128), 99), ((16, 128), 128))]
 
 
 @pytest.mark.parametrize("body,axis,mod,ts,xs,form", [
@@ -604,7 +602,6 @@ def test_take_along_probe_matches_plain(cuda, body, axis, mod, ts, xs, form):
     tiles of each reference body, tiles 1 and 2 with indices past the
     modulus (the kernel reduces them)."""
     from massivevoxelraytracing_torch.ops import probes
-    from massivevoxelraytracing_torch.scripts import dyngather_probe2 as dg
 
     t, idx = (torch.from_numpy(a).to(cuda) for a in dg.draws((ts, xs), 3))
     if mod:

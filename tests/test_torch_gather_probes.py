@@ -16,6 +16,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from massivevoxelraytracing_torch.ops import probes
+from massivevoxelraytracing_torch.scripts import common
 from massivevoxelraytracing_torch.scripts import dyngather_probe2 as dg
 from massivevoxelraytracing_torch.scripts import gather_probe3 as g3
 
@@ -197,10 +198,50 @@ def test_wrappers_refuse_what_no_kernel_takes():
         probes.take_along_probe(t, t, axis=1, mod=100, form="shared")
     with pytest.raises(ValueError, match="no take-along form"):
         probes.take_along_probe(t, t, axis=1, mod=128, form="wgmma")
+    # a modulus past the gathered axis would reach past the tile
+    with pytest.raises(ValueError, match=r"no larger than the gathered axis \(128\)"):
+        probes.take_along_probe(t, t, axis=1, mod=256, form="global")
+    with pytest.raises(ValueError, match=r"no larger than the gathered axis \(16\)"):
+        probes.take_along_probe(t, t, axis=0, mod=32, form="shared")
     with pytest.raises(ValueError, match="32 or more"):
         probes.ohg_probe(torch.zeros(16, 128, dtype=torch.int32), t[0], k=8, mode="mma")
     with pytest.raises(ValueError, match="a row or more"):
         probes.smem_alloc_probe(torch.zeros(1, 128), 0)
+
+
+def test_take_along_bytes_counts_the_sectors_the_indices_reach():
+    """The bound's bytes: 32-byte sectors of the tile (8 int32) that this
+    run's indices reach, plus the indices read and the output written."""
+    t = torch.zeros(2, 16, 128, dtype=torch.int32)
+    idx = torch.zeros(2, 16, 256, dtype=torch.int32)
+    # every index 0 along rows: one sector a row, 32 in all; the indices'
+    # unread columns (128-255) count for nothing
+    assert common.take_along_bytes(t, idx, axis=1, mod=128, c_out=128) == (
+        32 * 32 + 2 * 4 * 2 * 16 * 128)
+    # along columns, row 0 only: the 16 sectors of row 0 in each tile
+    assert common.take_along_bytes(t, idx[:, :, :128], axis=0, mod=16, c_out=128) == (
+        32 * 16 * 2 + 2 * 4 * 2 * 16 * 128)
+    # the modulus folds 128 + j onto j: every sector of the 16 rows
+    j = torch.arange(128, dtype=torch.int32)
+    wide = (j + 128).expand(2, 16, 128).contiguous()
+    assert common.take_along_bytes(t, wide, axis=1, mod=128, c_out=128) == (
+        4 * t.numel() + 2 * 4 * 2 * 16 * 128)
+    # k_taa0t's 16 indices a column reach about 63% of its 128-row table
+    _, x = dg.draws(dg.BODIES[3][4:], 1)
+    got = common.take_along_bytes(torch.zeros(1, 128, 128, dtype=torch.int32),
+                                  torch.from_numpy(x), axis=0, mod=128, c_out=128)
+    assert 0.55 * 65536 < got - 2 * 4 * 16 * 128 < 0.70 * 65536
+
+
+def test_smem_refusal_is_an_answer_only_on_the_card():
+    """On the CPU (or within a block's shared memory) a ValueError is a
+    fault and propagates; a call that returns is passed through."""
+    def refuse():
+        raise ValueError("over")
+
+    with pytest.raises(ValueError, match="over"):
+        common.smem_refusal(refuse, 1 << 30, torch.device("cpu"))
+    assert common.smem_refusal(lambda: 3, 1 << 30, torch.device("cpu")) == (3, None)
 
 
 def test_dyngather_script_runs_on_the_cpu():
