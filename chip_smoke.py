@@ -108,15 +108,34 @@ Phases (any failure raises, and the script exits non-zero):
      bound, and the kernel against its plain version on 16,384 sampled
      rays of that frame (T = 3); (c) voxrt through the brick tree and the
      octree with --oracle, voxmesh (the PLY read back) and voxtriangle
-     (the PNG read back).
+     (the PNG read back);
+  8. this slice's path, the multi-device layer, on the one card (every
+     mesh entry on it, one after another), each part through its entry
+     point with the kernels' counts set to 0 just before and read just
+     after: (a) the lattice built by parallel/build.py over 2 and 8
+     shards, every field bit for bit phase 3's tree, with the build split
+     and peak memory beside build_scene's; (b) the 1080p frame over 8
+     bands (make_sharded_render), image and depth == phase 3's, one
+     hako_mega launch a band; (c) a 16-spp step over dp 2 x sp 4
+     (make_sharded_pt_step, 4 spp an entry), within rtol / atol 2e-5 of
+     phase 4's single-device step from zero, with its time, peak memory
+     and a profiled step's device idle share; (d) the tree as 4
+     brick-range shards (parallel/bigscene.py) on the frame's rays,
+     primary, shadow and shaded, against the whole tree (the round
+     kernels); (e) apps/dcn_frames.py, 2 processes on the card, checksum
+     == one process's; (f) rtcamp --build-devices 2 on phase 6's last
+     frame, PNG == phase 6's; (g) entry.dryrun_multichip(8) and entry()'s
+     function (== its plain version). Each route kernel's `launches` in
+     the kernels line is the main path's PT step plus phase 8's parts
+     (`launches_by_path`).
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
 under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (take_along_probe
-one for each reference body it runs; with the apps' numbers, and phase
-7's under "accel" and "shell"), and as its last line
+one for each reference body it runs; with the apps' numbers, phase 8's
+under "parallel" and phase 7's under "accel" and "shell"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -613,23 +632,30 @@ def bench_sky():
 def profile_step(pt, cam) -> tuple:
     """One step under torch.profiler: (device busy ms, wall ms, top device
     kernels as (name, ms, calls), hako_mega kernel ms, device kernels)."""
+    return profile_call(lambda: pt.step(cam))
+
+
+def profile_call(fn) -> tuple:
+    """fn() under torch.profiler: as profile_step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pt.step(cam)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     busy_us = 0.0
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
+    # the raw trace events: prof.events() would first build the host ops'
+    # call tree, a minute of host time for a step's ~10^6 ops
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
             busy_us += us
-            ms, calls = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + us / 1e3, calls + 1)
+            ms, calls = kernels.get(e.name(), (0.0, 0))
+            kernels[e.name()] = (ms + us / 1e3, calls + 1)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     mega_ms = sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name)
     n_kernels = sum(calls for _ms, calls in kernels.values())
@@ -774,7 +800,8 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
             timing = time_round_kernels(chk, smi, f"one packet's {what}")
             timing["hako_mega"] = dict(ms=k_ms, plain_ms=p_ms,
                                        bound=mega_bound(tree, chk, st["n"]))
-    return dict(step_s=step_s, mrays=mrays, mean=mean, peak_gb=peak_gb,
+    return dict(first_accum=state_accum, env=pt.env, pmj=pt.pmj_table,
+                step_s=step_s, mrays=mrays, mean=mean, peak_gb=peak_gb,
                 mega_launches=mega_launches, rounds_launches=launches,
                 rounds=rounds, rounds_s=rounds_s, timing=timing, err=err,
                 busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms,
@@ -1635,6 +1662,343 @@ def phase_apps7(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-device layer on the one card (parallel/, dcn_frames,
+# --build-devices, the entry points)
+# ---------------------------------------------------------------------------
+
+def camera_args(cam, device) -> tuple:
+    """(cam_o, cam_right, cam_up, cam_front, tan_half_fovy) as f32 tensors."""
+    import torch
+
+    return (*(torch_from(np.asarray(v, np.float32), device)
+              for v in (cam.o, cam.right, cam.up, cam.front)),
+            torch.tensor(np.float32(cam.tan_half_fovy), device=device))
+
+
+def counted(fn, kernels: tuple):
+    """fn() with the named kernels' counts set to 0 just before it and read
+    just after: (result, {kernel: launches}, host seconds)."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import hako_mega
+
+    torch.cuda.synchronize()
+    hako_mega.reset_counters()
+    hk.reset_counters()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    got = {k: hako_mega.LAUNCHES if k == "hako_mega" else hk.LAUNCHES[k]
+           for k in kernels}
+    if min(got.values()) < 1:
+        raise AssertionError(f"a kernel of {kernels} was not launched: {got}")
+    if hako_mega.unresolved_lanes() or hk.unresolved_lanes():
+        raise AssertionError("unresolved lanes")
+    return out, got, wall
+
+
+def phase_parallel_build(tree, device, smi: str) -> dict:
+    """Phase 8a: the lattice built over 2 and 8 shards on the one card,
+    each bit for bit phase 3's tree; build_scene once more beside them for
+    its peak memory."""
+    import torch
+
+    from massivevoxelraytracing_torch.entry import trees_equal
+    from massivevoxelraytracing_torch.models import scene
+    from massivevoxelraytracing_torch.parallel import build as pbuild
+    from massivevoxelraytracing_torch.utils import meshgen
+
+    tri, cols = meshgen.sphere_lattice(6, 4)
+    kw = dict(origin=np.zeros(3, np.float32), dps=1.0 / GRID, grid_res=GRID,
+              accel="hako", chunk_tris=262144, device=device)
+    out = {}
+    for label, build in (
+            ("build_scene", lambda: scene.build_scene(tri, cols, **kw)),
+            ("sharded_2", lambda: pbuild.build_scene_sharded(tri, cols, n_devices=2, **kw)),
+            ("sharded_8", lambda: pbuild.build_scene_sharded(tri, cols, n_devices=8, **kw))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        built = build()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        if not trees_equal(built, tree):
+            raise AssertionError(f"phase 8a: the {label} tree differs from phase 3's")
+        st = built.build_stats
+        out[label] = dict(wall_s=wall, split_s=st["t_split_s"], count_s=st["t_count_s"],
+                          unique_s=st["t_unique_s"], accel_s=st["t_accel_s"],
+                          peak_gib=peak, n_voxels=built.n_voxels,
+                          n_dumped=st["n_dumped"], n_devices=st.get("n_devices", 1))
+        print(f"[phase8] {label}: {built.n_voxels} voxels, every field == phase 3's "
+              f"tree; {wall:.3f} s (split {st['t_split_s'] * 1e3:.1f} ms, count "
+              f"{st['t_count_s'] * 1e3:.1f} ms, unique {st['t_unique_s'] * 1e3:.1f} ms, "
+              f"accel {st['t_accel_s'] * 1e3:.1f} ms), {st['n_dumped']} dumped, peak "
+              f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB already held [{smi}]",
+              flush=True)
+        del built
+    return out
+
+
+def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
+    """Phase 8: this slice's path on the one card, each part through the
+    entry points a user calls, each part's kernels counted around it."""
+    import argparse
+    import contextlib
+    import io
+
+    import torch
+
+    from massivevoxelraytracing_torch import entry
+    from massivevoxelraytracing_torch.apps import dcn_frames, rtcamp
+    from massivevoxelraytracing_torch.models import accel, raycast
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import hako_mega
+    from massivevoxelraytracing_torch.parallel import bigscene
+    from massivevoxelraytracing_torch.parallel import mesh as pmesh
+    from massivevoxelraytracing_torch.parallel import render as prender
+    from massivevoxelraytracing_torch.parallel.render import _on
+
+    t_phase = time.time()
+    part_s = {}
+
+    def lap(part):
+        part_s[part] = time.time() - t_phase - sum(part_s.values())
+
+    out = {"build": phase_parallel_build(tree, device, smi)}
+    lap("build")
+    launches = {}
+    kind, T, meta, root = accel.accel_args(tree)
+    cam_t = camera_args(cam, device)
+
+    # 8b: the 1080p frame over 8 bands
+    render = prender.make_sharded_render(pmesh.make_mesh(8, device=device),
+                                         width=WIDTH, height=HEIGHT, kind=kind, depth=T)
+    args = (meta, root, tree.lower, tree.upper, raycast._color_table(tree), *cam_t)
+    render(*args)
+    (img8, depth8), n, _ = counted(lambda: render(*args), ("hako_mega",))
+    launches["frame"] = n
+    _, frame_ms = timed(lambda: render(*args), reps=TIMED_FRAMES)
+    if not torch.equal(img8, img) or not torch.equal(depth8, depth):
+        raise AssertionError("phase 8b: the sharded frame differs from phase 3's")
+    if n["hako_mega"] != 8:
+        raise AssertionError(f"phase 8b: {n['hako_mega']} hako_mega launches, not 8")
+    print(f"[phase8] sharded frame {WIDTH}x{HEIGHT} over 8 bands: image and depth == "
+          f"phase 3's bit for bit; {frame_ms:.3f} ms (mean of {TIMED_FRAMES}), "
+          f"hako_mega launches {n['hako_mega']} [{smi}]", flush=True)
+    out["frame"] = dict(ms=frame_ms, launches=n["hako_mega"])
+    lap("frame")
+
+    # 8c: the 16-spp step over dp 2 x sp 4, 4 spp an entry
+    mesh = pmesh.make_mesh(8, device=device)
+    dp, sp = mesh.devices.shape
+    spd = 16 // sp
+    n_pix = WIDTH * HEIGHT
+    step = prender.make_sharded_pt_step(
+        mesh, stack_depth=T, spp_per_device=spd, width=WIDTH, height=HEIGHT,
+        n_pixels=n_pix, has_emission=tree.has_emission,
+        hdri_enabled=pt["env"].scale > 0, accel_kind=kind)
+    zero_i = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def f32(v):
+        return torch.tensor(np.float32(v), device=device)
+
+    step_args = (meta, root, tree.lower, tree.upper,
+                 tree.color if tree.color is not None else zero_i,
+                 tree.emission if tree.emission is not None else zero_i,
+                 pt["pmj"], pt["env"], *cam_t[:4], f32(cam.tan_half_fovy),
+                 f32(cam.lens_r), f32(cam.focus))
+
+    def one_step():
+        return step(*step_args, torch.zeros((n_pix, 4), dtype=torch.float32,
+                                            device=device), 0)
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    acc, n, first_s = counted(one_step, ("hako_mega",))
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    launches["pt_step"] = n
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    again = one_step()
+    stop.record()
+    torch.cuda.synchronize()
+    step_s = start.elapsed_time(stop) / 1e3
+    busy_ms, wall_ms, top, mega_ms, n_kernels = profile_call(one_step)
+    want = pt["first_accum"]
+    if not torch.equal(acc, again):
+        raise AssertionError("phase 8c: two sharded steps from zero differ")
+    if not torch.equal(acc[:, 3], want[:, 3]) or not bool((acc[:, 3] == 16).all()):
+        raise AssertionError("phase 8c: sample counts differ")
+    if not bool(torch.isfinite(acc).all()):
+        raise AssertionError("phase 8c: non-finite radiance")
+    diff = (acc[:, :3] - want[:, :3]).abs()
+    rel = float((diff / want[:, :3].abs().clamp(min=1e-30)).max())
+    if not torch.allclose(acc[:, :3], want[:, :3], rtol=2e-5, atol=2e-5):
+        raise AssertionError(f"phase 8c: accumulator outside rtol 2e-5 / atol 2e-5 "
+                             f"(max |diff| {float(diff.max())})")
+    mean, mean1 = float(acc[:, :3].mean()), float(want[:, :3].mean())
+    if abs(mean / mean1 - 1) > 0.01:
+        raise AssertionError(f"phase 8c: mean {mean} vs {mean1}")
+    lanes = n_pix // dp * spd
+    print(f"[phase8] sharded PT step {WIDTH}x{HEIGHT} 16 spp over dp={dp} x sp={sp} "
+          f"({spd} spp an entry, {dp * sp} calls of {lanes} lanes): {step_s:.3f} s/step "
+          f"(CUDA events; first {first_s:.3f} s host clock), accumulator within rtol "
+          f"2e-5 of phase 4's single-device step (max |diff| {float(diff.max()):.3g}, "
+          f"max rel {rel:.3g}, {int((diff > 0).sum())} of {diff.numel()} values "
+          f"differ), mean {mean:.4f} vs {mean1:.4f}; peak {peak:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB already held; hako_mega launches "
+          f"{n['hako_mega']} [{smi}]", flush=True)
+    print(f"[phase8] profiled sharded step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms in {n_kernels} device kernels, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}, hako_mega kernels {mega_ms:.1f} ms [{smi}]",
+          flush=True)
+    out["pt_step"] = dict(s_per_step=step_s, first_s=first_s, peak_gib=peak,
+                          max_abs_diff=float(diff.max()), max_rel_diff=rel,
+                          mean=mean, single_mean=mean1, busy_ms=busy_ms,
+                          wall_ms=wall_ms, idle_share=1 - busy_ms / wall_ms,
+                          mega_ms=mega_ms, device_kernels=n_kernels,
+                          launches=n["hako_mega"], lanes_per_call=lanes)
+    del acc, again, want
+    lap("pt_step")
+
+    # 8d: the lattice's tree as 4 brick-range shards, the frame's rays
+    shards = bigscene.shard_hako_tree(tree, 4)
+    ro, rd = camera_rays(cam, WIDTH, HEIGHT, device)
+    ref = hk.intersect_hako(tree, ro, rd)
+    ref_shadow = hk.intersect_hako(tree, ro, rd, shadow=True)[0]
+    ref_img, ref_t = raycast.render_rays(tree, ro, rd)
+
+    def sharded_all():
+        return (bigscene.intersect_sharded(shards, ro, rd),
+                bigscene.intersect_sharded(shards, ro, rd, shadow=True)[0],
+                bigscene.render_rays_sharded(shards, ro, rd))
+
+    (prim, shadow_t, (simg, st_)), n, big_s = counted(sharded_all, hk.ROUTE_KERNELS)
+    launches["bigscene"] = n
+    t, nmaj, vidx, win = prim
+    hit = ref[0] < 1e37
+    if not torch.equal(t < 1e37, hit) or not torch.equal(shadow_t < 1e37,
+                                                           ref_shadow < 1e37):
+        raise AssertionError("phase 8d: hit sets differ from the whole tree's")
+    if not torch.allclose(t[hit], ref[0][hit], rtol=1e-6, atol=0):
+        raise AssertionError("phase 8d: t outside rtol 1e-6")
+    if not torch.equal(nmaj[hit], ref[1][hit]) or not torch.equal(vidx[hit], ref[2][hit]):
+        raise AssertionError("phase 8d: nmajor or global voxel index differ")
+    if not torch.equal(simg, ref_img) or not torch.equal(st_, ref_t):
+        raise AssertionError("phase 8d: sharded shading differs from render_rays")
+    winners = torch.bincount(win[hit], minlength=len(shards)).tolist()
+    if sum(1 for w in winners if w) < 2:
+        raise AssertionError(f"phase 8d: hits won by one shard only {winners}")
+    _, big_ms = timed(lambda: bigscene.intersect_sharded(shards, ro, rd), reps=2)
+    exact_t = bool(torch.equal(t, ref[0]))
+    per_shard = [dict(bricks=sh.n_bricks, voxels=sh.n_voxels, bytes=sh.memory_bytes(),
+                      voxel_base=sh.voxel_base) for sh in shards]
+    print(f"[phase8] bigscene: 4 shards of {tree.n_bricks} bricks / {tree.n_voxels} "
+          f"voxels / {tree.memory_bytes()} B: " + "; ".join(
+              f"{p['bricks']} bricks, {p['voxels']} voxels, {p['bytes']} B"
+              for p in per_shard) + f" [{smi}]", flush=True)
+    print(f"[phase8] bigscene on {ro.shape[0]} frame rays: hit sets (primary and "
+          f"shadow), nmajor and global voxel index == the whole tree's, t "
+          f"{'bit-equal' if exact_t else 'within rtol 1e-6'}, shading == render_rays; "
+          f"hits won by shard {winners}; primary {big_ms:.3f} ms a frame (mean of 2); "
+          f"primary + shadow + shading {big_s:.3f} s host clock; launches {n} [{smi}]",
+          flush=True)
+    out["bigscene"] = dict(shards=per_shard, ms=big_ms, all_s=big_s, winners=winners,
+                           t_bit_equal=exact_t, launches=n,
+                           whole_bytes=tree.memory_bytes())
+    del shards, ro, rd, ref, ref_shadow, ref_img, ref_t, prim, shadow_t, simg, st_
+    lap("bigscene")
+
+    # 8e: dcn_frames, 2 processes on the card, against one process
+    torch.cuda.empty_cache()
+    dcn_out = os.path.join(APPS_OUT, "dcn")
+    shutil.rmtree(dcn_out, ignore_errors=True)
+    dcn_kw = dict(scene="bumpy", frames=4, res=128, width=320, height=200)
+    argv = ["--procs", "2", "--device", str(device.type), "--out", dcn_out]
+    for k, v in dcn_kw.items():
+        argv += [f"--{k}", str(v)]
+    t0 = time.time()
+    job = dcn_frames.main(argv)
+    dcn_s = time.time() - t0
+    sums = dcn_frames.render_frames(argparse.Namespace(out=None, **dcn_kw), 0, 4, device)
+    want_sum = dcn_frames.checksum(sums)
+    if job != dict(frames=4, checksum=want_sum):
+        raise AssertionError(f"phase 8e: dcn job {job} != one process {want_sum}")
+    if sorted(os.listdir(dcn_out)) != [f"{i:03d}.png" for i in range(4)]:
+        raise AssertionError("phase 8e: dcn frames missing")
+    print(f"[phase8] dcn_frames: 2 processes on the card, 4 frames of bumpy at "
+          f"128^3 / 320x200 in {dcn_s:.1f} s (spawn included); depth checksum "
+          f"{job['checksum']!r} == one process's [{smi}]", flush=True)
+    out["dcn"] = dict(wall_s=dcn_s, checksum=job["checksum"], frames=job["frames"])
+    lap("dcn")
+
+    # 8f: rtcamp --build-devices 2, the last frame of phase 6's run
+    fr = RTCAMP_ARGV.index("--frame-range")
+    last = int(RTCAMP_ARGV[fr + 2]) - 1
+    argv = (RTCAMP_ARGV[:fr] + ["--frame-range", str(last), str(last + 1)]
+            + RTCAMP_ARGV[fr + 3:] + ["--build-devices", "2", "--device",
+                                      str(device.type), "--out",
+                                      os.path.join(APPS_OUT, "rtcamp_bd2")])
+    rec, n, rt_s = counted(lambda: rtcamp.main(argv), ("hako_mega",))
+    launches["rtcamp"] = n
+    name = f"{last:03d}.png"
+    with open(os.path.join(APPS_OUT, "rtcamp", name), "rb") as a, \
+            open(os.path.join(APPS_OUT, "rtcamp_bd2", name), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("phase 8f: --build-devices 2 PNG differs")
+    if rec[0]["build_stats"]["n_devices"] != 2:
+        raise AssertionError("phase 8f: the build was not sharded")
+    print(f"[phase8] rtcamp --build-devices 2, frame {last}: PNG == phase 6's byte for "
+          f"byte; build {rec[0]['update_s']:.3f} s, {rt_s:.1f} s in all; hako_mega "
+          f"launches {n['hako_mega']} [{smi}]", flush=True)
+    out["rtcamp"] = dict(update_s=rec[0]["update_s"], wall_s=rt_s,
+                         launches=n["hako_mega"])
+    lap("rtcamp")
+
+    # 8g: the entry points
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, n, dry_s = counted(lambda: entry.dryrun_multichip(8, device),
+                                 ("hako_mega",))
+    ok = [ln for ln in buf.getvalue().splitlines() if ln.startswith("[dryrun]")]
+    for ln in ok:
+        print(f"[phase8] {ln}", flush=True)
+    if sum(ln.startswith("[dryrun] ok:") for ln in ok) != 3:
+        raise AssertionError("phase 8g: dryrun_multichip printed no three ok lines")
+    launches["dryrun"] = n
+    fn, eargs = entry.entry(device)
+    got, n, _ = counted(lambda: fn(*eargs), ("hako_mega",))
+    launches["entry"] = n
+    st = compare(got, fn(*_on(torch.device("cpu"), *eargs)), "entry()")
+    print(f"[phase8] entry(): {st['n']} rays ({st['hits']} hits) == plain version, "
+          f"max ulp {st['max_ulp']}; dryrun_multichip(8) {dry_s:.1f} s; hako_mega "
+          f"launches {launches['dryrun']['hako_mega']} / {n['hako_mega']} [{smi}]",
+          flush=True)
+    out["entry"] = dict(dryrun_s=dry_s, max_ulp=st["max_ulp"])
+    lap("entry")
+
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    out["launches"] = launches
+    out["launch_totals"] = total
+    out["wall_s"] = time.time() - t_phase
+    out["part_s"] = part_s
+    print(f"[phase8] launches by part {launches}, in all {total}; "
+          f"{out['wall_s']:.1f} s in all, by part (s) "
+          f"{ {k: round(v, 1) for k, v in part_s.items()} } [{smi}]", flush=True)
+    return out
+
+
 class StepTimer:
     """Times each PathTracer.step while installed (CUDA events around the
     step, then a sync: the apps sync after each step anyway)."""
@@ -1714,6 +2078,7 @@ def main() -> int:
     gp = phase_gather(smi, sl)
     pr["gather"] = gp
     apps = phase_apps(smi)
+    par = phase_parallel(tree, cam, img, depth, pt, device, smi)
     t7 = time.time()
     structures = phase_structures(tree, cam, img, device, smi, rng)
     del tree
@@ -1741,9 +2106,15 @@ def main() -> int:
     kernels = []
     for name, source, replaces, launches, frame_launches in table:
         tm = pt["timing"][name]
+        # the main path's PT step, then this slice's path (phase 8, part by part)
+        by_path = {"pt_step": launches, **{
+            f"parallel_{part}": per[name] for part, per in par["launches"].items()
+            if name in per}}
+        if sum(by_path.values()) != launches + par["launch_totals"].get(name, 0):
+            raise AssertionError(f"{name}: launches by path do not add up")
         kernels.append(dict(
             name=name, route="cuda", source=src + source, replaces=ref + replaces,
-            launches=launches,
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(earlier_err.get(name, 0.0), pt["err"][name]),
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound"][0],
             bound_by=tm["bound"][1], library_ms=None,
@@ -1798,7 +2169,8 @@ def main() -> int:
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
-        "apps": apps, "accel": structures, "shell": shell}))
+        "apps": apps, "parallel": par,
+        "accel": structures, "shell": shell}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -13,8 +13,13 @@ Layout:
   models/  scene build, acceleration-structure dispatch (traversal "mega"
            or "rounds"), primary frames, the path tracer, the host
            oracle of voxrt
-  apps/    the command lines: rtcamp, voxpt, voxrt, launch_frames, and
-           their scenes (`python -m massivevoxelraytracing_torch.apps.X`)
+  apps/    the command lines: rtcamp, voxpt, voxrt, launch_frames,
+           dcn_frames, and their scenes
+           (`python -m massivevoxelraytracing_torch.apps.X`)
+  parallel/  the multi-device layer: meshes and ordered collectives, the
+           sharded build, the sharded frame and path-trace step, and
+           scene-memory sharding (bigscene)
+  entry.py entry() and dryrun_multichip(n)
   config.py  EngineConfig
   csrc/    CUDA C++ sources (sm_90a) and host C++ (triangle split, PMJ
            table, HDR / OBJ decoders), compiled at first use

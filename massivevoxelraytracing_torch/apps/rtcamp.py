@@ -28,6 +28,7 @@ import torch
 from ..models import scene
 from ..models.pathtracer import PathTracer
 from ..ops import camera as camera_ops
+from ..parallel.build import build_scene_sharded
 from ..utils import hdr, meshgen, png, runtime
 from .common import add_device_args
 from .scenes import animated_scene
@@ -93,6 +94,10 @@ def main(argv=None) -> list:
                     help="'procedural', 'none', or a .hdr path")
     ap.add_argument("--profile", default=None,
                     help="torch.profiler Chrome trace directory (the frames)")
+    ap.add_argument("--build-devices", type=int, default=0,
+                    help="shard the per-frame scene build over N mesh "
+                    "entries of --device (parallel/build.py; 0 or 1: the "
+                    "single-device build)")
     ap.add_argument("--out", default="out/anim")
     add_device_args(ap)
     args = ap.parse_args(argv)
@@ -127,10 +132,14 @@ def main(argv=None) -> list:
             origin = (lo + hi) * 0.5 - grid_res * dps * 0.5
 
             t0 = time.time()
-            tree = scene.build_scene(
-                tri, col, emi, origin=origin, dps=dps, grid_res=grid_res,
-                accel=args.accel, device=device,
-            )  # ends with a device sync
+            build_kw = dict(origin=origin, dps=dps, grid_res=grid_res,
+                            accel=args.accel, device=device)
+            if args.build_devices > 1:
+                tree = build_scene_sharded(
+                    tri, col, emi, n_devices=args.build_devices, **build_kw)
+            else:
+                tree = scene.build_scene(tri, col, emi, **build_kw)
+            # (both end with a device sync)
             t_update = time.time() - t0
 
             center = origin + grid_res * dps * 0.5

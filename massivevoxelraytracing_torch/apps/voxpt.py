@@ -24,6 +24,7 @@ from ..config import EngineConfig
 from ..models import scene
 from ..models.pathtracer import PathTracer
 from ..ops import camera as camera_ops
+from ..parallel.build import build_scene_sharded
 from ..utils import hdr, meshgen, png, runtime
 from .common import add_device_args
 from .scenes import load_scene
@@ -50,6 +51,10 @@ def main(argv=None) -> PathTracer:
                     "(EngineConfig.ray_packet)")
     ap.add_argument("--profile", default=None,
                     help="torch.profiler Chrome trace directory (the steps)")
+    ap.add_argument("--build-devices", type=int, default=0,
+                    help="shard the scene build over N mesh entries of "
+                    "--device (parallel/build.py; 0 or 1: the single-device "
+                    "build)")
     ap.add_argument("--out", default="out/pt")
     add_device_args(ap)
     args = ap.parse_args(argv)
@@ -67,11 +72,16 @@ def main(argv=None) -> PathTracer:
     origin, dps = meshgen.fit_grid(tri, args.res)
 
     sw = runtime.Stopwatch()
-    tree = scene.build_scene(
-        tri, col, emi, origin=origin, dps=dps, grid_res=args.res,
+    build_kw = dict(
+        origin=origin, dps=dps, grid_res=args.res,
         six_separating=cfg.six_separating, dag=cfg.dag, cap=cfg.cap,
         chunk_tris=cfg.chunk_tris, accel=args.accel, device=device,
     )
+    if args.build_devices > 1:
+        tree = build_scene_sharded(tri, col, emi, n_devices=args.build_devices,
+                                   **build_kw)
+    else:
+        tree = scene.build_scene(tri, col, emi, **build_kw)
     t_build = sw.lap("build", tree)
     print(
         f"[voxpt] res({args.res}) voxels({tree.n_voxels}) nodes({tree.n_nodes}) "

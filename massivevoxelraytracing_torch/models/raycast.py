@@ -98,15 +98,26 @@ def _gen_rays_band(cam_o, cam_right, cam_up, cam_front, tan_half_fovy, py0,
 
 def _shade_untile(color_table, rd, t, nmaj, vidx, *, width: int, height: int,
                   show_color: bool):
+    return _shade_untile_band(
+        color_table, rd, t, nmaj, vidx, width=width,
+        band_tile_rows=-(-height // TILE), rows_out=height,
+        show_color=show_color,
+    )
+
+
+def _shade_untile_band(color_table, rd, t, nmaj, vidx, *, width: int,
+                       band_tile_rows: int, rows_out: int, show_color: bool):
+    """Shade a band of tile rows (tile-major lanes) and un-tile it to
+    (u8 [rows_out, width, 3], f32 [rows_out, width])."""
     ntx = -(-width // TILE)
-    nty = -(-height // TILE)
+    nty = band_tile_rows
     img, t = _shade_flat(color_table, rd, t, nmaj, vidx, show_color=show_color)
 
     def untile(x):
         c = tuple(x.shape[1:])
         y = x.reshape((nty, ntx, TILE, TILE) + c)
         y = y.permute((0, 2, 1, 3) + tuple(4 + i for i in range(len(c))))
-        return y.reshape((nty * TILE, ntx * TILE) + c)[:height, :width]
+        return y.reshape((nty * TILE, ntx * TILE) + c)[:rows_out, :width]
 
     return untile(img), untile(t)
 

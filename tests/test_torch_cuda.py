@@ -20,7 +20,10 @@ enough that lanes overflow it, and a cache the card refuses); the gather
 probes (take_along_probe in each form on the reference's tiles, and the
 shared form's refusal of a table over a block's shared memory;
 smem_alloc_probe up to the opt-in limit and one row past it; ohg_probe in
-each mode at 32, 128 and 1024 rows). Imports
+each mode at 32, 128 and 1024 rows); the multi-device layer with every mesh
+entry on the card (the sharded build at 2 and 8 shards == build_scene, the
+sharded frame == render_frame with one launch a band, the sharded PT step
+within rtol 2e-5 of pt_sample, bigscene's shards == the whole tree). Imports
 nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -677,3 +680,142 @@ def test_ohg_probe_matches_plain(cuda, mode, n_rows):
             assert torch.equal(got, probes.ohg_plain(table, idx, k, plain_mode))
     assert np.array_equal(got.cpu().numpy(), probes.ohg_plain(
         table.cpu(), lanes[1].cpu(), 32, "gather").numpy())
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on the card (every mesh entry on the one card)
+# ---------------------------------------------------------------------------
+
+def ico_scene(grid_res):
+    tri = meshgen.icosphere(2, radius=0.85)
+    origin, dps = meshgen.fit_grid(tri, grid_res)
+    col = meshgen.vertex_colors_from_position(tri, *meshgen.mesh_bounds(tri))
+    emi = np.zeros_like(col)
+    emi[: len(emi) // 5] = 0.5
+    extent = float(dps) * grid_res
+    center = np.asarray(origin) + extent / 2
+    cam = camera.Camera.look_at(eye=center + np.array([0.8, 0.5, 1.5]) * extent,
+                                target=center)
+    return tri, col, emi, dict(origin=origin, dps=dps, grid_res=grid_res), cam
+
+
+@pytest.mark.parametrize("accel", ["octree", "brick", "hako"])
+def test_sharded_build_on_card_equals_build_scene(cuda, accel):
+    """2 and 8 shards on the card == build_scene on the card == the CPU's."""
+    from massivevoxelraytracing_torch.entry import trees_equal
+    from massivevoxelraytracing_torch.parallel import build as pbuild
+
+    tri, col, emi, kw, _cam = ico_scene(32)
+    kw.update(accel=accel, chunk_tris=128)
+    single = scene.build_scene(tri, col, emi, device=cuda, **kw)
+    for n in (2, 8):
+        sharded = pbuild.build_scene_sharded(tri, col, emi, n_devices=n,
+                                             device=cuda, **kw)
+        assert sharded.device == cuda and sharded.build_stats["n_devices"] == n
+        assert trees_equal(single, sharded)
+    cpu = pbuild.build_scene_sharded(tri, col, emi, n_devices=8, device="cpu", **kw)
+    for name in ("n_nodes", "n_voxels"):
+        assert getattr(cpu, name) == getattr(single, name)
+    assert cpu.build_stats["n_unique"] == single.build_stats["n_unique"]
+
+
+def test_sharded_frame_on_card_equals_render_frame(cuda):
+    """8 bands, one hako_mega launch a band, image and depth bit-equal."""
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.parallel import mesh as pmesh
+    from massivevoxelraytracing_torch.parallel import render as prender
+
+    tri, col, _emi, kw, cam = ico_scene(64)
+    tree = scene.build_scene(tri, col, device=cuda, accel="hako", **kw)
+    img1, t1 = raycast.render_frame(tree, cam, 200, 300, device=cuda)
+    kind, depth, meta, root = accel.accel_args(tree)
+    render = prender.make_sharded_render(pmesh.make_mesh(8, device=cuda),
+                                         width=200, height=300, kind=kind,
+                                         depth=depth)
+    hako_mega.reset_counters()
+    img2, t2 = render(meta, root, tree.lower, tree.upper,
+                      raycast._color_table(tree),
+                      *(torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+                        for v in (cam.o, cam.right, cam.up, cam.front)),
+                      torch.tensor(np.float32(cam.tan_half_fovy), device=cuda))
+    torch.cuda.synchronize()
+    assert hako_mega.LAUNCHES == 8
+    assert torch.equal(img1, img2) and torch.equal(t1, t2)
+
+
+def test_sharded_pt_step_on_card(cuda):
+    """dp 2 x sp 4 at 2 spp an entry == one pt_sample over the same lanes
+    on the card within rtol / atol 2e-5; its count column exact."""
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.ops import hdri, sampling
+    from massivevoxelraytracing_torch.parallel import mesh as pmesh
+    from massivevoxelraytracing_torch.parallel import render as prender
+    from massivevoxelraytracing_torch.utils import hdr
+
+    tri, col, _emi, kw, cam = ico_scene(64)
+    tree = scene.build_scene(tri, col, device=cuda, accel="hako", **kw)
+    env = hdri.load(hdr.procedural_sky(32, 16), scale=1.0, device=cuda)
+    pmj = torch.from_numpy(sampling.make_pmj_table(16, 512)).to(cuda)
+    kind, depth, meta, root = accel.accel_args(tree)
+    width, height, spd = 32, 16, 2
+    n = width * height
+
+    def f(v):
+        return torch.tensor(np.float32(v), device=cuda)
+
+    head = (meta, root, tree.lower, tree.upper, tree.color, tree.emission, pmj,
+            env, *(torch.as_tensor(np.asarray(v, np.float32), device=cuda)
+                   for v in (cam.o, cam.right, cam.up, cam.front)),
+            f(cam.tan_half_fovy), f(cam.lens_r), f(cam.focus))
+    m = pmesh.make_mesh(8, device=cuda)
+    step = prender.make_sharded_pt_step(
+        m, stack_depth=depth, spp_per_device=spd, width=width, height=height,
+        n_pixels=n, has_emission=tree.has_emission, hdri_enabled=True,
+        accel_kind=kind)
+    hako_mega.reset_counters()
+    out = step(*head, torch.zeros((n, 4), device=cuda), 0)
+    torch.cuda.synchronize()
+    assert hako_mega.LAUNCHES == 8 * 17  # 8 calls: primary + 2 a bounce
+    single = pathtracer.pt_sample(
+        *head, 0, 0, f(1.0 / width), f(1.0 / height), f(width / height), f(7.5),
+        width=width, pix_packet=n, n_spp=4 * spd, accel_kind=kind,
+        stack_depth=depth, has_emission=tree.has_emission, hdri_enabled=True,
+        extra_implicit=True).reshape(4 * spd, n, 3).sum(0)
+    assert bool((out[:, 3] == 4 * spd).all())
+    assert torch.allclose(out[:, :3], single, rtol=2e-5, atol=2e-5)
+
+
+def test_bigscene_on_card_equals_whole_tree(cuda):
+    """4 brick-range shards through the round kernels on the card == the
+    whole tree (primary, shadow, shading), and == the same on the CPU."""
+    from massivevoxelraytracing_torch.parallel import bigscene
+
+    tri, col, _emi, kw, _cam = ico_scene(64)
+    tree = scene.build_scene(tri, col, device=cuda, accel="hako", **kw)
+    rng = np.random.default_rng(11)
+    n = 4096
+    extent = float(kw["dps"]) * 64
+    center = np.asarray(kw["origin"]) + extent / 2
+    ro = np.tile((center + np.array([0.8, 0.5, 1.5]) * extent).astype(np.float32),
+                 (n, 1))
+    rd = (np.asarray(kw["origin"]) + extent * rng.uniform(0.1, 0.9, (n, 3))
+          - ro).astype(np.float32)
+    shards = bigscene.shard_hako_tree(tree, 4)
+    want = hk.intersect_hako(tree, ro, rd)
+    hk.reset_counters()
+    got = bigscene.intersect_sharded(shards, ro, rd)
+    torch.cuda.synchronize()
+    assert min(hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS) >= 4
+    for a, b in zip(got[:3], want):
+        assert torch.equal(a, b)
+    assert len(torch.unique(got[3][want[0] < 1e37])) > 1
+    shadow = bigscene.intersect_sharded(shards, ro, rd, shadow=True)[0]
+    assert torch.equal(shadow < 1e37,
+                       hk.intersect_hako(tree, ro, rd, shadow=True)[0] < 1e37)
+    img, t = bigscene.render_rays_sharded(shards, ro, rd, show_color=True)
+    img1, t1 = raycast.render_rays(tree, ro, rd, show_color=True)
+    assert torch.equal(img, img1) and torch.equal(t, t1)
+    cpu = bigscene.intersect_sharded(
+        bigscene.shard_hako_tree(tree, 4, devices=["cpu"]), ro, rd)
+    for a, b in zip(cpu, got):
+        assert torch.equal(a, b.cpu())

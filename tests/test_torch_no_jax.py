@@ -1,7 +1,8 @@
 """The PyTorch port stands without JAX: it imports none (a subprocess with
 `jax` and the JAX package blocked builds a tiny scene, renders a frame,
 runs a path-tracer step, renders one rtcamp frame, builds and renders the
-brick tree and the octree, and streams a terrain shell), no module of it
+brick tree and the octree, builds over 2 shards and renders over 2 bands,
+and streams a terrain shell), no module of it
 names jax or imports anything of the JAX package, the nvcc commands keep
 IEEE float semantics for sm_90a, the host library links no zlib, and
 chip_smoke.py refuses to run without a card or without the repository."""
@@ -71,6 +72,20 @@ for accel in ("brick", "octree"):
     img2, depth2 = raycast.render_frame(t2, cam, 16, 12, device="cpu")
     assert torch.equal(depth2 < 1e37, depth < 1e37), accel
 assert isinstance(t2, octree.VoxelOctree) and t2.n_nodes > 0
+# the multi-device layer: a 2-shard build and a 2-band frame on the CPU
+from massivevoxelraytracing_torch.models import accel
+from massivevoxelraytracing_torch.parallel import build as pbuild
+from massivevoxelraytracing_torch.parallel import mesh, render as prender
+t3 = pbuild.build_scene_sharded(tri, origin=np.zeros(3, np.float32), dps=1 / 32,
+                                grid_res=32, n_devices=2, device="cpu", accel="hako")
+assert torch.equal(t3.bricks, tree.bricks) and t3.build_stats["n_devices"] == 2
+kind, levels, meta, root = accel.accel_args(tree)
+band = prender.make_sharded_render(mesh.make_mesh(2, device="cpu"), width=16,
+                                   height=12, kind=kind, depth=levels)
+img3, depth3 = band(meta, root, tree.lower, tree.upper, raycast._color_table(tree),
+                    *(torch.tensor(np.asarray(v, np.float32)) for v in
+                      (cam.o, cam.right, cam.up, cam.front, cam.tan_half_fovy)))
+assert torch.equal(img3, img) and torch.equal(depth3, depth)
 terrain = shellgen.Terrain(64, 16, device="cpu")
 shell = hako_stream.build_hako_stream(terrain.chunks(), 64)
 assert shell.n_voxels == terrain.total_voxels() > 0
