@@ -11,25 +11,35 @@ Phases (any failure raises, and the script exits non-zero):
      512^3 tree with supernodes (T = 1, the 1024^3 layout), primary and
      shadow rays; hit mask, nmajor and vrank must be equal, t within
      rtol 3e-7 (bit-exact is expected; the ulp difference is printed);
-  2b. the round driver (kernels hako_probe, hako_dda, hako_merge) on the
-     same trees: against its plain version and against the megakernel,
-     bit for bit;
+  2b. the round driver (kernels hako_probe and hako_dda_merge, the row
+     stage in one launch) on the same trees: against its plain version
+     and against the megakernel, bit for bit, one launch of each a round;
+     then round by round with every kernel against its plain version
+     (hako_probe; hako_dda and hako_merge, the unfused stage; and
+     hako_dda_merge on a copy of the state, equal to the unfused stage's);
   3. the main path's primary frame: build_scene of the bench lattice at
      1024^3 and 1920x1080 frames with the bench camera through the
      megakernel, then kernel vs plain version on 16,384 rays sampled
      across that frame;
-  3b. the same frame through the round driver: image and depth equal the
-     megakernel's; frame time, rounds and launches;
+  3b. the same frame through the round driver: once with hako_dda_merge
+     held against its plain version at every call, then counted (two
+     launches a round, none of the unfused stage) and timed, then timed
+     with the unfused stage (the route before the row stage was one
+     launch); every image and depth equal to the megakernel's;
   4. the path tracer: PMJ table build; a warm 16-spp step and 2 timed
      steps at 1024^3 / 1080p through the megakernel (PT Mrays/s counted
      as bench.py does, mean radiance within 1% of the JAX package's
      bench run), a profiled step (device idle share, top device ops),
-     one step through the round driver from the same state (accumulator
-     bit-equal), and on one packet's full bounce-1 BSDF and NEE batches
-     (the inputs the step gives the kernels): each of hako_probe /
-     hako_dda / hako_merge against its plain version, round by round, and
-     hako_mega against its plain version. Every kernel's time, plain time
-     and bound are taken on that BSDF batch;
+     one step through the round driver from the same state, then one with
+     the unfused stage (accumulators bit-equal), and on one packet's full
+     bounce-1 BSDF and NEE batches (the inputs the step gives the
+     kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
+     against its plain version, round by round, and hako_mega against its
+     plain version. Every kernel's time, plain time and bound are taken on
+     that BSDF batch, and hako_dda_merge's beside the unfused stage it
+     replaces on the same inputs (as one train and by part: kernel B on
+     the supernode and the brick rows, the hand-off's tensor ops, the
+     merge);
   counters: hako_mega's counting variant (equal outputs) on the frame and
      both batches;
   5. the probes (row chase, walk vs fetch), each held against its plain
@@ -52,10 +62,11 @@ Phases (any failure raises, and the script exits non-zero):
      scripts/hako_phase_timing.py on bumpy_sphere at 256^3 (plain top
      levels) and 1024^3 (fat: the supernode stage) and on the phase-3
      lattice: each round kernel alone on its first quarter of the
-     frame's blocks, equal to its plain version, the host round work,
-     and the full frame's rounds with its wall split into kernel and
-     host time; the runs' launches (the isolated phases' among them)
-     must add up to the phase's;
+     frame's blocks (hako_dda_merge among them), equal to its plain
+     version, the host round work, one round's wall with the unfused
+     and the fused stage, and the full frame's rounds through both with
+     each wall split into kernel and host time; the runs' launches (the
+     isolated phases' among them) must add up to the phase's;
   5c. this slice's path, with the probe and round kernels' counts set to
      0 just before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -66,9 +77,10 @@ Phases (any failure raises, and the script exits non-zero):
      scripts/r3_phase_split.run on the phase-3 lattice (kernel A,
      supernode rows, kernel B uncached and through the row cache of
      hako_dda_cached in the round's order and sorted by row, the sort
-     alone, the distinct rows a block, the bookkeeping, one round against
-     the sum of its phases, the full frame); every case held bit for bit
-     against its plain version before it is timed;
+     alone, the distinct rows a block, the bookkeeping, the fused row
+     stage, one round unfused and fused against the sum of its phases,
+     the full frame); every case held bit for bit against its plain
+     version before it is timed, the shell micro's timed from HBM;
   5d. this slice's path, with the probe kernels' counts set to 0 just
      before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -122,12 +134,16 @@ Phases (any failure raises, and the script exits non-zero):
      and a profiled step's device idle share; (d) the tree as 4
      brick-range shards (parallel/bigscene.py) on the frame's rays,
      primary, shadow and shaded, against the whole tree (the round
-     kernels); (e) apps/dcn_frames.py, 2 processes on the card, checksum
-     == one process's; (f) rtcamp --build-devices 2 on phase 6's last
+     kernels: hako_dda_merge held against its plain version at every call
+     of a primary run, then two launches a round; the primary frame timed
+     with the fused and the unfused stage, bit-equal); (e)
+     apps/dcn_frames.py, 2 processes on the card, checksum == one
+     process's; (f) rtcamp --build-devices 2 on phase 6's last
      frame, PNG == phase 6's; (g) entry.dryrun_multichip(8) and entry()'s
      function (== its plain version). Each route kernel's `launches` in
      the kernels line is the main path's PT step plus phase 8's parts
-     (`launches_by_path`).
+     (`launches_by_path`); hako_dda's and hako_merge's, off the route,
+     add the unfused step's and phases 5b and 5c's.
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
@@ -142,6 +158,7 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -311,8 +328,10 @@ def kernel_vs_plain(tree, ro, rd, shadow: bool, what: str, device):
 
 
 def rounds_vs_plain(tree, ro, rd, shadow: bool, what: str, device) -> int:
-    """The round driver through its kernels, against its plain version and
-    against the megakernel, bit for bit. Returns the rounds it took."""
+    """The round driver through its kernels (hako_probe, hako_dda_merge),
+    against its plain version and against the megakernel, bit for bit,
+    two launches a round; then round by round through Checked (every
+    kernel against its plain version). Returns the rounds it took."""
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.ops import hako_mega
 
@@ -326,9 +345,62 @@ def rounds_vs_plain(tree, ro, rd, shadow: bool, what: str, device) -> int:
     assert_bits_equal(got, mega, f"{what}: rounds vs megakernel")
     if hk.unresolved_lanes() or int(want[3].item()):
         raise AssertionError(f"{what}: rounds left lanes unresolved")
-    if min(hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS) < 1:
-        raise AssertionError(f"{what}: a round kernel was not launched")
+    check_route_launches(dict(hk.LAUNCHES), hk.ROUNDS, what)
+    checked_rounds(tree, args[6], args[7], shadow, what)
     return hk.ROUNDS
+
+
+def check_route_launches(launches: dict, rounds: int, what: str) -> None:
+    """The route's counts: hako_probe and hako_dda_merge once a round, and
+    no launch of the unfused stage's kernels (so no hand-off either)."""
+    if not rounds or any(launches[k] != rounds for k in ("hako_probe", "hako_dda_merge")):
+        raise AssertionError(f"{what}: not one hako_probe and one hako_dda_merge launch "
+                             f"a round: {launches} over {rounds} rounds")
+    if launches["hako_dda"] or launches["hako_merge"]:
+        raise AssertionError(f"{what}: the route launched the unfused stage {launches}")
+
+
+@contextlib.contextmanager
+def route_stage(stage):
+    """The round driver's row stage replaced by `stage` (intersect_rays_hako
+    looks hako_dda_merge up when it runs)."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    real = hk.hako_dda_merge
+    hk.hako_dda_merge = stage
+    try:
+        yield stage
+    finally:
+        hk.hako_dda_merge = real
+
+
+def unfused():
+    """The route's stage before it was one launch: kernel B and the merge
+    apart, the supernode hand-off's tensor ops between them."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    return hk.unfused_stage(hk.hako_dda, hk.hako_merge)
+
+
+class CheckedStage:
+    """The row stage's kernel through its wrapper, held against its plain
+    version on the same inputs at every call (the state bit for bit), the
+    driver going on with the kernel's state."""
+
+    def __init__(self):
+        from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+        self.kernel = hk.hako_dda_merge
+        self.calls = 0
+
+    def __call__(self, state, *a, **k):
+        from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+        want = tuple(x.clone() for x in state)
+        self.kernel(state, *a, **k)
+        hk.hako_dda_merge_plain(want, *a, **k)
+        assert_bits_equal(state, want, f"hako_dda_merge call {self.calls}")
+        self.calls += 1
 
 
 def torch_sync():
@@ -465,7 +537,10 @@ def phase_main_path(device, smi: str, rng):
 
 
 def phase_rounds_frame(tree, cam, img_mega, depth_mega, device, smi: str):
-    """Phase 3b: the same 1080p frame through the round driver."""
+    """Phase 3b: the same 1080p frame through the round driver: once with
+    hako_dda_merge held against its plain version at every round, then
+    counted and timed; then timed with the unfused stage (the route
+    before), all equal to the megakernel's frame."""
     import torch
 
     from massivevoxelraytracing_torch.models import raycast
@@ -475,39 +550,66 @@ def phase_rounds_frame(tree, cam, img_mega, depth_mega, device, smi: str):
         return raycast.render_frame(tree, cam, WIDTH, HEIGHT, device=device,
                                     traversal="rounds")
 
+    with route_stage(CheckedStage()) as chk:
+        checked = frame()
+    torch.cuda.synchronize(device)
+    for x, y in zip(checked, (img_mega, depth_mega)):
+        if not torch.equal(x, y):
+            raise AssertionError("rounds frame (checked stage) differs from the megakernel "
+                                 "frame")
     frame()
     hk.reset_counters()
     t0 = time.time()
     img, depth = frame()
     torch.cuda.synchronize(device)
     wall_ms = (time.time() - t0) * 1e3
-    rounds, launches = hk.ROUNDS, {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
+    rounds, launches = hk.ROUNDS, dict(hk.LAUNCHES)
     unresolved = hk.unresolved_lanes()
     _, frame_ms = timed(frame, reps=2, warm=False)
     if not torch.equal(img, img_mega) or not torch.equal(depth, depth_mega):
         raise AssertionError("rounds frame differs from the megakernel frame")
     if unresolved != 0:
         raise AssertionError(f"rounds frame: {unresolved} lanes unresolved")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"rounds frame launched no kernel of {launches}")
+    check_route_launches(launches, rounds, "rounds frame")
+    with route_stage(unfused()):
+        hk.reset_counters()
+        old = frame()
+        old_launches = dict(hk.LAUNCHES)
+        _, old_ms = timed(frame, reps=2)
+    if not torch.equal(old[0], img_mega) or not torch.equal(old[1], depth_mega):
+        raise AssertionError("rounds frame (unfused stage) differs from the megakernel frame")
+    if hk.unresolved_lanes() or old_launches["hako_dda_merge"]:
+        raise AssertionError(f"rounds frame (unfused stage): {old_launches}")
     print(f"[phase3b] rounds frame {WIDTH}x{HEIGHT}: image and depth == megakernel "
-          f"bit for bit; {frame_ms:.3f} ms (mean of 2, CUDA events; one counted "
-          f"run {wall_ms:.1f} ms host clock), {rounds} rounds, launches {launches}, "
-          f"unresolved lanes {unresolved} [{smi}]", flush=True)
-    return dict(frame_ms=frame_ms, rounds=rounds, launches=launches)
+          f"bit for bit (and with hako_dda_merge == its plain version at each of "
+          f"{chk.calls} calls); {frame_ms:.3f} ms (mean of 2, CUDA events; one counted "
+          f"run {wall_ms:.1f} ms host clock), {rounds} rounds, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, unresolved lanes {unresolved}; "
+          f"the unfused stage {old_ms:.3f} ms, launches "
+          f"{ {k: v for k, v in old_launches.items() if v} } [{smi}]", flush=True)
+    return dict(frame_ms=frame_ms, rounds=rounds, launches=launches,
+                unfused_frame_ms=old_ms, unfused_launches=old_launches,
+                checked_calls=chk.calls)
 
 
 class Checked:
-    """The round driver's three kernels, each launched through its wrapper
-    and run as its plain version on the same inputs every round, compared
+    """The round driver's kernels, each launched through its wrapper and
+    run as its plain version on the same inputs every round, compared
     (discrete outputs exact, floats bit-equal; max |float diff| kept), and
-    continued with the kernel's outputs. Records the first round's inputs
-    of each kernel (for timing) and the rows B reads."""
+    continued with the kernel's outputs: kernel A, then the row stage
+    unfused (kernel B and the merge, each against its plain version) and
+    fused (hako_dda_merge on a copy of the state, held equal to the
+    unfused stage's state, which is its plain version's: the plain version
+    is the composition of the unfused plain versions, each of which the
+    kernels equalled on the same inputs). Records the first round's inputs
+    of each kernel and of the hand-off (for timing) and the rows B reads."""
 
     def __init__(self):
-        self.err = {"hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0}
+        self.err = {"hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0,
+                    "hako_dda_merge": 0.0}
         self.first = {}
         self.rows = {}
+        self.snode_out = None
 
     def _diff(self, name, got, want):
         import torch
@@ -534,6 +636,8 @@ class Checked:
         self._diff("hako_dda", got, hk.hako_dda_plain(rows, *a, **k))
         go, child = a[4], a[5]
         self.rows.setdefault(k["leaf"], []).append(child[go].long())
+        if not k["leaf"]:
+            self.snode_out = got
         return got
 
     def merge(self, state, *a):
@@ -545,6 +649,18 @@ class Checked:
         hk.hako_merge(state, *a)
         hk.hako_merge_plain(want, *a)
         self._diff("hako_merge", state, want)
+
+    def stage(self, state, *a, **k):
+        from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+        fused = tuple(x.clone() for x in state)
+        if "hako_dda_merge" not in self.first:
+            self.first["hako_dda_merge"] = (tuple(x.clone() for x in state), a, k)
+        hk.hako_dda_merge(fused, *a, **k)
+        hk.unfused_stage(self.dda, self.merge)(state, *a, **k)
+        if a[1] is not None and "handoff" not in self.first:
+            self.first["handoff"] = (a[6], a[8], a[10], self.snode_out)  # emit, bt1, tqn
+        self._diff("hako_dda_merge", fused, state)
 
     def distinct_rows(self) -> int:
         import torch
@@ -565,7 +681,7 @@ def checked_rounds(tree, ro, rd, shadow: bool, what: str) -> Checked:
     chk = Checked()
     (bricks, snodes, tabs, root), T = hako_mega.hako_mega_args(tree)
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
-    out = hk.drive((chk.probe, chk.dda, chk.merge), *args, T=T, shadow=shadow,
+    out = hk.drive((chk.probe, chk.stage), *args, T=T, shadow=shadow,
                    max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
                    max_rounds=hk.default_max_rounds(snodes, T, hk.PROBES,
                                                     hk.DDA_ITERS))
@@ -590,14 +706,15 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     ms = common.event_ms_each(lambda _: hk.hako_probe(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_probe_plain(*a, **k), reps=1, warm=False)
     out["hako_probe"] = dict(ms=ms, plain_ms=p_ms, n=n, bound=common.probe_bound(
-        n, 0 if a[0] is None else a[0].numel()))
+        n, 0 if a[0] is None else a[0].numel()), ops_ms=common.ops_ms(common.walk_ops(n, 0)))
     a, k = chk.first[("hako_dda", True)]
     n = int(a[4].shape[0])
     n_go, rows = common.dda_counts(a[5], a[6])
     ms = common.event_ms_each(lambda _: hk.hako_dda(*a, **k), lambda: None)
     _, p_ms = timed(lambda: hk.hako_dda_plain(*a, **k), reps=1, warm=False)
     out["hako_dda"] = dict(ms=ms, plain_ms=p_ms, n=n, rows=rows, n_go=n_go,
-                           bound=common.dda_bound(n, n_go, rows))
+                           bound=common.dda_bound(n, n_go, rows),
+                           ops_ms=common.ops_ms(common.walk_ops(n_go, n_go)))
     state0, a = chk.first["hako_merge"]
     idx, emit, _bt1, _tqn, _exh, hit, _t, _nm, _vr, more, _tqr = a
     counts = common.merge_counts(state0, idx, emit, hit, more)
@@ -607,15 +724,72 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
     _, p_ms = timed(lambda: hk.hako_merge_plain(
         tuple(x.clone() for x in state0), *a), reps=1, warm=False)
     out["hako_merge"] = dict(ms=ms, plain_ms=p_ms, n=n, n_hit=n_hit,
-                             bound=common.merge_bound(*counts))
+                             bound=common.merge_bound(*counts),
+                             ops_ms=common.ops_ms(3 * counts[1]))
+    out.update(time_row_stage(chk, out))
     for name, v in out.items():
         extra = "".join(f", {v[key]} {label}" for key, label in (
-            ("n_go", "go lanes"), ("rows", "distinct rows"), ("n_hit", "hit lanes"))
+            ("n_go", "go lanes"), ("n_emit", "emitting lanes"), ("row_walks", "row walks"),
+            ("rows", "distinct rows"), ("n_hit", "hit lanes"))
             if key in v)
         print(f"[phase4] {name} on the first round of {what} ({v['n']} lanes{extra}): "
               f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.2f} ms, bound "
-              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}) [{smi}]", flush=True)
+              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}; operations {v['ops_ms']:.5f} ms) "
+              f"[{smi}]", flush=True)
+    v = out["hako_dda_merge"]
+    print(f"[phase4] hako_dda_merge {v['ms']:.4f} ms against the unfused stage it "
+          f"replaces on the same inputs: {v['unfused_ms']:.4f} ms as one train, parts "
+          f"{ {p: round(x, 4) for p, x in v['unfused_parts_ms'].items()} } ms (sum "
+          f"{v['unfused_parts_sum_ms']:.4f}, bounds' sum {v['unfused_bound_sum_ms']:.4f} "
+          f"ms) [{smi}]", flush=True)
     return out
+
+
+def time_row_stage(chk: Checked, parts: dict) -> dict:
+    """The fused row stage on its first-round inputs, held against its
+    plain version, beside what it replaces on the same inputs: the unfused
+    stage as one train of launches and its parts (kernel B on the
+    supernode rows, the hand-off's tensor ops, kernel B on the brick rows
+    timed in `parts`, the merge), each queued behind a spin kernel."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.scripts import common
+
+    state0, a, k = chk.first["hako_dda_merge"]
+
+    def fresh():
+        return tuple(x.clone() for x in state0)
+
+    got, want = fresh(), fresh()
+    hk.hako_dda_merge(got, *a, **k)
+    _, p_ms = timed(lambda: hk.hako_dda_merge_plain(want, *a, **k), reps=1, warm=False)
+    assert_bits_equal(got, want, "hako_dda_merge on the first round")
+    ms = common.event_ms_each(lambda st: hk.hako_dda_merge(st, *a, **k), fresh, calls=4)
+    stage = unfused()
+    unfused_ms = common.event_ms_each(lambda st: stage(st, *a, **k), fresh, calls=4)
+    fat = a[1] is not None
+    idx, emit = a[5], a[6]
+    leaf_a, _ = chk.first[("hako_dda", True)]
+    walks = [(leaf_a[5], leaf_a[6])]
+    split = {"leaf": parts["hako_dda"]["ms"], "merge": parts["hako_merge"]["ms"]}
+    bounds = [parts["hako_dda"]["bound"][0], parts["hako_merge"]["bound"][0]]
+    if fat:
+        sn_a, sn_k = chk.first[("hako_dda", False)]
+        walks.insert(0, (sn_a[5], sn_a[6]))
+        split["supernodes"] = common.event_ms_each(lambda _: hk.hako_dda(*sn_a, **sn_k),
+                                                   lambda: None)
+        bounds.append(common.dda_bound(int(sn_a[4].shape[0]),
+                                       *common.dda_counts(sn_a[5], sn_a[6]))[0])
+        h = chk.first["handoff"]
+        split["handoff"] = common.event_ms_each(lambda _: hk.supernode_handoff(*h),
+                                                lambda: None, calls=2)
+    hit = chk.first["hako_merge"][1][5]
+    counts = common.dda_merge_counts(state0, idx, emit, walks, hit)
+    return {"hako_dda_merge": dict(
+        ms=ms, plain_ms=p_ms, n=counts[0], n_emit=counts[2], row_walks=counts[3],
+        rows=counts[4], n_hit=counts[5], bound=common.dda_merge_bound(*counts),
+        ops_ms=common.ops_ms(common.walk_ops(counts[2], counts[3])),
+        unfused_ms=unfused_ms, unfused_parts_ms=split,
+        unfused_parts_sum_ms=sum(split.values()), unfused_bound_sum_ms=sum(bounds))}
 
 
 def bench_sky():
@@ -756,21 +930,38 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     rpt.step(cam)
     torch.cuda.synchronize()
     rounds_s = time.time() - t0
-    launches = {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
+    launches = dict(hk.LAUNCHES)
     rounds = hk.ROUNDS
     if not torch.equal(rpt.accum, after_one):
         d = (rpt.accum - after_one).abs()
         raise AssertionError(f"rounds PT step differs from the megakernel's: "
                              f"{int((d > 0).sum())} values, max {float(d.max())}")
-    if hk.unresolved_lanes() or min(launches.values()) < 1:
-        raise AssertionError(f"rounds PT step: unresolved lanes or no launch {launches}")
+    if hk.unresolved_lanes():
+        raise AssertionError("rounds PT step: unresolved lanes")
+    check_route_launches(launches, rounds, "rounds PT step")
+    # the same step with the unfused stage (the route before)
+    rpt.accum = state_accum.clone()
+    rpt.spp_done = state_spp
+    with route_stage(unfused()):
+        hk.reset_counters()
+        t0 = time.time()
+        rpt.step(cam)
+        torch.cuda.synchronize()
+        unfused_s = time.time() - t0
+        unfused_launches = dict(hk.LAUNCHES)
+    if not torch.equal(rpt.accum, after_one) or hk.ROUNDS != rounds:
+        raise AssertionError("rounds PT step (unfused stage) differs from the fused one's")
+    if hk.unresolved_lanes() or unfused_launches["hako_dda_merge"]:
+        raise AssertionError(f"rounds PT step (unfused stage): {unfused_launches}")
     n = WIDTH * HEIGHT
     pix_packet = max(min(pt.packet // (n_spp * 2), 1 << (n - 1).bit_length()), 1024)
     calls_per_step = (pt._pixel_perm(pix_packet)[2] // pix_packet
                       * (1 + 2 * pathtracer.MAX_BOUNCES))
     print(f"[phase4] PT rounds step: accumulator == megakernel step bit for bit; "
           f"{rounds_s:.2f} s (host clock), {rounds} rounds over {calls_per_step} "
-          f"traversal calls, launches {launches} [{smi}]", flush=True)
+          f"traversal calls, launches { {k: v for k, v in launches.items() if v} }; the "
+          f"unfused stage {unfused_s:.2f} s, launches "
+          f"{ {k: v for k, v in unfused_launches.items() if v} } [{smi}]", flush=True)
 
     # every kernel vs its plain version on the first packet's full bounce-1
     # BSDF and NEE batches, the inputs the step gives them; the BSDF batch
@@ -778,7 +969,8 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     (ro_b, rd_b, sb), (ro_s, rd_s, ss) = calls[3], calls[4]
     if sb or not ss:
         raise AssertionError("recorded batches are not BSDF then NEE")
-    err = {"hako_mega": 0.0, "hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0}
+    err = {"hako_mega": 0.0, "hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0,
+           "hako_dda_merge": 0.0}
     counters, lanes = {}, {}
     for ro, rd, shadow, name in ((ro_b, rd_b, False, "BSDF"), (ro_s, rd_s, True, "NEE")):
         what = f"bounce-1 {name} batch"
@@ -792,7 +984,8 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
             err[k] = max(err[k], v)
         err["hako_mega"] = max(err["hako_mega"], st["max_abs_err"])
         print(f"[phase4] {what} ({st['n']} lanes, {st['hits']} hits): "
-              f"hako_probe / hako_dda / hako_merge == plain versions round by round "
+              f"hako_probe / hako_dda / hako_merge / hako_dda_merge == plain versions "
+              f"round by round "
               f"over {chk.rounds} rounds, max |diff| {chk.err}; hako_mega == plain "
               f"version, max |dt| {st['max_abs_err']:.3g}, max ulp {st['max_ulp']}; "
               f"hako_mega {k_ms:.3f} ms, plain {p_ms:.1f} ms [{smi}]", flush=True)
@@ -803,7 +996,8 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     return dict(first_accum=state_accum, env=pt.env, pmj=pt.pmj_table,
                 step_s=step_s, mrays=mrays, mean=mean, peak_gb=peak_gb,
                 mega_launches=mega_launches, rounds_launches=launches,
-                rounds=rounds, rounds_s=rounds_s, timing=timing, err=err,
+                rounds=rounds, rounds_s=rounds_s, unfused_rounds_s=unfused_s,
+                unfused_launches=unfused_launches, timing=timing, err=err,
                 busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms,
                 counters=counters, lanes=lanes)
 
@@ -983,10 +1177,12 @@ def phase_slice(tree, cam, smi: str) -> dict:
                                         label=f"lattice {GRID}^3", card=smi))
     torch.cuda.synchronize()
     launches = {k: probes.LAUNCHES[k] for k in SLICE_KERNELS}
-    round_launches = {k: hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS}
+    round_launches = {k: hk.LAUNCHES[k] for k in hk.LAUNCHES if k != "hako_dda_cached"}
     for name, n in {**launches, **round_launches}.items():
         if n < 1:
             raise AssertionError(f"phase 5b launched no {name} kernel")
+    if hk.LAUNCHES["hako_dda_cached"]:
+        raise AssertionError("phase 5b launched hako_dda_cached")
     cases = [(r["name"], r["shape"]) for r in records]
     if len(set(cases)) != len(cases):
         raise AssertionError("phase 5b measured a probe case twice")
@@ -1881,8 +2077,12 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
                 bigscene.intersect_sharded(shards, ro, rd, shadow=True)[0],
                 bigscene.render_rays_sharded(shards, ro, rd))
 
+    with route_stage(CheckedStage()) as chk:
+        checked = bigscene.intersect_sharded(shards, ro, rd)
     (prim, shadow_t, (simg, st_)), n, big_s = counted(sharded_all, hk.ROUTE_KERNELS)
     launches["bigscene"] = n
+    check_route_launches(dict(hk.LAUNCHES), hk.ROUNDS, "phase 8d")
+    assert_bits_equal(checked, prim, "phase 8d: checked stage vs counted run")
     t, nmaj, vidx, win = prim
     hit = ref[0] < 1e37
     if not torch.equal(t < 1e37, hit) or not torch.equal(shadow_t < 1e37,
@@ -1898,6 +2098,10 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     if sum(1 for w in winners if w) < 2:
         raise AssertionError(f"phase 8d: hits won by one shard only {winners}")
     _, big_ms = timed(lambda: bigscene.intersect_sharded(shards, ro, rd), reps=2)
+    with route_stage(unfused()):
+        prim_unfused = bigscene.intersect_sharded(shards, ro, rd)
+        _, big_unfused_ms = timed(lambda: bigscene.intersect_sharded(shards, ro, rd), reps=2)
+    assert_bits_equal(prim_unfused, prim, "phase 8d: unfused stage vs fused")
     exact_t = bool(torch.equal(t, ref[0]))
     per_shard = [dict(bricks=sh.n_bricks, voxels=sh.n_voxels, bytes=sh.memory_bytes(),
                       voxel_base=sh.voxel_base) for sh in shards]
@@ -1908,13 +2112,15 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     print(f"[phase8] bigscene on {ro.shape[0]} frame rays: hit sets (primary and "
           f"shadow), nmajor and global voxel index == the whole tree's, t "
           f"{'bit-equal' if exact_t else 'within rtol 1e-6'}, shading == render_rays; "
-          f"hits won by shard {winners}; primary {big_ms:.3f} ms a frame (mean of 2); "
-          f"primary + shadow + shading {big_s:.3f} s host clock; launches {n} [{smi}]",
-          flush=True)
-    out["bigscene"] = dict(shards=per_shard, ms=big_ms, all_s=big_s, winners=winners,
-                           t_bit_equal=exact_t, launches=n,
-                           whole_bytes=tree.memory_bytes())
+          f"hits won by shard {winners}; hako_dda_merge == its plain version at each of "
+          f"{chk.calls} calls; primary {big_ms:.3f} ms a frame (mean of 2; the unfused "
+          f"stage {big_unfused_ms:.3f} ms, bit-equal); primary + shadow + shading "
+          f"{big_s:.3f} s host clock; launches {n} [{smi}]", flush=True)
+    out["bigscene"] = dict(shards=per_shard, ms=big_ms, unfused_ms=big_unfused_ms,
+                           all_s=big_s, winners=winners, t_bit_equal=exact_t, launches=n,
+                           checked_calls=chk.calls, whole_bytes=tree.memory_bytes())
     del shards, ro, rd, ref, ref_shadow, ref_img, ref_t, prim, shadow_t, simg, st_
+    del checked, prim_unfused
     lap("bigscene")
 
     # 8e: dcn_frames, 2 processes on the card, against one process
@@ -2096,6 +2302,7 @@ def main() -> int:
     table = [("hako_mega", "hako_mega.cu", "hako_mega.py:471",
               pt["mega_launches"], main_path["launches"])]
     for name, replaces in (("hako_probe", "hako_kernels.py:1218,1681"),
+                           ("hako_dda_merge", "hako_kernels.py:1252,1700,1735"),
                            ("hako_dda", "hako_kernels.py:1252,1700"),
                            ("hako_merge", "hako_kernels.py:1735")):
         table.append((name, "hako_rounds.cu", replaces,
@@ -2112,12 +2319,20 @@ def main() -> int:
             if name in per}}
         if sum(by_path.values()) != launches + par["launch_totals"].get(name, 0):
             raise AssertionError(f"{name}: launches by path do not add up")
+        if name in ("hako_dda", "hako_merge"):
+            # off the route since the row stage is one launch: the paths that
+            # still run them are the unfused stage's step and the phase scripts
+            by_path.update(pt_step_unfused=pt["unfused_launches"][name],
+                           phase5b=sl["round_launches"][name],
+                           phase5c=sp["round_launches"][name])
+            if min(by_path[k] for k in ("pt_step_unfused", "phase5b", "phase5c")) < 1:
+                raise AssertionError(f"{name}: a path that runs it launched it no time")
         kernels.append(dict(
             name=name, route="cuda", source=src + source, replaces=ref + replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(earlier_err.get(name, 0.0), pt["err"][name]),
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound"][0],
-            bound_by=tm["bound"][1], library_ms=None,
+            bound_by=tm["bound"][1], library_ms=None, bound_ops_ms=tm.get("ops_ms"),
             frame_launches=frame_launches,
         ))
     # the probes: the row chase (phase 5) and the issue-cost probes (phase
@@ -2145,14 +2360,21 @@ def main() -> int:
             max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             cases=e["cases"]))
-    for k in kernels[1:4]:
+    for k in kernels[1:5]:
         k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
                           "scripts/r3_phase_split.py:130; scripts/hako_shell_micro.py:134",
-                          "hako_dda": "; scripts/hako_phase_timing.py:137",
+                          "hako_dda_merge": "", "hako_dda": "; scripts/hako_phase_timing.py:137",
                           "hako_merge": ""}[k["name"]]
         k["phase_timing_launches"] = sl["round_launches"][k["name"]]
         k["phase_timing_isolated_launches"] = sl["isolated_launches"][k["name"]]
         k["split_launches"] = sp["round_launches"][k["name"]]
+    fused = kernels[2]
+    tm = pt["timing"]["hako_dda_merge"]
+    fused.update(unfused_ms=tm["unfused_ms"], unfused_parts_ms=tm["unfused_parts_ms"],
+                 unfused_parts_sum_ms=tm["unfused_parts_sum_ms"],
+                 unfused_bound_sum_ms=tm["unfused_bound_sum_ms"],
+                 checked_calls={"frame": rframe["checked_calls"],
+                                "parallel_bigscene": par["bigscene"]["checked_calls"]})
     kernels += split_entries(sp, src)
     kernels += gather_entries(gp, src)
     kernels[0].update(
@@ -2167,6 +2389,9 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "pt": {
         "s_per_step": pt["step_s"], "mrays": pt["mrays"], "mean": pt["mean"],
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],
+        "rounds_step_unfused_s": pt["unfused_rounds_s"],
+        "rounds_frame_ms": rframe["frame_ms"],
+        "rounds_frame_unfused_ms": rframe["unfused_frame_ms"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
         "apps": apps, "parallel": par,

@@ -1,18 +1,23 @@
 // The legacy HakoTree round driver's kernels on Hopper: kernel A
-// (hako_probe), kernel B (hako_dda, leaf and supernode rows, primary and
-// shadow) and the merge (hako_merge). The host loop around them is
+// (hako_probe), the round's row stage (hako_dda_merge: kernel B on the
+// supernode and brick rows and the merge, in one launch), and the
+// unfused kernel B (hako_dda, leaf and supernode rows, primary and
+// shadow) and merge (hako_merge) that the phase-timing scripts launch
+// alone. The host loop around them is
 // ops/hako_kernels.py::intersect_rays_hako: each round takes the lanes
-// still unresolved (an index list), runs A, B on the supernode rows of a
-// fat tree, B on the brick rows, and merges, until no lane is left.
+// still unresolved (an index list), runs A and then the row stage, until
+// no lane is left.
 //
 // Replaces the Pallas kernels of massivevoxelraytracing_tpu/ops/
 // hako_kernels.py: kernel A (_make_kernel_a, launched at :1218 and in its
-// fused form at :1681), kernel B (_make_kernel_b, :1252 and fused :1700)
-// and the merge (_make_merge_kernel, :1735). On the TPU a grid step owned
-// a block of rays in lockstep; the round driver picked whole ray blocks,
-// gathered each lane's 164-word row from HBM in XLA, transposed it to
-// word-major in VMEM, and wrote the state back with XLA scatters. Here
-// every kernel runs one thread per active lane, reached through the
+// fused form at :1681), kernel B (_make_kernel_b :975, launched at :1252
+// and fused :1700) and the merge (_make_merge_kernel :1096, launched at
+// :1735). On the TPU a grid step owned a block of rays in lockstep; the
+// round driver picked whole ray blocks, gathered each lane's 164-word row
+// from HBM in XLA, transposed it to word-major in VMEM, and wrote the
+// state back with XLA scatters; it split B and the merge into separate
+// launches because its grid mapped state blocks through scalar prefetch.
+// Here every kernel runs one thread per active lane, reached through the
 // round's index list: B reads its own row straight from global memory by
 // child id (no gather buffer, no transpose), and the merge writes the
 // lane's state in place.
@@ -20,16 +25,24 @@
 // What bounds them on an H100: each launch is a short pass over the active
 // lanes (tens of bytes of state per lane in and out, plus the rows B
 // touches), so at the shapes of the main path they are bound by memory
-// traffic and, late in a traversal when few lanes are left, by launch and
-// host-sync latency (one "any lane active?" read per round). The design
-// keeps state per lane in flat arrays indexed by the round's list, so the
-// reads are dense in the list's order; rows go through L1/L2 as in the
-// megakernel. Fusing a round into one launch and persistent lanes are
-// later work; a row cache is hako_dda_cached_kernel below, measured beside
-// hako_dda_kernel (scripts/r3_phase_split.py) and not on the route.
+// traffic and by the DDA's issue rate (the walk64 lattice walks, as in the
+// megakernel), and, late in a traversal when few lanes are left, by launch
+// and host-sync latency (one "any lane active?" read per round). The
+// unfused route moved every per-lane intermediate through HBM between
+// launches: B's 8 outputs a stage (26 B a lane), the supernode hand-off's
+// eager tensor ops, the merge's 12 input streams (~41 B a lane).
+// hako_dda_merge keeps them in registers: it reads kernel A's outputs once,
+// runs the supernode row, the hand-off, the brick row and the merge per
+// lane (the megakernel's chain after its probe, hako_mega.cu), and writes
+// only the lane's state. A round is two launches (A, then the row stage)
+// with no eager op between them. A row cache for B (hako_dda_cached
+// below) was measured beside hako_dda (scripts/r3_phase_split.py) and is
+// not on the route.
 //
 // Exactness: the kernels share every __device__ function with the
-// megakernel (hako_device.cuh), so both routes give identical bits.
+// megakernel (hako_device.cuh), and the row stage evaluates the unfused
+// kernels' and the merge's expressions in the same order, so the fused
+// and unfused routes and the megakernel give identical bits.
 
 #include <cuda_runtime.h>
 
@@ -303,6 +316,87 @@ __global__ void __launch_bounds__(kThreads) hako_merge_kernel(const MergeParams 
   }
 }
 
+struct DdaMergeParams {
+  const uint32_t* bricks;  // [N, 164] brick rows
+  const uint32_t* snodes;  // [M, 164] supernode rows (FAT only)
+  const float* bounds;
+  const float* ro;
+  const float* rd;
+  const int* idx;
+  int n;
+  // kernel A's outputs for the round's lanes
+  const bool* emit;
+  const int* child;
+  const float* bt1;  // [3, n]
+  const float* tqe;
+  const float* tqn;
+  const bool* exh;
+  float dt_snode, dt_brick;  // 0.25^T and 0.25^(T+2 if fat else T)
+  int max_iters;
+  bool* resolved;  // [R] state, updated in place
+  float* tq;
+  float* t_out;
+  int* nm_out;
+  int* vi_out;
+};
+
+// The round's row stage: on a fat tree the supernode row DDA and the
+// hand-off (supernode_handoff), then the brick row DDA, then the merge
+// (hako_merge_kernel), per lane and in registers; the same expressions in
+// the same order as hako_dda_kernel<false, SHADOW> -> supernode_handoff ->
+// hako_dda_kernel<true, SHADOW> -> hako_merge_kernel, and as the
+// megakernel's round after its probe.
+template <bool FAT, bool SHADOW>
+__global__ void __launch_bounds__(kThreads) hako_dda_merge_kernel(const DdaMergeParams p) {
+  using namespace hako;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= p.n) return;
+  const int lane = p.idx[j];
+  if (p.resolved[lane]) return;  // act: only unresolved lanes merge
+  float tqn = p.tqn[j];
+  bool newhit = false;
+  float t_hit = 0.0f;
+  int nmaj = 0;
+  uint32_t vr = 0u;
+  bool emit = p.emit[j];
+  if (emit) {
+    const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, lane);
+    float bt1[3] = {p.bt1[j], p.bt1[p.n + j], p.bt1[2 * p.n + j]};
+    float tqe = p.tqe[j];
+    uint32_t child = static_cast<uint32_t>(p.child[j]);
+    if (FAT) {
+      // stage 1: the supernode row walk emits the next brick + planes
+      const Dda s = dda_rows<false, SHADOW>(
+          p.snodes + static_cast<size_t>(child) * kRowWords, ray.dt,
+          p.dt_snode, ray.vm6, bt1, tqe, p.max_iters);
+      if (!s.hit) tqn = s.more ? s.tqr : min3(bt1[0], bt1[1], bt1[2]);
+      emit = s.hit;
+      bt1[0] = s.t_hit;
+      bt1[1] = __int_as_float(s.nmaj);
+      bt1[2] = s.p3;
+      tqe = s.tqp;
+      child = s.vr;
+    }
+    if (emit) {
+      const Dda b = dda_rows<true, SHADOW>(
+          p.bricks + static_cast<size_t>(child) * kRowWords, ray.dt,
+          p.dt_brick, ray.vm6, bt1, tqe, p.max_iters);
+      tqn = b.more ? b.tqr : min3(bt1[0], bt1[1], bt1[2]);
+      newhit = b.hit;
+      t_hit = b.t_hit;
+      nmaj = b.nmaj;
+      vr = b.vr;
+    }
+  }
+  p.resolved[lane] = newhit || p.exh[j];
+  p.tq[lane] = tqn;
+  if (newhit) {
+    p.t_out[lane] = t_hit;
+    p.nm_out[lane] = nmaj;
+    p.vi_out[lane] = static_cast<int>(vr);
+  }
+}
+
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -443,5 +537,46 @@ extern "C" int hako_merge_launch(
   p.vi_out = static_cast<int*>(vi_out);
   hako_merge_kernel<<<blocks_for(n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row stage: snodes is null for a plain tree (the brick stage alone).
+extern "C" int hako_dda_merge_launch(
+    const void* bricks, const void* snodes, const void* bounds,
+    const void* ro, const void* rd, const void* idx, int n, const void* emit,
+    const void* child, const void* bt1, const void* tqe, const void* tqn,
+    const void* exh, float dt_snode, float dt_brick, int shadow,
+    int max_iters, void* resolved, void* tq, void* t_out, void* nm_out,
+    void* vi_out, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  DdaMergeParams p{};
+  p.bricks = static_cast<const uint32_t*>(bricks);
+  p.snodes = static_cast<const uint32_t*>(snodes);
+  p.bounds = static_cast<const float*>(bounds);
+  p.ro = static_cast<const float*>(ro);
+  p.rd = static_cast<const float*>(rd);
+  p.idx = static_cast<const int*>(idx);
+  p.n = n;
+  p.emit = static_cast<const bool*>(emit);
+  p.child = static_cast<const int*>(child);
+  p.bt1 = static_cast<const float*>(bt1);
+  p.tqe = static_cast<const float*>(tqe);
+  p.tqn = static_cast<const float*>(tqn);
+  p.exh = static_cast<const bool*>(exh);
+  p.dt_snode = dt_snode;
+  p.dt_brick = dt_brick;
+  p.max_iters = max_iters;
+  p.resolved = static_cast<bool*>(resolved);
+  p.tq = static_cast<float*>(tq);
+  p.t_out = static_cast<float*>(t_out);
+  p.nm_out = static_cast<int*>(nm_out);
+  p.vi_out = static_cast<int*>(vi_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int b = blocks_for(n);
+  const bool fat = snodes != nullptr;
+  if (fat && shadow) hako_dda_merge_kernel<true, true><<<b, kThreads, 0, s>>>(p);
+  else if (fat) hako_dda_merge_kernel<true, false><<<b, kThreads, 0, s>>>(p);
+  else if (shadow) hako_dda_merge_kernel<false, true><<<b, kThreads, 0, s>>>(p);
+  else hako_dda_merge_kernel<false, false><<<b, kThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

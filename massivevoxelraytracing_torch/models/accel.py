@@ -6,8 +6,9 @@ Three structures share the same voxel stream:
                    results: "mega" (the default) through the megakernel
                    (ops/hako_mega.py, one CUDA thread per ray to
                    completion), or "rounds" through the legacy round driver
-                   (ops/hako_kernels.intersect_rays_hako: kernels A, B and
-                   the merge with a host loop over rounds). The reference
+                   (ops/hako_kernels.intersect_rays_hako: kernel A and the
+                   row stage, kernel B and the merge in one launch, with a
+                   host loop over rounds). The reference
                    picks between them with the MVRT_MEGA environment
                    variable; here the caller says which (`traversal`);
   * BrickTree   -- 4^3-branching, rank-based, 16 B a node ("brick");

@@ -309,8 +309,10 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
 
 # ---------------------------------------------------------------------------
 # the legacy round driver (the reference's intersect_rays_hako): kernel A
-# (hako_probe), kernel B (hako_dda) and the merge (hako_merge) on the lanes
-# still unresolved, round after round
+# (hako_probe), then the row stage (hako_dda_merge: kernel B on the
+# supernode and brick rows and the merge in one launch) on the lanes still
+# unresolved, round after round; kernel B (hako_dda) and the merge
+# (hako_merge) apart make the unfused stage the phase-timing scripts time
 # ---------------------------------------------------------------------------
 #
 # Each kernel has a plain version (`*_plain`, the per-lane algorithm above
@@ -327,10 +329,12 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
 PROBES = 4      # kernel A: root descents per round
 DDA_ITERS = 24  # kernel B: sub-brick visits per row stage per round
 
-ROUTE_KERNELS = ("hako_probe", "hako_dda", "hako_merge")  # what a round runs
-# ... and kernel B through a block-local row cache, measured beside
-# hako_dda (scripts/r3_phase_split.py), not on the route
-LAUNCHES = {**dict.fromkeys(ROUTE_KERNELS, 0), "hako_dda_cached": 0}
+ROUTE_KERNELS = ("hako_probe", "hako_dda_merge")  # what a round runs
+# ... the unfused stage's kernels, and kernel B through a block-local row
+# cache, measured beside hako_dda (scripts/r3_phase_split.py): not on the
+# route
+LAUNCHES = {**dict.fromkeys(ROUTE_KERNELS, 0), "hako_dda": 0, "hako_merge": 0,
+            "hako_dda_cached": 0}
 CACHE_BLOCK = 128  # lanes a block of hako_dda_cached dedups its rows over
 ROUNDS = 0      # rounds run by intersect_rays_hako since the last reset
 _UNRESOLVED: dict = {}  # device -> int32 [1] accumulator
@@ -612,6 +616,81 @@ def hako_merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more,
     _launched("hako_merge", rc)
 
 
+def unfused_stage(dda, merge):
+    """The round's row stage from a kernel B and a merge (the wrappers, the
+    plain versions, or checked pairs side by side), with hako_dda_merge's
+    arguments: on a fat tree B on the supernode rows and the hand-off,
+    then B on the brick rows, then the merge into `state`."""
+    def stage(state, bricks, snodes, bounds, ro, rd, idx, emit, child, bt1,
+              tqe, tqn, exh, *, T, shadow, max_iters):
+        rays = (bounds, ro, rd)
+        fat = snodes is not None
+        if fat:
+            # stage 1: the supernode row walk emits the next brick + planes
+            emit, child, bt1, tqe, tqn = supernode_handoff(
+                emit, bt1, tqn, dda(snodes, *rays, idx, emit, child, bt1, tqe,
+                                    dt_factor=0.25 ** T, leaf=False,
+                                    shadow=shadow, max_iters=max_iters))
+        hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = dda(
+            bricks, *rays, idx, emit, child, bt1, tqe,
+            dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, shadow=shadow,
+            max_iters=max_iters)
+        merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more, tqr)
+    return stage
+
+
+def hako_dda_merge_plain(state, bricks, snodes, bounds, ro, rd, idx, emit,
+                         child, bt1, tqe, tqn, exh, *, T, shadow, max_iters):
+    """The round's row stage on kernel A's outputs (emit, child, bt1, tqe,
+    tqn, exh) for the lanes idx, written into state (resolved, tq, t,
+    nmaj, vrank) in place: hako_dda_plain on the supernode rows of a fat
+    tree (snodes not None), supernode_handoff, hako_dda_plain on the brick
+    rows, hako_merge_plain."""
+    unfused_stage(hako_dda_plain, hako_merge_plain)(
+        state, bricks, snodes, bounds, ro, rd, idx, emit, child, bt1, tqe,
+        tqn, exh, T=T, shadow=shadow, max_iters=max_iters)
+
+
+def hako_dda_merge(state, bricks, snodes, bounds, ro, rd, idx, emit, child,
+                   bt1, tqe, tqn, exh, *, T, shadow, max_iters):
+    """The row stage in one launch (arguments as in hako_dda_merge_plain),
+    in place."""
+    resolved = state[0]
+    if _device_of(ro, "hako_dda_merge") == "cpu":
+        return hako_dda_merge_plain(state, bricks, snodes, bounds, ro, rd, idx,
+                                    emit, child, bt1, tqe, tqn, exh, T=T,
+                                    shadow=shadow, max_iters=max_iters)
+    from ..utils import cuda_build
+
+    dev = ro.device
+    r, n = resolved.shape[0], idx.shape[0]
+    _check_rays(bounds, ro, rd, idx, dev)
+    _check("bricks", bricks, dev, torch.int32, (bricks.shape[0], 164))
+    if snodes is not None:
+        _check("snodes", snodes, dev, torch.int32, (snodes.shape[0], 164))
+    for name, x, dtype in (("resolved", resolved, torch.bool),
+                           ("tq", state[1], torch.float32),
+                           ("t", state[2], torch.float32),
+                           ("nmaj", state[3], torch.int32),
+                           ("vrank", state[4], torch.int32)):
+        _check(name, x, dev, dtype, (r,))
+    _check("bt1", bt1, dev, torch.float32, (3, n))
+    for name, x, dtype in (("emit", emit, torch.bool), ("child", child, torch.int32),
+                           ("tqe", tqe, torch.float32), ("tqn", tqn, torch.float32),
+                           ("exh", exh, torch.bool)):
+        _check(name, x, dev, dtype, (n,))
+    fat = snodes is not None
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().hako_dda_merge_launch(
+            bricks.data_ptr(), snodes.data_ptr() if fat else None,
+            bounds.data_ptr(), ro.data_ptr(), rd.data_ptr(), idx.data_ptr(), n,
+            emit.data_ptr(), child.data_ptr(), bt1.data_ptr(), tqe.data_ptr(),
+            tqn.data_ptr(), exh.data_ptr(), float(0.25 ** T),
+            float(0.25 ** (T + 2 if fat else T)), int(shadow), int(max_iters),
+            *(x.data_ptr() for x in state), _stream(dev))
+    _launched("hako_dda_merge", rc)
+
+
 def default_max_rounds(snodes, T: int, max_probes: int, max_dda: int) -> int:
     """Safety bound only (the loop ends when no lane is left): every
     active lane is served every round, so a lane needs as many rounds as
@@ -637,14 +716,14 @@ def supernode_handoff(emit, bt1, tqn, sn):
 
 
 def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
-           T, shadow, max_probes, max_dda, max_rounds):
-    """The round loop with the given (probe, dda, merge): the kernel
-    wrappers, their plain versions, or (chip_smoke.py) both side by side.
-    Returns (t, nmaj, vrank, unresolved int32 [1], rounds)."""
-    probe, dda, merge = kernels
+          T, shadow, max_probes, max_dda, max_rounds):
+    """The round loop with the given (probe, stage): the kernel wrappers
+    (hako_probe, hako_dda_merge), their plain versions, an unfused_stage,
+    or (chip_smoke.py) checked kernels side by side. Returns (t, nmaj,
+    vrank, unresolved int32 [1], rounds)."""
+    probe, stage = kernels
     dev = ro.device
     n = ro.shape[0]
-    fat = snodes is not None
     levels, level_off = level_pack(tabs)
     bounds = torch.cat([lower, upper]).to(device=dev, dtype=torch.float32)
     state = (torch.zeros(n, dtype=torch.bool, device=dev),
@@ -658,20 +737,10 @@ def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
         idx = round_lanes(state)
         if idx.shape[0] == 0:
             break
-        emit, child, bt1, tqe, tqn, exh = probe(
-            levels, level_off, T, root_mask, *rays, idx, state[1],
-            max_probes=max_probes)
-        if fat:
-            # stage 1: the supernode row walk emits the next brick + planes
-            emit, child, bt1, tqe, tqn = supernode_handoff(
-                emit, bt1, tqn, dda(snodes, *rays, idx, emit, child, bt1, tqe,
-                                    dt_factor=0.25 ** T, leaf=False,
-                                    shadow=shadow, max_iters=max_dda))
-        hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = dda(
-            bricks, *rays, idx, emit, child, bt1, tqe,
-            dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, shadow=shadow,
-            max_iters=max_dda)
-        merge(state, idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more, tqr)
+        a_out = probe(levels, level_off, T, root_mask, *rays, idx, state[1],
+                      max_probes=max_probes)
+        stage(state, bricks, snodes, *rays, idx, *a_out, T=T, shadow=shadow,
+              max_iters=max_dda)
         rounds += 1
     unresolved = (~state[0]).sum().to(torch.int32).reshape(1)
     return state[2], state[3], state[4], unresolved, rounds
@@ -687,10 +756,11 @@ def intersect_rays_hako_plain(bricks, snodes, tabs, root_mask, lower, upper,
     number of rounds run)."""
     if max_rounds is None:
         max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
-    return drive((hako_probe_plain, hako_dda_plain, hako_merge_plain),
-                  bricks, snodes, tabs, root_mask, lower, upper, ro, rd, T=T,
-                  shadow=shadow, max_probes=max_probes, max_dda=max_dda,
-                  max_rounds=max_rounds)
+    return drive((hako_probe_plain,
+                  unfused_stage(hako_dda_plain, hako_merge_plain)), bricks,
+                 snodes, tabs, root_mask, lower, upper, ro, rd, T=T,
+                 shadow=shadow, max_probes=max_probes, max_dda=max_dda,
+                 max_rounds=max_rounds)
 
 
 def intersect_rays_hako(bricks, snodes, tabs, root_mask, lower, upper, ro,
@@ -698,8 +768,9 @@ def intersect_rays_hako(bricks, snodes, tabs, root_mask, lower, upper, ro,
                         max_probes: int = PROBES, max_dda: int = DDA_ITERS,
                         max_rounds: int | None = None):
     """Full-frame traversal through the round driver. Returns (t, nmajor,
-    vrank). CPU tensors run the plain versions; CUDA tensors launch the
-    three kernels (one host sync per round) or raise."""
+    vrank). CPU tensors run the plain versions; CUDA tensors launch
+    hako_probe and hako_dda_merge a round (one host sync per round) or
+    raise."""
     global ROUNDS
     if max_rounds is None:
         max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
@@ -708,7 +779,7 @@ def intersect_rays_hako(bricks, snodes, tabs, root_mask, lower, upper, ro,
     if dev not in _UNRESOLVED:
         _UNRESOLVED[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
     t, nmaj, vrank, unresolved, rounds = drive(
-        (hako_probe, hako_dda, hako_merge), bricks, snodes, tabs, root_mask,
+        (hako_probe, hako_dda_merge), bricks, snodes, tabs, root_mask,
         lower, upper, ro, rd, T=T, shadow=shadow, max_probes=max_probes,
         max_dda=max_dda, max_rounds=max_rounds)
     _UNRESOLVED[dev] += unresolved

@@ -281,9 +281,9 @@ def rows_touched(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
                  T: int, shadow: bool = False) -> tuple:
     """(distinct rows, row visits) of the traversal of these rays: the rows
     its DDA stages read, each counted once (per table) and at every visit.
-    Runs the round driver (its kernels for CUDA tensors, its plain versions
-    for CPU tensors) with a recording DDA stage; it walks the same rows as
-    the megakernel."""
+    Runs the round driver with the unfused stage (its kernels for CUDA
+    tensors, its plain versions for CPU tensors) and a recording kernel B;
+    it walks the same rows as the megakernel."""
     from . import hako_kernels as hk
 
     seen = {}
@@ -294,8 +294,9 @@ def rows_touched(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
         seen.setdefault(k["leaf"], []).append(child[go].long())
         return dda_stage(rows, *a, **k)
 
-    kernels = ((hk.hako_probe, dda, hk.hako_merge) if ro.device.type == "cuda"
-               else (hk.hako_probe_plain, dda, hk.hako_merge_plain))
+    kernels = ((hk.hako_probe, hk.unfused_stage(dda, hk.hako_merge))
+               if ro.device.type == "cuda"
+               else (hk.hako_probe_plain, hk.unfused_stage(dda, hk.hako_merge_plain)))
     hk.drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
              T=T, shadow=shadow, max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
              max_rounds=hk.default_max_rounds(snodes, T, hk.PROBES, hk.DDA_ITERS))

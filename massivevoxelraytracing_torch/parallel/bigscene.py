@@ -4,8 +4,8 @@ a device (the port of the JAX package's parallel/bigscene.py).
 The brick table is cut into D contiguous Morton ranges ("shards"); each
 shard is a complete HakoTree over the full grid above its bricks only.
 Every shard traces the frame's rays against its own bricks (the round
-driver: kernels A, B and the merge); the nearest hit is the per-lane min
-over shards, ties going to the lowest shard (voxel surfaces are
+driver: kernel A and the row stage a round); the nearest hit is the
+per-lane min over shards, ties going to the lowest shard (voxel surfaces are
 independent, so min-t composes exactly), and shadow rays compose the same
 way (any hit on any shard). Attributes stay with their shard: each shard
 shades its own candidate hits and the D candidate colors meet in the

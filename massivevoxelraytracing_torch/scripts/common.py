@@ -84,31 +84,45 @@ def shapes(device, k: int, latency_k: int = LATENCY_REPEATS,
 ROW_BYTES = 164 * 4
 
 
+def ops_ms(n_ops: float) -> float:
+    """The least ms of n_ops float32 operations at the card's rate."""
+    return n_ops / F32_OPS_PER_S * 1e3
+
+
 def bound(n_bytes: float, n_ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the float32 rate."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = n_ops / F32_OPS_PER_S * 1e3
+    o_ms = ops_ms(n_ops)
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
 # The round kernels' bounds on their inputs: each byte read or written
 # once, counted by the lanes that take each branch; operations a lower
-# bound (the ray preamble's ~30 float ops a lane, ~100 more a row walked).
+# bound on one yardstick, hako_mega.traversal_traffic's: the ray preamble's
+# ~30 float ops a lane that runs it, ~100 a row walked.
+PREAMBLE_OPS = 30
+ROW_WALK_OPS = 100
+
+
+def walk_ops(preambles: int, row_walks: int) -> int:
+    """Float operations of `preambles` ray preambles and `row_walks` row
+    DDAs (one lane on one row)."""
+    return PREAMBLE_OPS * preambles + ROW_WALK_OPS * row_walks
 
 
 def probe_bound(n: int, table_words: int) -> tuple:
     """hako_probe on n lanes. Every lane: in idx 4, ro / rd 24, tq 4; out
     emit 1, child 4, bt1 12, tqe / tqn 8, exh 1; the level tables once."""
-    return bound(n * (32 + 26) + 4 * table_words, 30 * n)
+    return bound(n * (32 + 26) + 4 * table_words, walk_ops(n, 0))
 
 
 def dda_bound(n: int, n_go: int, rows: int) -> tuple:
     """hako_dda (or hako_dda_cached) on n lanes, n_go of them going, over
     `rows` distinct rows. Every lane: in go 1, tqe 4; out hit 1, t / nmaj
     / vr / p3 / tqp / tqr 24, more 1; go lanes: in idx 4, ro / rd 24,
-    child 4, bt1 12, and their rows."""
-    return bound(n * (5 + 26) + n_go * 44 + rows * ROW_BYTES, 130 * n_go)
+    child 4, bt1 12, and their rows; a preamble and a row walk each."""
+    return bound(n * (5 + 26) + n_go * 44 + rows * ROW_BYTES, walk_ops(n_go, n_go))
 
 
 def dda_counts(go, child) -> tuple:
@@ -130,6 +144,31 @@ def merge_counts(state, idx, emit, hit, more) -> tuple:
     act = ~state[0][idx.long()]
     return (int(idx.shape[0]), int(act.sum()), int((act & emit & more).sum()),
             int((act & emit & ~more).sum()), int((act & hit).sum()))
+
+
+def dda_merge_bound(n: int, n_act: int, n_emit: int, row_walks: int, rows: int,
+                    n_hit: int) -> tuple:
+    """hako_dda_merge on n lanes: n_act of them unresolved, n_emit of
+    those emitting a row from kernel A, `row_walks` row DDAs in all (the
+    supernode and the brick stage's go-lanes), over `rows` distinct rows
+    of both tables, n_hit hitting. Every lane: in idx 4, resolved 1;
+    active lanes: in emit / exh 2, tqn 4, out resolved 1, tq 4; emitting
+    lanes: in ro / rd 24, child 4, bt1 12, tqe 4, and one preamble; hit
+    lanes: out t / nmaj / vrank 12; each distinct row once."""
+    return bound(n * 5 + n_act * 11 + n_emit * 44 + n_hit * 12 + rows * ROW_BYTES,
+                 walk_ops(n_emit, row_walks))
+
+
+def dda_merge_counts(state, idx, emit, stages, hit) -> tuple:
+    """(lanes, active, emitting, row walks, distinct rows, hits) of a
+    hako_dda_merge launch on the round state `state`: `stages` are the
+    unfused stage's kernel B inputs (go, child) on the same lanes, one
+    pair a table (supernode rows, brick rows), `hit` its leaf hits."""
+    act = ~state[0][idx.long()]
+    walks = sum(int((act & go).sum()) for go, _c in stages)
+    rows = sum(int(torch.unique(c[act & go]).numel()) for go, c in stages)
+    return (int(idx.shape[0]), int(act.sum()), int((act & emit).sum()), walks, rows,
+            int((act & hit).sum()))
 
 
 HOST_CYCLES_A_CALL = 400_000  # ~0.2 ms of the card's clock: a wrapper call's host time
@@ -186,10 +225,10 @@ def warm_up(device, seconds: float = 0.3) -> None:
     torch.cuda.synchronize()
 
 
-def event_ms_each(fn, setup, reps: int = 10) -> float:
+def event_ms_each(fn, setup, reps: int = 10, calls: int = 1) -> float:
     """ms a call of fn(setup()) with CUDA events around fn alone, queued
-    behind a spin kernel (setup, e.g. a copy of a state that fn updates
-    in place, untimed)."""
+    behind a spin kernel long enough for `calls` wrapper calls (setup,
+    e.g. a copy of a state that fn updates in place, untimed)."""
     fn(setup())
     total = 0.0
     for _ in range(reps):
@@ -197,7 +236,7 @@ def event_ms_each(fn, setup, reps: int = 10) -> float:
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        queue_ahead(1)
+        queue_ahead(calls)
         start.record()
         fn(arg)
         stop.record()

@@ -15,14 +15,23 @@ version, then timed with CUDA events beside its bound on these inputs
     bricks, grid above hako.USE_SNODES_ABOVE);
   * hako_dda over the brick rows (kernel B, leaf, not shadow);
   * hako_merge into a fresh round state;
+  * hako_dda_merge, the route's row stage (the supernode rows, the
+    handoff, the brick rows and the merge in one launch), into a fresh
+    round state;
   * the driver's per-round host work without kernels
     (hako_kernels.round_lanes, the nonzero sync; supernode_handoff, the
-    wheres of a fat round), host clock.
-Then the full frame through intersect_rays_hako: its wall time, rounds and
-launches (counted as differences, so a caller's counts run on), its result against intersect_rays_hako_plain, and the wall of
-one run under torch.profiler split into the round kernels' device time,
-the other device ops' (the driver's nonzero, wheres, stacks) and the
-rest, where the device waits on the host loop.
+    wheres of a fat round), host clock;
+  * one round's wall on the host clock, from a synced start to a synced
+    end (round_lanes, kernel A and the row stage on a fresh round state),
+    with the unfused stage (kernel B and the merge apart, the hand-off
+    between) and with the fused one.
+Then the full frame through intersect_rays_hako (the fused stage) and
+through the driver with the unfused stage: their wall times, rounds and
+launches (counted as differences, so a caller's counts run on), each
+result against intersect_rays_hako_plain, and the wall of one run of each
+under torch.profiler split into the round kernels' device time, the other
+device ops' (the driver's nonzero, wheres, stacks) and the rest, where
+the device waits on the host loop.
 
 The reference's XLA brick-row gather (its :121) has no counterpart:
 hako_dda reads the rows itself, so that time is inside hako_dda's. Its
@@ -206,8 +215,24 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     phase("hako_merge", merged(hk.hako_merge), merged(hk.hako_merge_plain),
           lambda _: common.merge_bound(*common.merge_counts(state0, idx, emit, hit, more)),
           setup=lambda: tuple(x.clone() for x in state0))
+    a_out = outputs["hako_probe"]
 
-    host = None
+    def staged(stage):
+        def call(state):
+            stage(state, bricks, snodes, *rays, idx, *a_out, T=T, shadow=False,
+                  max_iters=max_dda)
+            return state
+        return call
+
+    walks = ([(a_out[0], a_out[1])] if fat else []) + [(emit, child)]
+    phase("hako_dda_merge", staged(hk.hako_dda_merge), staged(hk.hako_dda_merge_plain),
+          lambda _: common.dda_merge_bound(*common.dda_merge_counts(
+              state0, idx, a_out[0], walks, hit)),
+          setup=lambda: tuple(x.clone() for x in state0))
+
+    stages = {"unfused": hk.unfused_stage(hk.hako_dda, hk.hako_merge),
+              "fused": hk.hako_dda_merge}
+    host, round_wall = None, {}
     if cuda:
         reps = 20
         torch.cuda.synchronize()
@@ -215,13 +240,30 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         for _ in range(reps):
             hk.round_lanes(state0)
             if fat:
-                hk.supernode_handoff(outputs["hako_probe"][0], outputs["hako_probe"][2],
-                                     outputs["hako_probe"][4], sn)
+                hk.supernode_handoff(a_out[0], a_out[2], a_out[4], sn)
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) / reps * 1e3
+        one = _fresh_state(n_rays, dev)
+        one[0][n:] = True  # the quarter's lanes alone
+        for name, stage in stages.items():
+            total = 0.0
+            for _ in range(reps):
+                st = tuple(x.clone() for x in one)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lanes = hk.round_lanes(st)
+                stage(st, bricks, snodes, *rays, lanes,
+                      *hk.hako_probe(levels, level_off, T, root, *rays, lanes, st[1],
+                                     max_probes=max_probes),
+                      T=T, shadow=False, max_iters=max_dda)
+                torch.cuda.synchronize()
+                total += time.perf_counter() - t0
+            round_wall[name] = total / reps * 1e3
 
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     kw = dict(T=T, max_probes=max_probes, max_dda=max_dda)
+    dkw = dict(T=T, shadow=False, max_probes=max_probes, max_dda=max_dda,
+               max_rounds=hk.default_max_rounds(snodes, T, max_probes, max_dda))
     before, rounds0, unresolved0 = dict(hk.LAUNCHES), hk.ROUNDS, hk.unresolved_lanes()
     if cuda:
         torch.cuda.synchronize()
@@ -237,13 +279,33 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     if unresolved or int(want[3].item()):
         raise AssertionError(f"full frame: {unresolved} lanes unresolved")
     outputs["frame"] = got
-    frame = dict(rays=n_rays, rounds=rounds, launches=launches)
+
+    def unfused_frame():
+        return hk.drive((hk.hako_probe, stages["unfused"]), *args, **dkw)
+
+    before = dict(hk.LAUNCHES)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    old = unfused_frame()
+    if cuda:
+        torch.cuda.synchronize()
+    old_wall = (time.perf_counter() - t0) * 1e3
+    _equal("full frame, unfused stage", old[:3], want[:3])
+    if int(old[3].item()) or old[4] != rounds:
+        raise AssertionError("full frame, unfused stage: lanes unresolved or other rounds")
+    frame = dict(rays=n_rays, rounds=rounds, launches=launches,
+                 unfused=dict(launches=_launched_since(before)))
     if cuda:
         split_wall, kernels_ms, other_ms = _profiled(
             lambda: hk.intersect_rays_hako(*args, **kw))
         frame.update(wall_ms=wall, mrays=n_rays / wall / 1e3, split_wall_ms=split_wall,
                      kernels_ms=kernels_ms, other_device_ms=other_ms,
                      host_ms=split_wall - kernels_ms - other_ms)
+        split_wall, kernels_ms, other_ms = _profiled(unfused_frame)
+        frame["unfused"].update(wall_ms=old_wall, split_wall_ms=split_wall,
+                                kernels_ms=kernels_ms, other_device_ms=other_ms,
+                                host_ms=split_wall - kernels_ms - other_ms)
 
     total = _launched_since(launches0)
     print(f"[phase timing] {label} T={T} fat={fat}: {n_rays} rays, {cap} blocks "
@@ -259,19 +321,25 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     if cuda:
         print(f"[phase timing]   host round work    {host:9.4f} ms (nonzero sync"
               f"{' + supernode wheres' if fat else ''}; host clock) [{card}]", flush=True)
-        print(f"[phase timing]   full frame: {wall:.3f} ms = {frame['mrays']:.1f} Mrays/s, "
-              f"{rounds} rounds, launches {launches}, == plain; profiled run "
-              f"{frame['split_wall_ms']:.3f} ms = round kernels {frame['kernels_ms']:.3f} "
-              f"ms + other device ops {frame['other_device_ms']:.3f} ms (device times) + "
-              f"device idle (the host loop) {frame['host_ms']:.3f} ms [{card}]", flush=True)
+        print(f"[phase timing]   one round's wall (host clock, synced): unfused "
+              f"{round_wall['unfused']:.4f} ms, fused {round_wall['fused']:.4f} ms [{card}]",
+              flush=True)
+        for name, rec in (("fused", frame), ("unfused", frame["unfused"])):
+            print(f"[phase timing]   full frame, {name} stage: {rec['wall_ms']:.3f} ms, "
+                  f"{rounds} rounds, launches {rec['launches']}, == plain; profiled run "
+                  f"{rec['split_wall_ms']:.3f} ms = round kernels {rec['kernels_ms']:.3f} "
+                  f"ms + other device ops {rec['other_device_ms']:.3f} ms (device times) + "
+                  f"device idle (the host loop) {rec['host_ms']:.3f} ms [{card}]",
+                  flush=True)
     else:
-        print(f"[phase timing]   full frame: {rounds} rounds, launches {launches}, "
-              "== plain", flush=True)
+        print(f"[phase timing]   full frame: {rounds} rounds, launches {launches} (unfused "
+              f"{frame['unfused']['launches']}), == plain", flush=True)
     print(f"[phase timing]   launches in all (phases, frame{', profiled frame' if cuda else ''}"
           f"): {total}", flush=True)
     return dict(label=label, T=T, fat=fat, rays=n_rays, cap=cap, lanes=n,
                 max_probes=max_probes, max_dda=max_dda, phases=phases,
-                host_round_ms=host, frame=frame, launches=total, outputs=outputs)
+                host_round_ms=host, round_wall_ms=round_wall, frame=frame, launches=total,
+                outputs=outputs)
 
 
 def main(argv=None) -> dict:

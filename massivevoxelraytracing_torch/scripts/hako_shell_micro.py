@@ -18,7 +18,11 @@ cases mostly measure I/O and the preamble (both shares are printed).
 Cases, each held bit for bit against its plain version, then timed with
 CUDA events (the least of 3 trains of 10 launches queued behind a spin
 kernel, beside the library call where there is one; ms and us a
-2,048-lane block, as the reference reports):
+2,048-lane block, as the reference reports). Every timed launch reads its
+inputs from HBM, as a round's kernel A does: each train takes copies of
+the case's inputs in turn, enough that 4 L2s of other copies pass between
+two reads of one (scripts/common.cold_copies), for the kernels and for
+torch.add alike:
   * the shell, o = i + 1: 8 separate arrays in and 8 out (the
     reference's :64), and the same data as one [GRID, 8, 2048] array
     each way (:78), with the time of torch.add on the same arrays;
@@ -94,15 +98,19 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
           f"forms {forms}; {lanes} lanes [{card}]", flush=True)
     records = []
 
-    def case(name, site, kernel, fn, plain, n_bytes, n_ops, library=None):
+    def case(name, site, kernel, fn, plain, inputs, n_bytes, n_ops, library=None):
+        """fn(*inputs) against plain(*inputs), then (on the card) both and
+        library(*inputs) timed on cold copies of the inputs."""
         before = dict(probes.LAUNCHES), dict(hk.LAUNCHES)
-        got = fn()
-        _equal(name, got, plain())
+        got = fn(*inputs)
+        _equal(name, got, plain(*inputs))
         rec = dict(name=name, site=site, kernel=kernel, lanes=lanes)
         if cuda:
-            ms = common.best_ms([fn, library] if library else [fn])
+            fns = [fn, library] if library else [fn]
+            ms = common.best_ms([common.in_turn(f, common.cold_copies(inputs, device))
+                                 for f in fns])
             rec["ms"], rec["library_ms"] = ms[0], (ms[1] if library else None)
-            rec["plain_ms"] = common.timed(plain, reps=1, warm=False)[1]
+            rec["plain_ms"] = common.timed(lambda: plain(*inputs), reps=1, warm=False)[1]
             rec["us_per_block"] = rec["ms"] * 1e3 / blocks
             rec["bound_ms"], rec["bound_by"] = common.bound(n_bytes, n_ops)
         rec["launches"] = (sum(probes.LAUNCHES[k] - before[0][k] for k in probes.LAUNCHES)
@@ -112,7 +120,8 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
             lib = (f", torch.add {rec['library_ms']:.4f} ms" if library else "")
             print(f"[shell micro] {name:36s}: {rec['ms']:8.4f} ms ({rec['us_per_block']:6.3f} "
                   f"us/block) == plain ({rec['plain_ms']:.2f} ms); bound "
-                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib} [{card}]", flush=True)
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib}; inputs from HBM "
+                  f"[{card}]", flush=True)
         else:
             print(f"[shell micro] {name:36s}: == plain version [{card}]", flush=True)
         return got
@@ -120,19 +129,19 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
     # (a) 8 separate arrays in and 8 out, (b) one consolidated block
     outs8 = [torch.empty_like(x) for x in eight]
     case("shell: 8 separate in + 8 out", ":64", "shell_copy_probe",
-         lambda: probes.shell_copy_probe(*eight), lambda: probes.shell_copy_plain(*eight),
-         16 * F32 * lanes, 0,
-         lambda: [torch.add(x, 1.0, out=o) for x, o in zip(eight, outs8)])
+         probes.shell_copy_probe, probes.shell_copy_plain, eight, 16 * F32 * lanes, 0,
+         lambda *xs: [torch.add(x, 1.0, out=o) for x, o in zip(xs, outs8)])
     one = torch.stack([x.reshape(-1, BLOCK) for x in eight], 1).contiguous()
     out1 = torch.empty_like(one)
     case("shell: 1 consolidated in + 1 out", ":78", "shell_copy_probe",
-         lambda: probes.shell_copy_probe(one), lambda: probes.shell_copy_plain(one),
-         16 * F32 * lanes, 0, lambda: torch.add(one, 1.0, out=out1))
+         probes.shell_copy_probe, probes.shell_copy_plain, (one,), 16 * F32 * lanes, 0,
+         lambda x: torch.add(x, 1.0, out=out1))
     # (c) + the ray preamble on the unit box
     unit = torch.tensor([0, 0, 0, 1, 1, 1], dtype=torch.float32, device=device)
     pre = case("shell + ray preamble", ":102", "preamble_probe",
-               lambda: probes.preamble_probe(eight[:6], unit),
-               lambda: probes.preamble_plain(eight[:6], unit), 14 * F32 * lanes, pre_ops)
+               lambda *r: probes.preamble_probe(list(r), unit),
+               lambda *r: probes.preamble_plain(list(r), unit), eight[:6],
+               14 * F32 * lanes, pre_ops)
     # (d) the real kernel A
     bounds = torch.cat([tree.lower, tree.upper]).to(torch.float32)
     ro = torch.stack(eight[:3], 1).contiguous()
@@ -140,12 +149,12 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
     idx = torch.arange(lanes, dtype=torch.int32, device=device)
     tq0 = torch.zeros(lanes, dtype=torch.float32, device=device)
     levels, level_off = hk.level_pack(list(tabs))
-    a = (levels, level_off, T, root, bounds, ro, rd, idx, tq0)
+    head = (levels, level_off, T, root, bounds)
     for p in (1, 2):
         got = case(f"real kernel A (P={p})", ":134", "hako_probe",
-                   lambda p=p: hk.hako_probe(*a, max_probes=p),
-                   lambda p=p: hk.hako_probe_plain(*a, max_probes=p),
-                   58 * lanes + tab_bytes, pre_ops)
+                   lambda *a, p=p: hk.hako_probe(*head, *a, max_probes=p),
+                   lambda *a, p=p: hk.hako_probe_plain(*head, *a, max_probes=p),
+                   (ro, rd, idx, tq0), 58 * lanes + tab_bytes, pre_ops)
     # the line of most rays meets the box, but behind their origin
     meets, ahead = float(pre[7].mean()), 1.0 - float(got[5].float().mean())
     print(f"[shell micro]   lanes whose line meets the box (enter_ok): {meets:.4f}; "
@@ -153,20 +162,20 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
           flush=True)
     # (e) the body unrolled; the reference's 16-bit root mask words
     root16 = (root[0] & 0xFFFF, root[1] & 0xFFFF)
-    stage_rays = eight[:6] + [eight[6]]
-    case("unrolled probe body (no loop)", ":200", "probe_stage_probe",
-         lambda: probes.probe_stage_probe(4, stage_rays, bounds, root16, tabs, T=T),
-         lambda: probes.probe_stage_plain(4, stage_rays, bounds, root16, tabs, T=T),
-         15 * F32 * lanes + tab_bytes, pre_ops)
+
+    def stage_fns(stage):
+        return (lambda *r: probes.probe_stage_probe(stage, list(r), bounds, root16, tabs,
+                                                    T=T),
+                lambda *r: probes.probe_stage_plain(stage, list(r), bounds, root16, tabs,
+                                                    T=T))
+
+    case("unrolled probe body (no loop)", ":200", "probe_stage_probe", *stage_fns(4),
+         eight[:6] + [eight[6]], 15 * F32 * lanes + tab_bytes, pre_ops)
     if staged:
         zero_tq = eight[:6] + [tq0]
         for stage in range(4):
             case(f"stage {stage}: {probes.PROBE_STAGES[stage]}", ":287",
-                 "probe_stage_probe",
-                 lambda s=stage: probes.probe_stage_probe(s, zero_tq, bounds, root16,
-                                                          tabs, T=T),
-                 lambda s=stage: probes.probe_stage_plain(s, zero_tq, bounds, root16,
-                                                          tabs, T=T),
+                 "probe_stage_probe", *stage_fns(stage), zero_tq,
                  10 * F32 * lanes + (tab_bytes if stage >= 2 else 0), pre_ops)
     return dict(lanes=lanes, T=T, level_nodes=[t.shape[0] for t in tabs], forms=forms,
                 meets_box_share=meets, ahead_share=ahead, cases=records)

@@ -29,9 +29,13 @@ state to restore: the mean of 10 single runs):
      kernel's own counts, equal to block_rows_plain's);
   6. the bookkeeping: round_lanes (the round's one host sync) and
      hako_merge (:249);
-  7. one round, drive(..., max_rounds=1) on the phases' lanes, against
-     the sum of its phases;
-  8. the full frame through intersect_rays_hako: its rounds and ms, equal
+  7. the row stage in one launch (hako_dda_merge: the supernode rows, the
+     handoff, the brick rows and the merge) on kernel A's outputs, against
+     the stages 2, 3 and the merge it replaces;
+  8. one round, drive(..., max_rounds=1) on the phases' lanes, with the
+     unfused stage (kernel B and the merge apart, as the reference's round)
+     and with the fused one (the route's), against the sum of its phases;
+  9. the full frame through intersect_rays_hako: its rounds and ms, equal
      to the plain driver's.
 
 On a fat tree the reference's isolated kernel B feeds kernel A's
@@ -234,14 +238,32 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     phase("bookkeeping (round_lanes + merge)", book(hk.hako_merge),
           book(hk.hako_merge_plain), setup=lambda: tuple(x.clone() for x in state0))
 
+    a_out = outputs["kernel A"]
+
+    def staged(stage):
+        def call(state):
+            stage(state, bricks, snodes, *rays, idx, *a_out, T=T, shadow=False,
+                  max_iters=max_dda)
+            return state
+        return call
+
+    walks = ([(a_out[0], a_out[1])] if fat else []) + [(emit, child)]
+    phase("row stage fused (hako_dda_merge)", staged(hk.hako_dda_merge),
+          staged(hk.hako_dda_merge_plain), setup=lambda: tuple(x.clone() for x in state0),
+          bound=common.dda_merge_bound(*common.dda_merge_counts(
+              state0, idx, a_out[0], walks, hit)))
+
     kw = dict(T=T, shadow=False, max_probes=max_probes, max_dda=max_dda)
     head = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro[:n], rd[:n])
-    kernels = (hk.hako_probe, hk.hako_dda, hk.hako_merge)
-    plains = (hk.hako_probe_plain, hk.hako_dda_plain, hk.hako_merge_plain)
-    one = phase("one round (drive, max_rounds=1)",
-                lambda: hk.drive(kernels, *head, max_rounds=1, **kw)[:4],
-                lambda: hk.drive(plains, *head, max_rounds=1, **kw)[:4])
-    outputs["one round"] = one
+    plains = (hk.hako_probe_plain, hk.unfused_stage(hk.hako_dda_plain, hk.hako_merge_plain))
+    for name, kernels in (
+            ("one round (drive, max_rounds=1)",
+             (hk.hako_probe, hk.unfused_stage(hk.hako_dda, hk.hako_merge))),
+            ("one round fused (drive, max_rounds=1)", (hk.hako_probe, hk.hako_dda_merge))):
+        outputs[name] = phase(name,
+                              lambda k=kernels: hk.drive(k, *head, max_rounds=1, **kw)[:4],
+                              lambda: hk.drive(plains, *head, max_rounds=1, **kw)[:4])
+    outputs["one round"] = outputs["one round (drive, max_rounds=1)"]
 
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     fkw = dict(T=T, max_probes=max_probes, max_dda=max_dda)
@@ -294,8 +316,14 @@ def _report(label, card, cuda, T, fat, n_rays, cap, n, uniq, max_probes, max_dda
               f"{r['overflow_lanes']} past U={uniq}; {rows['distinct_rows_round']} "
               "distinct rows in the round", flush=True)
     if cuda:
+        stage = phases["row stage fused (hako_dda_merge)"]["ms"]
+        parts = (["supernode rows"] if fat else []) + ["B rows, round order"]
+        unfused = sum(phases[p]["ms"] for p in parts)
+        print(f"[r3 split]   row stage fused {stage:.4f} ms against kernel B's stages "
+              f"{unfused:.4f} ms + the merge (in the bookkeeping) [{card}]", flush=True)
         print(f"[r3 split]   one round {phases['one round (drive, max_rounds=1)']['ms']:.4f} "
-              f"ms against the sum of its phases {summed:.4f} ms; full frame "
+              f"ms unfused, {phases['one round fused (drive, max_rounds=1)']['ms']:.4f} ms "
+              f"fused, against the sum of its phases {summed:.4f} ms; full frame "
               f"{frame['ms']:.3f} ms = {frame['mrays']:.1f} Mrays/s, {frame['rounds']} rounds "
               f"(no cap ladder: every round serves every unresolved lane), == plain "
               f"[{card}]", flush=True)

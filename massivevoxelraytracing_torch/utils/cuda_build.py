@@ -141,6 +141,13 @@ def _bind(lib):
         p, p, p, p, p,                                 # state: resolved, tq, t, nmaj, vrank
         p,                                             # stream
     ]
+    lib.hako_dda_merge_launch.argtypes = [
+        p, p, p, p, p, p, i,                           # bricks, snodes, bounds, ro, rd, idx, n
+        p, p, p, p, p, p,                              # emit, child, bt1, tqe, tqn, exh
+        f, f, i, i,                                    # dt factors, shadow, max_iters
+        p, p, p, p, p,                                 # state: resolved, tq, t, nmaj, vrank
+        p,                                             # stream
+    ]
     lib.row_chase_launch.argtypes = [
         p, p, p, i, i,                                 # rows, start, end, chains, hops
         i, i, i, i, p,                                 # mode, chains/thread, blocks, threads, stream
@@ -175,6 +182,7 @@ def _bind(lib):
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
                lib.hako_dda_launch, lib.hako_merge_launch,
+               lib.hako_dda_merge_launch,
                lib.row_chase_launch, lib.walk_probe_launch,
                lib.fetch_probe_launch, lib.construct_probe_launch,
                lib.node_gather_probe_launch, lib.table_select_probe_launch,

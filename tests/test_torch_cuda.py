@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels on the card (marked `cuda`; skipped where
 torch.cuda.is_available() is false): the hako_mega kernel, and the round
-driver's hako_probe / hako_dda / hako_merge round by round, against their
-plain PyTorch versions on the same device tensors, plain and fat layouts,
-primary and shadow rays, bit for bit; the whole slice on the card
+driver's hako_probe / hako_dda / hako_merge and its fused row stage
+hako_dda_merge round by round, against their plain PyTorch versions on the
+same device tensors, plain and fat layouts, primary and shadow rays, bit
+for bit (and the route, two launches a round, against hako_mega); the whole slice on the card
 (build_scene + render_frame through the kernel) against the same slice on
 the CPU (plain version); a path-tracer step through both routes; the kernel
 at small ray counts and on permuted rays, and its counting variant; the
@@ -160,13 +161,14 @@ def test_round_kernels_match_plain_bit_for_bit(cuda, monkeypatch, grid_res,
 
     hk.reset_counters()
     rounds = hk.default_max_rounds(args[1], T, hk.PROBES, hk.DDA_ITERS)
-    got = hk.drive((probe, dda, merge), *args, T=T, shadow=shadow,
+    got = hk.drive((probe, hk.unfused_stage(dda, merge)), *args, T=T, shadow=shadow,
                    max_probes=hk.PROBES, max_dda=hk.DDA_ITERS, max_rounds=rounds)
     n_rounds = got[4]
     assert int(got[3]) == 0 and n_rounds > 1
     n_stages = 2 if args[1] is not None else 1
-    assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda": n_stages * n_rounds,
-                           "hako_merge": n_rounds, "hako_dda_cached": 0}
+    assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda_merge": 0,
+                           "hako_dda": n_stages * n_rounds, "hako_merge": n_rounds,
+                           "hako_dda_cached": 0}
     assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)[:3],
                  "round driver vs plain")
     assert_equal(got[:3], hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
@@ -193,6 +195,91 @@ def test_round_wrappers_check_inputs(cuda):
         state = (b.clone(), tq.clone(), tq.clone(), idx.clone(), idx.clone())
         hk.hako_merge(state, idx, b, torch.zeros((n, 3), device=cuda), tq, b, b,
                       tq, idx, idx, b, tq)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("grid_res,n_vox,snodes_above", CASES)
+def test_dda_merge_matches_plain_bit_for_bit(cuda, monkeypatch, grid_res, n_vox,
+                                             snodes_above, shadow):
+    """The fused row stage through its wrapper against its plain version on
+    the same state and kernel A outputs, every round, with kernel B capped
+    at 2 sub-brick visits so that lanes resume (and, on the fat tree, miss
+    their supernode); the driver goes on with the kernel's state and ends
+    equal to the plain driver and the megakernel."""
+    args, T = case_args(cuda, monkeypatch, grid_res, n_vox, snodes_above)
+    resumed = []
+
+    def stage(state, *a, **k):
+        want = tuple(x.clone() for x in state)
+        hk.hako_dda_merge(state, *a, **k)
+        hk.hako_dda_merge_plain(want, *a, **k)
+        assert_equal(state, want, "hako_dda_merge")
+        # the lanes the first row stage (supernode rows of a fat tree) left capped
+        rows, leaf = (a[0], True) if a[1] is None else (a[1], False)
+        first = hk.hako_dda_plain(rows, *a[2:10], dt_factor=0.25 ** T, leaf=leaf,
+                                  shadow=k["shadow"], max_iters=k["max_iters"])
+        resumed.append(int(first[6].sum()))
+
+    hk.reset_counters()
+    got = hk.drive((hk.hako_probe, stage), *args, T=T, shadow=shadow, max_probes=hk.PROBES,
+                   max_dda=2, max_rounds=hk.default_max_rounds(args[1], T, hk.PROBES, 2))
+    n_rounds = got[4]
+    assert int(got[3]) == 0 and n_rounds > 1 and sum(resumed) > 0
+    assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda_merge": n_rounds,
+                           "hako_dda": 0, "hako_merge": 0, "hako_dda_cached": 0}
+    assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)[:3],
+                 "fused rounds vs plain")
+    assert_equal(got[:3], hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
+                 "fused rounds vs megakernel")
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("grid_res,n_vox,snodes_above", CASES)
+def test_rounds_route_equals_megakernel(cuda, monkeypatch, grid_res, n_vox,
+                                        snodes_above, shadow):
+    """intersect_rays_hako on the card: two launches a round (hako_probe,
+    hako_dda_merge), none of the unfused stage, equal to hako_mega."""
+    args, T = case_args(cuda, monkeypatch, grid_res, n_vox, snodes_above)
+    hk.reset_counters()
+    got = hk.intersect_rays_hako(*args, T=T, shadow=shadow)
+    torch.cuda.synchronize()
+    assert hk.ROUNDS > 1 and hk.unresolved_lanes() == 0
+    assert hk.LAUNCHES == {"hako_probe": hk.ROUNDS, "hako_dda_merge": hk.ROUNDS,
+                           "hako_dda": 0, "hako_merge": 0, "hako_dda_cached": 0}
+    assert_equal(got, hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
+                 "rounds route vs megakernel")
+
+
+def test_dda_merge_checks_inputs(cuda):
+    n = 4
+    rays = torch.zeros((n, 3), device=cuda)
+    idx = torch.zeros(n, dtype=torch.int32, device=cuda)
+    f = torch.zeros(n, device=cuda)
+    b = torch.zeros(n, dtype=torch.bool, device=cuda)
+    bt1 = torch.zeros((3, n), device=cuda)
+    rows = torch.zeros((1, 164), dtype=torch.int32, device=cuda)
+    bounds = torch.zeros(6, device=cuda)
+
+    def state():
+        return (b.clone(), f.clone(), f.clone(), idx.clone(), idx.clone())
+
+    kw = dict(T=1, shadow=False, max_iters=4)
+    ok = (rows, None, bounds, rays, rays, idx, b, idx, bt1, f, f, b)
+    hk.reset_counters()
+    hk.hako_dda_merge(state(), *ok, **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["hako_dda_merge"] == 1
+    for i, bad in ((0, rows.long()),                    # int64 brick rows
+                   (1, torch.zeros((1, 160), dtype=torch.int32, device=cuda)),  # snodes
+                   (5, idx.long()),                     # int64 lane index
+                   (7, idx.float()),                    # float child ids
+                   (8, torch.zeros((n, 3), device=cuda)),  # bt1 transposed
+                   (11, f)):                            # float exh
+        with pytest.raises(ValueError):
+            hk.hako_dda_merge(state(), *ok[:i], bad, *ok[i + 1:], **kw)
+    with pytest.raises(ValueError):  # the state on the CPU
+        hk.hako_dda_merge(tuple(x.cpu() for x in state()), *ok, **kw)
+    assert hk.LAUNCHES["hako_dda_merge"] == 1
 
 
 def test_pt_step_rounds_equals_mega_on_card(cuda):

@@ -126,8 +126,8 @@ def test_wrapper_runs_plain_version_on_cpu():
     _jt, pt, ro, rd, _ref = make_case(64)
     hk.reset_counters()
     t, nm, vr = hk.intersect_hako(pt, ro, rd)
-    assert hk.LAUNCHES == {"hako_probe": 0, "hako_dda": 0, "hako_merge": 0,
-                           "hako_dda_cached": 0}
+    assert hk.LAUNCHES == {"hako_probe": 0, "hako_dda_merge": 0, "hako_dda": 0,
+                           "hako_merge": 0, "hako_dda_cached": 0}
     assert hk.ROUNDS > 1 and hk.unresolved_lanes() == 0
     want, _ = rounds_plain(pt, ro, rd)
     np.testing.assert_array_equal(t.numpy(), want[0])

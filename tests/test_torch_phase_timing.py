@@ -87,15 +87,19 @@ def test_phases_and_frame_equal_the_plain_driver(monkeypatch, snodes_above):
     assert set(got["launches"].values()) == {0}
     assert all(set(r["launches"].values()) == {0} for r in got["phases"].values())
     assert got["fat"] == (snodes_above is not None)
-    assert got["phases"].keys() == {"hako_probe", "hako_dda leaf", "hako_merge"} | (
+    assert got["phases"].keys() == {"hako_probe", "hako_dda leaf", "hako_merge",
+                                    "hako_dda_merge"} | (
         {"hako_dda supernodes"} if got["fat"] else set())
+    # the fused row stage leaves the state the unfused stage's merge leaves
+    for a, b in zip(got["outputs"]["hako_dda_merge"], got["outputs"]["hako_merge"]):
+        assert torch.equal(a, b)
     tree, cam = pt.bumpy_scene(32, "cpu")
     ro, rd = (torch.from_numpy(x) for x in pt.frame_rays(cam, 64, 64))
     (bricks, snodes, tabs, root), T = hako_mega.hako_mega_args(tree)
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     rec = FirstRound()
     t, nmaj, vrank, unresolved, rounds = hk.drive(
-        (rec.probe, rec.dda, rec.merge), *args, T=T, shadow=False,
+        (rec.probe, hk.unfused_stage(rec.dda, rec.merge)), *args, T=T, shadow=False,
         max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
         max_rounds=hk.default_max_rounds(snodes, T, hk.PROBES, hk.DDA_ITERS))
     n = got["lanes"]

@@ -122,8 +122,8 @@ def test_fat_staged_round_equals_the_drivers_first_round(fat_run):
     (bricks, snodes, tabs, root), T = hako_mega.hako_mega_args(tree)
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     rec = FirstRound()
-    want = hk.drive((rec.probe, rec.dda, rec.merge), *args, T=T, shadow=False,
-                    max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
+    want = hk.drive((rec.probe, hk.unfused_stage(rec.dda, rec.merge)), *args, T=T,
+                    shadow=False, max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
                     max_rounds=hk.default_max_rounds(snodes, T, hk.PROBES, hk.DDA_ITERS))
     for name in ("kernel A", "supernode rows", "B rows, round order"):
         for a, b in zip(got["outputs"][name], rec.out[name]):
@@ -136,6 +136,9 @@ def test_fat_staged_round_equals_the_drivers_first_round(fat_run):
     for a, b in zip(one[:3], merged[2:]):
         assert torch.equal(a, b[:n])
     assert int(one[3]) == int((~merged[0][:n]).sum()) > 0
+    # ... and so does the round with the fused row stage
+    for a, b in zip(got["outputs"]["one round fused (drive, max_rounds=1)"], one):
+        assert torch.equal(a, b)
     # the full frame
     for a, b in zip(got["outputs"]["frame"], want[:3]):
         assert torch.equal(a, b)
