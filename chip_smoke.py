@@ -71,16 +71,20 @@ Phases (any failure raises, and the script exits non-zero):
      0 just before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
      scripts/hako_shell_micro.py --staged (kernel A's I/O shell in both
-     layouts with torch.add beside it, the shell + ray preamble, the real
+     layouts with torch.add beside it, each into a new output a call and
+     both into one fixed set of outputs, the shell + ray preamble, the real
      kernel A at 1 and 2 probes, the probe body unrolled and by stage, on
      the reference's 524,288 lanes and 256^3 tree) and
      scripts/r3_phase_split.run on the phase-3 lattice (kernel A,
      supernode rows, kernel B uncached and through the row cache of
      hako_dda_cached in the round's order and sorted by row, the sort
      alone, the distinct rows a block, the bookkeeping, the fused row
-     stage, one round unfused and fused against the sum of its phases,
-     the full frame); every case held bit for bit against its plain
-     version before it is timed, the shell micro's timed from HBM;
+     stage, one round on the device with the unfused and the fused stage
+     (kernel A and the stage on a preset state, CUDA events, beside the
+     sum of their kernels' bytes bounds) and the host's wall of
+     drive(max_rounds=1) for both, the full frame); every case held bit
+     for bit against its plain version before it is timed, the shell
+     micro's timed from HBM;
   5d. this slice's path, with the probe kernels' counts set to 0 just
      before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -1366,17 +1370,25 @@ def shell_probe_launches(shell: dict) -> int:
 
 
 def shell_entry(shell: dict, kernel: str) -> dict:
-    """A kernel's numbers summed over its shell-micro cases."""
+    """A kernel's numbers summed over its shell-micro cases (the shell's
+    library call: torch.add into a new output a call, as the kernel; its
+    times into fixed outputs, the kernel's and torch.add's, under
+    variants_ms)."""
     recs = [r for r in shell["cases"] if r["kernel"] == kernel]
     lib = [r["library_ms"] for r in recs if r["library_ms"] is not None]
     b_ms = sum(r["bound_ms"] for r in recs)
+    variants = {}
+    for r in recs:
+        for label, ms in r["variants_ms"].items():
+            variants[label] = variants.get(label, 0.0) + ms
     return dict(ms=sum(r["ms"] for r in recs), plain_ms=sum(r["plain_ms"] for r in recs),
                 bound_ms=b_ms,
                 bound_by="bytes" if all(r["bound_by"] == "bytes" for r in recs)
                 else "operations",
-                library_ms=sum(lib) if lib else None,
+                library_ms=sum(lib) if lib else None, variants_ms=variants,
                 cases={r["name"]: {k: r[k] for k in ("ms", "us_per_block", "plain_ms",
-                                                     "bound_ms", "library_ms")}
+                                                     "bound_ms", "library_ms",
+                                                     "variants_ms")}
                        for r in recs})
 
 
@@ -1411,6 +1423,24 @@ def split_entries(sp: dict, src: str) -> list:
         sorted_ms=ph[f"B cached U={u}, sorted by row"]["ms"],
         sorted_uncached_ms=ph["B rows, sorted by row"]["ms"],
         sort_ms=ph["sort, gathers, scatter back"]["ms"], rows=rows))
+    return out
+
+
+def split_round(sp: dict) -> dict:
+    """Phase 5c's one lattice round (r3_phase_split, the top rung): on the
+    device with the unfused and the fused stage, each beside its kernels'
+    bytes bounds, and the host's wall of drive(max_rounds=1) for both."""
+    from massivevoxelraytracing_torch.scripts import r3_phase_split as r3
+
+    ph = sp["split"]["phases"]
+    out = {}
+    for key, name in (("device_unfused", r3.DEVICE_ROUND_UNFUSED),
+                      ("device_fused", r3.DEVICE_ROUND_FUSED),
+                      ("host_wall_unfused", r3.HOST_WALL_UNFUSED),
+                      ("host_wall_fused", r3.HOST_WALL_FUSED)):
+        out[key] = ph[name]["ms"]
+        if "bound_ms" in ph[name]:
+            out[key + "_bound"] = ph[name]["bound_ms"]
     return out
 
 
@@ -2373,6 +2403,7 @@ def main() -> int:
     fused.update(unfused_ms=tm["unfused_ms"], unfused_parts_ms=tm["unfused_parts_ms"],
                  unfused_parts_sum_ms=tm["unfused_parts_sum_ms"],
                  unfused_bound_sum_ms=tm["unfused_bound_sum_ms"],
+                 split_round_ms=split_round(sp),
                  checked_calls={"frame": rframe["checked_calls"],
                                 "parallel_bigscene": par["bigscene"]["checked_calls"]})
     kernels += split_entries(sp, src)

@@ -36,8 +36,15 @@
 //   (8 separate streams in and 8 out, kernel A's own layout) or over one
 //   consolidated [G, 8, L] array. The TPU question was the per-grid-step
 //   cost of 16 pipelined VMEM blocks; here it is what 16 streams cost
-//   against one array of the same bytes. A thread takes 4 consecutive
-//   floats of each array (one 16-byte load and store an array).
+//   against one array of the same bytes. Bound: bytes, each input read
+//   and each output written once (33.5 MB, 0.0100 ms at 3.35 TB/s, on
+//   the script's 524,288 lanes). Both layouts run one streaming design:
+//   every thread has 8 independent 16-byte loads in flight before its
+//   first store (one float4 of each of the 8 arrays, or 8 float4s of the
+//   one array, each load instruction coalesced over the warp), with an
+//   evict-first hint on the inputs, read once, in one wave of 128-thread
+//   blocks at most (a grid-stride loop past it), so neither layout pays
+//   a last partial wave of short blocks.
 // * preamble_probe (hako_shell_micro.py :102): the shell plus
 //   hako::ray_preamble on the unit box, 6 arrays in (the ray's SoA
 //   origin and direction, read straight into the preamble's value
@@ -466,6 +473,8 @@ __global__ void calib_probe_kernel(const float* a, const float* b, int n,
 }
 
 constexpr int kShellArrays = 8;
+constexpr int kShellThreads = 128;  // the shell's block
+constexpr int kShellLoads = 8;      // float4 loads a thread has in flight before it stores
 constexpr int kLaneThreads = 128;  // the round kernels' block
 constexpr int kMaxStageLevels = 8;  // must match utils/cuda_build.py MAX_LEVELS
 
@@ -475,24 +484,51 @@ struct ShellParams {
   int n;  // floats an array
 };
 
-// o = i + 1 over the first ARRAYS arrays of n floats: four consecutive
-// floats of each array a thread, the tail of n % 4 one at a time.
+__device__ __forceinline__ float4 plus_one(float4 v) {
+  return make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
+}
+
+// o = i + 1 over the first ARRAYS arrays of n floats, streamed: a
+// grid-stride loop over tiles of kShellThreads x U float4s of each array
+// (U = kShellLoads / ARRAYS), every thread issuing its kShellLoads
+// independent 16-byte loads before its first store. The loads are
+// evict-first (ld.global.cs: each input is read once); the stores are
+// plain, so a caller that writes the same outputs again finds their
+// lines still in L2 (on an H100 SXM, evict-first stores were no faster
+// into new outputs and up to 7% slower into the same ones). A partial
+// last tile checks each float4, and block 0's first threads take the
+// n % 4 floats past the last whole float4.
 template <int ARRAYS>
-__global__ void __launch_bounds__(kLaneThreads) shell_copy_kernel(const ShellParams p) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = 4 * t;
-  if (i + 3 < p.n) {
+__global__ void __launch_bounds__(kShellThreads) shell_copy_kernel(const ShellParams p) {
+  constexpr int U = kShellLoads / ARRAYS;
+  constexpr int kTile = kShellThreads * U;  // float4s of each array a block-step
+  const int n4 = p.n / 4;
+  for (int base = blockIdx.x * kTile; base < n4; base += gridDim.x * kTile) {
+    const bool whole = base + kTile <= n4;
+    float4 v[ARRAYS][U];
 #pragma unroll
     for (int a = 0; a < ARRAYS; ++a) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p.in[a]) + t);
-      reinterpret_cast<float4*>(p.out[a])[t] =
-          make_float4(v.x + 1.0f, v.y + 1.0f, v.z + 1.0f, v.w + 1.0f);
-    }
-  } else {
-    for (int k = i; k < p.n; ++k) {
+      const float4* in = reinterpret_cast<const float4*>(p.in[a]) + base + threadIdx.x;
 #pragma unroll
-      for (int a = 0; a < ARRAYS; ++a) p.out[a][k] = p.in[a][k] + 1.0f;
+      for (int u = 0; u < U; ++u) {
+        if (whole || base + u * kShellThreads + static_cast<int>(threadIdx.x) < n4)
+          v[a][u] = __ldcs(in + u * kShellThreads);
+      }
     }
+#pragma unroll
+    for (int a = 0; a < ARRAYS; ++a) {
+      float4* out = reinterpret_cast<float4*>(p.out[a]) + base + threadIdx.x;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (whole || base + u * kShellThreads + static_cast<int>(threadIdx.x) < n4)
+          out[u * kShellThreads] = plus_one(v[a][u]);
+      }
+    }
+  }
+  const int k = 4 * n4 + static_cast<int>(threadIdx.x);
+  if (blockIdx.x == 0 && k < p.n) {
+#pragma unroll
+    for (int a = 0; a < ARRAYS; ++a) p.out[a][k] = p.in[a][k] + 1.0f;
   }
 }
 
@@ -1034,7 +1070,8 @@ extern "C" int calib_probe_launch(int kind, const void* a, const void* b, int n,
 }
 
 // in / out: host arrays of 8 device pointers (AOS: the first of each);
-// n floats an array.
+// n floats an array. One wave of blocks at most (the SMs x the blocks an
+// SM holds), fewer where the tiles are fewer.
 extern "C" int shell_copy_probe_launch(int aos, const void* const* in,
                                        void* const* out, int n, void* stream) {
   if (n <= 0) return cudaErrorInvalidValue;
@@ -1044,14 +1081,16 @@ extern "C" int shell_copy_probe_launch(int aos, const void* const* in,
     p.out[a] = static_cast<float*>(out[a]);
   }
   p.n = n;
-  const int threads = (n + 3) / 4;
-  const int blocks = (threads + kLaneThreads - 1) / kLaneThreads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (aos) {
-    shell_copy_kernel<1><<<blocks, kLaneThreads, 0, s>>>(p);
-  } else {
-    shell_copy_kernel<kShellArrays><<<blocks, kLaneThreads, 0, s>>>(p);
-  }
+  void (*kernel)(ShellParams) = aos ? &shell_copy_kernel<1> : &shell_copy_kernel<kShellArrays>;
+  const int tile = kShellThreads * (aos ? kShellLoads : kShellLoads / kShellArrays);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kShellThreads, 0);
+  const int tiles = (n / 4 + tile - 1) / tile;
+  const int wave = sms * per_sm > 0 ? sms * per_sm : 1;
+  const int blocks = tiles < 1 ? 1 : (tiles < wave ? tiles : wave);
+  kernel<<<blocks, kShellThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -654,8 +654,11 @@ def hako_dda_merge_plain(state, bricks, snodes, bounds, ro, rd, idx, emit,
 def hako_dda_merge(state, bricks, snodes, bounds, ro, rd, idx, emit, child,
                    bt1, tqe, tqn, exh, *, T, shadow, max_iters):
     """The row stage in one launch (arguments as in hako_dda_merge_plain),
-    in place."""
+    in place. Refuses, on every device, a state whose length is not the
+    rays' (the kernel writes state[*][idx[j]] for lanes of ro)."""
     resolved = state[0]
+    if resolved.shape[0] != ro.shape[0]:
+        raise ValueError(f"state: {resolved.shape[0]} lanes for {ro.shape[0]} rays")
     if _device_of(ro, "hako_dda_merge") == "cpu":
         return hako_dda_merge_plain(state, bricks, snodes, bounds, ro, rd, idx,
                                     emit, child, bt1, tqe, tqn, exh, T=T,

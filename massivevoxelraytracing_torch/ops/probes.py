@@ -533,30 +533,41 @@ def shell_copy_plain(*xs):
     return tuple(x + 1.0 for x in xs)
 
 
-def shell_copy_probe(*xs):
+def shell_copy_probe(*xs, out=None):
     """As shell_copy_plain: 8 f32 [n] arrays (kernel A's 8 separate
     streams each way), or one f32 array (the consolidated [G, 8, L]
-    block). The arrays' addresses must be 16-byte aligned."""
+    block), into new arrays or into `out` (as many arrays of the same
+    shape). Every address must be 16-byte aligned."""
     if len(xs) not in (1, SHELL_ARRAYS):
         raise ValueError(f"the shell takes 1 or {SHELL_ARRAYS} arrays, not {len(xs)}")
+    if out is not None and len(out) != len(xs):
+        raise ValueError(f"{len(xs)} arrays in, {len(out)} out")
     if _device_of(xs[0], "shell_copy_probe") == "cpu":
-        return shell_copy_plain(*xs)
+        got = shell_copy_plain(*xs)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
     from ..utils import cuda_build
 
     dev = xs[0].device
     shape = tuple(xs[0].shape)
-    for j, x in enumerate(xs):
+    outs = tuple(torch.empty_like(x) for x in xs) if out is None else tuple(out)
+    for j, (x, o) in enumerate(zip(xs, outs)):
         _check(f"array {j}", x, dev, torch.float32, shape)
-        if x.data_ptr() % 16:
-            raise ValueError(f"array {j}: need a 16-byte aligned address")
-    outs = tuple(torch.empty_like(x) for x in xs)
+        _check(f"out {j}", o, dev, torch.float32, shape)
+        if x.data_ptr() % 16 or o.data_ptr() % 16:
+            raise ValueError(f"array {j}: need 16-byte aligned addresses")
     n = xs[0].numel()
     if n == 0:
         return outs
+    if n >= 2**31:
+        raise ValueError(f"the shell takes fewer than 2**31 floats an array, not {n}")
     with torch.cuda.device(dev):
         rc = cuda_build.load().shell_copy_probe_launch(
-            int(len(xs) == 1), _ptrs(xs, SHELL_ARRAYS), _ptrs(outs, SHELL_ARRAYS),
-            n, _stream(dev))
+            int(len(xs) == 1), _ptrs(xs, SHELL_ARRAYS), _ptrs(outs, SHELL_ARRAYS), n,
+            _stream(dev))
     _launched("shell_copy_probe", rc)
     return outs
 

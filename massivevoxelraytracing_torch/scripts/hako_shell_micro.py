@@ -25,7 +25,10 @@ two reads of one (scripts/common.cold_copies), for the kernels and for
 torch.add alike:
   * the shell, o = i + 1: 8 separate arrays in and 8 out (the
     reference's :64), and the same data as one [GRID, 8, 2048] array
-    each way (:78), with the time of torch.add on the same arrays;
+    each way (:78), with the time of torch.add on the same arrays into
+    a new output a call, as the kernel's wrapper writes; then the kernel
+    and torch.add into one fixed set of outputs, whose dirty lines the
+    L2 keeps from one call to the next (so fewer bytes reach HBM);
   * the shell + the ray preamble on the unit box (:102);
   * the real kernel A (hako_probe) at P = 1 and 2 on every lane, tq = 0
     (:134);
@@ -61,6 +64,8 @@ LANES = GRID * BLOCK
 N_VOXELS = 60000
 TREE_RES = 256
 F32 = 4            # bytes
+FIXED_OUT = "into fixed outputs"
+FIXED_OUT_ADD = "torch.add into them"
 
 
 def script_inputs(device, lanes: int = LANES):
@@ -98,18 +103,26 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
           f"forms {forms}; {lanes} lanes [{card}]", flush=True)
     records = []
 
-    def case(name, site, kernel, fn, plain, inputs, n_bytes, n_ops, library=None):
-        """fn(*inputs) against plain(*inputs), then (on the card) both and
-        library(*inputs) timed on cold copies of the inputs."""
+    def case(name, site, kernel, fn, plain, inputs, n_bytes, n_ops, library=None,
+             variants=None):
+        """fn(*inputs) against plain(*inputs), then (on the card) both,
+        library(*inputs) and each of `variants` ({label: function}, each
+        held against plain first) timed in turns on cold copies of the
+        inputs."""
         before = dict(probes.LAUNCHES), dict(hk.LAUNCHES)
         got = fn(*inputs)
-        _equal(name, got, plain(*inputs))
+        want = plain(*inputs)
+        _equal(name, got, want)
+        variants = variants or {}
+        for label, v in variants.items():
+            _equal(f"{name}, {label}", v(*inputs), want)
         rec = dict(name=name, site=site, kernel=kernel, lanes=lanes)
         if cuda:
-            fns = [fn, library] if library else [fn]
+            fns = [fn] + ([library] if library else []) + list(variants.values())
             ms = common.best_ms([common.in_turn(f, common.cold_copies(inputs, device))
                                  for f in fns])
             rec["ms"], rec["library_ms"] = ms[0], (ms[1] if library else None)
+            rec["variants_ms"] = dict(zip(variants, ms[1 + bool(library):]))
             rec["plain_ms"] = common.timed(lambda: plain(*inputs), reps=1, warm=False)[1]
             rec["us_per_block"] = rec["ms"] * 1e3 / blocks
             rec["bound_ms"], rec["bound_by"] = common.bound(n_bytes, n_ops)
@@ -118,6 +131,7 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
         records.append(rec)
         if cuda:
             lib = (f", torch.add {rec['library_ms']:.4f} ms" if library else "")
+            lib += "".join(f", {label} {v:.4f} ms" for label, v in rec["variants_ms"].items())
             print(f"[shell micro] {name:36s}: {rec['ms']:8.4f} ms ({rec['us_per_block']:6.3f} "
                   f"us/block) == plain ({rec['plain_ms']:.2f} ms); bound "
                   f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib}; inputs from HBM "
@@ -128,14 +142,19 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
 
     # (a) 8 separate arrays in and 8 out, (b) one consolidated block
     outs8 = [torch.empty_like(x) for x in eight]
-    case("shell: 8 separate in + 8 out", ":64", "shell_copy_probe",
-         probes.shell_copy_probe, probes.shell_copy_plain, eight, 16 * F32 * lanes, 0,
-         lambda *xs: [torch.add(x, 1.0, out=o) for x, o in zip(xs, outs8)])
     one = torch.stack([x.reshape(-1, BLOCK) for x in eight], 1).contiguous()
     out1 = torch.empty_like(one)
-    case("shell: 1 consolidated in + 1 out", ":78", "shell_copy_probe",
-         probes.shell_copy_probe, probes.shell_copy_plain, (one,), 16 * F32 * lanes, 0,
-         lambda x: torch.add(x, 1.0, out=out1))
+    # torch.add beside the kernel on a new output a call, as the wrapper
+    # writes; then both into one fixed set of outputs (whose dirty lines the
+    # L2 keeps from one call to the next)
+    for label, site, ins, outs in (("8 separate in + 8 out", ":64", eight, outs8),
+                                   ("1 consolidated in + 1 out", ":78", (one,), (out1,))):
+        case(f"shell: {label}", site, "shell_copy_probe", probes.shell_copy_probe,
+             probes.shell_copy_plain, ins, 16 * F32 * lanes, 0,
+             lambda *xs: tuple(torch.add(x, 1.0) for x in xs),
+             variants={FIXED_OUT: lambda *xs, o=outs: probes.shell_copy_probe(*xs, out=o),
+                       FIXED_OUT_ADD: lambda *xs, o=outs: tuple(
+                           torch.add(x, 1.0, out=y) for x, y in zip(xs, o))})
     # (c) + the ray preamble on the unit box
     unit = torch.tensor([0, 0, 0, 1, 1, 1], dtype=torch.float32, device=device)
     pre = case("shell + ray preamble", ":102", "preamble_probe",

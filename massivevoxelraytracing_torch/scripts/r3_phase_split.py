@@ -32,10 +32,19 @@ state to restore: the mean of 10 single runs):
   7. the row stage in one launch (hako_dda_merge: the supernode rows, the
      handoff, the brick rows and the merge) on kernel A's outputs, against
      the stages 2, 3 and the merge it replaces;
-  8. one round, drive(..., max_rounds=1) on the phases' lanes, with the
-     unfused stage (kernel B and the merge apart, as the reference's round)
-     and with the fused one (the route's), against the sum of its phases;
-  9. the full frame through intersect_rays_hako: its rounds and ms, equal
+  8. one round on the device, as the reference times its jitted round body
+     on a fixed state (:274): the inputs drive builds (the level tables,
+     the bounds, the fresh state of the phases' lanes and its round_lanes)
+     made once, then kernel A and the row stage on a copy of that state,
+     timed with CUDA events (the mean of 10 single runs queued behind a
+     spin kernel long enough for the round's wrapper calls and eager
+     ops), with the unfused stage (kernel B and the merge apart, as the
+     reference's round) and with the fused one (the route's), each beside
+     the sum of its kernels' bytes bounds;
+  9. the host's wall of that round: drive(..., max_rounds=1) on the
+     phases' lanes, whose level pack, state allocation, nonzero sync and
+     two wrapper calls hold the queued launches to the host's pace;
+ 10. the full frame through intersect_rays_hako: its rounds and ms, equal
      to the plain driver's.
 
 On a fat tree the reference's isolated kernel B feeds kernel A's
@@ -70,6 +79,11 @@ CAP_DIV = 8           # the reference's top rung: an eighth of the blocks
 # the reference's tuned row-dedup budget (its UNIQ knob, TUNED_BY_RES)
 UNIQ_BY_RES = {256: 32, 1024: 64, 2048: 64}
 INT32_MAX = 2**31 - 1
+# the round's phases: on the device (a preset state) and the host's wall
+DEVICE_ROUND_UNFUSED = "one round on the device, unfused stage"
+DEVICE_ROUND_FUSED = "one round on the device, fused stage"
+HOST_WALL_UNFUSED = "host wall: drive(max_rounds=1), unfused"
+HOST_WALL_FUSED = "host wall: drive(max_rounds=1), fused"
 
 
 def uniq_for(grid_res: int) -> int:
@@ -96,6 +110,13 @@ def _equal(name, got, want):
     for i, (g, w) in enumerate(zip(got, want)):
         if not torch.equal(g, w):
             raise AssertionError(f"{name}: output {i} differs from the plain version")
+
+
+def bound_sum(bounds) -> tuple:
+    """The sum of kernels' bounds (ms, bound_by): 'bytes' where every part
+    is bound by its bytes."""
+    return (sum(b[0] for b in bounds),
+            "bytes" if all(b[1] == "bytes" for b in bounds) else "operations")
 
 
 def sort_by_row(emit, child):
@@ -152,10 +173,11 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     phases, outputs = {}, {}
     launches0 = dict(hk.LAUNCHES)
 
-    def phase(name, kernel, plain, setup=None, equal=_equal, bound=None):
+    def phase(name, kernel, plain, setup=None, equal=_equal, bound=None, calls=1):
         """kernel(x) / plain(x) of x = setup() (untimed), or of nothing;
         records the phase's kernel launches (its check and its timing) and
-        a kernel's bound on its inputs (scripts/common)."""
+        a kernel's bound on its inputs (scripts/common). `calls`: the
+        wrapper calls (and eager ops) one kernel(x) queues."""
         prep = setup or (lambda: None)
         k_fn, p_fn = ((kernel, plain) if setup else
                       (lambda _: kernel(), lambda _: plain()))
@@ -165,7 +187,7 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         outputs[name] = got
         rec = phases[name] = {}
         if cuda:
-            rec["ms"] = (common.event_ms_each(k_fn, prep) if setup else
+            rec["ms"] = (common.event_ms_each(k_fn, prep, calls=calls) if setup else
                          common.best_ms([kernel])[0])
             rec["plain_ms"] = common.event_ms_each(p_fn, prep, reps=1)
             if bound:
@@ -175,18 +197,20 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
 
     state0 = phase_timing._fresh_state(n_rays, dev)
     a = (levels, level_off, T, root, *rays, idx, state0[1])
+    a_bound = common.probe_bound(n, 0 if levels is None else levels.numel())
     emit, child, bt1, tqe, tqn, exh = phase(
         "kernel A", lambda: hk.hako_probe(*a, max_probes=max_probes),
-        lambda: hk.hako_probe_plain(*a, max_probes=max_probes),
-        bound=common.probe_bound(n, 0 if levels is None else levels.numel()))
+        lambda: hk.hako_probe_plain(*a, max_probes=max_probes), bound=a_bound)
     dda_kw = dict(shadow=False, max_iters=max_dda)
+    unfused_bounds = [a_bound]
     if fat:
         s = (snodes, *rays, idx, emit, child, bt1, tqe)
+        unfused_bounds.append(common.dda_bound(n, *common.dda_counts(emit, child)))
         sn = phase("supernode rows",
                    lambda: hk.hako_dda(*s, dt_factor=0.25 ** T, leaf=False, **dda_kw),
                    lambda: hk.hako_dda_plain(*s, dt_factor=0.25 ** T, leaf=False,
                                              **dda_kw),
-                   bound=common.dda_bound(n, *common.dda_counts(emit, child)))
+                   bound=unfused_bounds[-1])
         emit, child, bt1, tqe, tqn = hk.supernode_handoff(emit, bt1, tqn, sn)
     leaf = dict(dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, **dda_kw)
 
@@ -205,12 +229,13 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
                        lambda: (hk.hako_dda_plain(*b, **leaf),
                                 hk.block_rows_plain(go, ch, uniq)),
                        equal=cached_equal, bound=b_bound)
-        return out, cached[1]
+        return out, cached[1], b_bound
 
     lanes = (idx, emit, child, bt1, tqe)
-    out_r, stats_r = kernel_b("round order", lanes)
+    out_r, stats_r, b_bound = kernel_b("round order", lanes)
+    unfused_bounds.append(b_bound)
     order = sort_by_row(emit, child)
-    out_s, stats_s = kernel_b("sorted by row", gather_lanes(order, *lanes))
+    out_s, stats_s, _ = kernel_b("sorted by row", gather_lanes(order, *lanes))
     _equal("B sorted, scattered back", scatter_back(order, out_s), out_r)
 
     def reorder(_):
@@ -227,6 +252,8 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
 
     hit, t_hit, nmaj, vr, _p3, _tqp, more, tqr = out_r
     m = (idx, emit, bt1, tqn, exh, hit, t_hit, nmaj, vr, more, tqr)
+    unfused_bounds.append(common.merge_bound(*common.merge_counts(state0, idx, emit, hit,
+                                                                  more)))
 
     def book(merge):
         def call(state):
@@ -248,22 +275,46 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         return call
 
     walks = ([(a_out[0], a_out[1])] if fat else []) + [(emit, child)]
+    stage_bound = common.dda_merge_bound(*common.dda_merge_counts(
+        state0, idx, a_out[0], walks, hit))
     phase("row stage fused (hako_dda_merge)", staged(hk.hako_dda_merge),
           staged(hk.hako_dda_merge_plain), setup=lambda: tuple(x.clone() for x in state0),
-          bound=common.dda_merge_bound(*common.dda_merge_counts(
-              state0, idx, a_out[0], walks, hit)))
+          bound=stage_bound)
+
+    # one round on the device: drive's inputs on the phases' lanes, made once
+    ro_n, rd_n = ro[:n], rd[:n]
+    round_state = phase_timing._fresh_state(n, dev)
+    round_idx = hk.round_lanes(round_state)
+
+    def device_round(probe, stage):
+        def call(state):
+            a_out = probe(levels, level_off, T, root, bounds, ro_n, rd_n, round_idx,
+                          state[1], max_probes=max_probes)
+            stage(state, bricks, snodes, bounds, ro_n, rd_n, round_idx, *a_out, T=T,
+                  shadow=False, max_iters=max_dda)
+            return state
+        return call
+
+    plain_round = device_round(hk.hako_probe_plain,
+                               hk.unfused_stage(hk.hako_dda_plain, hk.hako_merge_plain))
+    # the unfused stage queues kernel B twice, the hand-off's eager ops and
+    # the merge behind kernel A; the fused one a launch behind it
+    for name, stage, calls, parts in (
+            (DEVICE_ROUND_UNFUSED, hk.unfused_stage(hk.hako_dda, hk.hako_merge), 8,
+             unfused_bounds),
+            (DEVICE_ROUND_FUSED, hk.hako_dda_merge, 4, [a_bound, stage_bound])):
+        phase(name, device_round(hk.hako_probe, stage), plain_round,
+              setup=lambda: tuple(x.clone() for x in round_state),
+              bound=bound_sum(parts), calls=calls)
 
     kw = dict(T=T, shadow=False, max_probes=max_probes, max_dda=max_dda)
-    head = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro[:n], rd[:n])
+    head = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro_n, rd_n)
     plains = (hk.hako_probe_plain, hk.unfused_stage(hk.hako_dda_plain, hk.hako_merge_plain))
     for name, kernels in (
-            ("one round (drive, max_rounds=1)",
-             (hk.hako_probe, hk.unfused_stage(hk.hako_dda, hk.hako_merge))),
-            ("one round fused (drive, max_rounds=1)", (hk.hako_probe, hk.hako_dda_merge))):
-        outputs[name] = phase(name,
-                              lambda k=kernels: hk.drive(k, *head, max_rounds=1, **kw)[:4],
-                              lambda: hk.drive(plains, *head, max_rounds=1, **kw)[:4])
-    outputs["one round"] = outputs["one round (drive, max_rounds=1)"]
+            (HOST_WALL_UNFUSED, (hk.hako_probe, hk.unfused_stage(hk.hako_dda, hk.hako_merge))),
+            (HOST_WALL_FUSED, (hk.hako_probe, hk.hako_dda_merge))):
+        phase(name, lambda k=kernels: hk.drive(k, *head, max_rounds=1, **kw)[:4],
+              lambda: hk.drive(plains, *head, max_rounds=1, **kw)[:4])
 
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     fkw = dict(T=T, max_probes=max_probes, max_dda=max_dda)
@@ -303,11 +354,11 @@ def _report(label, card, cuda, T, fat, n_rays, cap, n, uniq, max_probes, max_dda
             plain = f" == plain ({rec['plain_ms']:.2f} ms)" if "plain_ms" in rec else ""
             if "bound_ms" in rec:
                 plain += f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
-            print(f"[r3 split]   {name:34s} {rec['ms']:9.4f} ms{plain}, launches "
+            print(f"[r3 split]   {name:40s} {rec['ms']:9.4f} ms{plain}, launches "
                   f"{ {k: v for k, v in rec['launches'].items() if v} } [{card}]",
                   flush=True)
         else:
-            print(f"[r3 split]   {name:34s} == plain", flush=True)
+            print(f"[r3 split]   {name:40s} == plain", flush=True)
     for order in ("round order", "sorted by row"):
         r = rows[order]
         print(f"[r3 split]   rows a 128-lane block, {order}: {r['mean_distinct']:.2f} "
@@ -321,12 +372,17 @@ def _report(label, card, cuda, T, fat, n_rays, cap, n, uniq, max_probes, max_dda
         unfused = sum(phases[p]["ms"] for p in parts)
         print(f"[r3 split]   row stage fused {stage:.4f} ms against kernel B's stages "
               f"{unfused:.4f} ms + the merge (in the bookkeeping) [{card}]", flush=True)
-        print(f"[r3 split]   one round {phases['one round (drive, max_rounds=1)']['ms']:.4f} "
-              f"ms unfused, {phases['one round fused (drive, max_rounds=1)']['ms']:.4f} ms "
-              f"fused, against the sum of its phases {summed:.4f} ms; full frame "
-              f"{frame['ms']:.3f} ms = {frame['mrays']:.1f} Mrays/s, {frame['rounds']} rounds "
-              f"(no cap ladder: every round serves every unresolved lane), == plain "
-              f"[{card}]", flush=True)
+        dev_u, dev_f = phases[DEVICE_ROUND_UNFUSED], phases[DEVICE_ROUND_FUSED]
+        print(f"[r3 split]   one round on the device (CUDA events on a preset state): "
+              f"{dev_u['ms']:.4f} ms unfused (bounds' sum {dev_u['bound_ms']:.4f}), "
+              f"{dev_f['ms']:.4f} ms fused (bounds' sum {dev_f['bound_ms']:.4f}), against "
+              f"the sum of its phases {summed:.4f} ms; the host's wall of drive(max_rounds"
+              f"=1) (level pack, allocation, the nonzero sync, the wrapper calls) "
+              f"{phases[HOST_WALL_UNFUSED]['ms']:.4f} ms unfused, "
+              f"{phases[HOST_WALL_FUSED]['ms']:.4f} fused [{card}]", flush=True)
+        print(f"[r3 split]   full frame {frame['ms']:.3f} ms = {frame['mrays']:.1f} Mrays/s, "
+              f"{frame['rounds']} rounds (no cap ladder: every round serves every "
+              f"unresolved lane), == plain [{card}]", flush=True)
     else:
         print(f"[r3 split]   full frame: {frame['rounds']} rounds (no cap ladder), == plain",
               flush=True)

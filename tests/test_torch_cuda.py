@@ -279,6 +279,10 @@ def test_dda_merge_checks_inputs(cuda):
             hk.hako_dda_merge(state(), *ok[:i], bad, *ok[i + 1:], **kw)
     with pytest.raises(ValueError):  # the state on the CPU
         hk.hako_dda_merge(tuple(x.cpu() for x in state()), *ok, **kw)
+    for r in (n - 1, n + 1):  # a state one lane shorter or longer than the rays
+        with pytest.raises(ValueError, match=f"state: {r} lanes for {n} rays"):
+            hk.hako_dda_merge(tuple(torch.cat([x, x])[:r] for x in state()), *ok, **kw)
+    torch.cuda.synchronize()
     assert hk.LAUNCHES["hako_dda_merge"] == 1
 
 
@@ -562,22 +566,50 @@ def test_walk_probe_matches_plain(cuda, impl):
                                                     impl=impl))
 
 
-@pytest.mark.parametrize("lanes", [PROBE_LANES, 4096])
-def test_shell_copy_probe_matches_plain(cuda, lanes):
+# floats of each array one block-step of the shell kernel covers (128
+# threads x 8 float4 loads: one float4 of each of 8 arrays, or 8 of one)
+SHELL_TILE = {"8 arrays": 512, "1 array": 4096}
+
+
+@pytest.mark.parametrize("n", ["1", "3", "4", "5", "100", "tile-1", "tile+1", "524288"])
+@pytest.mark.parametrize("layout", ["8 arrays", "1 array"])
+def test_shell_copy_probe_matches_plain(cuda, layout, n):
+    """Both layouts bit-equal to the plain version, into new outputs and
+    into given ones, one launch a call: at counts that leave 1-3 floats
+    past the last float4, an array shorter than one block (100 floats),
+    one float short of and past a block-step's tile, and the shell micro's
+    524,288 lanes ([256, 8, 2048] as one array); the 16-byte alignment
+    refusal of an input and of an output, before launch."""
     from massivevoxelraytracing_torch.ops import probes
 
-    rng = np.random.default_rng(lanes)
-    eight = [torch.as_tensor(rng.uniform(0.5, 2.0, lanes).astype(np.float32), device=cuda)
+    tile = SHELL_TILE[layout]
+    n = {"tile-1": tile - 1, "tile+1": tile + 1}.get(n) or int(n)
+    rng = np.random.default_rng(n)
+    eight = [torch.as_tensor(rng.uniform(0.5, 2.0, n).astype(np.float32), device=cuda)
              for _ in range(8)]
-    one = torch.stack(eight).reshape(1, 8, lanes)
+    if layout == "8 arrays":
+        xs = eight
+    elif n == 524288:
+        xs = [torch.stack([x.reshape(-1, 2048) for x in eight], 1).contiguous()]
+    else:
+        xs = eight[:1]
+    want = probes.shell_copy_plain(*xs)
     probes.reset_counters()
-    for xs in (eight, [one]):
-        got = probes.shell_copy_probe(*xs)
-        for a, b in zip(got, probes.shell_copy_plain(*xs)):
-            assert torch.equal(a, b)
+    got = probes.shell_copy_probe(*xs)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["shell_copy_probe"] == 1
+    outs = [torch.full_like(x, -1.0) for x in xs]
+    assert all(a is b for a, b in zip(probes.shell_copy_probe(*xs, out=outs), outs))
+    torch.cuda.synchronize()
     assert probes.LAUNCHES["shell_copy_probe"] == 2
+    for a, b, c in zip(got, outs, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    shifted = [torch.cat([x.reshape(-1)] * 2)[1:x.numel() + 1] for x in xs]
     with pytest.raises(ValueError, match="aligned"):
-        probes.shell_copy_probe(one.reshape(-1)[1:])
+        probes.shell_copy_probe(*shifted)
+    with pytest.raises(ValueError, match="aligned"):
+        probes.shell_copy_probe(*(x.reshape(-1) for x in xs), out=shifted)
+    assert probes.LAUNCHES["shell_copy_probe"] == 2
 
 
 def probe_rays(rng, n, cuda):

@@ -155,3 +155,28 @@ def test_wrapper_plain_on_cpu_and_refuses_other_devices():
                           meta(ro_t), meta(rd_t), meta(idx), *(meta(x) for x in a_out),
                           **kw)
     assert set(hk.LAUNCHES.values()) == {0} and hk.unresolved_lanes() == 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("extra", [-1, 1])
+def test_wrapper_refuses_a_state_of_another_length(device, extra):
+    """A state one lane shorter or longer than the rays is refused before
+    the wrapper picks its path: on the CPU (the plain path) and on a device
+    with no kernel alike, as the card's kernel path is (test_torch_cuda)."""
+    n = 4
+    kw = dict(dtype=torch.float32, device=device)
+    rays = torch.zeros((n, 3), **kw)
+    idx = torch.zeros(n, dtype=torch.int32, device=device)
+    f = torch.zeros(n, **kw)
+    b = torch.zeros(n, dtype=torch.bool, device=device)
+    rows = torch.zeros((1, 164), dtype=torch.int32, device=device)
+    r = n + extra
+    state = (torch.zeros(r, dtype=torch.bool, device=device), torch.zeros(r, **kw),
+             torch.zeros(r, **kw), torch.zeros(r, dtype=torch.int32, device=device),
+             torch.zeros(r, dtype=torch.int32, device=device))
+    hk.reset_counters()
+    with pytest.raises(ValueError, match=f"state: {r} lanes for {n} rays"):
+        hk.hako_dda_merge(state, rows, None, torch.zeros(6, **kw), rays, rays, idx, b, idx,
+                          torch.zeros((3, n), **kw), f, f, b, T=1, shadow=False,
+                          max_iters=4)
+    assert set(hk.LAUNCHES.values()) == {0}

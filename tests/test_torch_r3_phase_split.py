@@ -3,8 +3,10 @@ distinct-row counts that hako_dda_cached reports (block_rows_plain)
 against the reference's row dedup (its dedup :152) re-stated at 128-lane
 blocks; kernel B's outputs in child-id order, scattered back, against
 those in the round's order; on a fat 512^3 tree the script's staged
-round against the round driver's first round; and the entry point at
---device cpu and its refusal without a card."""
+round, its one round on the device (unfused and fused stage, on a preset
+state) and the host-wall phases of drive(max_rounds=1) against the round
+driver's first round; and the entry point at --device cpu and its
+refusal without a card."""
 
 import jax
 import jax.numpy as jnp
@@ -114,7 +116,9 @@ def test_fat_staged_round_equals_the_drivers_first_round(fat_run):
     tree, cam, got = fat_run
     assert got["fat"] and got["uniq"] == r3.uniq_for(512) > 0 and got["lanes"] == 2048
     assert got["phases"].keys() >= {"kernel A", "supernode rows", "B rows, round order",
-                                    "B rows, sorted by row", "one round (drive, max_rounds=1)"}
+                                    "B rows, sorted by row", r3.DEVICE_ROUND_UNFUSED,
+                                    r3.DEVICE_ROUND_FUSED, r3.HOST_WALL_UNFUSED,
+                                    r3.HOST_WALL_FUSED}
     # on the CPU the wrappers run the plain versions and launch nothing
     assert set(got["launches"].values()) == {0}
     n = got["lanes"]
@@ -131,19 +135,43 @@ def test_fat_staged_round_equals_the_drivers_first_round(fat_run):
     merged = got["outputs"]["bookkeeping (round_lanes + merge)"]
     for a, b in zip(merged, rec.out["merge"]):
         assert torch.equal(a[:n], b[:n])
-    # one round of the driver on the phases' lanes leaves that state
-    one = got["outputs"]["one round"]
+    # one round of the driver on the phases' lanes leaves that state (the
+    # host-wall phases' outputs: t, nmaj, vrank, unresolved)
+    one = got["outputs"][r3.HOST_WALL_UNFUSED]
     for a, b in zip(one[:3], merged[2:]):
         assert torch.equal(a, b[:n])
     assert int(one[3]) == int((~merged[0][:n]).sum()) > 0
     # ... and so does the round with the fused row stage
-    for a, b in zip(got["outputs"]["one round fused (drive, max_rounds=1)"], one):
+    for a, b in zip(got["outputs"][r3.HOST_WALL_FUSED], one):
         assert torch.equal(a, b)
     # the full frame
     for a, b in zip(got["outputs"]["frame"], want[:3]):
         assert torch.equal(a, b)
     assert got["frame"]["rounds"] == want[4] > 1
     assert bool((want[0] < 1e37).any())
+
+
+@pytest.mark.parametrize("name", [r3.DEVICE_ROUND_UNFUSED, r3.DEVICE_ROUND_FUSED])
+def test_device_round_equals_the_drivers_first_round(fat_run, name):
+    """The round timed on the device (kernel A and the row stage on a copy
+    of drive's fresh state of the phases' lanes) leaves the whole state of
+    the plain driver's first round on those lanes; on the CPU it is not
+    timed, launches nothing and carries its bytes bound nowhere."""
+    tree, cam, got = fat_run
+    n = got["lanes"]
+    ro, rd = (torch.from_numpy(x)[:n] for x in r3.phase_timing.frame_rays(cam, 64, 64))
+    (bricks, snodes, tabs, root), T = hako_mega.hako_mega_args(tree)
+    rec = FirstRound()
+    hk.drive((rec.probe, hk.unfused_stage(rec.dda, rec.merge)), bricks, snodes, tabs, root,
+             tree.lower, tree.upper, ro, rd, T=T, shadow=False, max_probes=hk.PROBES,
+             max_dda=hk.DDA_ITERS, max_rounds=1)
+    state = got["outputs"][name]
+    assert len(state) == 5 and state[0].shape[0] == n
+    for a, b in zip(state, rec.out["merge"]):
+        assert torch.equal(a, b)
+    assert bool(state[0].any()) and not bool(state[0].all())
+    phase = got["phases"][name]
+    assert set(phase) == {"launches"} and set(phase["launches"].values()) == {0}
 
 
 def test_sorted_kernel_b_scatters_back(fat_run):

@@ -97,6 +97,23 @@ def test_shells_match(script):
     assert_bits(got, [want1])
 
 
+@pytest.mark.parametrize("arrays", [1, 8])
+def test_shell_writes_into_given_outputs(arrays):
+    """shell_copy_probe(..., out=) on the CPU: the plain version's values
+    in the given arrays, which it returns; a count of outputs other than
+    the inputs' is refused."""
+    rng = np.random.default_rng(arrays)
+    xs = [torch.from_numpy(rng.uniform(0.5, 2.0, 1000).astype(np.float32))
+          for _ in range(arrays)]
+    outs = [torch.full_like(x, -1.0) for x in xs]
+    got = probes.shell_copy_probe(*xs, out=outs)
+    assert len(got) == arrays and all(a is b for a, b in zip(got, outs))
+    for a, b in zip(outs, probes.shell_copy_plain(*xs)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="arrays in"):
+        probes.shell_copy_probe(*xs, out=outs + outs)
+
+
 def jax_preamble(ro, rd):
     """hako_shell_micro.py k_pre's eight outputs."""
     t0, t1, dt, vm6, ok = jk._ray_preamble([0.0, 0.0, 0.0], [1.0, 1.0, 1.0], ro, rd)
