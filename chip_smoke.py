@@ -147,7 +147,27 @@ Phases (any failure raises, and the script exits non-zero):
      function (== its plain version). Each route kernel's `launches` in
      the kernels line is the main path's PT step plus phase 8's parts
      (`launches_by_path`); hako_dda's and hako_merge's, off the route,
-     add the unfused step's and phases 5b and 5c's.
+     add the unfused step's and phases 5b and 5c's;
+  9. the last modules' scripts through their run(), with hako_mega's
+     count set to 0 just before each script that launches it and read
+     just after (hako_mega's `launches_by_path` adds them): (a)
+     scripts/microbench.py, the four Morton codecs (the torch codec and the
+     bit loop on the card, the host C++ and the host tensor codec) held
+     equal bit for bit, then in s / 100M encodes; (b)
+     scripts/pt_step_timing.py on the bumpy sphere at 256^3 and on the
+     lattice at 1024^3 (utils/treecache), 640x360; (c)
+     scripts/pt_phase_attrib.py at its defaults (the lattice at 1024^3,
+     960x540, cells b0 b1 b2 b4 b8 b8_nosky b8_nocompact, a profiled step
+     of b0 and b8): b8 == b8_nocompact bit for bit, b8_nosky's mean 0,
+     every mean finite, and the step's split by the cells' differences;
+     (d) scripts/scale_demo.py at 2048^3: the lattice's build with its
+     split and peak memory, its voxels within the tie band of the JAX
+     package's 54.4M (rounded), 1920x1088 frames, hako_mega's ms on the
+     frame's rays and its bound, the PNG read back, and hako_mega against
+     its plain version on 65,536 rays sampled across the frame; (e)
+     scripts/rebuild_timing.py at 2048^3: 3 builds of the 7^3 lattice
+     (7.0M triangles) in one process, the first cold, each with its split
+     and peak memory.
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
@@ -155,7 +175,8 @@ under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (take_along_probe
 one for each reference body it runs; with the apps' numbers, phase 8's
-under "parallel" and phase 7's under "accel" and "shell"), and as its last line
+under "parallel", phase 7's under "accel" and "shell" and phase 9's under
+"scale"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs a CUDA device and the repository around it.
 """
@@ -436,15 +457,11 @@ def phase_kernel_cases(device, smi: str, rng) -> float:
 
 
 def bench_camera():
-    """bench.py's camera for the lattice (origin 0, extent 1)."""
-    from massivevoxelraytracing_torch.ops.camera import Camera
+    """bench.py's camera for the lattice (origin 0, extent 1):
+    scripts/common.script_camera."""
+    from massivevoxelraytracing_torch.scripts import common
 
-    extent = 1.0
-    center = np.zeros(3, np.float32) + extent / 2
-    return Camera.look_at(
-        eye=center + np.array([0.9, 0.4, 1.4]) * extent * 0.9,
-        target=center, fovy_deg=40.0,
-    )
+    return common.script_camera(np.zeros(3, np.float32), 1.0)
 
 
 def phase_main_path(device, smi: str, rng):
@@ -454,6 +471,7 @@ def phase_main_path(device, smi: str, rng):
 
     from massivevoxelraytracing_torch.models import accel, raycast, scene
     from massivevoxelraytracing_torch.ops import hako_mega
+    from massivevoxelraytracing_torch.scripts import common
     from massivevoxelraytracing_torch.utils import meshgen
 
     grid_res, width, height, frames = GRID, WIDTH, HEIGHT, TIMED_FRAMES
@@ -525,17 +543,15 @@ def phase_main_path(device, smi: str, rng):
     # counters on every frame ray
     args = (*meta, tree.lower, tree.upper, ro, rd)
     ref = hako_mega.intersect_rays_hako_mega(*args, T=T)
-    distinct, visits = hako_mega.rows_touched(*args, T=T)
-    n_bytes, n_ops = hako_mega.traversal_traffic(
-        ro.shape[0], distinct, visits, sum(t.shape[0] for t in meta[2]))
-    frame_bound = bound(n_bytes, n_ops)
-    print(f"[phase3] frame bound: {ro.shape[0]} rays, {distinct} distinct rows, "
-          f"{visits} row visits: {n_bytes} bytes, {n_ops} float ops -> "
-          f"{frame_bound[0]:.4f} ms ({frame_bound[1]})", flush=True)
+    fb = common.frame_bound(tree, ro, rd)
+    print(f"[phase3] frame bound: {fb['rays']} rays, {fb['distinct_rows']} distinct rows, "
+          f"{fb['row_visits']} row visits: {fb['bytes']} bytes, {fb['ops']} float ops -> "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']})", flush=True)
     counters = counter_summary(args, T, False, ref, "1080p frame", smi)
     result = dict(launches=launches, max_abs_err=st2["max_abs_err"],
                   frame_kernel_ms=frame_kernel_ms, frame_ms=frame_ms,
-                  frame_bound=frame_bound, frame_rows=(distinct, visits),
+                  frame_bound=(fb["bound_ms"], fb["bound_by"]),
+                  frame_rows=(fb["distinct_rows"], fb["row_visits"]),
                   counters=counters, frame_args=args)
     return tree, cam, img, depth, result
 
@@ -797,14 +813,10 @@ def time_row_stage(chk: Checked, parts: dict) -> dict:
 
 
 def bench_sky():
-    """bench.py's procedural sky (64 x 128)."""
-    h, w = 64, 128
-    ang = np.linspace(0, np.pi, h)[:, None]
-    return np.stack([
-        np.broadcast_to(0.6 + 0.4 * np.cos(ang), (h, w)),
-        np.broadcast_to(0.7 + 0.3 * np.cos(ang), (h, w)),
-        np.broadcast_to(0.9 + 0.1 * np.cos(ang), (h, w)),
-    ], -1).astype(np.float32)
+    """bench.py's procedural sky (64 x 128): scripts/common.sky_img."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    return common.sky_img()
 
 
 def profile_step(pt, cam) -> tuple:
@@ -814,31 +826,12 @@ def profile_step(pt, cam) -> tuple:
 
 
 def profile_call(fn) -> tuple:
-    """fn() under torch.profiler: as profile_step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """fn() under torch.profiler (scripts/common.profile_call, which reads
+    the raw trace events): as profile_step."""
+    from massivevoxelraytracing_torch.scripts import common
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    busy_us = 0.0
-    kernels = {}
-    # the raw trace events: prof.events() would first build the host ops'
-    # call tree, a minute of host time for a step's ~10^6 ops
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            us = e.duration_ns() / 1e3
-            busy_us += us
-            ms, calls = kernels.get(e.name(), (0.0, 0))
-            kernels[e.name()] = (ms + us / 1e3, calls + 1)
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    mega_ms = sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name)
-    n_kernels = sum(calls for _ms, calls in kernels.values())
-    return busy_us / 1e3, wall_ms, [
-        (name[:70], ms, calls) for name, (ms, calls) in top], mega_ms, n_kernels
+    r = common.profile_call(fn)
+    return r["busy_ms"], r["wall_ms"], r["top"], r["mega_ms"], r["kernels"]
 
 
 def phase_pt(tree, cam, device, smi: str) -> dict:
@@ -1637,14 +1630,11 @@ def tree_to(tree, device):
 
 
 def camera_rays(cam, width: int, height: int, device):
-    """The tile-major rays render_frame traces for this camera."""
-    from massivevoxelraytracing_torch.models import raycast
+    """The tile-major rays render_frame traces for this camera
+    (scripts/common.camera_rays)."""
+    from massivevoxelraytracing_torch.scripts import common
 
-    return raycast._gen_rays_tiled(
-        *(torch_from(np.asarray(v, np.float32), device)
-          for v in (cam.o, cam.right, cam.up, cam.front)),
-        torch_from(np.float32(cam.tan_half_fovy), device),
-        width=width, height=height)
+    return common.camera_rays(cam, width, height, device)
 
 
 def trace(tree, ro, rd):
@@ -1771,6 +1761,7 @@ def phase_shell(device, smi: str, rng) -> dict:
 
     from massivevoxelraytracing_torch.apps import scale_shell
     from massivevoxelraytracing_torch.ops import hako_mega, hako_stream
+    from massivevoxelraytracing_torch.scripts import common
     from massivevoxelraytracing_torch.utils import png, shellgen
 
     terrain = shellgen.Terrain(PARK_RES, device=device)
@@ -1805,10 +1796,8 @@ def phase_shell(device, smi: str, rng) -> dict:
     ro, rd = camera_rays(st["cam"], SHELL_W, SHELL_H, device)
     args, T = tree_args(tree, ro, rd, device)
     _, kernel_ms = timed(lambda: hako_mega.intersect_rays_hako_mega(*args, T=T))
-    distinct, visits = hako_mega.rows_touched(*args, T=T)
-    n_bytes, n_ops = hako_mega.traversal_traffic(
-        ro.shape[0], distinct, visits, sum(t.shape[0] for t in args[2]))
-    sb = bound(n_bytes, n_ops)
+    fb = common.frame_bound(tree, ro, rd)
+    sb, distinct, visits = (fb["bound_ms"], fb["bound_by"]), fb["distinct_rows"], fb["row_visits"]
     idx = torch.as_tensor(np.sort(rng.choice(ro.shape[0], SAMPLE_RAYS, replace=False)),
                           device=device)
     chk, k_ms, p_ms = kernel_vs_plain(tree, ro[idx], rd[idx], False,
@@ -2235,6 +2224,141 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     return out
 
 
+SCALE_RES = 2048           # the reference's scale (scripts/scale_demo.py)
+# the lattice's unique voxels at 2048^3 as the JAX package states them,
+# rounded ("54.4M unique voxels at 2048^3", utils/meshgen.sphere_lattice)
+JAX_SCALE_VOXELS = 54_400_000
+SCALE_SAMPLE_RAYS = 65536
+REBUILDS = 3
+
+
+def _plain_record(rec: dict) -> dict:
+    """A script's record without its tensors, trees and cameras (for the
+    JSON line)."""
+    skip = ("tree", "cam", "img", "depth", "accum")
+    out = {}
+    for k, v in rec.items():
+        if k in skip:
+            continue
+        out[k] = _plain_record(v) if isinstance(v, dict) else v
+    return out
+
+
+def phase_scale(device, smi: str, rng) -> dict:
+    """Phase 9: the last modules' scripts through their run(), in order:
+    scripts/microbench.py (the four Morton codecs, equal before they are
+    timed), scripts/pt_step_timing.py (the bumpy sphere at 256^3 and the
+    lattice at 1024^3, 640x360), scripts/pt_phase_attrib.py at its
+    defaults (the seven cells at 1024^3, 960x540; b8 == b8_nocompact bit
+    for bit, b8_nosky's mean 0, every mean finite), scripts/scale_demo.py
+    at 2048^3 (voxels within the tie band of the JAX package's 54.4M, the
+    PNG read back, hako_mega == its plain version on 65,536 rays sampled
+    across the frame) and scripts/rebuild_timing.py at 2048^3 (REBUILDS
+    builds, the first cold). hako_mega's count is set to 0 just before each
+    script that launches it and read just after (each must launch it)."""
+    import torch
+
+    from massivevoxelraytracing_torch.scripts import (
+        microbench, pt_phase_attrib, pt_step_timing, rebuild_timing, scale_demo)
+    from massivevoxelraytracing_torch.utils import png
+
+    t9 = time.time()
+    part_s, launches = {}, {}
+    out = {}
+
+    t0 = time.time()
+    out["microbench"] = microbench.run(device=device, card=smi)
+    part_s["microbench"] = time.time() - t0
+
+    out["pt_step_timing"] = {}
+    for label, kw in (("bumpy256", {}), ("lattice1024", dict(scene="lattice", res=GRID))):
+        rec, got, part_s[f"pt_step_timing_{label}"] = counted(
+            lambda kw=kw: pt_step_timing.run(device=device, card=smi, **kw), ("hako_mega",))
+        if not np.isfinite(rec["mean"]) or not bool(torch.isfinite(rec["accum"]).all()):
+            raise AssertionError(f"pt_step_timing {label}: non-finite radiance")
+        if got["hako_mega"] != rec["launches_a_step"] * (rec["iters"] + 1):
+            raise AssertionError(f"pt_step_timing {label}: {got} launches, not its steps'")
+        launches[f"pt_step_timing_{label}"] = got["hako_mega"]
+        out["pt_step_timing"][label] = _plain_record(rec)
+        print(f"[phase9] pt_step_timing {label}: {rec['s_per_step']:.3f} s/step, mean "
+              f"{rec['mean']:.9e}, {got['hako_mega']} hako_mega launches [{smi}]", flush=True)
+
+    attrib, got, part_s["pt_phase_attrib"] = counted(
+        lambda: pt_phase_attrib.run(device=device, card=smi), ("hako_mega",))
+    cells = attrib["cells"]
+    if not torch.equal(cells["b8"]["accum"], cells["b8_nocompact"]["accum"]):
+        raise AssertionError("pt_phase_attrib: b8 and b8_nocompact differ")
+    if cells["b8_nosky"]["mean"] != 0.0:
+        raise AssertionError(f"pt_phase_attrib: b8_nosky's mean is {cells['b8_nosky']['mean']}")
+    if not all(np.isfinite(c["mean"]) for c in cells.values()):
+        raise AssertionError("pt_phase_attrib: a non-finite mean")
+    # a warm step, the timed steps and a profiled one in the profiled cells
+    steps = sum(c["launches_a_step"] * (attrib["steps"] + 1 + ("profile" in c))
+                for c in cells.values())
+    if got["hako_mega"] != steps:
+        raise AssertionError(f"pt_phase_attrib: {got} launches, its cells' steps {steps}")
+    launches["pt_phase_attrib"] = got["hako_mega"]
+    out["pt_phase_attrib"] = _plain_record(attrib)
+    print(f"[phase9] pt_phase_attrib: 7 cells, b8 == b8_nocompact bit for bit, b8_nosky "
+          f"mean 0, {got['hako_mega']} hako_mega launches [{smi}]", flush=True)
+
+    path = os.path.join(APPS_OUT, "scale_demo.png")
+    demo, got, part_s["scale_demo"] = counted(lambda: scale_demo.run(
+        res=SCALE_RES, out=path, device=device, card=smi), ("hako_mega",))
+    launches["scale_demo"] = got["hako_mega"]
+    tree = demo["tree"]
+    d_vox = tree.n_voxels - JAX_SCALE_VOXELS
+    if abs(d_vox) > TIE_BAND * JAX_SCALE_VOXELS:
+        raise AssertionError(f"{SCALE_RES}^3 lattice: {tree.n_voxels} voxels outside the "
+                             f"tie band of {JAX_SCALE_VOXELS}")
+    # one a frame: the warm and the timed frames, then the kernel timed alone
+    # (common.timed: a warm call and the timed ones)
+    if demo["launches_a_frame"] != 1 or got["hako_mega"] != 2 * (scale_demo.ITERS + 1):
+        raise AssertionError(f"scale_demo: {demo['launches_a_frame']} launches a frame, "
+                             f"{got} in all")
+    img = png.read(path)
+    if not np.array_equal(img, demo["img"].cpu().numpy()) or img.min() == img.max():
+        raise AssertionError("scale_demo: the PNG is not the frame")
+    w, h = demo["width"], demo["height"]
+    ro, rd = camera_rays(demo["cam"], w, h, device)
+    idx = torch.as_tensor(np.sort(rng.choice(ro.shape[0], SCALE_SAMPLE_RAYS, replace=False)),
+                          device=device)
+    chk, k_ms, p_ms = kernel_vs_plain(tree, ro[idx], rd[idx], False,
+                                      f"{SCALE_RES}^3 lattice frame sample", device)
+    sd = _plain_record(demo)
+    sd.update(sample=dict(chk, kernel_ms=k_ms, plain_ms=p_ms), d_voxels=d_vox)
+    out["scale_demo"] = sd
+    st = demo["build_stats"]
+    print(f"[phase9] scale_demo {SCALE_RES}^3: {tree.n_voxels} voxels (JAX {JAX_SCALE_VOXELS}, "
+          f"rounded; diff {d_vox:+d} = {d_vox / JAX_SCALE_VOXELS:+.4%}), {tree.n_bricks} "
+          f"bricks, {tree.n_snodes} supernodes, T={tree.T}; build {demo['build_s']:.3f} s "
+          f"(split {st['t_split_s']:.3f}, count {st['t_count_s']:.3f}, unique "
+          f"{st['t_unique_s']:.3f}, accel {st['t_accel_s']:.3f}; {st['n_triangles']} "
+          f"triangles, {st['n_dumped']} dumped), peak {demo['peak_build_bytes'] / 2**30:.2f} "
+          f"GiB; frame {w}x{h} {demo['frame_ms']:.3f} ms, hako_mega {demo['kernel_ms']:.3f} "
+          f"ms (bound {demo['bound']['bound_ms']:.4f} ms, {demo['bound']['bound_by']}); "
+          f"kernel == plain on {chk['n']} sampled rays ({chk['hits']} hits, max |dt| "
+          f"{chk['max_abs_err']:.3g}, max ulp {chk['max_ulp']}; kernel {k_ms:.3f} ms, plain "
+          f"{p_ms:.1f} ms) [{smi}]", flush=True)
+    del demo, tree, ro, rd, idx
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    rb = rebuild_timing.run(res=SCALE_RES, n=REBUILDS, device=device, card=smi)
+    part_s["rebuild_timing"] = time.time() - t0
+    if len(rb["builds"]) < 2 or min(b["n_voxels"] for b in rb["builds"]) < 1:
+        raise AssertionError(f"rebuild_timing: {rb['builds']}")
+    out["rebuild_timing"] = rb
+    torch.cuda.empty_cache()
+
+    out.update(launches=launches, launch_total=sum(launches.values()), part_s=part_s,
+               wall_s=time.time() - t9)
+    print(f"[phase9] hako_mega launches by script {launches}; {out['wall_s']:.1f} s in "
+          f"all, by part (s) { {k: round(v, 1) for k, v in part_s.items()} } [{smi}]",
+          flush=True)
+    return out
+
+
 class StepTimer:
     """Times each PathTracer.step while installed (CUDA events around the
     step, then a sync: the apps sync after each step anyway)."""
@@ -2322,6 +2446,7 @@ def main() -> int:
     shell = phase_shell(device, smi, rng)
     structures["apps"] = phase_apps7(smi, str(device))
     print(f"[phase7] {time.time() - t7:.1f} s in all [{smi}]", flush=True)
+    scale = phase_scale(device, smi, rng)
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
@@ -2339,15 +2464,19 @@ def main() -> int:
                       pt["rounds_launches"][name], rframe["launches"][name]))
     # ms, plain_ms, bound and the PT part of max_abs_err come from the same
     # inputs (the bounce-1 batches); max_abs_err also covers phases 2-3
-    earlier_err = {"hako_mega": max(worst, main_path["max_abs_err"])}
+    earlier_err = {"hako_mega": max(worst, main_path["max_abs_err"],
+                                    scale["scale_demo"]["sample"]["max_abs_err"])}
     kernels = []
     for name, source, replaces, launches, frame_launches in table:
         tm = pt["timing"][name]
-        # the main path's PT step, then this slice's path (phase 8, part by part)
+        # the main path's PT step, then the paths of later slices (phase 8,
+        # part by part; phase 9, script by script)
+        scripts = scale["launches"] if name == "hako_mega" else {}
         by_path = {"pt_step": launches, **{
             f"parallel_{part}": per[name] for part, per in par["launches"].items()
-            if name in per}}
-        if sum(by_path.values()) != launches + par["launch_totals"].get(name, 0):
+            if name in per}, **scripts}
+        if sum(by_path.values()) != (launches + par["launch_totals"].get(name, 0)
+                                     + (scale["launch_total"] if scripts else 0)):
             raise AssertionError(f"{name}: launches by path do not add up")
         if name in ("hako_dda", "hako_merge"):
             # off the route since the row stage is one launch: the paths that
@@ -2415,7 +2544,11 @@ def main() -> int:
         frame_rows=main_path["frame_rows"],
         counters={"frame": main_path["counters"], **pt["counters"]},
         floors=floor,
-        apps_launches={k: apps[k]["launches"] for k in ("rtcamp", "voxrt", "voxpt")})
+        apps_launches={k: apps[k]["launches"] for k in ("rtcamp", "voxrt", "voxpt")},
+        scale_frame_ms=scale["scale_demo"]["frame_ms"],
+        scale_frame_kernel_ms=scale["scale_demo"]["kernel_ms"],
+        scale_frame_bound_ms=scale["scale_demo"]["bound"]["bound_ms"],
+        scale_frame_bound_by=scale["scale_demo"]["bound"]["bound_by"])
     print(json.dumps({"probes": pr}))
     print(json.dumps({"kernels": kernels, "pt": {
         "s_per_step": pt["step_s"], "mrays": pt["mrays"], "mean": pt["mean"],
@@ -2426,7 +2559,7 @@ def main() -> int:
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
         "apps": apps, "parallel": par,
-        "accel": structures, "shell": shell}))
+        "accel": structures, "shell": shell, "scale": scale}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

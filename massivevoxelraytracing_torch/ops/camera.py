@@ -1,6 +1,7 @@
 """Pinhole camera (the reference's ops/camera.py: Camera.look_at,
-np_frame_rays on the host, and `shoot`, pixel rays on tensors). The thin
-lens is models/pathtracer.pt_sample's primary ray."""
+np_frame_rays on the host, `shoot`, pixel rays on tensors, and
+`shoot_thin_lens`, the thin lens's pixel rays). The path tracer's primary
+ray is models/pathtracer.pt_sample's own."""
 
 from __future__ import annotations
 
@@ -86,4 +87,36 @@ def shoot(cam: Camera, px, py, off_x: float, off_y: float, width: int,
     rd = u[:, None] * right + v[:, None] * up + front
     ro = torch.as_tensor(np.asarray(cam.o, np.float32), device=dev).expand(
         rd.shape).contiguous()
+    return ro, rd
+
+
+def shoot_thin_lens(cam: Camera, px, py, off_x, off_y, width: int, height: int,
+                    u0, u1):
+    """Thin-lens rays (CameraPinhole::shootThinLens): a square lens in
+    [-lens_r, lens_r]^2, the focal plane at `focus`. px / py integer
+    tensors [R]; off_x / off_y floats or f32 tensors (broadcasting to [R]);
+    u0 / u1 f32 tensors [R] in [0, 1) on the lens. Returns (ro, rd) f32
+    [R, 3] on px's device, with the reference's float32 operations in its
+    order and every divisor a device tensor."""
+    dev = px.device
+    f32 = torch.float32
+
+    def c(x):
+        return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=f32, device=dev)
+
+    xf = (px.to(f32) + c(off_x)) / c(float(width))
+    yf = (py.to(f32) + c(off_y)) / c(float(height))
+    th = c(np.float32(cam.tan_half_fovy))
+    focus = c(np.float32(cam.focus))
+    lens_r = c(np.float32(cam.lens_r))
+    fx = focus * (-th + (2.0 * th) * xf) * c(np.float32(width / height))
+    fy = focus * (th - (2.0 * th) * yf)
+    lx = -lens_r + (2.0 * lens_r) * u0
+    ly = -lens_r + (2.0 * lens_r) * u1
+    dx = fx - lx
+    dy = fy - ly
+    right, up, front, o = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                           for a in (cam.right, cam.up, cam.front, cam.o))
+    rd = dx[:, None] * right + dy[:, None] * up + focus * front
+    ro = o + lx[:, None] * right + ly[:, None] * up
     return ro, rd

@@ -4,7 +4,9 @@ port of the reference's ops/hashing.py).
 `murmur_*` is the incremental form (word at a time, length counted in
 words * 4 bytes) the path tracer derives its sample streams with;
 `np_murmur3_x86_32` is the canonical byte-stream MurmurHash3_x86_32 on the
-host, the oracle the incremental form agrees with on 4-byte-aligned input.
+host, the oracle the incremental form agrees with on 4-byte-aligned input;
+`host_murmur3_32` the same function in the host library's C++
+(csrc/host_morton.cpp).
 
 A value is an int64 tensor in [0, 2^32) or a python int (a constant word,
 which broadcasts and stays on no device). A 32 x 32 product can pass 2^63
@@ -13,6 +15,10 @@ masked with 0xFFFFFFFF.
 """
 
 from __future__ import annotations
+
+import ctypes
+
+import numpy as np
 
 from .bits import MASK32, u32
 
@@ -93,3 +99,12 @@ def np_murmur3_x86_32(data: bytes, seed: int = 0) -> int:
     h1 = (h1 * 0xC2B2AE35) & MASK32
     h1 ^= h1 >> 16
     return h1
+
+
+def host_murmur3_32(data: bytes, seed: int = 0) -> int:
+    """np_murmur3_x86_32 through the host library's C++."""
+    from ..utils import host_build
+
+    buf = np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+    return int(host_build.load().hako_murmur3_32(
+        buf.ctypes.data_as(ctypes.c_void_p), len(data), seed & MASK32))

@@ -1,6 +1,8 @@
-"""What the probe scripts share: the device they run on, the card's name,
-its launch shapes, CUDA-event timing, and one probe case measured against
-its plain version with its instruction counts and floors."""
+"""What the probe and measurement scripts share: the device they run on,
+the card's name, its launch shapes, CUDA-event timing, one probe case
+measured against its plain version with its instruction counts and floors,
+and for the scene scripts the reference scripts' camera and sky, a frame's
+rays, hako_mega's bound on them and a profiled call's device time."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import math
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from ..ops import probes
@@ -492,3 +495,89 @@ def gather_case(name: str, t, idx, *, axis: int, mod: int, form: str, c_out: int
     rec["launches"] = gather_case_launches() - before
     rec["take_along_launches"] = probes.LAUNCHES["take_along_probe"] - before_taa
     return rec
+
+
+# ---------------------------------------------------------------------------
+# The scene scripts (scale_demo, rebuild_timing, pt_step_timing,
+# pt_phase_attrib): camera, sky, frame rays, bound, profile
+# ---------------------------------------------------------------------------
+
+def script_camera(lower, extent: float, fovy_deg: float = 40.0):
+    """The reference scripts' camera: from lower + extent / 2 + (0.9, 0.4,
+    1.4) * extent * 0.9 toward the box's center."""
+    from ..ops import camera as camera_ops
+
+    center = np.asarray(lower, np.float32) + extent / 2
+    return camera_ops.Camera.look_at(
+        eye=center + np.array([0.9, 0.4, 1.4]) * extent * 0.9,
+        target=center, fovy_deg=fovy_deg)
+
+
+def sky_img() -> np.ndarray:
+    """The reference scripts' procedural sky (64 x 128, f32 RGB), so that
+    NEE shadow rays are real work."""
+    h, w = 64, 128
+    ang = np.linspace(0, np.pi, h)[:, None]
+    return np.stack([
+        np.broadcast_to(0.6 + 0.4 * np.cos(ang), (h, w)),
+        np.broadcast_to(0.7 + 0.3 * np.cos(ang), (h, w)),
+        np.broadcast_to(0.9 + 0.1 * np.cos(ang), (h, w)),
+    ], -1).astype(np.float32)
+
+
+def camera_rays(cam, width: int, height: int, device) -> tuple:
+    """(ro, rd): the tile-major rays render_frame traces for this camera."""
+    from ..models import raycast
+
+    return raycast._gen_rays_tiled(
+        *(torch.as_tensor(np.asarray(v, np.float32), device=device)
+          for v in (cam.o, cam.right, cam.up, cam.front)),
+        torch.as_tensor(np.float32(cam.tan_half_fovy), device=device),
+        width=width, height=height)
+
+
+def frame_bound(tree, ro, rd) -> dict:
+    """hako_mega's least time on these rays of a HakoTree: the rows its
+    traversal reads (hako_mega.rows_touched) and the bytes and float ops
+    they need (traversal_traffic), over the card's rates."""
+    from ..ops import hako_mega
+
+    (bricks, snodes, tabs, root), T = hako_mega.hako_mega_args(tree)
+    args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
+    distinct, visits = hako_mega.rows_touched(*args, T=T)
+    n_bytes, n_ops = hako_mega.traversal_traffic(
+        ro.shape[0], distinct, visits, sum(t.shape[0] for t in tabs))
+    b_ms, b_by = bound(n_bytes, n_ops)
+    return dict(rays=int(ro.shape[0]), distinct_rows=distinct, row_visits=visits,
+                bytes=n_bytes, ops=n_ops, bound_ms=b_ms, bound_by=b_by)
+
+
+def profile_call(fn) -> dict:
+    """fn() under torch.profiler on the card: wall ms (host clock, synced),
+    device busy ms (the sum of the device events), its idle share, the
+    hako_mega kernels' ms, the device kernels launched, and the top 8 by
+    time as (name, ms, calls). Reads the profiler's raw trace events:
+    prof.events() would first build the host ops' call tree, about a
+    minute of host time for a PT step's ~10^6 ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us = 0.0
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us = e.duration_ns() / 1e3
+            busy_us += us
+            ms, calls = kernels.get(e.name(), (0.0, 0))
+            kernels[e.name()] = (ms + us / 1e3, calls + 1)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    busy_ms = busy_us / 1e3
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+                mega_ms=sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name),
+                kernels=sum(calls for _ms, calls in kernels.values()),
+                top=[(name[:70], ms, calls) for name, (ms, calls) in top])

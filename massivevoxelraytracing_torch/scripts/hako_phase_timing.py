@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from ..models import raycast, scene
-from ..ops import camera as camera_ops
 from ..ops import hako_kernels as hk
 from ..ops import hako_mega
 from ..utils import meshgen
@@ -70,13 +69,7 @@ def bumpy_scene(grid_res: int, device):
     origin, dps = meshgen.fit_grid(tri, grid_res)
     tree = scene.build_scene(tri, origin=origin, dps=dps, grid_res=grid_res,
                              accel="hako", device=device)
-    lo = np.asarray(origin)
-    extent = float(dps) * grid_res
-    center = lo + extent / 2
-    cam = camera_ops.Camera.look_at(
-        eye=center + np.array([0.9, 0.4, 1.4]) * extent * 0.9,
-        target=center, fovy_deg=40.0)
-    return tree, cam
+    return tree, common.script_camera(origin, float(dps) * grid_res)
 
 
 def frame_rays(cam, width: int, height: int):

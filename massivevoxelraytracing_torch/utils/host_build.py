@@ -1,8 +1,9 @@
 """Build the port's host library with g++ and bind it with ctypes.
 
 The sources are `massivevoxelraytracing_torch/csrc/*.cpp` (the triangle
-split to the voxelizer's cap, the PMJ table generator, and the HDR / OBJ
-decoders of host_io.cpp). The library links nothing but the C++ runtime
+split to the voxelizer's cap, the PMJ table generator, the HDR / OBJ
+decoders of host_io.cpp, and the Morton codec and MurmurHash3 of
+host_morton.cpp). The library links nothing but the C++ runtime
 (no zlib: PNG compression is the standard library's). They are
 compiled at first use into `build/torch_kernels/libhako_host.so` at the
 repository root and rebuilt whenever the hash of the sources and the
@@ -50,6 +51,12 @@ def _bind(lib):
     lib.hako_hdr_decode.restype = ctypes.c_int32
     lib.hako_obj_parse.argtypes = [p, i64, p, i64]
     lib.hako_obj_parse.restype = i64
+    lib.hako_morton_encode.argtypes = [p, p, p, i64, p]
+    lib.hako_morton_encode.restype = None
+    lib.hako_morton_decode.argtypes = [p, i64, p, p, p]
+    lib.hako_morton_decode.restype = None
+    lib.hako_murmur3_32.argtypes = [p, i64, ctypes.c_uint32]
+    lib.hako_murmur3_32.restype = ctypes.c_uint32
     return lib
 
 

@@ -24,8 +24,9 @@ smem_alloc_probe up to the opt-in limit and one row past it; ohg_probe in
 each mode at 32, 128 and 1024 rows); the multi-device layer with every mesh
 entry on the card (the sharded build at 2 and 8 shards == build_scene, the
 sharded frame == render_frame with one launch a band, the sharded PT step
-within rtol 2e-5 of pt_sample, bigscene's shards == the whole tree). Imports
-nothing of JAX. Run on a card with
+within rtol 2e-5 of pt_sample, bigscene's shards == the whole tree); the Morton codecs on the card
+against the host C++ codec and the thin lens's rays against the CPU's.
+Imports nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
@@ -938,3 +939,32 @@ def test_bigscene_on_card_equals_whole_tree(cuda):
         bigscene.shard_hako_tree(tree, 4, devices=["cpu"]), ro, rd)
     for a, b in zip(cpu, got):
         assert torch.equal(a, b.cpu())
+
+
+def test_morton_codecs_on_card_equal_the_host_codec(cuda):
+    """The torch codec and the bit loop on the card (microbench's device
+    codecs) equal the host C++ codec bit for bit, and decode inverts."""
+    rng = np.random.default_rng(9)
+    xyz = [rng.integers(0, 1 << 21, 1 << 16, dtype=np.uint32) for _ in range(3)]
+    want = morton.host_encode(*xyz)
+    t = [torch.from_numpy(a.astype(np.int64)).to(cuda) for a in xyz]
+    for codec in (morton.encode, morton.encode_naive):
+        np.testing.assert_array_equal(codec(*t).cpu().numpy(), want)
+    code = torch.from_numpy(want).to(cuda)
+    for back in (morton.decode(code), morton.decode_naive(code)):
+        for b, a in zip(back, xyz):
+            np.testing.assert_array_equal(b.cpu().numpy(), a.astype(np.int64))
+
+
+def test_thin_lens_on_card_equals_cpu(cuda):
+    cam = camera.Camera.look_at(eye=(0.9, 0.7, 2.1), target=(0.5, 0.45, 0.5),
+                                fovy_deg=40.0, lens_r=0.03, focus=1.7)
+    rng = np.random.default_rng(4)
+    args = [torch.from_numpy(rng.integers(0, 37, 256)), torch.from_numpy(rng.integers(0, 23, 256)),
+            *(torch.from_numpy(rng.random(256).astype(np.float32)) for _ in range(2))]
+    lens = [torch.from_numpy(rng.random(256).astype(np.float32)) for _ in range(2)]
+    want = camera.shoot_thin_lens(cam, *args, 37, 23, *lens)
+    got = camera.shoot_thin_lens(cam, *(a.to(cuda) for a in args), 37, 23,
+                                 *(u.to(cuda) for u in lens))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -86,7 +86,7 @@ def test_host_build_keeps_floats_as_written():
     assert "-ffp-contract=off" in cmd
     assert not any(a.startswith("-march") or a == "-ffast-math" for a in cmd)
     assert [s.rsplit("/", 1)[-1] for s in host_build.sources()] == [
-        "host_io.cpp", "host_pmj.cpp", "host_split.cpp"]
+        "host_io.cpp", "host_morton.cpp", "host_pmj.cpp", "host_split.cpp"]
 
 
 @pytest.mark.parametrize("make", [

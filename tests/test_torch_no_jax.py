@@ -2,7 +2,9 @@
 `jax` and the JAX package blocked builds a tiny scene, renders a frame,
 runs a path-tracer step, renders one rtcamp frame, builds and renders the
 brick tree and the octree, builds over 2 shards and renders over 2 bands,
-and streams a terrain shell), no module of it
+streams a terrain shell, imports the measurement scripts of the last
+slice, runs the Morton codecs' microbenchmark and shoots thin-lens rays),
+no module of it
 names jax or imports anything of the JAX package, the nvcc commands keep
 IEEE float semantics for sm_90a, the host library links no zlib, and
 chip_smoke.py refuses to run without a card or without the repository."""
@@ -89,6 +91,16 @@ assert torch.equal(img3, img) and torch.equal(depth3, depth)
 terrain = shellgen.Terrain(64, 16, device="cpu")
 shell = hako_stream.build_hako_stream(terrain.chunks(), 64)
 assert shell.n_voxels == terrain.total_voxels() > 0
+# the last modules: the measurement scripts, the host Morton codec, the thin lens
+from massivevoxelraytracing_torch.ops import morton
+from massivevoxelraytracing_torch.scripts import (
+    microbench, pt_phase_attrib, pt_step_timing, rebuild_timing, scale_demo)
+assert len(microbench.run(n=64, device="cpu")) == 4
+assert pt_phase_attrib.parse_cell("b8_nocompact") == (8, True, False)
+assert scale_demo.sphere_lattice(1, 0, 0.44)[0].shape == (20, 3, 3)
+px = torch.arange(4)
+ro, rd = camera.shoot_thin_lens(cam, px, px, 0.5, 0.5, 16, 12, torch.rand(4), torch.rand(4))
+assert tuple(rd.shape) == (4, 3) and bool(torch.isfinite(ro).all())
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0]
           in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
 assert not loaded, loaded
@@ -149,7 +161,7 @@ def test_host_command_keeps_ieee_floats():
     library links no zlib (a host without its headers still builds it)."""
     srcs = host_build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "host_io.cpp", "host_pmj.cpp", "host_split.cpp"]
+        "host_io.cpp", "host_morton.cpp", "host_pmj.cpp", "host_split.cpp"]
     cmd = host_build.gxx_command(host_build.LIB_PATH, srcs)
     assert not any(a.startswith("-l") for a in cmd)
     for src in srcs:
