@@ -31,7 +31,15 @@ Phases (any failure raises, and the script exits non-zero):
      as bench.py does, mean radiance within 1% of the JAX package's
      bench run), a profiled step (device idle share, top device ops),
      one step through the round driver from the same state, then one with
-     the unfused stage (accumulators bit-equal), and on one packet's full
+     the unfused stage (accumulators bit-equal); the sample chain
+     (ops/pt_chain.py, csrc/pt_chain.cu): its five kernels' launches a
+     step (each must launch), one step through its plain stages on the
+     card from the same state (accumulator bit-equal to the kernels'), both
+     routes profiled (device kernels a step, busy ms, idle share; the
+     kernel route must launch at most a tenth of the plain route's device
+     kernels), and each kernel against its plain stage on every stage call
+     of the first packet, recorded in the warm step, bit for bit, with its
+     ms, plain ms and bytes bound on the bounce-1 call; and on one packet's full
      bounce-1 BSDF and NEE batches (the inputs the step gives the
      kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
      against its plain version, round by round, and hako_mega against its
@@ -158,7 +166,9 @@ Phases (any failure raises, and the script exits non-zero):
      lattice at 1024^3 (utils/treecache), 640x360; (c)
      scripts/pt_phase_attrib.py at its defaults (the lattice at 1024^3,
      960x540, cells b0 b1 b2 b4 b8 b8_nosky b8_nocompact, a profiled step
-     of b0 and b8): b8 == b8_nocompact bit for bit, b8_nosky's mean 0,
+     of b0, b8 and b8_nocompact with the sample chain's kernels' ms in
+     it): b8 == b8_nocompact bit for bit, b8_nosky's mean 0, b0's and
+     b8's means the values every run has printed (21.283392, 37.108360),
      every mean finite, and the step's split by the cells' differences;
      (d) scripts/scale_demo.py at 2048^3: the lattice's build with its
      split and peak memory, its voxels within the tie band of the JAX
@@ -174,7 +184,8 @@ of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
 under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (take_along_probe
-one for each reference body it runs; with the apps' numbers, phase 8's
+one for each reference body it runs; the sample chain's five kernels;
+phase 4's two chain routes under "pt"; with the apps' numbers, phase 8's
 under "parallel", phase 7's under "accel" and "shell" and phase 9's under
 "scale"), and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -228,6 +239,21 @@ PARK_RES = 2048            # park="device" vs park="host", bit for bit
 SHELL_W, SHELL_H = 1920, 1088
 VOXRT7_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
                "360", "--mode", "color", "--oracle"]
+# pt_phase_attrib's means at its defaults, as every run since the script's
+# port has printed them (bit-equal through either route of the chain)
+ATTRIB_MEANS = {"b0": "21.283392", "b8": "37.108360"}
+CHAIN_STAGES = ("lane_init", "primary_shade", "bounce_sample", "bounce_shade",
+                "compact_gather")
+# the reference's jitted pt_sample lines each chain kernel takes over (XLA
+# fused them; no pallas_call)
+CHAIN_REPLACES = {
+    "pt_lane_init": "models/pathtracer.py:113-193 (sampling.py:83, hashing.py, bits.py, "
+                    "rng.py:23-62)",
+    "pt_primary_shade": "models/pathtracer.py:196-203 (hdri.py:189)",
+    "pt_bounce_sample": "models/pathtracer.py:267-299 (hdri.py:239-334, sampling.py:83-126)",
+    "pt_bounce_shade": "models/pathtracer.py:308-347, 232-236",
+    "pt_compact_gather": "models/pathtracer.py:232-265",
+}
 ROW_BYTES = 164 * 4
 HOT_ROWS = 4096            # the row chase's L2-resident table (2.7 MB)
 LATENCY_HOPS = 256
@@ -819,15 +845,10 @@ def bench_sky():
     return common.sky_img()
 
 
-def profile_step(pt, cam) -> tuple:
-    """One step under torch.profiler: (device busy ms, wall ms, top device
-    kernels as (name, ms, calls), hako_mega kernel ms, device kernels)."""
-    return profile_call(lambda: pt.step(cam))
-
-
 def profile_call(fn) -> tuple:
     """fn() under torch.profiler (scripts/common.profile_call, which reads
-    the raw trace events): as profile_step."""
+    the raw trace events): (device busy ms, wall ms, top device kernels as
+    (name, ms, calls), hako_mega kernel ms, device kernels)."""
     from massivevoxelraytracing_torch.scripts import common
 
     r = common.profile_call(fn)
@@ -840,7 +861,8 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
 
     from massivevoxelraytracing_torch.models import accel, pathtracer
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
-    from massivevoxelraytracing_torch.ops import hako_mega, sampling
+    from massivevoxelraytracing_torch.ops import hako_mega, pt_chain, sampling
+    from massivevoxelraytracing_torch.scripts import common
 
     t0 = time.time()
     table = sampling.make_pmj_table()
@@ -854,16 +876,31 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     pt.load_hdri(bench_sky())
     pt.update_scene(tree)
 
-    # warm step; record the first packet's traversal batches on the way
-    calls = []
+    # warm step; record the first packet's traversal batches and sample-chain
+    # stage calls (name, args, kwargs, outputs) on the way
+    calls, stage_calls = [], []
     real = accel.intersect_with
+    real_stages = {name: getattr(pt_chain, name) for name in CHAIN_STAGES}
 
     def recording(kind, depth, meta, root, lower, upper, ro, rd, *, shadow=False):
         if len(calls) < 1 + 2 * pathtracer.MAX_BOUNCES:
             calls.append((ro, rd, shadow))
         return real(kind, depth, meta, root, lower, upper, ro, rd, shadow=shadow)
 
+    packets = [0]
+
+    def recording_stage(name):
+        def rec(*a, **k):
+            out = real_stages[name](*a, **k)
+            packets[0] += name == "lane_init"
+            if packets[0] == 1:
+                stage_calls.append((name, a, k, out))
+            return out
+        return rec
+
     accel.intersect_with = recording
+    for name in CHAIN_STAGES:
+        setattr(pt_chain, name, recording_stage(name))
     try:
         t0 = time.time()
         pt.step(cam)
@@ -871,11 +908,14 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
         first_s = time.time() - t0
     finally:
         accel.intersect_with = real
+        for name, fn in real_stages.items():
+            setattr(pt_chain, name, fn)
 
     state_spp = pt.spp_done
     state_accum = pt.accum.clone()
     torch.cuda.reset_peak_memory_stats(device)
     hako_mega.reset_counters()
+    pt_chain.reset_counters()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -886,6 +926,9 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     torch.cuda.synchronize()
     step_s = start.elapsed_time(stop) / 2 / 1e3
     mega_launches = hako_mega.LAUNCHES // 2
+    chain_launches = {k: v // 2 for k, v in pt_chain.LAUNCHES.items()}
+    if min(chain_launches.values()) < 1:
+        raise AssertionError(f"PT step: sample-chain kernels {chain_launches}")
     peak_gb = torch.cuda.max_memory_allocated(device) / 2**30
     n_spp = pt.n_batch_spp
     rays = WIDTH * HEIGHT * n_spp * (1 + 2 * pathtracer.MAX_BOUNCES)
@@ -906,7 +949,9 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     if mega_launches < 1 or unresolved:
         raise AssertionError("PT mega step: no launch or unresolved lanes")
 
-    busy_ms, wall_ms, top, mega_ms, n_kernels = profile_step(pt, cam)
+    prof = common.profile_call(lambda: pt.step(cam))
+    busy_ms, wall_ms, top, mega_ms, n_kernels = (
+        prof[k] for k in ("busy_ms", "wall_ms", "top", "mega_ms", "kernels"))
     print(f"[phase4] profiled mega step: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms in {n_kernels} device kernels, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, hako_mega kernels {mega_ms:.1f} ms; "
@@ -960,6 +1005,10 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
           f"unfused stage {unfused_s:.2f} s, launches "
           f"{ {k: v for k, v in unfused_launches.items() if v} } [{smi}]", flush=True)
 
+    chain = phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
+                        chain_launches, step_s, smi)
+    del stage_calls
+
     # every kernel vs its plain version on the first packet's full bounce-1
     # BSDF and NEE batches, the inputs the step gives them; the BSDF batch
     # is also the one each kernel is timed on
@@ -996,7 +1045,130 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
                 rounds=rounds, rounds_s=rounds_s, unfused_rounds_s=unfused_s,
                 unfused_launches=unfused_launches, timing=timing, err=err,
                 busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms,
-                counters=counters, lanes=lanes)
+                counters=counters, lanes=lanes, chain=chain)
+
+
+def max_float_diff(a, b) -> float:
+    import torch
+
+    from massivevoxelraytracing_torch.scripts.common import flat_tensors
+
+    d = [float((x - y).abs().max()) for x, y in zip(flat_tensors(a), flat_tensors(b))
+         if x.dtype == torch.float32 and x.numel()]
+    return max(d, default=0.0)
+
+
+def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
+                chain_launches, step_s, smi: str) -> dict:
+    """Phase 4's sample chain: one step through the plain stages on the
+    card from the warm step's state (bit-equal to the kernels' step), both
+    routes' device kernels, busy and idle share under the profiler; then
+    each kernel against its plain stage on the first packet's recorded
+    inputs, bit for bit, and on the bounce-1 call (the only call of the
+    lane setup and the primary shade) its ms, its plain stage's ms and its
+    bound; the bounce sample on that call also through the sats HDRI
+    backend, kernel against plain stage."""
+    import dataclasses
+
+    import torch
+
+    from massivevoxelraytracing_torch.models import pathtracer
+    from massivevoxelraytracing_torch.ops import pt_chain
+    from massivevoxelraytracing_torch.scripts import common
+    from massivevoxelraytracing_torch.scripts.common import flat_tensors
+
+    ppt = pathtracer.PathTracer(width=WIDTH, height=HEIGHT, device=pt.device)
+    ppt.pmj_table, ppt.env = pt.pmj_table, pt.env
+    ppt.update_scene(pt.tree)
+    ppt.accum, ppt.spp_done = state_accum.clone(), state_spp
+    pt_chain.reset_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ppt.step(cam, chain="plain")
+    stop.record()
+    torch.cuda.synchronize()
+    plain_s = start.elapsed_time(stop) / 1e3
+    if any(pt_chain.LAUNCHES.values()):
+        raise AssertionError(f"plain-chain step launched {pt_chain.LAUNCHES}")
+    if not torch.equal(ppt.accum, after_one):
+        d = (ppt.accum - after_one).abs()
+        raise AssertionError(f"plain-chain step differs from the kernels' step: "
+                             f"{int((d > 0).sum())} values, max {float(d.max())}")
+    pprof = common.profile_call(lambda: ppt.step(cam, chain="plain"))
+    del ppt
+    routes = {}
+    for route, r, s in (("kernels", prof, step_s), ("plain", pprof, plain_s)):
+        routes[route] = dict(s_per_step=s, device_kernels=r["kernels"], busy_ms=r["busy_ms"],
+                             wall_ms=r["wall_ms"], idle_share=r["idle_share"],
+                             mega_ms=r["mega_ms"], chain=r["chain"])
+        print(f"[phase4] chain={route}: {s:.3f} s/step (CUDA events), profiled step "
+              f"{r['kernels']} device kernels, busy {r['busy_ms']:.1f} of "
+              f"{r['wall_ms']:.1f} ms, idle share {r['idle_share']:.3f}, hako_mega "
+              f"{r['mega_ms']:.1f} ms [{smi}]", flush=True)
+    if routes["kernels"]["device_kernels"] * 10 > routes["plain"]["device_kernels"]:
+        raise AssertionError(f"the kernel route launches {routes['kernels']['device_kernels']}"
+                             f" device kernels a step, over a tenth of the plain route's "
+                             f"{routes['plain']['device_kernels']}")
+
+    # each kernel vs its plain stage on every recorded call; timed on bounce 1
+    names = [c[0] for c in stage_calls]
+    timed_at = {"lane_init": 0, "primary_shade": names.index("primary_shade"),
+                "bounce_sample": [i for i, n in enumerate(names) if n == "bounce_sample"][1],
+                "bounce_shade": [i for i, n in enumerate(names) if n == "bounce_shade"][1],
+                "compact_gather": names.index("compact_gather")}
+    def bits_equal(got, want) -> bool:
+        got_t, want_t = flat_tensors(got), flat_tensors(want)
+        return len(got_t) == len(want_t) and all(
+            g.dtype == w.dtype and g.shape == w.shape
+            and torch.equal(g.view(torch.int32) if g.dtype == torch.float32 else g,
+                            w.view(torch.int32) if w.dtype == torch.float32 else w)
+            for g, w in zip(got_t, want_t))
+
+    out = {}
+    for i, (name, a, k, rec) in enumerate(stage_calls):
+        kern = getattr(pt_chain, name)(*a, **k)
+        plain = getattr(pt_chain, name + "_plain")(*a, **k)
+        torch.cuda.synchronize()
+        e = out.setdefault(f"pt_{name}", dict(calls_checked=0, max_abs_err=0.0))
+        e["max_abs_err"] = max(e["max_abs_err"], max_float_diff(kern, plain))
+        for what, want in (("its plain stage", plain), ("the step's own call", rec)):
+            if not bits_equal(kern, want):
+                raise AssertionError(f"pt_{name} call {i} differs from {what} (max |diff| "
+                                     f"{max_float_diff(kern, want)})")
+        e["calls_checked"] += 1
+        if i == timed_at[name]:
+            _r, e["ms"] = common.timed(lambda: getattr(pt_chain, name)(*a, **k), 20)
+            _r, e["plain_ms"] = common.timed(lambda: getattr(pt_chain, name + "_plain")(*a, **k), 3)
+            e["bound_ms"], e["bound_by"] = common.chain_bound(name, a, k, kern)
+            e["lanes"] = int(flat_tensors(kern)[0].shape[0])
+        if i == timed_at[name] and name == "bounce_sample":
+            # the sats HDRI backend (not the main path's): the same call
+            sats = (dataclasses.replace(a[0], use_alias=False), *a[1:])
+            n0 = pt_chain.LAUNCHES["pt_bounce_sample"]
+            skern = pt_chain.bounce_sample(*sats, **k)
+            if (pt_chain.LAUNCHES["pt_bounce_sample"] != n0 + 1
+                    or not bits_equal(skern, pt_chain.bounce_sample_plain(*sats, **k))):
+                raise AssertionError("pt_bounce_sample (sats) differs from its plain stage")
+            _r, e["sats_ms"] = common.timed(lambda: pt_chain.bounce_sample(*sats, **k), 20)
+            _r, e["sats_plain_ms"] = common.timed(
+                lambda: pt_chain.bounce_sample_plain(*sats, **k), 3)
+            del skern
+        del kern, plain
+    for name, e in out.items():
+        ms_step, calls_step = prof["chain"][name]
+        e.update(launches=chain_launches[name], ms_a_step=ms_step,
+                 profiled_launches=calls_step, share=e["bound_ms"] / e["ms"])
+        print(f"[phase4] {name} == its plain stage bit for bit on {e['calls_checked']} "
+              f"calls of the first packet; timed call ({e['lanes']} lanes) {e['ms']:.4f} ms, "
+              f"plain {e['plain_ms']:.2f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}), share {e['share']:.2f}; {e['launches']} launches a step, "
+              f"{ms_step:.2f} ms a profiled step [{smi}]", flush=True)
+        if "sats_ms" in e:
+            print(f"[phase4] {name} with the sats HDRI backend == its plain stage bit for "
+                  f"bit on the timed call: {e['sats_ms']:.4f} ms, plain "
+                  f"{e['sats_plain_ms']:.2f} ms [{smi}]", flush=True)
+    return dict(routes=routes, kernels=out)
 
 
 def mega_bound(tree, chk: Checked, n: int) -> tuple:
@@ -2292,6 +2464,10 @@ def phase_scale(device, smi: str, rng) -> dict:
         raise AssertionError(f"pt_phase_attrib: b8_nosky's mean is {cells['b8_nosky']['mean']}")
     if not all(np.isfinite(c["mean"]) for c in cells.values()):
         raise AssertionError("pt_phase_attrib: a non-finite mean")
+    for cell, want in ATTRIB_MEANS.items():
+        if f"{cells[cell]['mean']:.6f}" != want:
+            raise AssertionError(f"pt_phase_attrib: {cell}'s mean {cells[cell]['mean']:.6f}, "
+                                 f"not {want}")
     # a warm step, the timed steps and a profiled one in the profiled cells
     steps = sum(c["launches_a_step"] * (attrib["steps"] + 1 + ("profile" in c))
                 for c in cells.values())
@@ -2537,6 +2713,18 @@ def main() -> int:
                                 "parallel_bigscene": par["bigscene"]["checked_calls"]})
     kernels += split_entries(sp, src)
     kernels += gather_entries(gp, src)
+    # the sample chain (phase 4): the main path's PT step, launches a step
+    for name, e in pt["chain"]["kernels"].items():
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "pt_chain.cu",
+            replaces=f"massivevoxelraytracing_tpu/{CHAIN_REPLACES[name]} (XLA-fused, "
+                     f"no pallas_call)",
+            launches=e["launches"], launches_by_path={"pt_step": e["launches"]},
+            max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
+            share=e["share"], lanes=e["lanes"], ms_a_step=e["ms_a_step"],
+            calls_checked=e["calls_checked"],
+            **{k: e[k] for k in ("sats_ms", "sats_plain_ms") if k in e}))
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],
@@ -2557,7 +2745,8 @@ def main() -> int:
         "rounds_frame_ms": rframe["frame_ms"],
         "rounds_frame_unfused_ms": rframe["unfused_frame_ms"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
-        "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"]},
+        "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"],
+        "chain_routes": pt["chain"]["routes"]},
         "apps": apps, "parallel": par,
         "accel": structures, "shell": shell, "scale": scale}))
     print(smi)

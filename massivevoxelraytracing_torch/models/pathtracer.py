@@ -16,29 +16,27 @@ Light transport per sample, as in the reference:
 
 Every traversal goes through models/accel.py, so a step runs through the
 megakernel or through the round driver (`traversal`); both routes give
-identical bits. The sample runs eagerly on the tree's device with
-per-lane state in [R] / [R, 3] tensors. Every float expression keeps the
-reference's operation order and every divisor is a device tensor; lanes
-are independent, so the inter-bounce compaction and the lane layouts are
-pure permutations and change no bit of the result.
+identical bits. Between the traversals the per-lane sample chain runs in
+the stages of ops/pt_chain.py (lane setup, primary shade, bounce sample,
+bounce shade, compaction gather) on per-lane state in [R] / [R, 3]
+tensors: one CUDA kernel a stage on the card, their plain versions on the
+CPU (or with chain="plain"), equal bit for bit. Every float expression
+keeps the reference's operation order; lanes are independent, so the
+inter-bounce compaction and the lane layouts are pure permutations and
+change no bit of the result.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
 from ..ops import camera as camera_ops
 from ..ops import hdri as hdri_ops
-from ..ops import rng as rng_ops
+from ..ops import pt_chain
 from ..ops import sampling
-from ..ops.bits import MASK32, uniformf
-from ..ops.hashing import hash_combine
-from ..ops.traverse import hit_normal
-from ..ops.voxelize import rgb8_to_f32
 from . import accel as accel_lib
 
 MAX_BOUNCES = 8
@@ -54,11 +52,6 @@ def _ckpt_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """The reference's take(mode="clip"): indices clamp into range."""
-    return table[torch.clamp(idx.to(I64), 0, table.shape[0] - 1)]
-
-
 def pt_sample(meta, root_entry, lower, upper, color_table, emission_table,
               pmj_table, env: hdri_ops.HDRI, cam_o, cam_right, cam_up,
               cam_front, tan_half_fovy, lens_r, focus, pix_start: int,
@@ -67,7 +60,8 @@ def pt_sample(meta, root_entry, lower, upper, color_table, emission_table,
               accel_kind: str, stack_depth: int, has_emission: bool,
               hdri_enabled: bool, extra_implicit: bool,
               max_bounces: int = MAX_BOUNCES, use_pmj: bool = True,
-              use_compact: bool = True, spp_major: bool = False):
+              use_compact: bool = True, spp_major: bool = False,
+              chain: str | None = None):
     """Path-traced samples for (pixel, spp) lanes generated on the device
     from two scalars (pix_start, spp_base). Default layout: lane r =
     s * pix_packet + p covers pixel pix_start + p at sample spp_base + s;
@@ -75,118 +69,52 @@ def pt_sample(meta, root_entry, lower, upper, color_table, emission_table,
     a packet-linear position to the pixel index (PathTracer._pixel_perm);
     entries past the frame render harmlessly and are dropped by the
     caller. cam_* / tan_half_fovy / lens_r / focus / inv_w / inv_h /
-    aspect / emission_scale: f32 tensors on the tree's device. Returns
-    f32 [R, 3] with R = pix_packet * n_spp."""
+    aspect / emission_scale: f32 tensors on the tree's device. The sample
+    chain runs in ops/pt_chain's stages: their kernels on the card, their
+    plain versions on the CPU or with chain="plain". Returns f32 [R, 3]
+    with R = pix_packet * n_spp."""
+    S = pt_chain.stages(chain)
     dev = cam_o.device
     R = pix_packet * n_spp
-    lane = torch.arange(R, dtype=I64, device=dev)
-    if spp_major:
-        pix_off, spp_off = lane // n_spp, lane % n_spp
-    else:
-        pix_off, spp_off = lane % pix_packet, lane // pix_packet
-    pix_idx = (pix_start + pix_off) & MASK32
-    if pix_perm is not None:
-        pix_idx = _take(pix_perm, pix_idx)
-    px = pix_idx % width
-    py = pix_idx // width  # rows past the frame render harmlessly
-    stream = hash_combine(0, pix_idx)
-    spp = (spp_base + spp_off) & MASK32
-    pi = torch.tensor(math.pi, dtype=F32, device=dev)
-
-    dim_counter = [0]
-    if use_pmj:
-        def s2d():
-            d = dim_counter[0]
-            dim_counter[0] += 1
-            return sampling.pmj_sample2d(pmj_table, spp, d, stream)
-    else:
-        # a per-(pixel, spp) PCG32 stream
-        pcg_state = [rng_ops.pcg32_init(hash_combine(stream, spp), stream)]
-
-        def s2d():
-            state, inc = pcg_state[0]
-            state, a = rng_ops.pcg32_next(state, inc)
-            state, b = rng_ops.pcg32_next(state, inc)
-            pcg_state[0] = (state, inc)
-            return uniformf(a), uniformf(b)
 
     def intersect(ro, rd, shadow):
         return accel_lib.intersect_with(
             accel_kind, stack_depth, meta, root_entry, lower, upper,
             ro.contiguous(), rd.contiguous(), shadow=shadow)
 
-    # --- thin-lens primary
-    cu0, cu1 = s2d()
-    lu0, lu1 = s2d()
-    xf = (px.to(F32) + cu0) * inv_w
-    yf = (py.to(F32) + cu1) * inv_h
-    fx = focus * (-tan_half_fovy + 2.0 * tan_half_fovy * xf) * aspect
-    fy = focus * (tan_half_fovy - 2.0 * tan_half_fovy * yf)
-    lx = -lens_r + 2.0 * lens_r * lu0
-    ly = -lens_r + 2.0 * lens_r * lu1
-    rd = ((fx - lx)[:, None] * cam_right + (fy - ly)[:, None] * cam_up
-          + focus * cam_front)
-    ro = cam_o + lx[:, None] * cam_right + ly[:, None] * cam_up
-
-    T = torch.ones((R, 3), dtype=F32, device=dev)
-    L = torch.zeros((R, 3), dtype=F32, device=dev)
-
+    # --- thin-lens primary (PMJ dims 0-1)
+    cam = (cam_o, cam_right, cam_up, cam_front, tan_half_fovy, lens_r, focus,
+           inv_w, inv_h, aspect)
+    stream, spp, pcg, ro, rd = S.lane_init(
+        pmj_table, pix_perm, cam, pix_start, spp_base, width=width,
+        pix_packet=pix_packet, n_spp=n_spp, spp_major=spp_major, use_pmj=use_pmj)
     t, nmaj, vidx = intersect(ro, rd, False)
-    miss = t >= 1e37
-
     # --- primary emissions
-    if hdri_enabled:
-        env_col = hdri_ops.sample_nearest(env, rd, primary=True)
-        L = torch.where(miss[:, None], env_col, L)
-    le = rgb8_to_f32(_take(emission_table, vidx))
-    L = torch.where(miss[:, None], L, le)  # Le raw, unscaled on primary hit
+    T, L, miss = S.primary_shade(env, emission_table, rd, t, vidx, hdri=hdri_enabled)
 
     n_extra = 1 if (extra_implicit and has_emission) else 0
-    inv_extra = torch.tensor(float(1 + n_extra), dtype=F32, device=dev)
 
     # inter-bounce compaction: from bounce 1 on, one stable sort puts dead
     # lanes last and groups live lanes by direction octant, then by hit
     # voxel rank (monotone in Morton order); every per-lane quantity rides
     # the permutation and one inverse at the end restores lane order
     compact = use_compact and use_pmj and R >= COMPACT_MIN_LANES
-    orig = torch.arange(R, dtype=I64, device=dev)
-
+    orig = torch.arange(R, dtype=I64, device=dev) if compact else None
+    dim = 2
+    key = None
     for depth in range(max_bounces):
-        alive = ~miss
-        if compact and depth >= 1:
-            octant = ((rd[:, 0] < 0).to(I64) + 2 * (rd[:, 1] < 0).to(I64)
-                      + 4 * (rd[:, 2] < 0).to(I64))
-            key = torch.where(alive, octant, 8)
-            key = (key << 32) | (vidx.to(I64) & MASK32)
+        if key is not None:
             perm = torch.sort(key, stable=True).indices
-            vidx, stream, spp, orig, nmaj, t = (
-                x[perm] for x in (vidx, stream, spp, orig, nmaj, t))
-            ro, rd, T, L = (x[perm] for x in (ro, rd, T, L))
-            miss = t >= 1e37
-            alive = ~miss
-        refl = rgb8_to_f32(_take(color_table, vidx))
-        hit_n = hit_normal(nmaj, rd)
-        # dead lanes park far outside the root box: their NEE / implicit /
-        # BSDF traversals all retire at once
-        hit_p = torch.where(
-            alive[:, None],
-            ro + rd * torch.where(miss, 0.0, t)[:, None], 1e9)
-
-        # the bounce's sample dims, in the reference's fixed order
-        dir_s = emissive = pdf = None
-        if hdri_enabled:
-            u01 = s2d()
-            u23 = s2d()
-            dir_s, emissive, pdf = hdri_ops.importance_sample(
-                env, hit_n, u01[0], u01[1], u23[0], u23[1], axis_aligned=True)
-        dir_e = None
-        if n_extra and depth == 0:
-            eu = s2d()
-            dir_e = sampling.sample_lambertian(eu[0], eu[1], hit_n)
-        bu = s2d()
-        dir_b = sampling.sample_lambertian(bu[0], bu[1], hit_n)
-        ro = torch.where(alive[:, None], hit_p, 1e9)
-        rd = torch.where(alive[:, None], dir_b, rd)
+            (vidx, stream, spp, orig, nmaj, t, ro, rd, T, L,
+             miss) = S.compact_gather(perm, vidx, stream, spp, orig, nmaj, t,
+                                      ro, rd, T, L)
+        extra = bool(n_extra) and depth == 0
+        (refl, hit_n, hit_p, rd, dir_e, dir_s, emissive, pdf,
+         pcg) = S.bounce_sample(env, color_table, pmj_table, vidx, nmaj, ro, rd,
+                                t, miss, stream, spp, pcg, dim=dim,
+                                hdri=hdri_enabled, extra=extra)
+        dim += 2 * hdri_enabled + extra + 1
+        ro = hit_p
 
         # the depth-0 implicit ray and the BSDF ray: one closest-hit batch
         if dir_e is not None:
@@ -194,39 +122,17 @@ def pt_sample(meta, root_entry, lower, upper, color_table, emission_table,
                 torch.cat([hit_p, ro]), torch.cat([dir_e, rd]), False)
         else:
             t_all, nm_all, vi_all = intersect(ro, rd, False)
-        k = 0
-        if dir_s is not None:
-            # NEE to the environment, any-hit
-            t_s, _, _ = intersect(hit_p, dir_s, True)
-            vis = alive & (t_s >= 1e37)
-            cosw = torch.clamp(hit_n[:, 0] * dir_s[:, 0]
-                               + hit_n[:, 1] * dir_s[:, 1]
-                               + hit_n[:, 2] * dir_s[:, 2], min=0.0)
-            contrib = T * (refl / pi) * (cosw / pdf)[:, None] * emissive
-            L = torch.where(vis[:, None], L + contrib, L)
-
-        T = torch.where(alive[:, None], T * refl, T)
-
-        if dir_e is not None:
-            # one extra implicit emission ray
-            t_e, v_e = t_all[:R], vi_all[:R]
-            k = 1
-            le_e = rgb8_to_f32(_take(emission_table, v_e)) * emission_scale
-            pick = alive & (t_e < 1e37)
-            L = torch.where(pick[:, None], L + T * le_e / inv_extra, L)
-
-        # BSDF ray; only alive lanes advance their hit state
-        t = t_all[k * R:]
-        nmaj_n = nm_all[k * R:]
-        vidx_n = vi_all[k * R:]
-        new_hit = alive & (t < 1e37)
-        le_b = rgb8_to_f32(_take(emission_table, vidx_n)) * emission_scale
-        w_depth0 = 1.0 / float(1 + n_extra) if depth == 0 else 1.0
-        L = torch.where(new_hit[:, None], L + T * le_b * w_depth0, L)
-
-        nmaj = torch.where(new_hit, nmaj_n, nmaj)
-        vidx = torch.where(new_hit, vidx_n, vidx)
-        miss = ~new_hit  # dead lanes stay dead
+        # NEE to the environment, any-hit
+        t_s = intersect(hit_p, dir_s, True)[0] if dir_s is not None else None
+        k = R if dir_e is not None else 0
+        (T, L, t, nmaj, vidx, miss, key) = S.bounce_shade(
+            emission_table, emission_scale, T, L, refl, hit_n, dir_s, emissive,
+            pdf, miss, nmaj, vidx, rd, t_s,
+            t_all[:R] if dir_e is not None else None,
+            vi_all[:R] if dir_e is not None else None,
+            t_all[k:], nm_all[k:], vi_all[k:], inv_extra=float(1 + n_extra),
+            w_depth0=1.0 / float(1 + n_extra) if depth == 0 else 1.0,
+            key=compact and depth + 1 < max_bounces)
 
     if compact and max_bounces >= 2:
         out = torch.empty_like(L)
@@ -333,8 +239,10 @@ class PathTracer:
         self._perm_cache = (key,) + out
         return out
 
-    def step(self, cam: camera_ops.Camera, n_spp: int | None = None):
-        """One progressive step: +n_spp samples per pixel."""
+    def step(self, cam: camera_ops.Camera, n_spp: int | None = None, *,
+             chain: str | None = None):
+        """One progressive step: +n_spp samples per pixel. chain="plain"
+        runs the sample chain's plain stages on the card too (pt_sample)."""
         if n_spp is None:
             n_spp = self.n_batch_spp
         if self.tree is None or self.pmj_table is None:
@@ -383,7 +291,7 @@ class PathTracer:
                 extra_implicit=True, max_bounces=self.max_bounces,
                 use_pmj=self.use_pmj,
                 use_compact=True if self.compact is None else bool(self.compact),
-                spp_major=self.spp_major,
+                spp_major=self.spp_major, chain=chain,
             )
             parts.append(_spp_sum(li, n_spp, pix_packet, self.spp_major))
         radiance = torch.cat(parts)

@@ -12,7 +12,7 @@ u32 prefix values are held in int64 tensors; their differences are taken
 in int64 and masked to 32 bits, which equals the reference's wrapping u32
 arithmetic. Every divisor is a tensor on the operands' device (on CUDA,
 torch turns a division by a python scalar into a reciprocal multiply).
-Transcendentals go through float64 (sampling._f64).
+Transcendentals and square roots go through float64 (sampling._f64).
 """
 
 from __future__ import annotations
@@ -198,28 +198,39 @@ def get_spherical(n: torch.Tensor):
     phi = _f64(lambda a: torch.atan2(a[0], a[1]),
                torch.stack([n2, n0])) + pi
     theta = _f64(lambda a: torch.atan2(a[0], a[1]),
-                 torch.stack([torch.sqrt(n0 * n0 + n2 * n2), n1]))
+                 torch.stack([_f64(torch.sqrt, n0 * n0 + n2 * n2), n1]))
     return phi / _c(2.0 * math.pi, n), theta / pi
+
+
+def nearest_texel(env: HDRI, direction: torch.Tensor, primary: bool):
+    """(y, x): the texel of the primary or the sampling image nearest to
+    each direction."""
+    w = env.width_primary if primary else env.width
+    h = env.height_primary if primary else env.height
+    u, v = get_spherical(direction)
+    x = torch.clamp(u * w, 0.0, w - 1.0).to(I64)
+    y = torch.clamp(v * h, 0.0, h - 1.0).to(I64)
+    return y, x
 
 
 def sample_nearest(env: HDRI, direction: torch.Tensor, primary: bool):
     """Nearest-texel radiance lookup (HDRI::sampleNearest)."""
-    w = env.width_primary if primary else env.width
-    h = env.height_primary if primary else env.height
     img = env.pixels_primary if primary else env.pixels
-    u, v = get_spherical(direction)
-    x = torch.clamp(u * w, 0.0, w - 1.0).to(I64)
-    y = torch.clamp(v * h, 0.0, h - 1.0).to(I64)
+    y, x = nearest_texel(env, direction, primary)
     return img[y, x] * _c(env.scale, direction)
+
+
+def search_steps(n: int) -> int:
+    """The bisection steps of _upper_bound over n entries."""
+    return max(int(np.ceil(np.log2(max(n, 2)))) + 1, 1)
 
 
 def _upper_bound(f, n: int, b: torch.Tensor) -> torch.Tensor:
     """Vectorized upper_bound_f: smallest i with f(i) > b, in a fixed
     number of bisection steps."""
-    steps = max(int(np.ceil(np.log2(max(n, 2)))) + 1, 1)
     i = torch.zeros_like(b, dtype=I64)
     j = torch.full_like(i, n)
-    for _ in range(steps):
+    for _ in range(search_steps(n)):
         cont = i < j
         m = (i + j) // 2
         le = f(m) <= b
@@ -249,6 +260,18 @@ def _take(flat: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     return flat[torch.clamp(lin, 0, flat.shape[0] - 1)]
 
 
+def alias_texel(env: HDRI, table, u0, u1):
+    """The alias tables' pick: (lin, texel), the entry of the alias arrays
+    read (table, then u0's texel) and the texel chosen (it, or its alias
+    by u1)."""
+    nt = env.width * env.height
+    j = torch.clamp((u0 * nt).to(I64), 0, nt - 1)
+    lin = table * nt + j
+    pa = _take(env.alias_prob.reshape(-1), lin)
+    ja = _take(env.alias_idx.reshape(-1), lin)
+    return lin, torch.where(u1 < pa, j, ja)
+
+
 def importance_sample(env: HDRI, n, u0, u1, u2, u3, axis_aligned: bool = True):
     """Returns (direction f32[R, 3], L f32[R, 3], sr_pdf f32[R])
     (HDRI::importanceSample): pick a texel, then jitter inside it."""
@@ -256,13 +279,8 @@ def importance_sample(env: HDRI, n, u0, u1, u2, u3, axis_aligned: bool = True):
     table = select_table(env, n, axis_aligned)
 
     if env.use_alias:
-        nt = w * h
-        j = torch.clamp((u0 * nt).to(I64), 0, nt - 1)
-        lin = table * nt + j
-        pa = _take(env.alias_prob.reshape(-1), lin)
-        ja = _take(env.alias_idx.reshape(-1), lin)
-        texel = torch.where(u1 < pa, j, ja)
-        p_sel = _take(env.alias_pdf.reshape(-1), table * nt + texel)
+        lin, texel = alias_texel(env, table, u0, u1)
+        p_sel = _take(env.alias_pdf.reshape(-1), table * (w * h) + texel)
         return _finish_sample(env, texel % w, texel // w, p_sel, u2, u3)
 
     sats = env.sats.reshape(-1)
@@ -316,7 +334,7 @@ def _finish_sample(env: HDRI, X, Y, p_sel, u2, u3):
     phi = d_phi * (X.to(F32) + u3) + pi
     s_x = _f64(torch.cos, phi)
     s_z = _f64(torch.sin, phi)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - s_y * s_y, min=0.0))
+    sin_theta = _f64(torch.sqrt, torch.clamp(1.0 - s_y * s_y, min=0.0))
     direction = torch.stack([s_x * sin_theta, s_y, s_z * sin_theta], dim=-1)
     sr_pdf = torch.clamp(p_sel, min=1e-20) / sr
 

@@ -5,11 +5,14 @@ The table (128 sequences x 4096 2-D points) is generated on the host by
 the port's C++ (csrc/host_pmj.cpp, utils/host_build.py); `np_pmj02_samples`
 is its plain version. `pmj_sample2d` and the samplers run on the device.
 
-Transcendentals (sqrt aside) are evaluated in float64 and rounded to
-float32 (`_f64`): torch's float32 kernels on the CPU round some of them
-differently in their vector body and their scalar tail, so a lane's value
+Transcendentals and square roots are evaluated in float64 and rounded
+to float32 (`_f64`): torch's float32 kernels on the CPU round some of them
+differently in their vector body and their scalar tail (its AVX-512
+float32 sqrt is off by an ulp on ~0.6% of inputs), so a lane's value
 would depend on where the lane sits in the tensor. Rounded from float64,
-a lane's value is a function of its inputs alone, on every device.
+a lane's value is a function of its inputs alone, on every device; a
+square root rounded so is the correctly rounded float32 one, which the
+card's float32 sqrt, XLA's and the CUDA kernels' sqrtf give.
 """
 
 from __future__ import annotations
@@ -90,20 +93,27 @@ def make_pmj_table(n_sequence: int = N_SEQUENCE, length: int = LENGTH,
     return out
 
 
-def pmj_sample2d(table, sample_idx, dimension, stream):
-    """Owen-shuffled, Owen-scrambled 2-D sample (PMJSampler::sample2d).
-    sample_idx / stream: u32 int64 tensors; dimension: u32 int or tensor;
-    table: f32 [n_sequence, length, 2] (indices past a smaller table clamp
-    to its last point, as the reference's take(mode="clip") does)."""
+def pmj_index(table, sample_idx, dimension, stream):
+    """(lin, dim): the point of the table's [n, 2] rows that
+    pmj_sample2d reads (the Owen-shuffled sample index in the scrambled
+    sequence, clamped into the table) and that sequence."""
     dimension = torch.as_tensor(dimension, dtype=torch.int64,
                                 device=stream.device)
     sample_idx = nested_uniform_scramble(
         sample_idx, hash_combine(stream, dimension, 31082745)) & (LENGTH - 1)
     dim = nested_uniform_scramble(
         dimension, hash_combine(stream, 54761983)) & (N_SEQUENCE - 1)
-    flat = table.reshape(-1, 2)
-    lin = torch.clamp(dim * LENGTH + sample_idx, 0, flat.shape[0] - 1)
-    pt = flat[lin]
+    n_points = table.numel() // 2
+    return torch.clamp(dim * LENGTH + sample_idx, 0, n_points - 1), dim
+
+
+def pmj_sample2d(table, sample_idx, dimension, stream):
+    """Owen-shuffled, Owen-scrambled 2-D sample (PMJSampler::sample2d).
+    sample_idx / stream: u32 int64 tensors; dimension: u32 int or tensor;
+    table: f32 [n_sequence, length, 2] (indices past a smaller table clamp
+    to its last point, as the reference's take(mode="clip") does)."""
+    lin, dim = pmj_index(table, sample_idx, dimension, stream)
+    pt = table.reshape(-1, 2)[lin]
     x = scramble_f32(pt[..., 0], hash_combine(stream, dim, 83927105))
     y = scramble_f32(pt[..., 1], hash_combine(stream, dim, 12654890))
     return x, y
@@ -123,11 +133,11 @@ def orthonormal_basis(z: torch.Tensor):
 def sample_lambertian(a, b, ng):
     """Cosine-hemisphere direction around ng (sampleLambertian). a/b
     uniform [0, 1), ng f32[..., 3]."""
-    r = torch.sqrt(a)
+    r = _f64(torch.sqrt, a)
     theta = b * (2.0 * math.pi)
     x = r * _f64(torch.cos, theta)
     y = r * _f64(torch.sin, theta)
-    z = torch.sqrt(torch.clamp(1.0 - a, min=0.0))
+    z = _f64(torch.sqrt, torch.clamp(1.0 - a, min=0.0))
     xa, ya = orthonormal_basis(ng)
     return xa * x[..., None] + ya * y[..., None] + ng * z[..., None]
 

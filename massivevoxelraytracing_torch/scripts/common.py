@@ -2,10 +2,12 @@
 the card's name, its launch shapes, CUDA-event timing, one probe case
 measured against its plain version with its instruction counts and floors,
 and for the scene scripts the reference scripts' camera and sky, a frame's
-rays, hako_mega's bound on them and a profiled call's device time."""
+rays, hako_mega's bound on them, the sample chain's bounds and a profiled
+call's device time."""
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import math
 import subprocess
@@ -14,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import probes
+from ..ops import probes, pt_chain
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -555,10 +557,11 @@ def frame_bound(tree, ro, rd) -> dict:
 def profile_call(fn) -> dict:
     """fn() under torch.profiler on the card: wall ms (host clock, synced),
     device busy ms (the sum of the device events), its idle share, the
-    hako_mega kernels' ms, the device kernels launched, and the top 8 by
-    time as (name, ms, calls). Reads the profiler's raw trace events:
-    prof.events() would first build the host ops' call tree, about a
-    minute of host time for a PT step's ~10^6 ops."""
+    hako_mega kernels' ms, the device kernels launched, the top 8 by time
+    as (name, ms, calls), and each sample-chain kernel's (ms, calls).
+    Reads the profiler's raw trace events: prof.events() would first build
+    the host ops' call tree, about a minute of host time for a PT step's
+    ~10^6 ops."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -577,7 +580,152 @@ def profile_call(fn) -> dict:
             kernels[e.name()] = (ms + us / 1e3, calls + 1)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     busy_ms = busy_us / 1e3
+    chain = {}  # the sample chain's kernels: (ms, calls) each, over its templates
+    for k in pt_chain.KERNELS:
+        hits = [v for name, v in kernels.items() if f"{k}_kernel" in name]
+        chain[k] = (sum(ms for ms, _ in hits), sum(calls for _, calls in hits))
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
                 mega_ms=sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name),
                 kernels=sum(calls for _ms, calls in kernels.values()),
-                top=[(name[:70], ms, calls) for name, (ms, calls) in top])
+                top=[(name[:70], ms, calls) for name, (ms, calls) in top], chain=chain)
+
+
+# The sample chain's stages (ops/pt_chain.py): float32-equivalent operations
+# a lane, counted from the plain stages' code as a lower-bound yardstick
+# (integer hashing priced at the float32 rate, a float64 sin / cos / atan2
+# as 20): lane setup ~2 PMJ draws (~110 integer ops each) and the thin
+# lens; the primary shade an atan2 pair on a miss; the bounce sample 4
+# draws, 8 trig calls and two cosine frames; the shade and the gather a
+# few dozen.
+CHAIN_OPS = {"pt_lane_init": 300, "pt_primary_shade": 80, "pt_bounce_sample": 800,
+             "pt_bounce_shade": 60, "pt_compact_gather": 0}
+
+
+def _rows(x, lanes=None) -> int:
+    """Bytes of x's per-lane rows ([R] or [R, k]) on the lanes of the bool
+    mask `lanes` (all when None); 0 for None."""
+    if x is None:
+        return 0
+    row = x.element_size() * (x.numel() // max(x.shape[0], 1))
+    return row * (x.shape[0] if lanes is None else int(lanes.sum()))
+
+
+def _touched(table, idx, row_bytes: int | None = None) -> int:
+    """Bytes of the distinct rows of `table` that the indices read,
+    clamped into it as the stages' clip takes do."""
+    n = table.shape[0]
+    row = row_bytes if row_bytes is not None else table.element_size() * (table.numel() // n)
+    return int(torch.unique(torch.clamp(idx.long(), 0, n - 1)).numel()) * row
+
+
+def _pmj_touched(pmj_table, stream, spp, dims) -> int:
+    """Bytes of the distinct PMJ points (8 bytes each) that the draws of
+    dimensions `dims` read."""
+    from ..ops import sampling
+
+    lin = torch.cat([sampling.pmj_index(pmj_table, spp, d, stream)[0] for d in dims])
+    return int(torch.unique(lin).numel()) * 8
+
+
+def chain_bytes(name: str, args: tuple, kwargs: dict, out) -> int:
+    """The bytes one call of a sample-chain stage's kernel must move on its
+    inputs (`args` / `kwargs`, bound to the plain stage's parameter names)
+    and outputs: each per-lane value on the lanes that need it, as the
+    kernel reads it (what a lane's outcome does not use is not read), each
+    table entry the lanes touch once, each output written once, a tensor
+    passed through (bounce_shade's t, a PCG32 increment) not at all. The
+    HDRI counts the alias tables' backend only (the main path's)."""
+    from ..ops import hdri as hdri_ops
+
+    a = inspect.signature(getattr(pt_chain, name + "_plain")).bind(*args, **kwargs).arguments
+    if name == "lane_init":
+        stream, spp, pcg, ro, rd = out
+        pix = (a["pix_start"] + torch.arange(a["pix_packet"], device=ro.device)) & 0xFFFFFFFF
+        b = sum(nbytes(x) for x in a["cam"]) + _rows(stream) + _rows(spp) + _rows(ro) + _rows(rd)
+        if a["pix_perm"] is not None:
+            b += _touched(a["pix_perm"], pix)
+        if pcg is None:
+            b += _pmj_touched(a["pmj_table"], stream, spp, (0, 1))
+        else:
+            b += _rows(pcg[0]) + _rows(pcg[1])
+        return b
+    if name == "primary_shade":
+        T, L, miss = out
+        hit = ~miss
+        b = _rows(a["t"]) + _rows(a["vidx"], hit) + _touched(a["emission_table"], a["vidx"][hit], 4)
+        if a["hdri"]:
+            y, x = hdri_ops.nearest_texel(a["env"], a["rd"][miss], primary=True)
+            b += _rows(a["rd"], miss) + _touched(a["env"].pixels_primary.reshape(-1, 3),
+                                                 y * a["env"].width_primary + x)
+        return b + _rows(T) + _rows(L) + _rows(miss)
+    if name == "bounce_sample":
+        refl, hit_n, hit_p, rd_out, dir_e, dir_s, emissive, pdf, pcg_out = out
+        alive, pcg, env = ~a["miss"], a["pcg"], a["env"]
+        b = (_rows(a["miss"]) + _rows(a["vidx"]) + _touched(a["color_table"], a["vidx"], 4)
+             + _rows(a["nmaj"]) + _rows(a["rd"]) + _rows(a["ro"], alive) + _rows(a["t"], alive))
+        dims = list(range(a["dim"], a["dim"] + 2 * a["hdri"] + a["extra"] + 1))
+        if pcg is None:
+            b += _rows(a["stream"]) + _rows(a["spp"])
+            b += _pmj_touched(a["pmj_table"], a["stream"], a["spp"], dims)
+        else:
+            b += _rows(pcg[0]) + _rows(pcg[1]) + _rows(pcg_out[0])
+        if a["hdri"]:
+            if not env.use_alias:
+                raise ValueError("chain_bytes counts the alias tables' backend only")
+            (u0, u1), _ = pt_chain.sample2d(a["pmj_table"], a["stream"], a["spp"], pcg,
+                                            a["dim"])
+            table = hdri_ops.select_table(env, hit_n, True)
+            lin, texel = hdri_ops.alias_texel(env, table, u0, u1)
+            nt = env.width * env.height
+            b += (_touched(env.alias_prob.reshape(-1), lin)
+                  + _touched(env.alias_idx.reshape(-1), lin)
+                  + _touched(env.alias_pdf.reshape(-1), table * nt + texel)
+                  + _touched(env.pixels.reshape(-1, 3), texel))
+        return b + sum(_rows(x) for x in (refl, hit_n, hit_p, rd_out, dir_e, dir_s,
+                                          emissive, pdf))
+    if name == "bounce_shade":
+        T, L, _t, nmaj, vidx, miss_o, key = out
+        alive = ~a["miss"]
+        new_hit = ~miss_o
+        b = (_rows(a["miss"]) + _rows(a["T"]) + _rows(a["L"]) + _rows(a["refl"], alive)
+             + _rows(a["t_b"], alive) + _rows(a["nm_b"], new_hit) + _rows(a["vi_b"], new_hit)
+             + _rows(a["nmaj"], miss_o) + _rows(a["vidx"], miss_o)
+             + nbytes(a["emission_scale"]))
+        picked = [a["vi_b"][new_hit]]
+        if a["dir_s"] is not None:
+            vis = alive & (a["t_s"] >= 1e37)
+            b += _rows(a["t_s"], alive) + sum(_rows(a[k], vis) for k in (
+                "hit_n", "dir_s", "emissive", "pdf"))
+        if a["t_e"] is not None:
+            pick = alive & (a["t_e"] < 1e37)
+            b += _rows(a["t_e"], alive) + _rows(a["v_e"], pick)
+            picked.append(a["v_e"][pick])
+        b += _touched(a["emission_table"], torch.cat(picked), 4)
+        if key is not None:
+            b += _rows(a["rd"], new_hit) + _rows(key)
+        return b + _rows(T) + _rows(L) + _rows(nmaj) + _rows(vidx) + _rows(miss_o)
+    if name == "compact_gather":
+        return sum(_rows(x) for x in (*a.values(), *out))
+    raise ValueError(f"no stage {name!r}")
+
+
+def nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def chain_bound(name: str, args: tuple, kwargs: dict, out) -> tuple:
+    """(bound_ms, bound_by) of one call of a sample-chain stage's kernel:
+    chain_bytes over the memory rate against CHAIN_OPS a lane."""
+    n = flat_tensors(out)[0].shape[0]
+    return bound(chain_bytes(name, args, kwargs, out), CHAIN_OPS["pt_" + name] * n)
+
+
+def flat_tensors(xs) -> list:
+    """The tensors of a nested tuple / list, in order (None skipped)."""
+    out = []
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            out += flat_tensors(x)
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out

@@ -16,11 +16,12 @@ PathTracer(max_bounces=...) with its compaction set, on one PMJ table
 built once on the host (its cost printed): one warm step, then --steps
 timed steps on the host clock, synced (pt_step_timing.measure): s/step,
 the accumulator's mean and hako_mega's launches a step. On the card one
-more step of the profiled cells (b0 and b8) runs under torch.profiler for
-the device's busy and idle share (scripts/common.profile_call). Then the differences: primary
-(b0), each added bounce (b1 - b0, b2 - b1, (b4 - b2) / 2, (b8 - b4) / 4),
-NEE (b8 - b8_nosky) and compaction (b8_nocompact - b8), for the cells
-run.
+more step of the profiled cells (b0, b8, b8_nocompact) runs under torch.profiler for
+the device's busy and idle share, its device kernels and the time in
+hako_mega and in the sample chain's kernels (scripts/common.profile_call).
+Then the differences: primary (b0), each added bounce (b1 - b0, b2 -
+b1, (b4 - b2) / 2, (b8 - b4) / 4), NEE (b8 - b8_nosky) and compaction
+(b8_nocompact - b8), for the cells run.
 
 Two results hold by design and are checked: compaction is a stable
 permutation of the lanes, so a _nocompact cell's accumulator equals its
@@ -46,7 +47,7 @@ from ..utils import treecache
 from . import common, pt_step_timing
 
 CELLS = ("b0", "b1", "b2", "b4", "b8", "b8_nosky", "b8_nocompact")
-PROFILED = ("b0", "b8")
+PROFILED = ("b0", "b8", "b8_nocompact")  # b8_nocompact: the compaction on the device
 
 
 def parse_cell(name: str) -> tuple:
@@ -109,7 +110,10 @@ def run(res: int = 1024, width: int = 960, height: int = 540, steps: int = 2,
                 else "plain versions")
         prof = (f", profiled step: busy {rec['profile']['busy_ms']:.1f} of "
                 f"{rec['profile']['wall_ms']:.1f} ms, idle share "
-                f"{rec['profile']['idle_share']:.3f}" if "profile" in rec else "")
+                f"{rec['profile']['idle_share']:.3f}, {rec['profile']['kernels']} device "
+                f"kernels, hako_mega {rec['profile']['mega_ms']:.1f} ms, the sample "
+                f"chain's kernels {sum(v[0] for v in rec['profile']['chain'].values()):.1f} ms"
+                if "profile" in rec else "")
         print(f"[pt-attrib res={res} {width}x{height}] {name}: {what} "
               f"mean={rec['mean']:.6f}, {rec['launches_a_step']:g} hako_mega launches "
               f"a step{prof} [{card}]", flush=True)

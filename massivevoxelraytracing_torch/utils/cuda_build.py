@@ -177,6 +177,31 @@ def _bind(lib):
     ]
     lib.smem_alloc_probe_launch.argtypes = [p, p, i, p]  # x, out, rows, stream
     lib.ohg_probe_launch.argtypes = [i, p, i, p, i, i, p, i, p]  # mode, table, rows, idx0, n, k, out
+    q = ctypes.c_longlong
+    lib.pt_lane_init_launch.argtypes = [
+        i, p, q, p, q,                                 # pmj, table, points, perm, n_perm
+        u, u, q, q, q, i,                              # pix_start, spp_base, width, packet, spp, major
+        p, q, p, p, p, p, p, p, p,                     # cam[10], n, stream, spp, pcg x2, ro, rd, stream
+    ]
+    lib.pt_primary_shade_launch.argtypes = [
+        i, p, p, p, p, q,                              # hdri, t, vidx, rd, emission, n
+        p, i, i, f, q,                                 # img, w, h, scale, n
+        p, p, p, p,                                    # T, L, miss, stream
+    ]
+    lib.pt_bounce_sample_launch.argtypes = [
+        i, i, i, p, q, p, p, p, p, p, p,               # flags, color, n, vidx, nmaj, ro, rd, t, miss
+        p, p, p, p, p, q, u,                           # stream, spp, pcg x2, table, points, dim
+        p, p, p, p, p, i, i, i, i,                     # alias x3, sats, pixels, w, h, steps w / h
+        f, f, f, q,                                    # scale, dtheta, dphi, n
+        p, p, p, p, p, p, p, p, p, p,                  # 9 outputs, stream
+    ]
+    lib.pt_bounce_shade_launch.argtypes = [
+        i, i, p, q, p,                                 # hdri, extra, emission, n, escale
+        p, p, p, p, p, p, p,                           # T, L, refl, hit_n, dir_s, emissive, pdf
+        p, p, p, p, p, p, p, p, p, p,                  # miss, nmaj, vidx, rd, t_s, t_e, v_e, t_b, nm_b, vi_b
+        f, f, q, p, p, p, p, p, p, p,                  # inv_extra, w_depth0, n, 6 outputs, stream
+    ]
+    lib.pt_compact_gather_launch.argtypes = [p, q] + [p] * 22  # perm, n, 10 in, 11 out, stream
     lib.smem_optin_bytes.argtypes = [i]
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -190,7 +215,9 @@ def _bind(lib):
                lib.shell_copy_probe_launch, lib.preamble_probe_launch,
                lib.probe_stage_probe_launch, lib.take_along_probe_launch,
                lib.smem_alloc_probe_launch, lib.ohg_probe_launch,
-               lib.smem_optin_bytes):
+               lib.pt_lane_init_launch, lib.pt_primary_shade_launch,
+               lib.pt_bounce_sample_launch, lib.pt_bounce_shade_launch,
+               lib.pt_compact_gather_launch, lib.smem_optin_bytes):
         fn.restype = ctypes.c_int
     return lib
 

@@ -25,11 +25,21 @@ each mode at 32, 128 and 1024 rows); the multi-device layer with every mesh
 entry on the card (the sharded build at 2 and 8 shards == build_scene, the
 sharded frame == render_frame with one launch a band, the sharded PT step
 within rtol 2e-5 of pt_sample, bigscene's shards == the whole tree); the Morton codecs on the card
-against the host C++ codec and the thin lens's rays against the CPU's.
+against the host C++ codec and the thin lens's rays against the CPU's;
+the path tracer's sample chain (ops/pt_chain.py): each of its five
+kernels against its plain stage bit for bit on random lanes (every
+template case) and on the stage calls a PT step makes, a PT step through
+the kernels against the same step through the plain stages (2 and 8
+bounces, with and without emission and sky; PCG32), the sats HDRI
+backend's counted plain stage, a build failure that raises, and the nvcc
+command of pt_chain.cu.
 Imports nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+
+import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -968,3 +978,383 @@ def test_thin_lens_on_card_equals_cpu(cuda):
                                  *(u.to(cuda) for u in lens))
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# the path tracer's sample chain (ops/pt_chain.py, csrc/pt_chain.cu)
+# ---------------------------------------------------------------------------
+
+MAX_F32 = float(np.finfo(np.float32).max)
+CHAIN_STAGES = ("lane_init", "primary_shade", "bounce_sample", "bounce_shade",
+                "compact_gather")
+
+
+def chain_case(rng, R: int, n_vox: int = 300) -> dict:
+    """Random per-lane chain state as numpy arrays (shared with the CPU
+    tests): a quarter of the lanes missed (t = MAX_F32), voxel indices a
+    few past both ends of the tables (clip), u32 streams with 0 and
+    2^32 - 1 among them, full-range PCG32 states, axis-aligned hit normals
+    and unit NEE directions, tiny pdfs among the positive ones."""
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        v[: n // 16] = np.eye(3)[rng.integers(0, 3, n // 16)] * rng.choice([-1, 1], (n // 16, 1))
+        return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+    def tvals():
+        t = rng.uniform(0.0, 3.0, R).astype(np.float32)
+        t[rng.random(R) < 0.25] = MAX_F32
+        return t
+
+    def u32s():
+        v = rng.integers(0, 1 << 32, R, dtype=np.int64)
+        v[:2] = (0, (1 << 32) - 1)
+        return v
+
+    t = tvals()
+    miss = t >= np.float32(1e37)
+    nmaj = np.where(miss, -1, rng.integers(0, 3, R)).astype(np.int32)
+    hit_n = np.zeros((R, 3), np.float32)
+    axis = rng.integers(0, 3, R)
+    hit_n[np.arange(R), axis] = rng.choice([-1.0, 1.0], R)
+    hit_n[miss] = 0.0
+    return dict(
+        ro=rng.uniform(-1.0, 2.0, (R, 3)).astype(np.float32), rd=unit(R), t=t,
+        miss=miss, nmaj=nmaj,
+        vidx=rng.integers(-3, n_vox + 3, R).astype(np.int32),
+        stream=u32s(), spp=u32s(),
+        pcg_state=rng.integers(-(1 << 63), (1 << 63) - 1, R, dtype=np.int64),
+        pcg_inc=rng.integers(-(1 << 63), (1 << 63) - 1, R, dtype=np.int64) | 1,
+        color=rng.integers(-(1 << 31), (1 << 31) - 1, n_vox, dtype=np.int64).astype(np.int32),
+        emission=rng.integers(-(1 << 31), (1 << 31) - 1, n_vox,
+                              dtype=np.int64).astype(np.int32),
+        T=rng.uniform(0.0, 1.0, (R, 3)).astype(np.float32),
+        L=rng.uniform(0.0, 4.0, (R, 3)).astype(np.float32),
+        refl=rng.uniform(0.0, 1.0, (R, 3)).astype(np.float32), hit_n=hit_n,
+        dir_s=unit(R), emissive=rng.uniform(0.0, 8.0, (R, 3)).astype(np.float32),
+        pdf=np.where(rng.random(R) < 0.05, 1e-30,
+                     rng.uniform(1e-3, 4.0, R)).astype(np.float32),
+        t_s=tvals(), t_e=tvals(),
+        v_e=rng.integers(-3, n_vox + 3, R).astype(np.int32),
+        t_b=tvals(), nm_b=rng.integers(-1, 3, R).astype(np.int32),
+        vi_b=rng.integers(-3, n_vox + 3, R).astype(np.int32),
+        perm=rng.permutation(R).astype(np.int64), orig=rng.permutation(R).astype(np.int64),
+        pmj=rng.random((16, 512, 2), dtype=np.float32),
+    )
+
+
+def chain_cam(device):
+    """The thin-lens camera tensors of pt_sample (cam_o ... aspect)."""
+    cam = camera.Camera.look_at(eye=(0.9, 0.7, 2.1), target=(0.5, 0.45, 0.5),
+                                fovy_deg=40.0, lens_r=0.03, focus=1.7)
+    vecs = [torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for v in (cam.o, cam.right, cam.up, cam.front)]
+    return (*vecs, *(torch.tensor(np.float32(v), device=device) for v in (
+        cam.tan_half_fovy, cam.lens_r, cam.focus, 1.0 / 37, 1.0 / 23, 37 / 23)))
+
+
+def chain_env(device, use_alias=True):
+    from massivevoxelraytracing_torch.ops import hdri
+    from massivevoxelraytracing_torch.utils import hdr
+
+    return hdri.load(hdr.procedural_sky(32, 16), scale=1.0, use_alias=use_alias,
+                     device=device)
+
+
+def bits_equal(got, want, what: str) -> None:
+    """Nested outputs equal bit for bit (floats compared as their bits)."""
+    if want is None or got is None:
+        assert got is None and want is None, what
+        return
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            bits_equal(g, w, f"{what}[{i}]")
+        return
+    assert same_layout(got, want), what
+    if want.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), f"{what}: {int((got != want).sum())} values differ"
+
+
+def same_layout(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and a.device == b.device
+
+
+@pytest.mark.parametrize("pmj,spp_major,perm", [
+    (True, True, True), (True, False, True), (True, True, False), (False, True, True),
+    (False, False, False)])
+def test_lane_init_kernel_matches_plain(cuda, pmj, spp_major, perm):
+    """pt_lane_init_kernel == lane_init_plain bit for bit: both lane
+    layouts, pix_perm with padding sentinels past the frame (and clipped
+    positions), PMJ and PCG32, pix_start / spp_base wrapping past 2^32."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    c = chain_case(np.random.default_rng(30), 8)
+    pix_packet, n_spp, width = 1024, 4, 37
+    pix_perm = None
+    if perm:
+        p = np.random.default_rng(31).permutation(pix_packet - 64)
+        pix_perm = torch.as_tensor(np.concatenate([p, np.full(32, 5000)]),
+                                   dtype=torch.int64, device=cuda)  # shorter: clips
+    args = (torch.as_tensor(c["pmj"], device=cuda), pix_perm, chain_cam(cuda),
+            (1 << 32) - 700, (1 << 32) - 2)
+    kw = dict(width=width, pix_packet=pix_packet, n_spp=n_spp, spp_major=spp_major,
+              use_pmj=pmj)
+    pt_chain.reset_counters()
+    got = pt_chain.lane_init(*args, **kw)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_lane_init"] == 1
+    bits_equal(got, pt_chain.lane_init_plain(*args, **kw), "lane_init")
+
+
+def chain_tensors(c, device):
+    out = {}
+    for k, v in c.items():
+        out[k] = torch.as_tensor(v, device=device)
+    return out
+
+
+@pytest.mark.parametrize("hdri_on", [True, False])
+def test_primary_shade_kernel_matches_plain(cuda, hdri_on):
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    x = chain_tensors(chain_case(np.random.default_rng(32), 5000), cuda)
+    args = (chain_env(cuda), x["emission"], x["rd"], x["t"], x["vidx"])
+    pt_chain.reset_counters()
+    got = pt_chain.primary_shade(*args, hdri=hdri_on)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_primary_shade"] == 1
+    bits_equal(got, pt_chain.primary_shade_plain(*args, hdri=hdri_on), "primary_shade")
+
+
+@pytest.mark.parametrize("hdri_on,use_alias", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("extra", [True, False])
+@pytest.mark.parametrize("pmj", [True, False])
+def test_bounce_sample_kernel_matches_plain(cuda, hdri_on, use_alias, extra, pmj):
+    """Every (HDRI, EXTRA, PMJ) case of pt_bounce_sample_kernel, the HDRI
+    through the alias tables or the prefix tables (sats)."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    x = chain_tensors(chain_case(np.random.default_rng(33), 5000), cuda)
+    pcg = None if pmj else (x["pcg_state"], x["pcg_inc"])
+    args = (chain_env(cuda, use_alias), x["color"], x["pmj"], x["vidx"], x["nmaj"], x["ro"],
+            x["rd"], x["t"], x["miss"], x["stream"], x["spp"], pcg)
+    kw = dict(dim=5, hdri=hdri_on, extra=extra)
+    pt_chain.reset_counters()
+    got = pt_chain.bounce_sample(*args, **kw)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_bounce_sample"] == 1
+    bits_equal(got, pt_chain.bounce_sample_plain(*args, **kw), "bounce_sample")
+
+
+def edge_skies() -> dict:
+    """Skies whose prefix tables tie: black rows and columns, one lit
+    texel, all black, and a wide one with a steep distribution."""
+    rng = np.random.default_rng(38)
+    holes = rng.random((16, 32, 3)).astype(np.float32)
+    holes[3:6] = 0.0
+    holes[:, 7:11] = 0.0
+    one = np.zeros((16, 32, 3), np.float32)
+    one[9, 30] = 5.0
+    return {"holes": holes, "one_texel": one, "black": np.zeros((8, 8, 3), np.float32),
+            "wide": rng.random((5, 300, 3)).astype(np.float32) ** 8}
+
+
+@pytest.mark.parametrize("sky", ["holes", "one_texel", "black", "wide"])
+def test_bounce_sample_sats_kernel_matches_plain_on_edge_skies(cuda, sky):
+    """The sats backend's binary searches in the kernel == the plain
+    stage's where prefix values tie (texels of zero weight)."""
+    from massivevoxelraytracing_torch.ops import hdri, pt_chain
+
+    x = chain_tensors(chain_case(np.random.default_rng(34), 5000), cuda)
+    env = hdri.load(edge_skies()[sky], scale=1.0, use_alias=False, device=cuda)
+    args = (env, x["color"], x["pmj"], x["vidx"], x["nmaj"], x["ro"], x["rd"], x["t"],
+            x["miss"], x["stream"], x["spp"], None)
+    pt_chain.reset_counters()
+    got = pt_chain.bounce_sample(*args, dim=2, hdri=True, extra=False)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_bounce_sample"] == 1
+    bits_equal(got, pt_chain.bounce_sample_plain(*args, dim=2, hdri=True, extra=False),
+               f"sats bounce_sample, {sky} sky")
+
+
+@pytest.mark.parametrize("hdri_on", [True, False])
+@pytest.mark.parametrize("extra", [True, False])
+@pytest.mark.parametrize("key", [True, False])
+def test_bounce_shade_kernel_matches_plain(cuda, hdri_on, extra, key):
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    x = chain_tensors(chain_case(np.random.default_rng(35), 5000), cuda)
+    nee = (x["hit_n"], x["dir_s"], x["emissive"], x["pdf"]) if hdri_on else (None,) * 4
+    args = (x["emission"], torch.tensor(np.float32(7.5), device=cuda), x["T"], x["L"],
+            x["refl"], *nee, x["miss"], x["nmaj"], x["vidx"], x["rd"],
+            x["t_s"] if hdri_on else None, x["t_e"] if extra else None,
+            x["v_e"] if extra else None, x["t_b"], x["nm_b"], x["vi_b"])
+    kw = dict(inv_extra=2.0 if extra else 1.0, w_depth0=0.5 if extra else 1.0, key=key)
+    pt_chain.reset_counters()
+    got = pt_chain.bounce_shade(*args, **kw)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_bounce_shade"] == 1
+    bits_equal(got, pt_chain.bounce_shade_plain(*args, **kw), "bounce_shade")
+
+
+def test_compact_gather_kernel_matches_plain(cuda):
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    x = chain_tensors(chain_case(np.random.default_rng(36), 5000), cuda)
+    args = [x[k] for k in ("perm", "vidx", "stream", "spp", "orig", "nmaj", "t", "ro",
+                           "rd", "T", "L")]
+    pt_chain.reset_counters()
+    got = pt_chain.compact_gather(*args)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_compact_gather"] == 1
+    bits_equal(got, pt_chain.compact_gather_plain(*args), "compact_gather")
+
+
+def chain_tracer(device, tree, *, bounces, sky, use_pmj=True):
+    pt = pathtracer.PathTracer(width=32, height=32, max_bounces=bounces,
+                               use_pmj=use_pmj, device=device)
+    pt.pmj_table = torch.from_numpy(
+        np.random.default_rng(0).random((128, 4096, 2), np.float32))
+    pt.setup()
+    if sky:
+        pt.load_hdri(np.random.default_rng(1).random((16, 32, 3)).astype(np.float32),
+                     scale=1.0)
+    pt.update_scene(tree)
+    return pt
+
+
+def chain_scene(device, emission: bool):
+    tri, col, emi, kw, cam = ico_scene(64)
+    return scene.build_scene(tri, col, emi if emission else None, device=device,
+                             **kw), cam
+
+
+def record_chain(monkeypatch):
+    """Record every stage call (name, args, kwargs, outputs) of pt_sample."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    calls = []
+    for name in CHAIN_STAGES:
+        def rec(*a, _real=getattr(pt_chain, name), _name=name, **k):
+            out = _real(*a, **k)
+            calls.append((_name, a, k, out))
+            return out
+        monkeypatch.setattr(pt_chain, name, rec)
+    return calls
+
+
+def test_chain_kernels_match_plain_on_recorded_inputs(cuda, monkeypatch):
+    """Each kernel == its plain stage on the inputs a PT step gives it (a
+    16-spp step of a 32x32 frame: 16,384 lanes, so the compaction runs;
+    emission on, so the depth-0 implicit ray runs)."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    tree, cam = chain_scene(cuda, emission=True)
+    assert tree.has_emission
+    pt = chain_tracer(cuda, tree, bounces=3, sky=True)
+    calls = record_chain(monkeypatch)
+    pt.step(cam)
+    torch.cuda.synchronize()
+    names = [c[0] for c in calls]
+    assert names.count("compact_gather") == 2 and names.count("bounce_sample") == 3
+    for name, a, k, out in calls:
+        bits_equal(out, getattr(pt_chain, name + "_plain")(*a, **k), f"recorded {name}")
+
+
+@pytest.mark.parametrize("bounces", [2, 8])
+@pytest.mark.parametrize("emission,sky", [(True, True), (False, True), (True, False)])
+def test_pt_step_kernels_equal_plain_chain(cuda, bounces, emission, sky):
+    """A step through the chain's kernels == the same step through its
+    plain stages on the card, bit for bit; each kernel of the path ran."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    tree, cam = chain_scene(cuda, emission)
+    accum = {}
+    for chain in (None, "plain"):
+        pt = chain_tracer(cuda, tree, bounces=bounces, sky=sky)
+        pt_chain.reset_counters()
+        pt.step(cam, chain=chain)
+        pt.step(cam, chain=chain)
+        torch.cuda.synchronize()
+        ran = {k for k, v in pt_chain.LAUNCHES.items() if v}
+        assert ran == (set(pt_chain.KERNELS) if chain is None else set()), ran
+        accum[chain] = pt.accum
+    assert bool(torch.isfinite(accum[None]).all()) and float(accum[None][:, :3].sum()) > 0
+    bits_equal(accum[None], accum["plain"], "accumulator")
+
+
+def test_pt_step_kernels_equal_plain_chain_pcg(cuda):
+    """use_pmj=False: the PCG32 stream in the kernels (no compaction)."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    tree, cam = chain_scene(cuda, emission=True)
+    accum = {}
+    for chain in (None, "plain"):
+        pt = chain_tracer(cuda, tree, bounces=3, sky=True, use_pmj=False)
+        pt_chain.reset_counters()
+        pt.step(cam, chain=chain)
+        torch.cuda.synchronize()
+        assert pt_chain.LAUNCHES["pt_compact_gather"] == 0
+        assert (pt_chain.LAUNCHES["pt_bounce_sample"] == 3) == (chain is None)
+        accum[chain] = pt.accum
+    bits_equal(accum[None], accum["plain"], "PCG32 accumulator")
+
+
+def test_pt_step_kernels_equal_plain_chain_sats(cuda):
+    """The sats HDRI backend: a step through the kernels == through the
+    plain stages, and every kernel of the path ran."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    tree, cam = chain_scene(cuda, emission=True)
+    accum = {}
+    for chain in (None, "plain"):
+        pt = chain_tracer(cuda, tree, bounces=3, sky=True)
+        pt.env = dataclasses.replace(pt.env, use_alias=False)
+        pt_chain.reset_counters()
+        pt.step(cam, chain=chain)
+        torch.cuda.synchronize()
+        ran = {k for k, v in pt_chain.LAUNCHES.items() if v}
+        assert ran == (set(pt_chain.KERNELS) if chain is None else set()), ran
+        accum[chain] = pt.accum
+    bits_equal(accum[None], accum["plain"], "sats accumulator")
+
+
+def test_chain_kernel_build_failure_raises(cuda, monkeypatch, tmp_path):
+    """A pt_chain.cu that does not compile: the build raises, and so does
+    the wrapper (no fallback to the plain stage)."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "pt_chain.cu").write_text(open(os.path.join(cuda_build.CSRC, "pt_chain.cu")).read()
+                                     + "\nthis does not compile;\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(src))
+    pt_chain.reset_counters()
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "LIB_PATH", str(tmp_path / "build" / "lib.so"))
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    x = chain_tensors(chain_case(np.random.default_rng(37), 64), cuda)
+    with pytest.raises(RuntimeError, match="pt_chain.cu"):
+        pt_chain.compact_gather(*[x[k] for k in (
+            "perm", "vidx", "stream", "spp", "orig", "nmaj", "t", "ro", "rd", "T", "L")])
+    assert pt_chain.LAUNCHES["pt_compact_gather"] == 0
+
+
+def test_chain_nvcc_command_keeps_ieee_floats(cuda):
+    """The library on the card was built from pt_chain.cu with
+    -fmad=false for sm_90a and no fast-math flag, and exports the chain's
+    launchers."""
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    lib = cuda_build.load()
+    srcs = cuda_build.sources()
+    assert any(s.endswith("pt_chain.cu") for s in srcs)
+    compile_cmds, _link = cuda_build.nvcc_commands("nvcc", cuda_build.LIB_PATH, srcs)
+    cmd = next(c for c in compile_cmds if c[-1].endswith("pt_chain.cu"))
+    assert "-fmad=false" in cmd and "arch=compute_90a,code=sm_90a" in cmd
+    for flag in ("use_fast_math", "-ftz=true", "-prec-div=false", "-prec-sqrt=false"):
+        assert flag not in " ".join(cmd)
+    for name in CHAIN_STAGES:
+        assert getattr(lib, f"pt_{name}_launch") is not None

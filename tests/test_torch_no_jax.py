@@ -9,6 +9,7 @@ names jax or imports anything of the JAX package, the nvcc commands keep
 IEEE float semantics for sm_90a, the host library links no zlib, and
 chip_smoke.py refuses to run without a card or without the repository."""
 
+import glob
 import os
 import re
 import shutil
@@ -54,6 +55,8 @@ pt.update_scene(tree)
 pt.step(cam, n_spp=2)
 assert bool(torch.isfinite(pt.accum).all()) and float(pt.accum[:, :3].sum()) > 0
 assert hako_mega.LAUNCHES == 0
+from massivevoxelraytracing_torch.ops import pt_chain
+assert not any(pt_chain.LAUNCHES.values())  # the CPU runs the plain stages
 # the rtcamp app, one tiny frame
 import os, tempfile
 from massivevoxelraytracing_torch.apps import rtcamp
@@ -134,12 +137,18 @@ def test_no_module_imports_jax():
         assert not jax_import.search(src), path
         for name in tpu_import.findall(src):
             assert name in shared, (path, name)
+    # the kernel sources include only system headers and their own
+    for path in glob.glob(os.path.join(PKG, "csrc", "*.cu*")):
+        with open(path) as f:
+            includes = re.findall(r'^\s*#\s*include\s*[<"]([^>"]+)[>"]', f.read(), re.M)
+        assert includes and all("massivevoxelraytracing_tpu" not in h and "/" not in h
+                                for h in includes), (path, includes)
 
 
 def test_nvcc_command_keeps_ieee_floats():
     srcs = cuda_build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "hako_mega.cu", "hako_probes.cu", "hako_rounds.cu"]
+        "hako_mega.cu", "hako_probes.cu", "hako_rounds.cu", "pt_chain.cu"]
     compile_cmds, link_cmd = cuda_build.nvcc_commands(
         "nvcc", cuda_build.LIB_PATH, srcs)
     assert [c[-1] for c in compile_cmds] == srcs  # one nvcc per source
