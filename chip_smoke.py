@@ -18,9 +18,22 @@ Phases (any failure raises, and the script exits non-zero):
      (hako_probe; hako_dda and hako_merge, the unfused stage; and
      hako_dda_merge on a copy of the state, equal to the unfused stage's);
   3. the main path's primary frame: build_scene of the bench lattice at
-     1024^3 and 1920x1080 frames with the bench camera through the
-     megakernel, then kernel vs plain version on 16,384 rays sampled
-     across that frame;
+     1024^3 (the scene build's three kernels' counts set to 0 just before
+     and read just after: each must launch) and 1920x1080 frames with the
+     bench camera through the megakernel, then kernel vs plain version on
+     16,384 rays sampled across that frame;
+  3c. the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu): the
+     lattice's split triangles to the card from pageable and from pinned
+     memory (ms, GB/s); vox_count, vox_emit and vox_unique_reduce each
+     against its plain stage on the lattice's one group, on the same card
+     tensors, bit for bit (the counts, the dump buffers, the unique stream
+     in its three modes), with its ms, the plain stage's ms, its bound on
+     the call's data (scripts/common.vox_bound) and share, and the
+     reduce's library call (index_add_ of the segment sums alone); then
+     the lattice built through the plain stages and through the kernels
+     (route_builds: each build's split and peak memory, a profiled build
+     of each route with its device kernels and idle share), every tree
+     == phase 3's field for field;
   3b. the same frame through the round driver: once with hako_dda_merge
      held against its plain version at every call, then counted (two
      launches a round, none of the unfused stage) and timed, then timed
@@ -116,7 +129,10 @@ Phases (any failure raises, and the script exits non-zero):
      (torus 256^3, 640x360: 3 steps with --checkpoint, then --resume for a
      4th, bit-equal to 4 uninterrupted steps; and one step at
      EngineConfig's 65,536-lane packet). hako_mega's counter is set to 0
-     just before each app and read just after: each must launch it;
+     just before each app and read just after: each must launch it; the
+     scene build's counts around the phase (each must launch); then
+     rtcamp's last build again through both routes (route_builds), each
+     tree == the app's;
   7. the other structures and the streamed build: (a) the bench lattice
      at 1024^3 built as a brick tree and as an octree (DAG on, then off):
      voxels equal to the hako build's, nodes, bytes, build time, a 1080p
@@ -177,14 +193,19 @@ Phases (any failure raises, and the script exits non-zero):
      its plain version on 65,536 rays sampled across the frame; (e)
      scripts/rebuild_timing.py at 2048^3: 3 builds of the 7^3 lattice
      (7.0M triangles) in one process, the first cold, each with its split
-     and peak memory.
+     and peak memory; the scene build's counts around the phase (each must
+     launch); then the last rebuild again through both routes
+     (route_builds), each tree == the script's.
+  The scene build's kernels' counts are also read around phases 7a, 7c
+  and 8 (launches_by_path in the kernels line).
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
 under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (take_along_probe
-one for each reference body it runs; the sample chain's five kernels;
+one for each reference body it runs; the sample chain's five kernels; the
+scene build's three, with phase 3c's copy and routes under "build";
 phase 4's two chain routes under "pt"; with the apps' numbers, phase 8's
 under "parallel", phase 7's under "accel" and "shell" and phase 9's under
 "scale"), and as its last line
@@ -254,6 +275,18 @@ CHAIN_REPLACES = {
     "pt_bounce_shade": "models/pathtracer.py:308-347, 232-236",
     "pt_compact_gather": "models/pathtracer.py:232-265",
 }
+# the reference's jitted lines each scene-build kernel takes over (XLA
+# fused them; no pallas_call)
+VOX_REPLACES = {
+    "vox_count": "ops/voxelize.py:266-349 (voxelize_dense's valid mask, count_voxels); "
+                 "models/scene.py:160-161",
+    "vox_emit": "ops/voxelize.py:266-343 (voxelize_dense); models/scene.py:36-49 "
+                "(_chunk_emit)",
+    "vox_unique_reduce": "ops/voxelize.py:351-506 (sort_and_unique_sums :352, "
+                         "merge_unique_sums :407, sort_and_unique :456)",
+}
+BUILD_CHUNK = 262144       # phase 3's chunk_tris: the plain stages' unit
+COPY_REPS = 4
 ROW_BYTES = 164 * 4
 HOT_ROWS = 4096            # the row chase's L2-resident table (2.7 MB)
 LATENCY_HOPS = 256
@@ -505,10 +538,10 @@ def phase_main_path(device, smi: str, rng):
     cam = bench_camera()
 
     t0 = time.time()
-    tree = scene.build_scene(
+    tree, vox_launches = vox_counted(lambda: scene.build_scene(
         tri, cols, origin=np.zeros(3, np.float32), dps=1.0 / grid_res,
-        grid_res=grid_res, accel="hako", chunk_tris=262144, device=device,
-    )
+        grid_res=grid_res, accel="hako", chunk_tris=BUILD_CHUNK, device=device,
+    ), "phase 3's build_scene")
     build_s = time.time() - t0
     img, depth = raycast.render_frame(tree, cam, width, height, device=device)
     _, frame_ms = timed(lambda: raycast.render_frame(
@@ -532,8 +565,8 @@ def phase_main_path(device, smi: str, rng):
           f"fat={tree.snodes is not None}", flush=True)
     print(f"[phase3] build {build_s:.3f} s: split {st['t_split_s']*1e3:.1f} ms, "
           f"count {st['t_count_s']*1e3:.1f} ms, unique {st['t_unique_s']*1e3:.1f} ms, "
-          f"accel {st['t_accel_s']*1e3:.1f} ms (first build in this process) [{smi}]",
-          flush=True)
+          f"accel {st['t_accel_s']*1e3:.1f} ms (first build in this process); the "
+          f"build's kernels launched {vox_launches} [{smi}]", flush=True)
     print(f"[phase3] frame {width}x{height}: {frame_ms:.3f} ms = {mrays:.2f} Mrays/s "
           f"(mean of {frames}), hit fraction {hit_frac:.4f}, kernel launches "
           f"{launches}, unresolved lanes {unresolved} [{smi}]", flush=True)
@@ -578,8 +611,283 @@ def phase_main_path(device, smi: str, rng):
                   frame_kernel_ms=frame_kernel_ms, frame_ms=frame_ms,
                   frame_bound=(fb["bound_ms"], fb["bound_by"]),
                   frame_rows=(fb["distinct_rows"], fb["row_visits"]),
-                  counters=counters, frame_args=args)
+                  counters=counters, frame_args=args, vox_launches=vox_launches)
     return tree, cam, img, depth, result
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu)
+# ---------------------------------------------------------------------------
+
+def vox_counted(fn, what: str, need: bool = True):
+    """fn() with the scene build's kernel counts set to 0 just before it and
+    read just after: (result, {kernel: launches}); with `need`, each kernel
+    must have launched."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    torch.cuda.synchronize()
+    vox.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(vox.LAUNCHES)
+    if need and min(got.values()) < 1:
+        raise AssertionError(f"{what}: a scene-build kernel was not launched: {got}")
+    return out, got
+
+
+def max_int_diff(a, b) -> int:
+    """The largest |a - b| of two integer tensors of one shape (measured
+    before they are held equal)."""
+    if a.shape != b.shape:
+        raise AssertionError(f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def held_equal(got, want, what: str) -> int:
+    """Every tensor of `got` == `want`'s bit for bit; returns the largest
+    difference found before the check."""
+    import torch
+
+    err = 0
+    for i, (x, y) in enumerate(zip(got, want)):
+        err = max(err, max_int_diff(x, y))
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: output {i} differs")
+    return err
+
+
+def copy_timing(arrays, device) -> dict:
+    """The split triangle arrays to the card, COPY_REPS times each way in
+    turns, host clock to a sync: from pageable memory, and pinned first as
+    scene.upload does (the pin, a host copy into the caching host
+    allocator's blocks, timed with it; the copy from pinned memory alone
+    beside it). Phase 3's build has already pinned blocks of these sizes
+    once: every rep here is a rebuild's."""
+    import torch
+
+    n_bytes = sum(a.nbytes for a in arrays)
+    pageable, pinned, pinned_copy = [], [], []
+    for _ in range(COPY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [torch.from_numpy(a).to(device) for a in arrays]
+        torch.cuda.synchronize()
+        pageable.append(time.perf_counter() - t0)
+        del got
+        t0 = time.perf_counter()
+        host = [torch.from_numpy(a).pin_memory() for a in arrays]
+        t1 = time.perf_counter()
+        got = [h.to(device, non_blocking=True) for h in host]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pinned.append(t2 - t0)
+        pinned_copy.append(t2 - t1)
+        del got, host
+    return dict(bytes=n_bytes, pageable_ms=[x * 1e3 for x in pageable],
+                pinned_ms=[x * 1e3 for x in pinned],
+                pinned_copy_ms=[x * 1e3 for x in pinned_copy],
+                pageable_gbs=n_bytes / min(pageable) / 1e9,
+                pinned_gbs=n_bytes / min(pinned) / 1e9,
+                pinned_copy_gbs=n_bytes / min(pinned_copy) / 1e9)
+
+
+def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
+    """Each scene-build kernel against its plain stage on the lattice's one
+    group (the inputs phase 3's build gives them), on the same card
+    tensors: equal bit for bit (count; the dump buffers, emitted into
+    buffers prefilled with a sentinel; the unique stream in its three
+    modes, the merge on two groups' sums), then the kernel's ms (CUDA
+    events, common.timed), the plain stage's ms (BUILD_CHUNK triangles at a
+    time, as the plain route runs it), the bound on the call's data and,
+    for the reduce, index_add_ of the sorted entries' seven int64 columns
+    (the segment sums alone) as the library call."""
+    import torch
+
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+    from massivevoxelraytracing_torch.scripts import common
+
+    t, c, e = (torch.from_numpy(a).to(device) for a in arrays)
+    kw = dict(grid_res=GRID, six_separating=True, cap=4)
+    T = t.shape[0]
+    runs = [(a, min(a + BUILD_CHUNK, T)) for a in range(0, T, BUILD_CHUNK)]
+    n_cells = common.vox_cells(t, origin, dps, GRID, 4)
+    out = {}
+
+    def record(name, kern, plain, bnd, err, library_ms=None, **extra):
+        _, ms = timed(kern, reps=5)
+        _, plain_ms = timed(plain, reps=1)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                         share=bnd[0] / ms, max_abs_err=err, library_ms=library_ms, **extra)
+        lib = "" if library_ms is None else f", library call {library_ms:.4f} ms"
+        print(f"[phase3c] {name} == its plain stage bit for bit: {ms:.4f} ms vs plain "
+              f"{plain_ms:.2f} ms on the card{lib}; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"share {bnd[0] / ms:.1%}; {extra} [{smi}]", flush=True)
+
+    counts = vox.count(t, origin, dps, **kw)
+    plain_counts = lambda: torch.cat([vox.count_plain(t[a:b], origin, dps, **kw)  # noqa: E731
+                                      for a, b in runs])
+    err = held_equal((counts,), (plain_counts(),), "vox_count")
+    record("vox_count", lambda: vox.count(t, origin, dps, **kw), plain_counts,
+           common.vox_bound("vox_count", n_tri=T, n_cells=n_cells), err,
+           triangles=T, cells=n_cells)
+
+    end = torch.cumsum(counts, 0, dtype=torch.int64)
+    start = end - counts
+    n = int(end[-1])
+
+    def buffers():
+        return (torch.full((n,), -1, dtype=torch.int64, device=device),
+                torch.full((n,), 7, dtype=torch.int32, device=device),
+                torch.full((n,), 7, dtype=torch.int32, device=device))
+
+    dump, want = buffers(), buffers()
+
+    def plain_emit(bufs):
+        for a, b in runs:
+            vox.emit_plain(t[a:b], c[a:b], e[a:b], start[a:b], origin, dps, bufs, **kw)
+        return bufs
+
+    vox.emit(t, c, e, start, origin, dps, dump, **kw)
+    err = held_equal(dump, plain_emit(want), "vox_emit (the dump buffers)")
+    if bool((dump[0] < 0).any()):
+        raise AssertionError("vox_emit left a dump buffer entry unwritten")
+    del want
+    record("vox_emit", lambda: vox.emit(t, c, e, start, origin, dps, dump, **kw),
+           lambda: plain_emit(dump),
+           common.vox_bound("vox_emit", n_tri=T, n_cells=n_cells, n_dumped=n), err,
+           dumped=n)
+    del t, c, e
+
+    code, color, emission = dump
+    _, sort_ms = timed(lambda: vox._sorted_segments(code), reps=3)
+    segs = vox._sorted_segments(code)
+    s_key, perm, boundary, seg, n_u = segs
+    errs = []
+    for mode in ("means", "sums"):
+        got = vox.unique_reduce(*segs, (color, emission), mode=mode)
+        plain = vox.unique_reduce_plain(*segs, (color, emission), mode=mode)
+        errs.append(held_equal(common.flat_tensors(got), common.flat_tensors(plain),
+                               f"vox_unique_reduce ({mode})"))
+    parts = [vox.sort_and_unique_sums(code[sl], color[sl], emission[sl])[0]
+             for sl in (slice(0, n // 3), slice(n // 3, n))]
+    merged = vox._sorted_segments(torch.cat([p[0] for p in parts]))
+    attrs = (*[torch.cat([p[1][i] for p in parts]) for i in range(6)],
+             torch.cat([p[2] for p in parts]))
+    errs.append(held_equal(vox.unique_reduce(*merged, attrs, mode="merge"),
+                           vox.unique_reduce_plain(*merged, attrs, mode="merge"),
+                           "vox_unique_reduce (merge)"))
+    del parts, merged, attrs
+    cols7 = torch.stack([*vox.unpack_rgb8(color[perm]), *vox.unpack_rgb8(emission[perm]),
+                         torch.ones_like(perm)], 1)
+    _, library_ms = timed(lambda: torch.zeros((n_u + 1, 7), dtype=torch.int64,
+                                              device=device).index_add_(0, seg, cols7), reps=5)
+    del cols7
+    record("vox_unique_reduce",
+           lambda: vox.unique_reduce(*segs, (color, emission), mode="means"),
+           lambda: vox.unique_reduce_plain(*segs, (color, emission), mode="means"),
+           common.vox_bound("vox_unique_reduce", n_sorted=n, n_unique=n_u, mode="means"),
+           max(errs), library_ms=library_ms, sorted=n, unique=n_u, sort_ms=sort_ms,
+           modes_equal=list(vox.MODES))
+    return out
+
+
+def route_builds(args, kwargs, want, what: str, smi: str) -> dict:
+    """One build through the plain stages and one through the kernels, in
+    that order (host clock to the build's end, its split and peak memory),
+    every tree == `want` field for field; then each profiled, the kernels'
+    route first (device kernels, busy ms, idle share, the build kernels'
+    ms and calls beside the launches their wrappers counted)."""
+    import torch
+
+    from massivevoxelraytracing_torch.entry import trees_equal
+    from massivevoxelraytracing_torch.models import scene
+    from massivevoxelraytracing_torch.scripts import common
+
+    def build(stages):
+        return scene.build_scene(*args, **dict(kwargs, stages=stages))
+
+    out = {}
+    for route, stages in (("plain", "plain"), ("kernels", None)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = build(stages)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if not trees_equal(tree, want):
+            raise AssertionError(f"{what}: the {route} route's tree differs")
+        out[route] = dict(wall_s=wall, split_s=tree.build_stats["t_split_s"],
+                          count_s=tree.build_stats["t_count_s"],
+                          unique_s=tree.build_stats["t_unique_s"],
+                          accel_s=tree.build_stats["t_accel_s"], peak_gib=peak)
+        del tree
+    # profiled, the kernel route first (its tree held again); a profile
+    # that misses a launch the wrappers counted is taken again, once, and
+    # what it still misses is recorded beside the device kernels it saw
+    for route, stages in (("kernels", None), ("plain", "plain")):
+        for tries in (1, 2):
+            kept = []
+            prof, launched = vox_counted(lambda: common.profile_call(
+                lambda: kept.append(build(stages))), what, need=False)
+            if not trees_equal(kept.pop(), want):
+                raise AssertionError(f"{what}: the {route} route's profiled tree differs")
+            seen = {k: calls for k, (_, calls) in prof["vox"].items()}
+            if seen == launched:
+                break
+        out[route].update(device_kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                          profiled_wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
+                          vox_ms=prof["vox"], top=prof["top"][:4], profile_tries=tries,
+                          profile_missed={k: launched[k] - seen[k] for k in launched})
+    for route in ("plain", "kernels"):
+        r = out[route]
+        print(f"[{what}] {route} route: {r['wall_s']:.3f} s (split {r['split_s']:.3f}, count "
+              f"{r['count_s']:.3f}, unique {r['unique_s']:.3f}, accel {r['accel_s']:.3f}), "
+              f"peak {r['peak_gib']:.2f} GiB; profiled ({r['profile_tries']} tries, "
+              f"launches the trace missed {r['profile_missed']}): "
+              f"{r['device_kernels']} device kernels, busy {r['busy_ms']:.1f} of "
+              f"{r['profiled_wall_ms']:.1f} ms (idle {r['idle_share']:.3f}), the build "
+              f"kernels (ms, calls) "
+              f"{ {k: (round(v[0], 3), v[1]) for k, v in r['vox_ms'].items()} }; tree == "
+              f"the kernel route's [{smi}]", flush=True)
+    if out["kernels"]["device_kernels"] >= out["plain"]["device_kernels"]:
+        raise AssertionError(f"{what}: the kernel route launched no fewer device kernels "
+                             f"than the plain route")
+    return out
+
+
+def phase_build_stages(tree, device, smi: str) -> dict:
+    """Phase 3c: the lattice's split arrays to the card from pageable and
+    from pinned memory; each scene-build kernel against its plain stage
+    (vox_stage_timing); the lattice built through the plain stages and the
+    kernels (route_builds), each tree == phase 3's."""
+    import torch
+
+    from massivevoxelraytracing_torch.utils import meshgen, meshprep
+
+    tri, cols = meshgen.sphere_lattice(6, 4)
+    origin = np.zeros(3, np.float32)
+    arrays = [np.ascontiguousarray(a) for a in meshprep.split_to_cap(
+        tri, cols, np.zeros_like(tri), origin, 1.0 / GRID, GRID, 4)]
+    cp = copy_timing(arrays, device)
+    print(f"[phase3c] the split triangles to the card ({cp['bytes'] / 1e9:.3f} GB): pageable "
+          f"{', '.join(f'{x:.1f}' for x in cp['pageable_ms'])} ms ({cp['pageable_gbs']:.2f} "
+          f"GB/s at best); pinned first {', '.join(f'{x:.1f}' for x in cp['pinned_ms'])} ms "
+          f"({cp['pinned_gbs']:.2f} GB/s), of it the copy "
+          f"{', '.join(f'{x:.1f}' for x in cp['pinned_copy_ms'])} ms "
+          f"({cp['pinned_copy_gbs']:.2f} GB/s) [{smi}]", flush=True)
+    stages = vox_stage_timing(arrays, torch.from_numpy(origin).to(device),
+                              torch.tensor(1.0 / GRID, dtype=torch.float32, device=device),
+                              device, smi)
+    del arrays
+    torch.cuda.empty_cache()
+    routes = route_builds((tri, cols), dict(origin=origin, dps=1.0 / GRID, grid_res=GRID,
+                                            accel="hako", chunk_tris=BUILD_CHUNK,
+                                            device=device), tree, "phase3c", smi)
+    return dict(copy=cp, stages=stages, routes=routes)
 
 
 def phase_rounds_frame(tree, cam, img_mega, depth_mega, device, smi: str):
@@ -1683,6 +1991,7 @@ def phase_apps(smi: str, device: str = "cuda") -> dict:
 
     def build(*a, **k):
         kept[:] = [real_build(*a, **k)]
+        CAPTURED["rtcamp"] = (a, k, kept[0])
         return kept[0]
 
     rt_dir = os.path.join(APPS_OUT, "rtcamp")
@@ -2520,7 +2829,8 @@ def phase_scale(device, smi: str, rng) -> dict:
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    rb = rebuild_timing.run(res=SCALE_RES, n=REBUILDS, device=device, card=smi)
+    with capture_builds("rebuild_timing"):
+        rb = rebuild_timing.run(res=SCALE_RES, n=REBUILDS, device=device, card=smi)
     part_s["rebuild_timing"] = time.time() - t0
     if len(rb["builds"]) < 2 or min(b["n_voxels"] for b in rb["builds"]) < 1:
         raise AssertionError(f"rebuild_timing: {rb['builds']}")
@@ -2533,6 +2843,30 @@ def phase_scale(device, smi: str, rng) -> dict:
           f"all, by part (s) { {k: round(v, 1) for k, v in part_s.items()} } [{smi}]",
           flush=True)
     return out
+
+
+CAPTURED = {}  # a path's last build_scene call: (args, kwargs, tree)
+
+
+@contextlib.contextmanager
+def capture_builds(key: str):
+    """scene.build_scene, while installed, keeps its last call's arguments
+    and tree in CAPTURED[key] (for route_builds after the path's run)."""
+    from massivevoxelraytracing_torch.models import scene
+
+    real = scene.build_scene
+
+    def build(*a, **k):
+        CAPTURED.pop(key, None)
+        tree = real(*a, **k)
+        CAPTURED[key] = (a, k, tree)
+        return tree
+
+    scene.build_scene = build
+    try:
+        yield
+    finally:
+        scene.build_scene = real
 
 
 class StepTimer:
@@ -2592,6 +2926,8 @@ def main() -> int:
 
     worst = phase_kernel_cases(device, smi, rng)
     tree, cam, img, depth, main_path = phase_main_path(device, smi, rng)
+    build3c = phase_build_stages(tree, device, smi)
+    vox_paths = {"build_scene": main_path["vox_launches"]}
     rframe = phase_rounds_frame(tree, cam, img, depth, device, smi)
     pt = phase_pt(tree, cam, device, smi)
     frame_args = main_path["frame_args"]
@@ -2613,16 +2949,27 @@ def main() -> int:
     pr["split"] = sp
     gp = phase_gather(smi, sl)
     pr["gather"] = gp
-    apps = phase_apps(smi)
-    par = phase_parallel(tree, cam, img, depth, pt, device, smi)
+    apps, vox_paths["apps"] = vox_counted(lambda: phase_apps(smi), "phase 6")
+    rt_args, rt_kwargs, rt_tree = CAPTURED.pop("rtcamp")
+    apps["rtcamp"]["routes"] = route_builds(rt_args, rt_kwargs, rt_tree, "phase6", smi)
+    del rt_tree
+    par, vox_paths["parallel"] = vox_counted(
+        lambda: phase_parallel(tree, cam, img, depth, pt, device, smi), "phase 8")
     t7 = time.time()
-    structures = phase_structures(tree, cam, img, device, smi, rng)
+    structures, vox_paths["structures"] = vox_counted(
+        lambda: phase_structures(tree, cam, img, device, smi, rng), "phase 7a")
     del tree
     torch.cuda.empty_cache()
     shell = phase_shell(device, smi, rng)
-    structures["apps"] = phase_apps7(smi, str(device))
+    structures["apps"], vox_paths["apps7"] = vox_counted(
+        lambda: phase_apps7(smi, str(device)), "phase 7c", need=False)
     print(f"[phase7] {time.time() - t7:.1f} s in all [{smi}]", flush=True)
-    scale = phase_scale(device, smi, rng)
+    scale, vox_paths["scale"] = vox_counted(lambda: phase_scale(device, smi, rng), "phase 9")
+    rb_args, rb_kwargs, rb_tree = CAPTURED.pop("rebuild_timing")
+    scale["rebuild_timing"]["routes"] = route_builds(rb_args, rb_kwargs, rb_tree, "phase9",
+                                                     smi)
+    del rb_tree
+    torch.cuda.empty_cache()
 
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
@@ -2725,6 +3072,15 @@ def main() -> int:
             share=e["share"], lanes=e["lanes"], ms_a_step=e["ms_a_step"],
             calls_checked=e["calls_checked"],
             **{k: e[k] for k in ("sats_ms", "sats_plain_ms") if k in e}))
+    # the scene build (phase 3c): launches by path, each counted from 0
+    for name, e in build3c["stages"].items():
+        by_path = {path: got[name] for path, got in vox_paths.items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=src + "vox_build.cu",
+            replaces=f"massivevoxelraytracing_tpu/{VOX_REPLACES[name]} (XLA-fused, "
+                     f"no pallas_call)",
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            **{k: v for k, v in e.items()}))
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],
@@ -2747,6 +3103,7 @@ def main() -> int:
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"],
         "chain_routes": pt["chain"]["routes"]},
+        "build": {"copy": build3c["copy"], "routes": build3c["routes"]},
         "apps": apps, "parallel": par,
         "accel": structures, "shell": shell, "scale": scale}))
     print(smi)

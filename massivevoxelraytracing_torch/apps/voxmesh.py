@@ -16,6 +16,7 @@ import os
 import numpy as np
 import torch
 
+from ..models import scene
 from ..ops import morton
 from ..ops import voxelize as vox_ops
 from ..utils import meshgen, meshprep, objio
@@ -42,10 +43,8 @@ def main(argv=None) -> dict:
     tri, col, emi = meshprep.split_to_cap(
         tri, col, emi, origin, dps, args.res, cap
     )
-    tri, col, emi = meshprep.pad_triangles(tri, col, emi, 1024)
-    cands = vox_ops.voxelize_dense(
-        *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-          for a in (tri, col, emi)),
+    cands = vox_ops.dump_candidates(
+        *scene.upload((tri, col, emi), device),
         torch.as_tensor(np.asarray(origin, np.float32), device=device),
         torch.tensor(dps, dtype=torch.float32, device=device),
         grid_res=args.res, six_separating=bool(args.six_separating), cap=cap,

@@ -47,7 +47,7 @@ def main(argv=None) -> dict:
     grids = {}
     counts = {}
     for six in (False, True):
-        cands = vox_ops.voxelize_dense(
+        cands = vox_ops.dump_candidates(
             on_device(tri), on_device(np.ones_like(tri)),
             on_device(np.zeros_like(tri)), on_device(origin),
             torch.tensor(dps, dtype=torch.float32, device=device),

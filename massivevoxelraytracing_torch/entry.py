@@ -84,7 +84,8 @@ def trees_equal(a, b) -> bool:
         va, vb = getattr(a, f.name), getattr(b, f.name)
         if isinstance(va, tuple):
             if len(va) != len(vb) or not all(
-                    torch.equal(x, y) for x, y in zip(va, vb)):
+                    torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                    for x, y in zip(va, vb)):
                 return False
         elif isinstance(va, torch.Tensor) or isinstance(vb, torch.Tensor):
             if va is None or vb is None or not torch.equal(va, vb):

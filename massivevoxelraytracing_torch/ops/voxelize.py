@@ -9,13 +9,44 @@ The two-key limb sort of the reference becomes one int64 `torch.sort`,
 and `segment_sum` becomes `scatter_add_`. Attribute means are sums of
 integers, so the order of duplicates does not matter.
 
+The scene build runs three stages, each a plain PyTorch function and a
+hand-written CUDA kernel (csrc/vox_build.cu, one thread a triangle or a
+sorted entry):
+
+  count          the valid candidates of each triangle (the voxCount
+                 pass: voxelize_dense's coverage mask summed a triangle)
+  emit           each triangle's valid candidates, in increasing candidate
+                 index, written at its offset into the dump buffers: the
+                 Morton code, the packed colour and emission at the
+                 closest point of the cell corner (the voxelize pass)
+  unique_reduce  after the stable sort of the codes and the segment ids:
+                 each unique voxel's channel sums and count, and its code
+                 and packed means ("means"), sums ("sums") or the merge of
+                 groups' sums ("merge")
+
+`*_plain` are the code of voxelize_dense and sort_and_unique moved as it
+was. The wrappers (`count`, `emit`, `unique_reduce`) run the plain stage
+for CPU tensors and launch the kernel for CUDA tensors (or raise; there is
+no fallback). `voxelize_dense` stays the candidate-level reference.
+
 Float exactness: torch runs each elementwise op on its own and rounds it,
 so no multiply-add is ever contracted. On CUDA, dividing by a CPU scalar
 multiplies by its reciprocal instead; every divisor here is therefore a
-tensor on the operands' device.
+tensor on the operands' device. The kernels are built with -fmad=false
+and IEEE division, keep every expression's order and propagate NaN
+through min / max / clamp as torch does, so on the card each equals its
+plain stage bit for bit. (Float-to-int casts saturate on the card, NaN to
+0; on the CPU they do not, so a kernel is held against its plain stage on
+the card.)
+
+Counters: LAUNCHES[name] counts each kernel's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import sys
+import types
 
 import torch
 
@@ -361,56 +392,273 @@ def _has_emission(emission):
     return bool(((emission.to(torch.int64) & 0x00FFFFFF) != 0).any())
 
 
-def sort_and_unique(cands):
+def _key(code, valid):
+    return code if valid is None else torch.where(valid, code, INVALID_KEY)
+
+
+def sort_and_unique(cands, stages: str | None = None):
     """Sort candidates by Morton code and deduplicate with integer-mean
-    attributes. cands: dict of valid bool, code int64, color/emission
-    int32 [N]. Returns dict of code/color/emission tensors of length
-    n_unique, n_unique and has_emission."""
-    key = torch.where(cands["valid"], cands["code"], INVALID_KEY)
-    s_key, perm, boundary, seg, n_unique = _sorted_segments(key)
-    counts = _segment_sum(torch.ones_like(seg), seg, n_unique)
-    cnt = torch.clamp(counts, min=1)
-
-    def mean_channels(packed):
-        chs = unpack_rgb8(packed[perm])
-        return _pack_means([_segment_sum(ch, seg, n_unique) for ch in chs], cnt)
-
-    emission = mean_channels(cands["emission"])
-    return dict(
-        code=s_key[boundary],
-        color=mean_channels(cands["color"]),
-        emission=emission,
-        n_unique=n_unique,
-        has_emission=_has_emission(emission),
-    )
+    attributes. cands: dict of code int64, color/emission int32 [N] and
+    optionally valid bool [N] (all valid without it). Returns dict of
+    code/color/emission tensors of length n_unique, n_unique and
+    has_emission. stages: None, the wrappers; "plain", the plain stages
+    (`_stages`)."""
+    s_key, perm, boundary, seg, n_unique = _sorted_segments(
+        _key(cands["code"], cands.get("valid")))
+    code, color, emission = _stages(stages).unique_reduce(
+        s_key, perm, boundary, seg, n_unique, (cands["color"], cands["emission"]),
+        mode="means")
+    return dict(code=code, color=color, emission=emission, n_unique=n_unique,
+                has_emission=_has_emission(emission))
 
 
-def sort_and_unique_sums(code, color, emission, valid):
+def sort_and_unique_sums(code, color, emission, valid=None, stages: str | None = None):
     """Group stage of the hierarchical unique: sort one group's candidates
-    and reduce duplicates to per-voxel channel sums and counts, so groups
-    merge later with exact true-duplicate means. Returns ((code, sums6,
-    count) of length n_unique, n_unique)."""
-    key = torch.where(valid, code, INVALID_KEY)
-    s_key, perm, boundary, seg, n_unique = _sorted_segments(key)
-    sums = []
-    for packed in (color, emission):
-        sums += [_segment_sum(ch, seg, n_unique) for ch in unpack_rgb8(packed[perm])]
-    count = _segment_sum(torch.ones_like(seg), seg, n_unique)
-    return (s_key[boundary], sums, count), n_unique
+    (all valid when `valid` is None) and reduce duplicates to per-voxel
+    channel sums and counts, so groups merge later with exact
+    true-duplicate means. Returns ((code, sums6, count) of length
+    n_unique, n_unique)."""
+    s_key, perm, boundary, seg, n_unique = _sorted_segments(_key(code, valid))
+    out = _stages(stages).unique_reduce(s_key, perm, boundary, seg, n_unique,
+                                        (color, emission), mode="sums")
+    return out, n_unique
 
 
-def merge_unique_sums(code, sums6, count):
+def merge_unique_sums(code, sums6, count, stages: str | None = None):
     """Merge stage: concatenated per-group (code, sums, count) rows ->
     unique voxels with true-duplicate-mean attributes (same dict as
     sort_and_unique)."""
     s_key, perm, boundary, seg, n_unique = _sorted_segments(code)
-    tot = [_segment_sum(s[perm], seg, n_unique) for s in sums6]
-    cnt = torch.clamp(_segment_sum(count[perm], seg, n_unique), min=1)
-    emission = _pack_means(tot[3:6], cnt)
-    return dict(
-        code=s_key[boundary],
-        color=_pack_means(tot[0:3], cnt),
-        emission=emission,
-        n_unique=n_unique,
-        has_emission=_has_emission(emission),
-    )
+    code, color, emission = _stages(stages).unique_reduce(
+        s_key, perm, boundary, seg, n_unique, (*sums6, count), mode="merge")
+    return dict(code=code, color=color, emission=emission, n_unique=n_unique,
+                has_emission=_has_emission(emission))
+
+
+# ---------------------------------------------------------------------------
+# the build's stages: the plain versions
+# ---------------------------------------------------------------------------
+
+KERNELS = ("vox_count", "vox_emit", "vox_unique_reduce")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+MODES = ("means", "sums", "merge")
+I32 = torch.int32
+I64 = torch.int64
+
+
+def reset_counters() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def count_plain(tri, origin, dps, *, grid_res: int, six_separating: bool = True,
+                cap: int = 4):
+    """Valid candidates of each triangle (voxelize_dense's coverage mask
+    summed a triangle): int32 [T]."""
+    valid = voxelize_dense(tri, None, None, origin, dps, grid_res=grid_res,
+                           six_separating=six_separating, cap=cap,
+                           valid_only=True)["valid"]
+    return valid.reshape(tri.shape[0], cap ** 3).sum(1, dtype=I32)
+
+
+def emit_plain(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
+               six_separating: bool = True, cap: int = 4):
+    """Write each triangle's valid candidates in increasing candidate index
+    at out[offsets[t]], out[offsets[t] + 1], ...: out = (code int64, color
+    int32, emission int32) dump buffers, offsets int64 [T]. Returns out."""
+    cands = voxelize_dense(tri, col, emi, origin, dps, grid_res=grid_res,
+                           six_separating=six_separating, cap=cap)
+    valid = cands["valid"].reshape(tri.shape[0], cap ** 3)
+    pos = (offsets[:, None] + torch.cumsum(valid, 1) - 1)[valid]
+    for buf, key in zip(out, ("code", "color", "emission")):
+        buf[pos] = cands[key][valid.reshape(-1)]
+    return out
+
+
+def unique_reduce_plain(s_key, perm, boundary, seg, n_unique: int, attrs, *, mode: str):
+    """The segment sums of a sorted stream (_sorted_segments' outputs).
+    mode "means": attrs (color, emission) int32 [N] -> (code, color,
+    emission) of the unique voxels, the packed integer means; "sums": the
+    same attrs -> (code, sums6, count), the six 8-bit channels' sums and
+    the count, int64; "merge": attrs (*sums6, count) int64 [N] -> (code,
+    color, emission), sum of sums / sum of counts."""
+    code = s_key[boundary]
+    if mode == "merge":
+        *sums6, count = attrs
+        tot = [_segment_sum(s[perm], seg, n_unique) for s in sums6]
+        cnt = torch.clamp(_segment_sum(count[perm], seg, n_unique), min=1)
+        return code, _pack_means(tot[0:3], cnt), _pack_means(tot[3:6], cnt)
+    sums = []
+    for packed in attrs:
+        sums += [_segment_sum(ch, seg, n_unique) for ch in unpack_rgb8(packed[perm])]
+    count = _segment_sum(torch.ones_like(seg), seg, n_unique)
+    if mode == "sums":
+        return code, tuple(sums), count
+    cnt = torch.clamp(count, min=1)
+    return code, _pack_means(sums[0:3], cnt), _pack_means(sums[3:6], cnt)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: the plain stage for CPU tensors, the kernel for CUDA ones
+# ---------------------------------------------------------------------------
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no voxelize kernel for device {x.device}")
+    return x.device.type
+
+
+def _check(name, x, dtype, shape, device):
+    if (x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape)
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: need contiguous {dtype} {list(shape)} on {device}, "
+                         f"got {x.dtype} {list(x.shape)} on {x.device}")
+
+
+def _check_grid(grid_res: int, cap: int) -> None:
+    if not (1 <= grid_res <= 1 << morton.MAX_COORD_BITS and cap >= 1):
+        raise ValueError(f"grid_res {grid_res} must be in [1, 2^21] and cap {cap} >= 1")
+
+
+def _check_frame(tri, origin, dps, grid_res: int, cap: int):
+    """Checks what count and emit share; returns (device, T)."""
+    dev = tri.device
+    T = tri.shape[0] if tri.dim() == 3 else -1
+    _check("tri", tri, F32, (T, 3, 3), dev)
+    _check("origin", origin, F32, (3,), dev)
+    _check("dps", dps, F32, (), dev)
+    _check_grid(grid_res, cap)
+    return dev, T
+
+
+def _launched(name: str, rc: int, n: int) -> None:
+    """Raise on a refused launch; count it (the kernels launch nothing for
+    n = 0)."""
+    if rc != 0:
+        from ..utils import cuda_build
+
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({cuda_build.load().cuda_error_string(rc).decode()})")
+    LAUNCHES[name] += n > 0
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count(tri, origin, dps, *, grid_res: int, six_separating: bool = True, cap: int = 4):
+    """count_plain's output; CUDA tensors launch vox_count_kernel<SIX>."""
+    kw = dict(grid_res=grid_res, six_separating=six_separating, cap=cap)
+    device = _device_of(tri)
+    dev, T = _check_frame(tri, origin, dps, grid_res, cap)
+    if device == "cpu":
+        return count_plain(tri, origin, dps, **kw)
+    from ..utils import cuda_build
+
+    out = torch.empty(T, dtype=I32, device=dev)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.vox_count_launch(int(six_separating), tri.data_ptr(), T, origin.data_ptr(),
+                                  dps.data_ptr(), grid_res, cap, out.data_ptr(), _stream(dev))
+    _launched("vox_count", rc, T)
+    return out
+
+
+def emit(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
+         six_separating: bool = True, cap: int = 4):
+    """emit_plain into `out`; CUDA tensors launch vox_emit_kernel<SIX>
+    (which writes nothing past the buffers' end)."""
+    kw = dict(grid_res=grid_res, six_separating=six_separating, cap=cap)
+    device = _device_of(tri)
+    dev, T = _check_frame(tri, origin, dps, grid_res, cap)
+    _check("col", col, F32, (T, 3, 3), dev)
+    _check("emi", emi, F32, (T, 3, 3), dev)
+    _check("offsets", offsets, I64, (T,), dev)
+    N = out[0].shape[0]
+    for name, x, dtype in zip(("code", "color", "emission"), out, (I64, I32, I32)):
+        _check(name, x, dtype, (N,), dev)
+    if device == "cpu":
+        return emit_plain(tri, col, emi, offsets, origin, dps, out, **kw)
+    from ..utils import cuda_build
+
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.vox_emit_launch(int(six_separating), tri.data_ptr(), col.data_ptr(),
+                                 emi.data_ptr(), offsets.data_ptr(), T, origin.data_ptr(),
+                                 dps.data_ptr(), grid_res, cap, N, out[0].data_ptr(),
+                                 out[1].data_ptr(), out[2].data_ptr(), _stream(dev))
+    _launched("vox_emit", rc, T)
+    return out
+
+
+def unique_reduce(s_key, perm, boundary, seg, n_unique: int, attrs, *, mode: str):
+    """unique_reduce_plain's outputs; CUDA tensors launch
+    vox_unique_reduce_kernel<MODE>."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
+    device = _device_of(s_key)
+    dev = s_key.device
+    N = s_key.shape[0]
+    _check("s_key", s_key, I64, (N,), dev)
+    _check("perm", perm, I64, (N,), dev)
+    _check("boundary", boundary, torch.bool, (N,), dev)
+    _check("seg", seg, I64, (N,), dev)
+    dtypes = (I64,) * 7 if mode == "merge" else (I32, I32)
+    if len(attrs) != len(dtypes):
+        raise ValueError(f"mode {mode!r} takes {len(dtypes)} attribute arrays, not {len(attrs)}")
+    for i, (x, dtype) in enumerate(zip(attrs, dtypes)):
+        _check(f"attrs[{i}]", x, dtype, (N,), dev)
+    if device == "cpu":
+        return unique_reduce_plain(s_key, perm, boundary, seg, n_unique, attrs, mode=mode)
+    from ..utils import cuda_build
+
+    code = torch.empty(n_unique, dtype=I64, device=dev)
+    if mode == "sums":
+        sums = torch.empty((7, n_unique), dtype=I64, device=dev)
+        outs = list(sums)
+    else:
+        outs = [torch.empty(n_unique, dtype=I32, device=dev) for _ in range(2)]
+    in_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in attrs])
+    out_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in outs])
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.vox_unique_reduce_launch(
+            MODES.index(mode), s_key.data_ptr(), perm.data_ptr(), boundary.data_ptr(),
+            seg.data_ptr(), N, ctypes.addressof(in_ptrs), code.data_ptr(),
+            ctypes.addressof(out_ptrs), _stream(dev))
+    _launched("vox_unique_reduce", rc, N)
+    if mode == "sums":
+        return code, tuple(outs[:6]), outs[6]
+    return code, outs[0], outs[1]
+
+
+def dump_candidates(tri, col, emi, origin, dps, *, grid_res: int,
+                    six_separating: bool = True, cap: int = 4):
+    """All triangles' valid candidates in one group through the wrappers:
+    count, the int64 exclusive prefix, one host readback of the total, one
+    emit into new dump buffers. Returns sort_and_unique's cands dict (code,
+    color, emission; every entry valid)."""
+    kw = dict(grid_res=grid_res, six_separating=six_separating, cap=cap)
+    counts = count(tri, origin, dps, **kw)
+    end = torch.cumsum(counts, 0, dtype=I64)
+    n = int(end[-1]) if len(end) else 0
+    out = (torch.empty(n, dtype=I64, device=tri.device),
+           torch.empty(n, dtype=I32, device=tri.device),
+           torch.empty(n, dtype=I32, device=tri.device))
+    emit(tri, col, emi, end - counts, origin, dps, out, **kw)
+    return dict(code=out[0], color=out[1], emission=out[2])
+
+
+PLAIN = types.SimpleNamespace(count=count_plain, emit=emit_plain,
+                              unique_reduce=unique_reduce_plain)
+
+
+def _stages(stages: str | None):
+    """The build's stages: None, the wrappers (the kernels on the card, the
+    plain stages on the CPU); "plain", the plain stages on any device (for
+    holding the kernels against them)."""
+    if stages is None:
+        return sys.modules[__name__]
+    if stages == "plain":
+        return PLAIN
+    raise ValueError(f"stages must be None or 'plain', not {stages!r}")

@@ -2,8 +2,8 @@
 the card's name, its launch shapes, CUDA-event timing, one probe case
 measured against its plain version with its instruction counts and floors,
 and for the scene scripts the reference scripts' camera and sky, a frame's
-rays, hako_mega's bound on them, the sample chain's bounds and a profiled
-call's device time."""
+rays, hako_mega's bound on them, the sample chain's and the scene build's
+bounds and a profiled call's device time."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import probes, pt_chain
+from ..ops import voxelize as vox_ops
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -558,7 +559,8 @@ def profile_call(fn) -> dict:
     """fn() under torch.profiler on the card: wall ms (host clock, synced),
     device busy ms (the sum of the device events), its idle share, the
     hako_mega kernels' ms, the device kernels launched, the top 8 by time
-    as (name, ms, calls), and each sample-chain kernel's (ms, calls).
+    as (name, ms, calls), and each sample-chain and scene-build kernel's
+    (ms, calls).
     Reads the profiler's raw trace events: prof.events() would first build
     the host ops' call tree, about a minute of host time for a PT step's
     ~10^6 ops."""
@@ -580,14 +582,18 @@ def profile_call(fn) -> dict:
             kernels[e.name()] = (ms + us / 1e3, calls + 1)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     busy_ms = busy_us / 1e3
-    chain = {}  # the sample chain's kernels: (ms, calls) each, over its templates
-    for k in pt_chain.KERNELS:
-        hits = [v for name, v in kernels.items() if f"{k}_kernel" in name]
-        chain[k] = (sum(ms for ms, _ in hits), sum(calls for _, calls in hits))
+    def by_kernel(names):  # (ms, calls) of each named kernel, over its templates
+        out = {}
+        for k in names:
+            hits = [v for name, v in kernels.items() if f"{k}_kernel" in name]
+            out[k] = (sum(ms for ms, _ in hits), sum(calls for _, calls in hits))
+        return out
+
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
                 mega_ms=sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name),
                 kernels=sum(calls for _ms, calls in kernels.values()),
-                top=[(name[:70], ms, calls) for name, (ms, calls) in top], chain=chain)
+                top=[(name[:70], ms, calls) for name, (ms, calls) in top],
+                chain=by_kernel(pt_chain.KERNELS), vox=by_kernel(vox_ops.KERNELS))
 
 
 # The sample chain's stages (ops/pt_chain.py): float32-equivalent operations
@@ -729,3 +735,54 @@ def flat_tensors(xs) -> list:
         elif isinstance(x, torch.Tensor):
             out.append(x)
     return out
+
+
+# The scene build's stages (ops/voxelize.py): float32 operations counted
+# from the plain stages' code as a lower-bound yardstick. A triangle's
+# context ~190 (edges, normal, the voxel bbox, nine edge functions, the z
+# slab's constants); a cell of its voxel bbox tested ~40 (its corner, its
+# column's three major-axis edge functions and z range, the other two
+# axes' six edge functions); a dumped voxel ~110 (the closest point's
+# three cross products and dots, two colours mixed and packed); a sorted
+# entry of the unique reduce ~8 (three channels unpacked and added a word).
+VOX_CTX_OPS = 190
+VOX_CELL_OPS = 40
+VOX_EMIT_OPS = 110
+VOX_ENTRY_OPS = 8
+
+
+def vox_cells(tri, origin, dps, grid_res: int, cap: int) -> int:
+    """The cells of the triangles' voxel bboxes, each axis clamped to the
+    grid and to cap (the candidates the count and emit kernels test)."""
+    lo = torch.clamp(torch.floor((tri.amin(1) - origin) / dps).to(torch.int32), min=0)
+    hi = torch.clamp(torch.floor((tri.amax(1) - origin) / dps).to(torch.int32),
+                     max=grid_res - 1)
+    ext = torch.clamp(hi.to(torch.int64) - lo + 1, min=0, max=cap)
+    return int(ext.prod(1).sum())
+
+
+def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0,
+              n_sorted: int = 0, n_unique: int = 0, mode: str = "means") -> tuple:
+    """(bound_ms, bound_by) of one call of a scene-build kernel on its
+    call's data (n_cells: vox_cells of its triangles). Bytes it must move:
+    count, a triangle's 36 B in and its 4 B count out; emit, a triangle's
+    vertices, colours and emissions (108 B) and its 8 B offset in, 16 B out
+    a dumped voxel; the unique reduce, a sorted entry's key, perm,
+    boundary flag and attribute words (two int32, or the merge's seven
+    int64) in, a unique voxel's seg and its outputs (the code and two
+    packed means, or the code, six sums and the count). Operations: the
+    VOX_*_OPS counts."""
+    if stage == "vox_count":
+        n_bytes = n_tri * (36 + 4)
+        ops = VOX_CTX_OPS * n_tri + VOX_CELL_OPS * n_cells
+    elif stage == "vox_emit":
+        n_bytes = n_tri * (108 + 8) + n_dumped * 16
+        ops = VOX_CTX_OPS * n_tri + VOX_CELL_OPS * n_cells + VOX_EMIT_OPS * n_dumped
+    elif stage == "vox_unique_reduce":
+        attrs = 7 * 8 if mode == "merge" else 2 * 4
+        outs = 8 + (7 * 8 if mode == "sums" else 2 * 4)
+        n_bytes = n_sorted * (8 + 8 + 1 + attrs) + n_unique * (8 + outs)
+        ops = VOX_ENTRY_OPS * n_sorted
+    else:
+        raise ValueError(f"no scene-build kernel {stage!r}")
+    return bound(n_bytes, ops)

@@ -202,6 +202,19 @@ def _bind(lib):
         f, f, q, p, p, p, p, p, p, p,                  # inv_extra, w_depth0, n, 6 outputs, stream
     ]
     lib.pt_compact_gather_launch.argtypes = [p, q] + [p] * 22  # perm, n, 10 in, 11 out, stream
+    lib.vox_count_launch.argtypes = [
+        i, p, q, p, p,                                 # six, tri, n, origin, dps
+        i, i, p, p,                                    # grid_res, cap, count, stream
+    ]
+    lib.vox_emit_launch.argtypes = [
+        i, p, p, p, p, q,                              # six, tri, col, emi, offsets, n
+        p, p, i, i, q,                                 # origin, dps, grid_res, cap, n_out
+        p, p, p, p,                                    # code, color, emission, stream
+    ]
+    lib.vox_unique_reduce_launch.argtypes = [
+        i, p, p, p, p, q,                              # mode, s_key, perm, boundary, seg, n
+        p, p, p, p,                                    # in[7], code, out[7], stream
+    ]
     lib.smem_optin_bytes.argtypes = [i]
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -217,7 +230,9 @@ def _bind(lib):
                lib.smem_alloc_probe_launch, lib.ohg_probe_launch,
                lib.pt_lane_init_launch, lib.pt_primary_shade_launch,
                lib.pt_bounce_sample_launch, lib.pt_bounce_shade_launch,
-               lib.pt_compact_gather_launch, lib.smem_optin_bytes):
+               lib.pt_compact_gather_launch, lib.vox_count_launch,
+               lib.vox_emit_launch, lib.vox_unique_reduce_launch,
+               lib.smem_optin_bytes):
         fn.restype = ctypes.c_int
     return lib
 

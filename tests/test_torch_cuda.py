@@ -1358,3 +1358,166 @@ def test_chain_nvcc_command_keeps_ieee_floats(cuda):
         assert flag not in " ".join(cmd)
     for name in CHAIN_STAGES:
         assert getattr(lib, f"pt_{name}_launch") is not None
+
+
+# ---------------------------------------------------------------------------
+# the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu)
+# ---------------------------------------------------------------------------
+
+VOX_MESHES = {"icosphere": lambda: meshgen.icosphere(3, radius=0.9),
+              "bumpy": lambda: meshgen.bumpy_sphere(3, radius=0.9)}
+
+
+def vox_inputs(tri, grid, device, cap=4, emission=True):
+    """test_torch_voxelize's inputs of a mesh: split to cap, on `device`."""
+    from massivevoxelraytracing_torch.utils import meshprep
+
+    origin, dps = meshgen.fit_grid(tri, grid)
+    col = meshgen.vertex_colors_from_position(tri, *meshgen.mesh_bounds(tri))
+    emi = np.zeros_like(col)
+    if emission:
+        emi[: len(emi) // 5] = 0.5
+    arrays = meshprep.split_to_cap(tri, col, emi, origin, dps, grid, cap)
+    return ([torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays],
+            torch.as_tensor(np.asarray(origin, np.float32), device=device),
+            torch.tensor(dps, dtype=torch.float32, device=device))
+
+
+def vox_stages_equal(tris, origin, dps, grid, six, cap=4, chunk=None):
+    """Each build kernel against its plain stage on the same card tensors,
+    bit for bit: count, emit into buffers prefilled with a sentinel, and
+    the unique reduce in its three modes (the merge on two groups' sums).
+    The plain stages run `chunk` triangles at a time (all when None).
+    Returns (the kernels' launches, dumped, unique)."""
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    t, c, e = tris
+    kw = dict(grid_res=grid, six_separating=six, cap=cap)
+    T = t.shape[0]
+    runs = [(a, min(a + (chunk or T), T)) for a in range(0, T, chunk or max(T, 1))]
+    vox.reset_counters()
+    counts = vox.count(t, origin, dps, **kw)
+    assert vox.LAUNCHES["vox_count"] == 1
+    want = torch.cat([vox.count_plain(t[a:b], origin, dps, **kw) for a, b in runs])
+    assert torch.equal(counts, want)
+    end = torch.cumsum(counts, 0, dtype=torch.int64)
+    n = int(end[-1])
+    dumps = []
+    for kernel in (True, False):
+        out = (torch.full((n,), -1, dtype=torch.int64, device=t.device),
+               torch.full((n,), 7, dtype=torch.int32, device=t.device),
+               torch.full((n,), 7, dtype=torch.int32, device=t.device))
+        if kernel:
+            vox.emit(t, c, e, end - counts, origin, dps, out, **kw)
+        for a, b in runs if not kernel else ():
+            vox.emit_plain(t[a:b], c[a:b], e[a:b], (end - counts)[a:b], origin, dps, out, **kw)
+        dumps.append(out)
+    assert vox.LAUNCHES["vox_emit"] == 1
+    for x, y in zip(*dumps):
+        assert torch.equal(x, y)
+    code, color, emission = dumps[0]
+    assert bool((code >= 0).all())
+    segs = vox._sorted_segments(code)
+    for mode in ("means", "sums"):
+        got = vox.unique_reduce(*segs, (color, emission), mode=mode)
+        plain = vox.unique_reduce_plain(*segs, (color, emission), mode=mode)
+        for x, y in zip(torch.utils._pytree.tree_leaves(got),
+                        torch.utils._pytree.tree_leaves(plain)):
+            assert torch.equal(x, y), mode
+    parts = [vox.sort_and_unique_sums(code[sl], color[sl], emission[sl])[0]
+             for sl in (slice(0, n // 3), slice(n // 3, n))]
+    merged = vox._sorted_segments(torch.cat([p[0] for p in parts]))
+    attrs = (*[torch.cat([p[1][i] for p in parts]) for i in range(6)],
+             torch.cat([p[2] for p in parts]))
+    got = vox.unique_reduce(*merged, attrs, mode="merge")
+    for x, y in zip(got, vox.unique_reduce_plain(*merged, attrs, mode="merge")):
+        assert torch.equal(x, y), "merge"
+    assert vox.LAUNCHES["vox_unique_reduce"] == 5  # means, sums, two groups, merge
+    return dict(vox.LAUNCHES), n, segs[4]
+
+
+@pytest.mark.parametrize("six", [False, True])
+@pytest.mark.parametrize("name", list(VOX_MESHES))
+def test_vox_kernels_match_plain_on_meshes(cuda, name, six):
+    tris, origin, dps = vox_inputs(VOX_MESHES[name](), 64, cuda)
+    launches, n, n_unique = vox_stages_equal(tris, origin, dps, 64, six)
+    assert n > n_unique > 1000
+
+
+@pytest.mark.parametrize("six", [False, True])
+def test_vox_kernels_match_plain_on_edge_cases(cuda, six):
+    """Triangles reaching past the grid (one far enough that the bbox's
+    float-to-int casts saturate), padding (zero) triangles, a degenerate
+    one, colours that quantize through NaN and inf, and triangles whose
+    vertices sit on cell corners (the closest point's 0 / 0)."""
+    (t, c, e), origin, dps = vox_inputs(VOX_MESHES["bumpy"](), 64, cuda)
+    t, c, e = (torch.cat([x, torch.zeros((6, 3, 3), device=cuda)]) for x in (t, c, e))
+    t[0] += 1.5
+    t[1] -= 3.0
+    t[2] = t[2] * 1e12  # casts saturate
+    t[3, 2] = t[3, 0]
+    c[4, 0, 0] = float("nan")
+    c[5] = float("inf")
+    e[6, 1, 2] = float("nan")
+    corner = torch.tensor([[0.25, 0.25, 0.25], [0.5, 0.25, 0.25], [0.25, 0.5, 0.25]],
+                          device=cuda)
+    t[-1] = origin + corner * 64 * dps
+    t[-2] = origin + corner[[0, 2, 1]] * 64 * dps
+    vox_stages_equal((t.contiguous(), c.contiguous(), e.contiguous()), origin, dps, 64, six)
+
+
+def test_vox_kernels_match_plain_at_cap_of_the_grid(cuda):
+    """voxtriangle's one triangle with cap = the grid (32^3 candidates)."""
+    one = torch.tensor([[[-0.5, -0.4, 0.1], [0.58, -0.22, 0.3], [0.0, 0.61, -0.2]]],
+                       device=cuda)
+    for six in (False, True):
+        vox_stages_equal((one, torch.ones_like(one), torch.zeros_like(one)),
+                         torch.full((3,), -1.0, device=cuda),
+                         torch.tensor(2.0 / 32, device=cuda), 32, six, cap=32)
+
+
+def test_vox_kernels_match_plain_on_the_lattice_group(cuda):
+    """The 1024^3 bench lattice (one group: 33.5M dumped voxels), the plain
+    stages a chunk of 262,144 triangles at a time."""
+    from massivevoxelraytracing_torch.utils import meshprep
+
+    tri, cols = meshgen.sphere_lattice(6, 4)
+    origin = np.zeros(3, np.float32)
+    arrays = meshprep.split_to_cap(tri, cols, np.zeros_like(tri), origin, 1.0 / 1024, 1024, 4)
+    tris = [torch.from_numpy(a).to(cuda) for a in arrays]
+    _, n, n_unique = vox_stages_equal(tris, torch.from_numpy(origin).to(cuda),
+                                      torch.tensor(1.0 / 1024, device=cuda), 1024, True,
+                                      chunk=262144)
+    assert (n, n_unique) == (33_545_375, 13_645_228)
+
+
+def test_build_scene_vox_kernels_equal_plain_stages(cuda, monkeypatch):
+    """build_scene through the kernels and through the plain stages on the
+    card: the same tree, single pass and grouped; the kernel route launches
+    one count, one emit a group and one reduce a group (plus the merge),
+    the plain route none."""
+    from massivevoxelraytracing_torch.entry import trees_equal
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    tri, cols = meshgen.sphere_lattice(2, 2)
+    kw = dict(origin=np.zeros(3, np.float32), dps=1.0 / 128, grid_res=128, device=cuda,
+              chunk_tris=4096)
+    trees = {}
+    for label, group, stages in (("kernels", None, None), ("plain", None, "plain"),
+                                 ("kernels_grouped", 20000, None),
+                                 ("plain_grouped", 20000, "plain")):
+        if group:
+            monkeypatch.setattr(scene, "GROUP_DUMPED", group)
+        vox.reset_counters()
+        trees[label] = scene.build_scene(tri, cols, stages=stages, **kw)
+        n = vox.LAUNCHES
+        if stages:
+            assert n == dict.fromkeys(vox.KERNELS, 0)
+        elif group:
+            assert n["vox_count"] == 1 and n["vox_emit"] >= 2
+            assert n["vox_unique_reduce"] == n["vox_emit"] + 1  # the groups' and the merge
+        else:
+            assert n == dict.fromkeys(vox.KERNELS, 1)
+    assert trees["kernels_grouped"].build_stats["n_dumped"] > 2 * 20000
+    for label in ("plain", "kernels_grouped", "plain_grouped"):
+        assert trees_equal(trees["kernels"], trees[label]), label

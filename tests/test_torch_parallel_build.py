@@ -77,21 +77,36 @@ def test_partition_invariance_on_an_explicit_mesh(inputs):
 
 
 def test_buffer_retry_keeps_the_tree(inputs, monkeypatch):
-    """A buffer too small for the worst shard is doubled and the pass
-    rerun (the JAX package's retry loop); the tree does not change. Past
-    MAX_ATTEMPTS doublings the build raises."""
+    """The count pass sizes each shard's dump buffers exactly (the valid
+    candidates of its triangles), so the JAX package's retry loop (a buffer
+    too small for the worst shard, doubled and the pass rerun) has nothing
+    left to retry: every entry of every buffer is written once before the
+    group unique reads it, the sizes add up to n_dumped, and the tree is
+    the one build_scene gives."""
     tri, col, emi, kw = inputs
-    want = pbuild.build_scene_sharded(tri, col, emi, n_devices=2, device="cpu",
-                                      accel="hako", **kw)
-    real_bucket = pbuild.bucket
-    monkeypatch.setattr(pbuild, "bucket", lambda n, floor=8: real_bucket(n) // 4)
+    want = scene.build_scene(tri, col, emi, device="cpu", accel="hako", **kw)
+    sizes = []
+    real_buffers = pbuild.scene_mod._dump_buffers
+    real_sums = pbuild.vox_ops.sort_and_unique_sums
+
+    def buffers(n, device):
+        bufs = real_buffers(n, device)
+        for b in bufs:
+            b.fill_(-7)  # no Morton code is negative
+        sizes.append(n)
+        return bufs
+
+    def sums(code, color, emission, *a, **k):
+        assert bool((code >= 0).all()), "a dump buffer entry was never written"
+        return real_sums(code, color, emission, *a, **k)
+
+    monkeypatch.setattr(pbuild.scene_mod, "_dump_buffers", buffers)
+    monkeypatch.setattr(pbuild.vox_ops, "sort_and_unique_sums", sums)
     got = pbuild.build_scene_sharded(tri, col, emi, n_devices=2, device="cpu",
                                      accel="hako", **kw)
+    assert len(sizes) == 2 and min(sizes) > 0
+    assert sum(sizes) == got.build_stats["n_dumped"] == want.build_stats["n_dumped"]
     assert trees_equal(want, got)
-    monkeypatch.setattr(pbuild, "bucket", lambda n, floor=8: 8)
-    with pytest.raises(RuntimeError, match="diverged"):
-        pbuild.build_scene_sharded(tri, col, emi, n_devices=2, device="cpu",
-                                   accel="hako", **kw)
 
 
 def test_cuda_mesh_raises_without_a_card(inputs, monkeypatch):
