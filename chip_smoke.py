@@ -20,8 +20,18 @@ Phases (any failure raises, and the script exits non-zero):
   3. the main path's primary frame: build_scene of the bench lattice at
      1024^3 (the scene build's three kernels' counts set to 0 just before
      and read just after: each must launch) and 1920x1080 frames with the
-     bench camera through the megakernel, then kernel vs plain version on
-     16,384 rays sampled across that frame;
+     bench camera through the megakernel and the frame's kernels (their
+     counts and hako_mega's set to 0 just before the counted frame: each
+     must launch), then kernel vs plain version on 16,384 rays sampled
+     across that frame; the frame's kernels (models/raycast.py,
+     csrc/frame.cu): frame_raygen and frame_shade (normals and colours,
+     un-tiled and flat) against their plain stages on the same card
+     tensors, bit for bit, on the frame and on a 1000x700 band from row
+     256; each kernel's ms, its plain stage's ms and its bytes bound
+     (scripts/common.raygen_bound / shade_bound) and share; the frame
+     through stages="plain" (the route before these kernels) and through
+     the kernels, timed and profiled (device kernels, busy, idle), parent
+     route first, both images and depths equal to the frame's;
   3c. the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu): the
      lattice's split triangles to the card from pageable and from pinned
      memory (ms, GB/s); vox_count, vox_emit and vox_unique_reduce each
@@ -126,9 +136,11 @@ Phases (any failure raises, and the script exits non-zero):
      read back, the last frame bit-equal to a PathTracer driven directly
      on the same tree and camera), voxrt (torus 256^3, 640x360, voxel
      colors, --oracle: the app fails past 2% disagreeing pixels) and voxpt
-     (torus 256^3, 640x360: 3 steps with --checkpoint, then --resume for a
-     4th, bit-equal to 4 uninterrupted steps; and one step at
-     EngineConfig's 65,536-lane packet). hako_mega's counter is set to 0
+     (torus 256^3, 640x360, at its default packet of 2^21 lanes: 3 steps
+     with --checkpoint, then --resume for a 4th, bit-equal to 4
+     uninterrupted steps; then one step at EngineConfig's 65,536-lane
+     packet and one at the default, accumulators bit for bit, both
+     timed). hako_mega's counter is set to 0
      just before each app and read just after: each must launch it; the
      scene build's counts around the phase (each must launch); then
      rtcamp's last build again through both routes (route_builds), each
@@ -136,11 +148,19 @@ Phases (any failure raises, and the script exits non-zero):
   7. the other structures and the streamed build: (a) the bench lattice
      at 1024^3 built as a brick tree and as an octree (DAG on, then off):
      voxels equal to the hako build's, nodes, bytes, build time, a 1080p
-     frame through each (plain tensor walks; no kernel), every ray held
-     against the megakernel's frame up to classified ties, grazes and
-     plane drifts (utils/tiecheck.py), 16,384 sampled rays on the card
-     equal to the CPU's; one 16-spp PT step through the brick tree at
-     640x360 (cut from 1080p), its mean within 1% of the megakernel's step;
+     frame through each (the walk kernels, csrc/walks.cu: its walk kernel
+     and the frame's kernels counted from 0, one launch each), timed
+     through the kernels and through stages="plain" (the eager walks),
+     images equal; the walk kernel against the plain walk on all 2,211,840
+     frame rays, bit for bit, each timed alone, with its bound
+     (scripts/common.walk_rows / walk_bound: the rays, outputs and rows
+     reached) and share; every ray held against the megakernel's frame up
+     to classified ties, grazes and plane drifts (utils/tiecheck.py),
+     16,384 sampled rays on the card equal to the CPU's; one 16-spp PT step
+     through the brick tree at 640x360 (cut from 1080p; its brick_walk
+     launches counted), its mean within 1% of the megakernel's step, and
+     every structure's walk kernel against its plain walk on that step's
+     recorded bounce-1 BSDF and NEE (shadow) batches, bit for bit;
      (b) the terrain shell through the streamed build: park="device" ==
      park="host" at 2048^3, then apps/scale_shell.py at 16384^3 (the JAX
      package's a1 = 0.0395 run): n_voxels == the column pass, build time,
@@ -196,8 +216,12 @@ Phases (any failure raises, and the script exits non-zero):
      and peak memory; the scene build's counts around the phase (each must
      launch); then the last rebuild again through both routes
      (route_builds), each tree == the script's.
-  The scene build's kernels' counts are also read around phases 7a, 7c
-  and 8 (launches_by_path in the kernels line).
+  The scene build's, the frame's and the walks' kernels' counts are also
+  read around phases 6, 7a, 7c, 8 and 9 (launches_by_path in the kernels
+  line: the frame kernels' main path is phase 3's counted frame and 7a's
+  three, the walks' 7a's frames and brick PT step; then phases 6, 7c, 8
+  and 9, each counted from 0). Phase 8b also requires one launch of each
+  frame kernel a band.
 
 Prints the card's name and power limit beside every timing, a JSON line
 of the probes' numbers (phase 5b's under "slice", 5c's under "split", 5d's
@@ -205,7 +229,9 @@ under "gather"),
 one JSON line of
 kernel results, one entry for each hand-written kernel (take_along_probe
 one for each reference body it runs; the sample chain's five kernels; the
-scene build's three, with phase 3c's copy and routes under "build";
+scene build's three, with phase 3c's copy and routes under "build"; the
+frame's two, with both frame routes, and the two walks, with each
+structure's frame and walk numbers;
 phase 4's two chain routes under "pt"; with the apps' numbers, phase 8's
 under "parallel", phase 7's under "accel" and "shell" and phase 9's under
 "scale"), and as its last line
@@ -249,7 +275,6 @@ VOXRT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
               "360", "--mode", "color", "--oracle"]
 VOXPT_ARGV = ["--scene", "torus", "--res", "256", "--width", "640", "--height",
               "360", "--snapshot-every", "0"]
-VOXPT_PACKET = ["--ray-packet", str(1 << 21)]  # the PathTracer's own default
 STRUCTURES = (("brick", dict(accel="brick")), ("octree", dict(accel="octree")),
               ("octree_nodag", dict(accel="octree", dag=False)))
 TIE_SHARE = 0.01           # classified ties allowed across structures
@@ -285,6 +310,18 @@ VOX_REPLACES = {
     "vox_unique_reduce": "ops/voxelize.py:351-506 (sort_and_unique_sums :352, "
                          "merge_unique_sums :407, sort_and_unique :456)",
 }
+# the reference's jitted lines each frame and walk kernel takes over (XLA
+# fused them; no pallas_call)
+FRAME_REPLACES = {
+    "frame_raygen": "models/raycast.py:159-185 (_gen_rays_band)",
+    "frame_shade": "models/raycast.py:30-41 (_shade_flat), 188-216 (_shade_untile_band)",
+    "brick_walk": "ops/bricktree.py:240-437 (the walk's while_loop and set-up)",
+    "octree_walk": "ops/traverse2.py:54-273 (the v2 walk's while_loop and set-up)",
+}
+FRAME_SOURCES = {"frame_raygen": "frame.cu", "frame_shade": "frame.cu",
+                 "brick_walk": "walks.cu", "octree_walk": "walks.cu"}
+BAND = (1000, 700, 256, 2)  # width, height, py0, tile rows: a band past row 0
+VOXPT_EC_PACKET = 65536     # EngineConfig.ray_packet, voxpt's default before 2^21
 BUILD_CHUNK = 262144       # phase 3's chunk_tris: the plain stages' unit
 COPY_REPS = 4
 ROW_BYTES = 164 * 4
@@ -547,9 +584,11 @@ def phase_main_path(device, smi: str, rng):
     _, frame_ms = timed(lambda: raycast.render_frame(
         tree, cam, width, height, device=device), reps=frames)
     hako_mega.reset_counters()
+    raycast.reset_counters()
     img, depth = raycast.render_frame(tree, cam, width, height, device=device)
     torch.cuda.synchronize(device)
     launches = hako_mega.LAUNCHES
+    frame_launches = dict(raycast.LAUNCHES)
     unresolved = hako_mega.unresolved_lanes()
 
     st = tree.build_stats
@@ -569,7 +608,11 @@ def phase_main_path(device, smi: str, rng):
           f"build's kernels launched {vox_launches} [{smi}]", flush=True)
     print(f"[phase3] frame {width}x{height}: {frame_ms:.3f} ms = {mrays:.2f} Mrays/s "
           f"(mean of {frames}), hit fraction {hit_frac:.4f}, kernel launches "
-          f"{launches}, unresolved lanes {unresolved} [{smi}]", flush=True)
+          f"{launches}, frame kernels {frame_launches}, unresolved lanes {unresolved} "
+          f"[{smi}]", flush=True)
+    if min(frame_launches.values()) < 1:
+        raise AssertionError(f"the main path's frame launched no frame kernel: "
+                             f"{frame_launches}")
 
     if tuple(img.shape) != (height, width, 3) or tuple(depth.shape) != (height, width):
         raise AssertionError(f"frame shapes {tuple(img.shape)} {tuple(depth.shape)}")
@@ -611,8 +654,114 @@ def phase_main_path(device, smi: str, rng):
                   frame_kernel_ms=frame_kernel_ms, frame_ms=frame_ms,
                   frame_bound=(fb["bound_ms"], fb["bound_by"]),
                   frame_rows=(fb["distinct_rows"], fb["row_visits"]),
-                  counters=counters, frame_args=args, vox_launches=vox_launches)
+                  counters=counters, frame_args=args, vox_launches=vox_launches,
+                  frame_launches=frame_launches)
     return tree, cam, img, depth, result
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (frame): the frame's kernels (models/raycast.py, csrc/frame.cu)
+# ---------------------------------------------------------------------------
+
+def plain_rays(cam_dev, py0: int, width: int, height: int, rows: int):
+    """_gen_rays_band on camera tensors already on the card: the plain
+    stage frame_raygen replaces."""
+    from massivevoxelraytracing_torch.models import raycast
+
+    return raycast._gen_rays_band(*cam_dev, py0, width=width, height=height,
+                                  band_tile_rows=rows)
+
+
+def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
+    """Phase 3, the frame's kernels: frame_raygen and frame_shade (both
+    colourings, un-tiled and flat) against their plain stages on the same
+    card tensors, bit for bit, on the 1080p lattice frame and on a band
+    past row 0 whose width is not a multiple of 128; each kernel's ms, its
+    plain stage's ms and its bytes bound on the frame; then the frame
+    through stages="plain" (the route before these kernels) and through
+    the kernels, timed and profiled in turns, parent route first, image
+    and depth equal to phase 3's."""
+    import torch
+
+    from massivevoxelraytracing_torch.models import accel, raycast
+    from massivevoxelraytracing_torch.scripts import common
+
+    kind, T, meta, root = accel.accel_args(tree)
+    table = raycast._color_table(tree)
+    camv = raycast.camera_of(cam)
+    cam_dev = (*(torch.from_numpy(v).to(device) for v in camv[:4]),
+               torch.tensor(camv[4], dtype=torch.float32, device=device))
+    err = {"frame_raygen": 0.0, "frame_shade": 0.0}
+    out = {}
+    for label, (w, h, py0, rows) in (("1080p frame", (WIDTH, HEIGHT, 0, -(-HEIGHT // 128))),
+                                     (f"{BAND[0]}x{BAND[1]} band from row {BAND[2]}", BAND)):
+        rays = raycast.gen_rays(camv, py0, width=w, height=h, band_tile_rows=rows,
+                                device=device)
+        want = plain_rays(cam_dev, py0, w, h, rows)
+        err["frame_raygen"] = max(err["frame_raygen"], max_float_diff(rays, want))
+        assert_bits_equal(rays, want, f"phase 3: frame_raygen on the {label}")
+        ro, rd = rays
+        t, nmaj, vidx = accel.intersect_with(kind, T, meta, root, tree.lower, tree.upper,
+                                             ro, rd)
+        rows_out = min(h - py0, rows * 128)
+        untile = dict(width=w, band_tile_rows=rows, rows_out=rows_out)
+        for show_color in (False, True):
+            args = (table, rd, t, nmaj, vidx)
+            for got, want in (
+                    (raycast.shade(*args, show_color=show_color, **untile),
+                     raycast._shade_untile_band(*args, show_color=show_color, **untile)),
+                    (raycast.shade(*args, show_color=show_color),
+                     raycast._shade_flat(*args, show_color=show_color))):
+                err["frame_shade"] = max(err["frame_shade"], max_float_diff(got, want))
+                assert_bits_equal(got, want, f"phase 3: frame_shade (colour {show_color}) "
+                                             f"on the {label}")
+        print(f"[phase3] frame kernels == plain stages bit for bit on the {label} "
+              f"({ro.shape[0]} lanes): frame_raygen; frame_shade normals and colours, "
+              f"un-tiled and flat [{smi}]", flush=True)
+        if py0 == 0:
+            live = ro[:, 0] < 1e8  # the lanes of the frame's pixels
+            n_pad = ro.shape[0]
+            k_ms = {"frame_raygen": timed(lambda: raycast.gen_rays(
+                camv, 0, width=w, height=h, band_tile_rows=rows, device=device), 20)[1]}
+            p_ms = {"frame_raygen": timed(lambda: plain_rays(cam_dev, 0, w, h, rows), 5)[1]}
+            bnd = {"frame_raygen": common.raygen_bound(n_pad)}
+            for show_color, name in ((False, "frame_shade"), (True, "frame_shade_colour")):
+                args = (table, rd, t, nmaj, vidx)
+                k_ms[name] = timed(lambda: raycast.shade(
+                    *args, show_color=show_color, **untile), 20)[1]
+                p_ms[name] = timed(lambda: raycast._shade_untile_band(
+                    *args, show_color=show_color, **untile), 5)[1]
+                bnd[name] = common.shade_bound(t, nmaj, vidx, show_color, table, live)
+            for name in k_ms:
+                print(f"[phase3] {name} on the 1080p frame: {k_ms[name]:.4f} ms vs plain "
+                      f"stage on the card {p_ms[name]:.3f} ms; bound {bnd[name][0]:.4f} ms "
+                      f"({bnd[name][1]}), share {bnd[name][0] / k_ms[name]:.0%} [{smi}]",
+                      flush=True)
+            out["timing"] = {name: dict(ms=k_ms[name], plain_ms=p_ms[name],
+                                        bound_ms=bnd[name][0], bound_by=bnd[name][1],
+                                        share=bnd[name][0] / k_ms[name]) for name in k_ms}
+
+    # the frame through both routes, in turns, the parent's route first
+    def frame(stages):
+        return raycast.render_frame(tree, cam, WIDTH, HEIGHT, device=device, stages=stages)
+
+    routes = {}
+    for label, stages in (("plain", "plain"), ("kernels", None)):
+        got = frame(stages)
+        if not torch.equal(got[0], img) or not torch.equal(got[1], depth):
+            raise AssertionError(f"phase 3: the frame through the {label} route differs")
+        ms = timed(lambda: frame(stages), reps=TIMED_FRAMES)[1]
+        prof = common.profile_call(lambda: frame(stages))
+        routes[label] = dict(ms=ms, kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                             idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                             mega_ms=prof["mega_ms"], frame=prof["frame"])
+        print(f"[phase3] frame route {label}: {ms:.3f} ms (mean of {TIMED_FRAMES}, CUDA "
+              f"events) = {WIDTH * HEIGHT / (ms * 1e-3) / 1e6:.1f} Mrays/s; profiled: "
+              f"{prof['kernels']} device kernels, busy {prof['busy_ms']:.3f} ms, hako_mega "
+              f"{prof['mega_ms']:.3f} ms, frame kernels {prof['frame']}, idle "
+              f"{prof['idle_share']:.3f}; image and depth == phase 3's [{smi}]", flush=True)
+    out.update(err=err, routes=routes)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -620,20 +769,24 @@ def phase_main_path(device, smi: str, rng):
 # ---------------------------------------------------------------------------
 
 def vox_counted(fn, what: str, need: bool = True):
-    """fn() with the scene build's kernel counts set to 0 just before it and
-    read just after: (result, {kernel: launches}); with `need`, each kernel
-    must have launched."""
+    """fn() with the scene build's, the frame's and the walks' kernel counts
+    set to 0 just before it and read just after: (result, {kernel:
+    launches}); with `need`, each scene-build kernel must have launched."""
     import torch
 
+    from massivevoxelraytracing_torch.models import raycast
+    from massivevoxelraytracing_torch.ops import traverse
     from massivevoxelraytracing_torch.ops import voxelize as vox
 
     torch.cuda.synchronize()
-    vox.reset_counters()
+    for mod in (vox, raycast, traverse):
+        mod.reset_counters()
     out = fn()
     torch.cuda.synchronize()
     got = dict(vox.LAUNCHES)
     if need and min(got.values()) < 1:
         raise AssertionError(f"{what}: a scene-build kernel was not launched: {got}")
+    got.update(raycast.LAUNCHES, **traverse.LAUNCHES)
     return out, got
 
 
@@ -833,6 +986,7 @@ def route_builds(args, kwargs, want, what: str, smi: str) -> dict:
             kept = []
             prof, launched = vox_counted(lambda: common.profile_call(
                 lambda: kept.append(build(stages))), what, need=False)
+            launched = {k: launched[k] for k in prof["vox"]}
             if not trees_equal(kept.pop(), want):
                 raise AssertionError(f"{what}: the {route} route's profiled tree differs")
             seen = {k: calls for k, (_, calls) in prof["vox"].items()}
@@ -2051,18 +2205,18 @@ def phase_apps(smi: str, device: str = "cuda") -> dict:
                         oracle_checked=st["oracle_checked"], wall_s=wall, launches=n)
 
     # voxpt: 3 steps + checkpoint, resume for a 4th == 4 uninterrupted steps
+    # (at voxpt's default packet, the PathTracer's 2^21 lanes)
     vp = os.path.join(APPS_OUT, "voxpt")
     ck = os.path.join(vp, "ck.npz")
     _, n1, wall1 = app_launches("voxpt 3 steps", lambda: voxpt.main(
-        VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "3", "--checkpoint", ck,
-                                     "--out", os.path.join(vp, "part")]))
+        VOXPT_ARGV + dev + ["--steps", "3", "--checkpoint", ck,
+                            "--out", os.path.join(vp, "part")]))
     resumed, n2, wall2 = app_launches("voxpt resume", lambda: voxpt.main(
-        VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "4", "--resume", ck,
-                                     "--out", os.path.join(vp, "part")]))
+        VOXPT_ARGV + dev + ["--steps", "4", "--resume", ck,
+                            "--out", os.path.join(vp, "part")]))
     with StepTimer() as timer:
         full, n3, wall3 = app_launches("voxpt 4 steps", lambda: voxpt.main(
-            VOXPT_ARGV + VOXPT_PACKET + dev + ["--steps", "4", "--out",
-                                         os.path.join(vp, "full")]))
+            VOXPT_ARGV + dev + ["--steps", "4", "--out", os.path.join(vp, "full")]))
     if not torch.equal(resumed.accum, full.accum) or resumed.spp_done != 64:
         raise AssertionError("voxpt: resumed run differs from 4 uninterrupted steps")
     with open(os.path.join(vp, "part", "render_final.png"), "rb") as a, \
@@ -2072,19 +2226,32 @@ def phase_apps(smi: str, device: str = "cuda") -> dict:
     if not os.path.exists(os.path.join(vp, "full", "render_first.png")):
         raise AssertionError("voxpt wrote no render_first.png")
     step_ms = timer.ms
-    with StepTimer() as timer:
-        _, n4, wall4 = app_launches("voxpt default packet", lambda: voxpt.main(
-            VOXPT_ARGV + dev + ["--steps", "1", "--out", os.path.join(vp, "default")]))
-    default_ms = timer.ms[0]
+    # one step at EngineConfig's 65,536-lane packets and one at voxpt's
+    # default (2^21): the accumulators bit for bit
+    packet_ms, packet_acc = {}, {}
+    for label, extra in (("ec_65536", ["--ray-packet", str(VOXPT_EC_PACKET)]),
+                         ("default_2097152", [])):
+        with StepTimer() as timer:
+            run, n4, _wall = app_launches(f"voxpt {label}", lambda: voxpt.main(
+                VOXPT_ARGV + extra + dev + ["--steps", "1",
+                                            "--out", os.path.join(vp, label)]))
+        packet_ms[label] = timer.ms[0]
+        packet_acc[label] = run.accum
+        if label == "default_2097152" and run.packet != pathtracer.RAY_PACKET:
+            raise AssertionError(f"voxpt's default packet is {run.packet}")
+    if not torch.equal(packet_acc["ec_65536"], packet_acc["default_2097152"]):
+        raise AssertionError("voxpt: a step at 65,536-lane packets differs from one at "
+                             "2^21")
     print(f"[phase6] voxpt 640x360 at 256^3: resume after 3 steps == 4 uninterrupted "
-          f"steps bit for bit; steps at {1 << 21}-lane packets "
+          f"steps bit for bit; steps at the default {pathtracer.RAY_PACKET}-lane packets "
           f"{', '.join(f'{x:.1f}' for x in step_ms)} ms (CUDA events; the 4-step "
-          f"run {wall3:.1f} s in all); one step at EngineConfig's 65536-lane "
-          f"packets {default_ms:.1f} ms; hako_mega launches {n1} / {n2} / {n3} / "
-          f"{n4} [{smi}]", flush=True)
-    out["voxpt"] = dict(step_ms=step_ms, default_packet_step_ms=default_ms,
-                        wall_4_steps_s=wall3, wall_default_packet_s=wall4,
-                        launches=[n1, n2, n3, n4])
+          f"run {wall3:.1f} s in all); one step at EngineConfig's {VOXPT_EC_PACKET}-lane "
+          f"packets {packet_ms['ec_65536']:.1f} ms, one at the default "
+          f"{packet_ms['default_2097152']:.1f} ms, accumulators bit for bit; hako_mega "
+          f"launches {n1} / {n2} / {n3} [{smi}]", flush=True)
+    out["voxpt"] = dict(step_ms=step_ms, ec_packet_step_ms=packet_ms["ec_65536"],
+                        default_packet_step_ms=packet_ms["default_2097152"],
+                        wall_4_steps_s=wall3, launches=[n1, n2, n3])
     return out
 
 
@@ -2142,16 +2309,40 @@ def card_vs_cpu(tree, ro, rd, what: str) -> int:
                       - want[0][hit].view(np.int32)).max()) if hit.any() else 0
 
 
+def walk_vs_plain(tree, ro, rd, shadow: bool, what: str) -> tuple:
+    """The structure's walk kernel (through models/accel) against its plain
+    walk on the same card tensors, bit for bit: (max |dt|, hits)."""
+    from massivevoxelraytracing_torch.models import accel
+
+    kind, depth, meta, root = accel.accel_args(tree)
+    args = (kind, depth, meta, root, tree.lower, tree.upper, ro, rd)
+    got = accel.intersect_with(*args, shadow=shadow)
+    want = accel.intersect_with(*args, shadow=shadow, stages="plain")
+    err = max_float_diff(got, want)
+    assert_bits_equal(got, want, f"{what}: walk kernel vs plain walk")
+    return err, int((want[0] < 1e37).sum())
+
+
+WALK_OF = {"brick": "brick_walk", "octree": "octree_walk", "octree_nodag": "octree_walk"}
+
+
 def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
     """Phase 7a: the bench lattice at 1024^3 as a brick tree and an octree
     (DAG on, then off), on the card: voxels, nodes, bytes, build; a 1080p
-    frame through each, held against the megakernel's frame up to
-    classified ties; 16,384 sampled rays on the card == on the CPU; one
-    16-spp PT step through the brick tree at 640x360."""
+    frame through each (counted: its walk kernel and the frame's kernels
+    launch), timed through the kernels and through stages="plain" (the
+    eager walks); the walk kernel against the plain walk on all the
+    frame's rays, bit for bit, each alone timed, with its bound (the rows
+    the rays reach, read off the plain walk); every ray held against the
+    megakernel's frame up to classified ties; 16,384 sampled rays on the
+    card == on the CPU; one 16-spp PT step through the brick tree at
+    640x360 (counted), its bounce-1 BSDF and NEE batches recorded and
+    every structure's walk kernel held against its plain walk on them."""
     import torch
 
-    from massivevoxelraytracing_torch.models import pathtracer, raycast, scene
-    from massivevoxelraytracing_torch.ops import hako
+    from massivevoxelraytracing_torch.models import accel, pathtracer, raycast, scene
+    from massivevoxelraytracing_torch.ops import hako, traverse
+    from massivevoxelraytracing_torch.scripts import common
     from massivevoxelraytracing_torch.utils import meshgen
     from massivevoxelraytracing_torch.utils.tiecheck import classify_structures
 
@@ -2162,8 +2353,7 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
     codes = hako.voxels_from_tree(hako_tree).astype(np.int64)
     idx = torch.as_tensor(np.sort(rng.choice(ro.shape[0], SAMPLE_RAYS, replace=False)),
                           device=device)
-    out = {}
-    brick_tree = None
+    out, trees, frame_launches = {}, {}, {}
     for name, kw in STRUCTURES:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -2175,10 +2365,30 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
         if tree.n_voxels != hako_tree.n_voxels:
             raise AssertionError(f"{name}: {tree.n_voxels} voxels, the hako build "
                                  f"{hako_tree.n_voxels}")
+        # the main path: one frame, its kernels counted from 0
+        traverse.reset_counters()
+        raycast.reset_counters()
         img, depth = raycast.render_frame(tree, cam, WIDTH, HEIGHT, device=device)
+        torch.cuda.synchronize()
+        n = frame_launches[name] = {**traverse.LAUNCHES, **raycast.LAUNCHES}
+        if n[WALK_OF[name]] != 1 or min(raycast.LAUNCHES.values()) != 1:
+            raise AssertionError(f"{name} frame: launches {n}")
         (img, depth), frame_ms = timed(lambda: raycast.render_frame(
-            tree, cam, WIDTH, HEIGHT, device=device), reps=3)
-        got = [x.cpu().numpy() for x in trace(tree, ro, rd)]
+            tree, cam, WIDTH, HEIGHT, device=device), reps=TIMED_FRAMES)
+        (p_img, p_depth), plain_frame_ms = timed(lambda: raycast.render_frame(
+            tree, cam, WIDTH, HEIGHT, device=device, stages="plain"), reps=1)
+        if not torch.equal(img, p_img) or not torch.equal(depth, p_depth):
+            raise AssertionError(f"{name}: the frame differs between the routes")
+        # the walk alone on every frame ray, kernel vs plain
+        err, hits = walk_vs_plain(tree, ro, rd, False, f"{name} 1080p frame")
+        kind, depth_, meta, root = accel.accel_args(tree)
+        plain_args = (kind, depth_, meta, root, tree.lower, tree.upper, ro, rd)
+        got, walk_ms = timed(lambda: trace(tree, ro, rd), reps=TIMED_FRAMES)
+        _, walk_plain_ms = timed(lambda: accel.intersect_with(*plain_args, stages="plain"),
+                                 reps=1, warm=False)
+        entered, rows, visits = common.walk_rows(*plain_args[:6], ro, rd)
+        b_ms, b_by = common.walk_bound(kind, ro.shape[0], rows, visits)
+        got = [x.cpu().numpy() for x in got]
         kinds = classify_structures(*mega, *got, codes, (0.0, 0.0, 0.0), 1.0 / GRID,
                                     1.0, ro_np, rd_np)
         n_tie = sum(kinds.values())
@@ -2187,48 +2397,91 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
             raise AssertionError(f"{name}: {kinds} classified, {n_px} pixels differ")
         max_ulp = card_vs_cpu(tree, ro[idx], rd[idx], f"{name} sample")
         st = tree.build_stats
-        rec = dict(n_voxels=tree.n_voxels, n_nodes=tree.n_nodes,
-                   bytes=tree.memory_bytes(), build_s=build_s,
-                   accel_s=st["t_accel_s"], frame_ms=frame_ms, classified=kinds,
-                   pixels_differ=n_px, sample_max_ulp=max_ulp)
-        out[name] = rec
+        out[name] = dict(n_voxels=tree.n_voxels, n_nodes=tree.n_nodes,
+                         bytes=tree.memory_bytes(), build_s=build_s,
+                         accel_s=st["t_accel_s"], frame_ms=frame_ms,
+                         plain_frame_ms=plain_frame_ms, walk_ms=walk_ms,
+                         walk_plain_ms=walk_plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         share=b_ms / walk_ms, rays=int(ro.shape[0]), entered=entered,
+                         rows=rows, visits=visits, hits=hits, max_abs_err=err,
+                         classified=kinds, pixels_differ=n_px, sample_max_ulp=max_ulp,
+                         frame_launches=n)
         print(f"[phase7] {name} {GRID}^3 lattice: {tree.n_voxels} voxels, "
               f"{tree.n_nodes} nodes, {tree.memory_bytes()} bytes; build "
               f"{build_s:.3f} s (accel {st['t_accel_s'] * 1e3:.1f} ms); frame "
-              f"{WIDTH}x{HEIGHT} {frame_ms:.1f} ms (mean of 3); vs the megakernel "
+              f"{WIDTH}x{HEIGHT} {frame_ms:.3f} ms through the kernels (mean of "
+              f"{TIMED_FRAMES}) vs {plain_frame_ms:.1f} ms through the plain walk and "
+              f"stages, images equal; launches {n}; vs the megakernel "
               f"frame, of {ro.shape[0]} rays: {kinds['tie']} ties, {kinds['graze']} "
               f"grazes, {kinds['drift']} plane drifts (classified), {n_px} "
               f"pixels differ; {SAMPLE_RAYS} sampled rays card == CPU (t max "
               f"ulp {max_ulp}) [{smi}]", flush=True)
-        if name == "brick":
-            brick_tree = tree
-        del tree, img, depth
-        torch.cuda.empty_cache()
+        print(f"[phase7] {WALK_OF[name]} kernel == plain walk bit for bit on the "
+              f"{ro.shape[0]} frame rays ({hits} hits, {entered} entering): "
+              f"{walk_ms:.3f} ms vs plain walk on the card {walk_plain_ms:.1f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {rows} distinct rows, {visits} visits), "
+              f"share {b_ms / walk_ms:.1%} [{smi}]", flush=True)
+        trees[name] = tree
+        del img, depth, p_img, p_depth
 
-    # one 16-spp PT step through the brick tree, and the same step through
-    # the megakernel for its mean, at a frame cut to 640x360
-    means = {}
-    for name, tree in (("brick", brick_tree), ("hako", hako_tree)):
+    # one 16-spp PT step through the brick tree (its walks counted, its
+    # bounce-1 BSDF and NEE batches recorded), and the same step through the
+    # megakernel for its mean, at a frame cut to 640x360
+    means, calls = {}, []
+    real = accel.intersect_with
+
+    def recording(*a, **k):
+        if len(calls) < 5:
+            calls.append((a[6], a[7], k.get("shadow", False)))
+        return real(*a, **k)
+
+    for name, tree in (("brick", trees["brick"]), ("hako", hako_tree)):
         pt = pathtracer.PathTracer(width=PT7_W, height=PT7_H, device=device)
         pt.setup()
         pt.load_hdri(bench_sky())
         pt.update_scene(tree)
         torch.cuda.synchronize()
-        t0 = time.time()
-        pt.step(cam)
-        torch.cuda.synchronize()
-        step_s = time.time() - t0
+        traverse.reset_counters()
+        if name == "brick":
+            accel.intersect_with = recording
+        try:
+            t0 = time.time()
+            pt.step(cam)
+            torch.cuda.synchronize()
+            step_s = time.time() - t0
+        finally:
+            accel.intersect_with = real
+        if name == "brick":
+            out["pt_brick_launches"] = traverse.LAUNCHES["brick_walk"]
+            if out["pt_brick_launches"] < 1:
+                raise AssertionError("the brick PT step launched no brick_walk kernel")
         if not bool(torch.isfinite(pt.accum).all()):
             raise AssertionError(f"{name} PT step: non-finite radiance")
         means[name] = float(pt.accum[:, :3].mean())
         out[f"pt_{name}_s"] = step_s
         print(f"[phase7] PT {name} {PT7_W}x{PT7_H} 16 spp: {step_s:.3f} s/step, "
-              f"mean radiance {means[name]:.6f} [{smi}]", flush=True)
+              f"mean radiance {means[name]:.6f}"
+              + (f", brick_walk launches {out['pt_brick_launches']}" if name == "brick"
+                 else "") + f" [{smi}]", flush=True)
         del pt
     rel = abs(means["brick"] - means["hako"]) / means["hako"]
     if rel > PT_MEAN_RTOL:
         raise AssertionError(f"brick PT mean {means['brick']} vs hako {means['hako']}")
     out["pt_mean"] = means
+
+    (ro_b, rd_b, sb), (ro_s, rd_s, ss) = calls[3], calls[4]
+    if sb or not ss:
+        raise AssertionError("recorded batches are not BSDF then NEE")
+    for name, tree in trees.items():
+        for label, r_o, r_d, shadow in (("BSDF", ro_b, rd_b, False), ("NEE", ro_s, rd_s, True)):
+            err, hits = walk_vs_plain(tree, r_o, r_d, shadow, f"{name} bounce-1 {label}")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            out[name][f"pt_{label}_hits"] = hits
+            print(f"[phase7] {WALK_OF[name]} ({name}) == plain walk bit for bit on the brick "
+                  f"PT step's bounce-1 {label} batch ({r_o.shape[0]} lanes, {hits} hits, "
+                  f"shadow {shadow}) [{smi}]", flush=True)
+    del trees
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2477,7 +2730,10 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
                                          width=WIDTH, height=HEIGHT, kind=kind, depth=T)
     args = (meta, root, tree.lower, tree.upper, raycast._color_table(tree), *cam_t)
     render(*args)
+    raycast.reset_counters()
     (img8, depth8), n, _ = counted(lambda: render(*args), ("hako_mega",))
+    if raycast.LAUNCHES != dict.fromkeys(raycast.KERNELS, 8):
+        raise AssertionError(f"phase 8b: frame kernels {raycast.LAUNCHES}, not 8 each")
     launches["frame"] = n
     _, frame_ms = timed(lambda: render(*args), reps=TIMED_FRAMES)
     if not torch.equal(img8, img) or not torch.equal(depth8, depth):
@@ -2901,6 +3157,52 @@ class StepTimer:
         self.cls.step = self.real
 
 
+def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_paths: dict,
+                       src: str) -> list:
+    """The kernels line's entries of the frame's kernels (phase 3) and the
+    walks (phase 7a): launches by path are the main path's counted runs
+    (phase 3's frame; 7a's frames and brick PT step), then the other paths
+    that run them (phases 6, 7c, 8 and 9, each counted from 0)."""
+    kernels = []
+    others = {path: got for path, got in vox_paths.items()
+              if path not in ("build_scene", "structures")}
+    for name in FRAME_REPLACES:
+        if name.startswith("frame"):
+            tm = frame3["timing"][name]
+            by_path = {"frame": main_path["frame_launches"][name],
+                       "structure_frames": sum(v["frame_launches"][name] for k, v in
+                                               structures.items() if k in WALK_OF)}
+            extra = dict(share=tm["share"], frame_routes=frame3["routes"])
+            if name == "frame_shade":
+                c = frame3["timing"]["frame_shade_colour"]
+                extra.update(colour_ms=c["ms"], colour_plain_ms=c["plain_ms"],
+                             colour_bound_ms=c["bound_ms"])
+            err = frame3["err"][name]
+        else:
+            names = [k for k, v in WALK_OF.items() if v == name]
+            tm = structures[names[0]]
+            tm = dict(ms=tm["walk_ms"], plain_ms=tm["walk_plain_ms"], bound_ms=tm["bound_ms"],
+                      bound_by=tm["bound_by"])
+            by_path = {f"{k}_frame": structures[k]["frame_launches"][name] for k in names}
+            if name == "brick_walk":
+                by_path["pt_brick_step"] = structures["pt_brick_launches"]
+            extra = dict(share=tm["bound_ms"] / tm["ms"], structures={
+                k: {f: structures[k][f] for f in (
+                    "frame_ms", "plain_frame_ms", "walk_ms", "walk_plain_ms", "bound_ms",
+                    "bound_by", "share", "rays", "entered", "rows", "visits", "hits")}
+                for k in names})
+            err = max(structures[k]["max_abs_err"] for k in names)
+        by_path.update({path: got[name] for path, got in others.items() if got.get(name)})
+        kernels.append(dict(
+            name=name, route="cuda", source=src + FRAME_SOURCES[name],
+            replaces=f"massivevoxelraytracing_tpu/{FRAME_REPLACES[name]} (XLA-fused, "
+                     f"no pallas_call)",
+            launches=sum(by_path.values()), launches_by_path=by_path, max_abs_err=err,
+            ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=tm["bound_ms"],
+            bound_by=tm["bound_by"], library_ms=None, **extra))
+    return kernels
+
+
 def main() -> int:
     import torch
 
@@ -2926,6 +3228,7 @@ def main() -> int:
 
     worst = phase_kernel_cases(device, smi, rng)
     tree, cam, img, depth, main_path = phase_main_path(device, smi, rng)
+    frame3 = phase_frame_kernels(tree, cam, img, depth, device, smi)
     build3c = phase_build_stages(tree, device, smi)
     vox_paths = {"build_scene": main_path["vox_launches"]}
     rframe = phase_rounds_frame(tree, cam, img, depth, device, smi)
@@ -3081,6 +3384,7 @@ def main() -> int:
                      f"no pallas_call)",
             launches=sum(by_path.values()), launches_by_path=by_path,
             **{k: v for k, v in e.items()}))
+    kernels += frame_walk_entries(frame3, structures, main_path, vox_paths, src)
     kernels[0].update(
         frame_kernel_ms=main_path["frame_kernel_ms"],
         frame_bound_ms=main_path["frame_bound"][0],

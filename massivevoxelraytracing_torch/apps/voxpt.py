@@ -22,7 +22,7 @@ import torch
 
 from ..config import EngineConfig
 from ..models import scene
-from ..models.pathtracer import PathTracer
+from ..models.pathtracer import RAY_PACKET, PathTracer
 from ..ops import camera as camera_ops
 from ..parallel.build import build_scene_sharded
 from ..utils import hdr, meshgen, png, runtime
@@ -46,9 +46,10 @@ def main(argv=None) -> PathTracer:
     ap.add_argument("--snapshot-every", type=int, default=4)
     ap.add_argument("--resume", default=None, help="checkpoint .npz to resume")
     ap.add_argument("--checkpoint", default=None, help="write checkpoint here")
-    ap.add_argument("--ray-packet", type=int, default=EngineConfig.ray_packet,
-                    help="(pixel x spp) lanes per path-tracer call "
-                    "(EngineConfig.ray_packet)")
+    ap.add_argument("--ray-packet", type=int, default=RAY_PACKET,
+                    help="(pixel x spp) lanes per path-tracer call (default: "
+                    "the PathTracer's 2^21; EngineConfig.ray_packet is 65536, "
+                    "the same accumulator at many more calls a step)")
     ap.add_argument("--profile", default=None,
                     help="torch.profiler Chrome trace directory (the steps)")
     ap.add_argument("--build-devices", type=int, default=0,

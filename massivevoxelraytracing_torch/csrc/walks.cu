@@ -1,0 +1,452 @@
+// The brick-tree and octree / DAG walks on Hopper: one thread a ray,
+// walking to completion, one kernel a structure of models/accel.py.
+//
+// Replaces XLA-fused work of the reference (no pallas_call): on the TPU
+// each walk is one lax.while_loop over every lane inside one jitted
+// program. Run as eager tensor code (traverse.run_walk) an iteration is
+// ~60 tensor ops over the live lanes, with a host sync and a compaction
+// every 4 iterations: 0.5-0.7 s a 1080p frame.
+//
+//   brick_walk_kernel          replaces massivevoxelraytracing_tpu/ops/
+//       bricktree.py:240-437 (its while_loop body and the walk's set-up),
+//       the port's ops/bricktree.py _brick_body + traverse.walk_state +
+//       traverse.run_walk. A node's 16-byte meta row [mask_lo, mask_hi,
+//       base, 0] is one vector load. Only an occupied cell can be valid, so
+//       the 64-cell selection visits only the set bits of the node's mask
+//       (a bit b is the walk's cell c = b ^ mirror); it keeps the
+//       lexicographic minimum (entry, c) over the Morton cell index c, and
+//       the strict rule (a valid entry of MAX_FLOAT is never taken).
+//       `shadow` changes nothing in this walk (the rank comes from
+//       popcounts), so one body serves both.
+//   octree_walk_kernel<SHADOW> replaces ops/traverse2.py:54-273 (the v2
+//       walk over children ++ psum), the port's ops/traverse2.py _v2_body.
+//       It reads only the two words of the node's 64-byte row it uses
+//       (children[c], psum[c]). Ties at MAX_FLOAT go to the lowest octant
+//       (non-strict); the psum prefix is accumulated only on a real
+//       descend, and not for shadow rays. DAG on or off is the same walk.
+//
+// The per-lane stack is a per-thread array of depth D <= 16 (local
+// memory, L1-cached): a push at sp >= D writes nothing and a pop there
+// reads 0, as traverse.stack_push / stack_read do.
+//
+// What bounds them on an H100: neither bytes nor operations, but the
+// divergence of a walk whose length depends on the ray. The least time
+// counted from the code (scripts/common.walk_bound) is the bytes the rays,
+// the outputs and the rows they reach must move; a ray's iterations are a
+// dependent chain of row loads and ~60-400 instructions, so the design
+// keeps each lane on its own ray to the end (no host syncs, no
+// compaction) and each iteration's state in registers.
+//
+// Exactness: every output equals the plain walk's bit for bit. Built with
+// -fmad=false (no contraction) and IEEE division. Where a port of these
+// walks drifts most easily, this one follows the plain code exactly:
+//   - the preamble (traverse.walk_state): inv = 1 / rd is a true division
+//     (±inf for ±0; -0.0 sets the mirror bit), bound = f32(0.25 MAX_FLOAT)
+//     / max(max(|lo - ro_m|, |up - ro_m|), 1), inv_a = min(|inv|, bound);
+//     0.25 MAX_FLOAT, MAX_FLOAT and the resume key's NEG_INF come in as
+//     the float32 values the plain walk uses;
+//   - the cell planes: the brick walk's t1 - dt * (scale - (scale * 0.25)
+//     * k), the v2 walk's t1 - dt * (0.5 * scale) and t1 - dt * scale, in
+//     that order, with no FMA (recomputed where used: the same operations
+//     on the same values give the same bits);
+//   - max / min propagate NaN as torch.maximum / torch.minimum do
+//     (fmaxf / fminf would drop it), and so does the clamp;
+//   - the stack bounds above;
+//   - unsigned 32-bit arithmetic: the rank base + popcount_below and the
+//     psum sums wrap at 32 bits, and the outputs are their int32 bit
+//     patterns;
+//   - max_iters: a lane still walking after max_iters iterations keeps
+//     its miss (t = MAX_FLOAT, nmajor = -1, vidx = 0), as run_walk counts
+//     them; a ray that never enters (enter_ok false, parked padding) is a
+//     miss and takes no iteration.
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr long long kMaxBlocks = 1ll << 20;
+constexpr int kMaxDepth = 16;  // the wrappers refuse a deeper stack
+constexpr uint32_t kInvalid = 0xFFFFFFFFu;
+
+// torch.maximum / torch.minimum: NaN if either operand is NaN
+__device__ __forceinline__ float tmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+#endif
+}
+
+__device__ __forceinline__ float tmin(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+#else
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+#endif
+}
+
+// torch.clamp(x, min=1.0): NaN stays NaN
+__device__ __forceinline__ float clamp_min1(float x) {
+  return x != x ? x : (x < 1.0f ? 1.0f : x);
+}
+
+struct Consts {
+  float quarter_max;  // f32(0.25 * MAX_FLOAT)
+  float max_float;    // f32(MAX_FLOAT): the miss t and the selection's "none"
+  float neg_inf;      // f32(NEG_INF): the resume key after a descend
+};
+
+struct WalkArgs {
+  const void* meta;     // brick: int32 [N, 4]; octree: int32 [N, 16]
+  long long last;       // N - 1
+  const float* bounds;  // lower [3], upper [3]
+  const float* ro;
+  const float* rd;
+  long long n;
+  uint32_t root;        // brick: the root's index; octree: index | mask << 24
+  int depth;            // brick: its levels; octree: the stack depth
+  long long max_iters;
+  Consts k;
+  float* t;
+  int* nmaj;
+  int* vidx;
+};
+
+// traverse.walk_state for one ray: dt, t1, the mirror mask, enter_ok.
+struct Ray {
+  float dt[3], t1[3];
+  uint32_t vm;
+  bool enter;
+};
+
+__device__ __forceinline__ Ray preamble(const WalkArgs& a, long long i,
+                                        const uint32_t mirror[3]) {
+  Ray r;
+  float t0[3];
+  r.vm = 0;
+  for (int ax = 0; ax < 3; ++ax) {
+    const float ro = a.ro[3 * i + ax], rd = a.rd[3 * i + ax];
+    const float lo = a.bounds[ax], up = a.bounds[3 + ax];
+    const float inv = 1.0f / rd;
+    const bool neg = inv < 0.0f;
+    const float ro_m = neg ? (lo + up) - ro : ro;
+    const float bound =
+        a.k.quarter_max / clamp_min1(tmax(fabsf(lo - ro_m), fabsf(up - ro_m)));
+    const float inv_a = tmin(fabsf(inv), bound);
+    t0[ax] = (lo - ro_m) * inv_a;
+    r.t1[ax] = (up - ro_m) * inv_a;
+    r.dt[ax] = r.t1[ax] - t0[ax];
+    if (neg) r.vm |= mirror[ax];
+  }
+  r.enter = tmin(r.t1[0], tmin(r.t1[1], r.t1[2])) >= tmax(t0[0], tmax(t0[1], t0[2]));
+  return r;
+}
+
+__device__ __forceinline__ void cell_coords(int c, int& cx, int& cy, int& cz) {
+  cx = (c & 1) | (((c >> 3) & 1) << 1);
+  cy = ((c >> 1) & 1) | (((c >> 4) & 1) << 1);
+  cz = ((c >> 2) & 1) | (((c >> 5) & 1) << 1);
+}
+
+// the brick walk's cell plane k in [0, 4]: t1 - dt * (scale - qs * k)
+__device__ __forceinline__ float plane4(float t1, float dt, float scale, float qs, int k) {
+  return t1 - dt * (scale - qs * static_cast<float>(k));
+}
+
+__global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
+  const uint32_t mirror[3] = {0b001001u, 0b010010u, 0b100100u};  // bricktree._MIRROR64
+  const int4* meta = static_cast<const int4*>(a.meta);
+  const int D = a.depth;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < a.n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const Ray r = preamble(a, i, mirror);
+    float t_out = a.k.max_float;
+    int nmajor = -1;
+    uint32_t vidx = 0;
+    bool active = r.enter;
+    uint32_t node = a.root;
+    int depth = a.depth - 1;
+    float t1x = r.t1[0], t1y = r.t1[1], t1z = r.t1[2];
+    const float dtx = r.dt[0], dty = r.dt[1], dtz = r.dt[2];
+    float scale = 1.0f, rk_t = a.k.neg_inf;
+    int rk_c = -1, sp = 0;
+    uint32_t s_node[kMaxDepth];
+    int s_depth[kMaxDepth], s_rkc[kMaxDepth];
+    float s_t1x[kMaxDepth], s_t1y[kMaxDepth], s_t1z[kMaxDepth], s_scale[kMaxDepth],
+        s_rkt[kMaxDepth];
+    for (long long it = 0; it < a.max_iters && active; ++it) {
+      const long long row_i = static_cast<long long>(node) < a.last
+                                  ? static_cast<long long>(node) : a.last;
+      const int4 row = meta[row_i];
+      const uint64_t mask = static_cast<uint64_t>(static_cast<uint32_t>(row.x)) |
+                            (static_cast<uint64_t>(static_cast<uint32_t>(row.y)) << 32);
+      const uint32_t base = static_cast<uint32_t>(row.z);
+      const float qs = scale * 0.25f;
+
+      // the selection over the occupied cells: (en, c) lexicographic min
+      float best_t = a.k.max_float;
+      int best_c = 64, n_valid = 0;
+      for (uint64_t m = mask; m != 0; m &= m - 1) {
+        const int c = (__ffsll(static_cast<long long>(m)) - 1) ^ static_cast<int>(r.vm);
+        int cx, cy, cz;
+        cell_coords(c, cx, cy, cz);
+        const float en = tmax(plane4(t1x, dtx, scale, qs, cx),
+                              tmax(plane4(t1y, dty, scale, qs, cy),
+                                   plane4(t1z, dtz, scale, qs, cz)));
+        const float ex = tmin(plane4(t1x, dtx, scale, qs, cx + 1),
+                              tmin(plane4(t1y, dty, scale, qs, cy + 1),
+                                   plane4(t1z, dtz, scale, qs, cz + 1)));
+        const bool after = en > rk_t || (en == rk_t && c > rk_c);
+        if (en < ex && ex > 0.0f && after) {
+          ++n_valid;
+          if (en < best_t) {
+            best_t = en;
+            best_c = en < a.k.max_float ? c : 64;
+          } else if (en == best_t && en < a.k.max_float && c < best_c) {
+            best_c = c;
+          }
+        }
+      }
+
+      if (best_c < 64) {
+        const int rb = (best_c ^ static_cast<int>(r.vm)) & 63;
+        const uint32_t target =
+            base + static_cast<uint32_t>(__popcll(mask & ((1ull << rb) - 1ull)));
+        int cx, cy, cz;
+        cell_coords(best_c, cx, cy, cz);
+        if (depth == 0) {
+          if (best_t > 0.0f) {  // a leaf hit: the in-order first wins
+            t_out = best_t;
+            const float en_xa = plane4(t1x, dtx, scale, qs, cx);
+            const float en_ya = plane4(t1y, dty, scale, qs, cy);
+            nmajor = best_t == en_xa ? 1 : (best_t == en_ya ? 2 : 0);
+            vidx = target;
+            active = false;
+          } else {  // behind the origin: stay, resume past it
+            rk_t = best_t;
+            rk_c = best_c;
+          }
+        } else {  // descend, pushing this node if another cell is valid
+          if (n_valid > 1) {
+            if (sp < D) {
+              s_node[sp] = node;
+              s_depth[sp] = depth;
+              s_t1x[sp] = t1x;
+              s_t1y[sp] = t1y;
+              s_t1z[sp] = t1z;
+              s_scale[sp] = scale;
+              s_rkt[sp] = best_t;
+              s_rkc[sp] = best_c;
+            }
+            ++sp;
+          }
+          const float nx = plane4(t1x, dtx, scale, qs, cx + 1);
+          const float ny = plane4(t1y, dty, scale, qs, cy + 1);
+          const float nz = plane4(t1z, dtz, scale, qs, cz + 1);
+          node = target;
+          depth -= 1;
+          t1x = nx;
+          t1y = ny;
+          t1z = nz;
+          scale = qs;
+          rk_t = a.k.neg_inf;
+          rk_c = -1;
+        }
+      } else if (sp == 0) {  // nothing left: a miss
+        active = false;
+      } else {  // pop
+        --sp;
+        const bool in = sp < D;
+        node = in ? s_node[sp] : 0u;
+        depth = in ? s_depth[sp] : 0;
+        t1x = in ? s_t1x[sp] : 0.0f;
+        t1y = in ? s_t1y[sp] : 0.0f;
+        t1z = in ? s_t1z[sp] : 0.0f;
+        scale = in ? s_scale[sp] : 0.0f;
+        rk_t = in ? s_rkt[sp] : 0.0f;
+        rk_c = in ? s_rkc[sp] : 0;
+      }
+    }
+    if (active) {  // cut by max_iters: a miss
+      t_out = a.k.max_float;
+      nmajor = -1;
+      vidx = 0;
+    }
+    a.t[i] = t_out;
+    a.nmaj[i] = nmajor;
+    a.vidx[i] = static_cast<int>(vidx);
+  }
+}
+
+template <bool SHADOW>
+__global__ void __launch_bounds__(kThreads) octree_walk_kernel(WalkArgs a) {
+  const uint32_t mirror[3] = {1u, 2u, 4u};
+  const uint32_t* meta = static_cast<const uint32_t*>(a.meta);
+  const int D = a.depth;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < a.n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const Ray r = preamble(a, i, mirror);
+    float t_out = a.k.max_float;
+    int nmajor = -1;
+    uint32_t vidx = 0;
+    bool active = r.enter;
+    uint32_t node = a.root, skipped = 0;
+    float t1x = r.t1[0], t1y = r.t1[1], t1z = r.t1[2];
+    const float dtx = r.dt[0], dty = r.dt[1], dtz = r.dt[2];
+    float scale = 1.0f, rk_t = a.k.neg_inf;
+    int rk_c = -1, sp = 0;
+    uint32_t s_node[kMaxDepth], s_skip[kMaxDepth];
+    int s_rkc[kMaxDepth];
+    float s_t1x[kMaxDepth], s_t1y[kMaxDepth], s_t1z[kMaxDepth], s_scale[kMaxDepth],
+        s_rkt[kMaxDepth];
+    for (long long it = 0; it < a.max_iters && active; ++it) {
+      const float hs = 0.5f * scale;
+      const float tmx = t1x - dtx * hs, tmy = t1y - dty * hs, tmz = t1z - dtz * hs;
+      const float tx0 = t1x - dtx * scale, ty0 = t1y - dty * scale, tz0 = t1z - dtz * scale;
+      const uint32_t omask = node >> 24;
+
+      // the 8-wide selection over the occupied octants
+      float best_t = a.k.max_float;
+      int best_c = 8, n_valid = 0;
+      for (int c = 0; c < 8; ++c) {
+        if (((omask >> (c ^ static_cast<int>(r.vm))) & 1u) == 0) continue;
+        const bool bx = c & 1, by = c & 2, bz = c & 4;
+        const float ex = tmin(bx ? t1x : tmx, tmin(by ? t1y : tmy, bz ? t1z : tmz));
+        const float en = tmax(bx ? tmx : tx0, tmax(by ? tmy : ty0, bz ? tmz : tz0));
+        const bool after = en > rk_t || (en == rk_t && c > rk_c);
+        if (en < ex && ex > 0.0f && after) {
+          ++n_valid;
+          if (en < best_t) {
+            best_t = en;
+            best_c = c;
+          } else if (en == best_t && c < best_c) {
+            best_c = c;
+          }
+        }
+      }
+
+      if (best_c < 8) {
+        const int rb = (best_c ^ static_cast<int>(r.vm)) & 7;
+        const long long idx = static_cast<long long>(node & 0xFFFFFFu);
+        const long long row = (idx < a.last ? idx : a.last) * 16;
+        const uint32_t child = meta[row + rb];
+        const bool bx = best_c & 1, by = best_c & 2, bz = best_c & 4;
+        const uint32_t skipped_here = SHADOW ? skipped : skipped + meta[row + 8 + rb];
+        if (child == kInvalid) {
+          if (best_t > 0.0f) {  // a leaf hit: the in-order first wins
+            t_out = best_t;
+            const float en_xa = bx ? tmx : tx0;
+            const float en_ya = by ? tmy : ty0;
+            nmajor = best_t == en_xa ? 1 : (best_t == en_ya ? 2 : 0);
+            vidx = skipped_here;
+            active = false;
+          } else {  // behind the origin: stay, resume past it
+            rk_t = best_t;
+            rk_c = best_c;
+          }
+        } else {  // descend, pushing this node if another octant is valid
+          if (n_valid > 1) {
+            if (sp < D) {
+              s_node[sp] = node;
+              s_t1x[sp] = t1x;
+              s_t1y[sp] = t1y;
+              s_t1z[sp] = t1z;
+              s_scale[sp] = scale;
+              s_rkt[sp] = best_t;
+              s_rkc[sp] = best_c;
+              s_skip[sp] = skipped;
+            }
+            ++sp;
+          }
+          node = child;
+          t1x = bx ? t1x : tmx;
+          t1y = by ? t1y : tmy;
+          t1z = bz ? t1z : tmz;
+          scale = hs;
+          rk_t = a.k.neg_inf;
+          rk_c = -1;
+          if (!SHADOW) skipped = skipped_here;
+        }
+      } else if (sp == 0) {  // nothing left: a miss
+        active = false;
+      } else {  // pop
+        --sp;
+        const bool in = sp < D;
+        node = in ? s_node[sp] : 0u;
+        t1x = in ? s_t1x[sp] : 0.0f;
+        t1y = in ? s_t1y[sp] : 0.0f;
+        t1z = in ? s_t1z[sp] : 0.0f;
+        scale = in ? s_scale[sp] : 0.0f;
+        rk_t = in ? s_rkt[sp] : 0.0f;
+        rk_c = in ? s_rkc[sp] : 0;
+        skipped = in ? s_skip[sp] : 0u;
+      }
+    }
+    if (active) {  // cut by max_iters: a miss
+      t_out = a.k.max_float;
+      nmajor = -1;
+      vidx = 0;
+    }
+    a.t[i] = t_out;
+    a.nmaj[i] = nmajor;
+    a.vidx[i] = static_cast<int>(vidx);
+  }
+}
+
+int launch(void (*kernel)(WalkArgs), const WalkArgs& a, void* stream) {
+  if (a.n <= 0) return 0;
+  long long b = (a.n + kThreads - 1) / kThreads;
+  kernel<<<static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+WalkArgs walk_args(const void* meta, long long n_nodes, const void* bounds, const void* ro,
+                   const void* rd, long long n, unsigned root, int depth,
+                   long long max_iters, float quarter_max, float max_float,
+                   float neg_inf, void* t, void* nmaj, void* vidx) {
+  return WalkArgs{meta, n_nodes - 1, static_cast<const float*>(bounds),
+                  static_cast<const float*>(ro), static_cast<const float*>(rd), n,
+                  static_cast<uint32_t>(root), depth, max_iters,
+                  Consts{quarter_max, max_float, neg_inf}, static_cast<float*>(t),
+                  static_cast<int*>(nmaj), static_cast<int*>(vidx)};
+}
+
+}  // namespace
+
+// meta: int32 [n_nodes, 4] (16-byte aligned); bounds: f32 lower ++ upper;
+// ro, rd: f32 [n, 3]; n_levels <= 16; outputs t f32, nmaj / vidx int32 [n].
+extern "C" int brick_walk_launch(const void* meta, long long n_nodes, const void* bounds,
+                                 const void* ro, const void* rd, long long n, unsigned root,
+                                 int n_levels, long long max_iters, float quarter_max,
+                                 float max_float, float neg_inf, void* t, void* nmaj,
+                                 void* vidx, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxDepth || n_nodes < 1) return cudaErrorInvalidValue;
+  return launch(brick_walk_kernel,
+                walk_args(meta, n_nodes, bounds, ro, rd, n, root, n_levels, max_iters,
+                          quarter_max, max_float, neg_inf, t, nmaj, vidx),
+                stream);
+}
+
+// meta: int32 [n_nodes, 16] (children ++ psum); root: index | mask << 24;
+// stack_depth <= 16; the rest as brick_walk_launch.
+extern "C" int octree_walk_launch(int shadow, const void* meta, long long n_nodes,
+                                  const void* bounds, const void* ro, const void* rd,
+                                  long long n, unsigned root, int stack_depth,
+                                  long long max_iters, float quarter_max, float max_float,
+                                  float neg_inf, void* t, void* nmaj, void* vidx,
+                                  void* stream) {
+  if (stack_depth < 1 || stack_depth > kMaxDepth || n_nodes < 1) return cudaErrorInvalidValue;
+  const WalkArgs a = walk_args(meta, n_nodes, bounds, ro, rd, n, root, stack_depth,
+                               max_iters, quarter_max, max_float, neg_inf, t, nmaj, vidx);
+  return shadow ? launch(octree_walk_kernel<true>, a, stream)
+                : launch(octree_walk_kernel<false>, a, stream);
+}

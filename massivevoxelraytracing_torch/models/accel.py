@@ -14,8 +14,11 @@ Three structures share the same voxel stream:
   * BrickTree   -- 4^3-branching, rank-based, 16 B a node ("brick");
   * VoxelOctree -- the reference-parity SVO/DAG, traced by the v2 walk
                    ("octree").
-The brick and octree walks are tensor code (ops/bricktree.py,
-ops/traverse2.py); `traversal` means nothing to them.
+The brick and octree walks are hand-written CUDA kernels on the card
+(csrc/walks.cu, through ops/bricktree.intersect_rays_brick and
+ops/traverse2.intersect_rays2) and tensor code on the CPU; `traversal`
+means nothing to them, and `stages="plain"` runs their tensor walks on
+any device.
 """
 
 from __future__ import annotations
@@ -51,14 +54,19 @@ def accel_args(tree, traversal: str = "mega"):
 
 
 def intersect_with(kind: str, depth, meta, root, lower, upper, ro, rd, *,
-                   shadow: bool = False):
-    """(t, nmajor, vrank) of rays ro/rd (f32 [R, 3] on the tree's device)."""
+                   shadow: bool = False, stages: str | None = None):
+    """(t, nmajor, vrank) of rays ro/rd (f32 [R, 3] on the tree's device).
+    stages="plain": the brick / octree walk's tensor version on any device
+    (a HakoTree's routes are unchanged)."""
+    if stages not in (None, "plain"):
+        raise ValueError(f"stages must be None or 'plain', not {stages!r}")
+    plain = stages == "plain"
     if kind == "brick":
-        return bricktree.intersect_rays_brick(
-            meta, root, lower, upper, ro, rd, n_levels=depth, shadow=shadow)
+        fn = bricktree.intersect_rays_brick_plain if plain else bricktree.intersect_rays_brick
+        return fn(meta, root, lower, upper, ro, rd, n_levels=depth, shadow=shadow)
     if kind == "octree":
-        return traverse2.intersect_rays2(
-            meta, root, lower, upper, ro, rd, stack_depth=depth, shadow=shadow)
+        fn = traverse2.intersect_rays2_plain if plain else traverse2.intersect_rays2
+        return fn(meta, root, lower, upper, ro, rd, stack_depth=depth, shadow=shadow)
     if kind == "hako_mega":
         fn = hako_mega.intersect_rays_hako_mega
     elif kind == "hako":

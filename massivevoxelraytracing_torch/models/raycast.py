@@ -6,6 +6,19 @@ A frame is generated on the device directly in 128x128-tile-major order
 tree), traced in one call of the acceleration structure, shaded, and
 un-tiled by a reshape. Rays of the padding past the frame's edge start
 parked at 1e9, outside the root box, and miss at once.
+
+Ray generation and the shade are two stages, each a plain PyTorch
+function (`_gen_rays_band`, `_shade_flat` / `_shade_untile_band`: the
+reference's code in its operation order) and a hand-written CUDA kernel
+(csrc/frame.cu: frame_raygen_kernel, frame_shade_kernel<COLOR, UNTILE>).
+The wrappers `gen_rays` and `shade` run the plain stage for the CPU and
+launch the kernel for a CUDA device or tensors (or raise; there is no
+fallback). The camera goes to the ray kernel by value, as the float32
+values the plain stage uses, so a frame copies nothing to the card before
+its first launch. `render_frame(..., stages="plain")` runs the plain
+stages (and the plain brick / octree walks) on any device.
+
+Counters: LAUNCHES[name] counts each frame kernel's launches.
 """
 
 from __future__ import annotations
@@ -15,11 +28,18 @@ import torch
 
 from ..ops import camera as camera_ops
 from ..ops.traverse import hit_normal
-from ..ops.voxelize import _f32, rgb8_to_f32
+from ..ops.voxelize import _check, _f32, rgb8_to_f32
 from . import accel as accel_lib
 
 TILE = 128  # pixel tile edge
 F32 = torch.float32
+KERNELS = ("frame_raygen", "frame_shade")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counters() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _shade_flat(color_table, rd, t, nmaj, vidx, *, show_color: bool):
@@ -44,8 +64,7 @@ def render_rays(tree, ro, rd, show_color: bool = False,
     kind, depth, meta, root = accel_lib.accel_args(tree, traversal)
     t, nmaj, vidx = accel_lib.intersect_with(
         kind, depth, meta, root, tree.lower, tree.upper, ro, rd)
-    return _shade_flat(_color_table(tree), rd, t, nmaj, vidx,
-                       show_color=show_color)
+    return shade(_color_table(tree), rd, t, nmaj, vidx, show_color=show_color)
 
 
 def tile_order(width: int, height: int, tile_w: int = 128, tile_h: int = 128):
@@ -128,24 +147,173 @@ def _color_table(tree):
     return torch.zeros(1, dtype=torch.int32, device=tree.device)
 
 
+# ---------------------------------------------------------------------------
+# the frame's stages: the wrappers (the plain stage for the CPU, the kernel
+# for CUDA)
+# ---------------------------------------------------------------------------
+
+def _host_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float32).reshape(-1)
+
+
+def host_camera(o, right, up, front, tan_half_fovy) -> tuple:
+    """The camera as host float32 values (numpy f32 [3] x 4, np.float32):
+    what the plain stage rounds it to. Tensors on the card are read back
+    once here."""
+    vecs = []
+    for name, v in (("o", o), ("right", right), ("up", up), ("front", front)):
+        v = _host_f32(v)
+        if v.shape != (3,):
+            raise ValueError(f"camera {name} must hold 3 values, not {v.shape[0]}")
+        vecs.append(v)
+    th = _host_f32(tan_half_fovy)
+    if th.shape != (1,):
+        raise ValueError("tan_half_fovy must be one value")
+    return (*vecs, np.float32(th[0]))
+
+
+def camera_of(cam: camera_ops.Camera) -> tuple:
+    """host_camera of a Camera."""
+    return host_camera(cam.o, cam.right, cam.up, cam.front, cam.tan_half_fovy)
+
+
+def _route(device: torch.device, name: str) -> str:
+    """"cpu" (the plain stage) or "cuda" (the kernel); raises ValueError
+    for another device."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {device}")
+    return device.type
+
+
+def _launched(name: str, rc: int, n: int) -> None:
+    if rc != 0:
+        from ..utils import cuda_build
+
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({cuda_build.load().cuda_error_string(rc).decode()})")
+    LAUNCHES[name] += n > 0
+
+
+def _band_lanes(width: int, band_tile_rows: int) -> int:
+    if width < 1 or band_tile_rows < 1:
+        raise ValueError(f"width {width} and band_tile_rows {band_tile_rows} must be >= 1")
+    return -(-width // TILE) * TILE * band_tile_rows * TILE
+
+
+def gen_rays(cam: tuple, py0: int, *, width: int, height: int,
+             band_tile_rows: int, device):
+    """The tile-major rays (ro, rd f32 [n_pad, 3]) of a band of
+    band_tile_rows tile rows starting at pixel row py0, on `device`. cam:
+    (o, right, up, front, tan_half_fovy), anything numpy takes or tensors
+    (host_camera). The CPU runs _gen_rays_band; a CUDA device launches
+    frame_raygen_kernel; another device raises ValueError."""
+    device = torch.empty(0, device=device).device
+    route = _route(device, "frame_raygen")
+    o, right, up, front, th = host_camera(*cam)
+    n_pad = _band_lanes(width, band_tile_rows)
+    if route == "cpu":
+        return _gen_rays_band(
+            *(torch.from_numpy(v).to(device) for v in (o, right, up, front)),
+            _f32(th, device), py0, width=width, height=height,
+            band_tile_rows=band_tile_rows)
+    import ctypes
+
+    from ..utils import cuda_build
+
+    vals = np.concatenate([o, right, up, front, np.array(
+        [th, width, height, width / height], np.float32)])
+    host = (ctypes.c_float * 16)(*vals.tolist())
+    ro = torch.empty((n_pad, 3), dtype=F32, device=device)
+    rd = torch.empty((n_pad, 3), dtype=F32, device=device)
+    lib = cuda_build.load()
+    with torch.cuda.device(device):
+        rc = lib.frame_raygen_launch(ctypes.addressof(host), int(py0), width, height,
+                                     band_tile_rows, ro.data_ptr(), rd.data_ptr(),
+                                     torch.cuda.current_stream(device).cuda_stream)
+    _launched("frame_raygen", rc, n_pad)
+    return ro, rd
+
+
+def shade(color_table, rd, t, nmaj, vidx, *, show_color: bool, width: int | None = None,
+          band_tile_rows: int | None = None, rows_out: int | None = None):
+    """Shade traced lanes: face normals from nmaj and rd, or the voxel
+    colours of vidx (show_color). With width (and band_tile_rows,
+    rows_out) the lanes are a tile-major band, un-tiled to (u8 [rows_out,
+    width, 3], f32 [rows_out, width]) as _shade_untile_band; without, flat
+    (u8 [N, 3], f32 [N]) as _shade_flat. CPU tensors run those plain
+    stages; CUDA tensors launch frame_shade_kernel<show_color, untile>;
+    another device, dtype or shape raises ValueError."""
+    dev = t.device
+    route = _route(dev, "frame_shade")
+    n = t.shape[0] if t.dim() == 1 else -1
+    for name, x, dtype, shape in (("t", t, F32, (n,)), ("nmaj", nmaj, torch.int32, (n,)),
+                                  ("vidx", vidx, torch.int32, (n,)),
+                                  ("rd", rd, F32, (n, 3))):
+        _check(name, x, dtype, shape, dev)
+    if (color_table.device != dev or color_table.dtype != torch.int32
+            or color_table.dim() != 1 or color_table.numel() < 1
+            or not color_table.is_contiguous()):
+        raise ValueError(f"color_table: need a contiguous non-empty int32 [M] on {dev}")
+    untile = width is not None
+    if untile:
+        if _band_lanes(width, band_tile_rows) != n or not 1 <= rows_out <= band_tile_rows * TILE:
+            raise ValueError(f"{n} lanes are not a band of {band_tile_rows} tile rows "
+                             f"{width} wide, or rows_out {rows_out} past it")
+    if route == "cpu":
+        if untile:
+            return _shade_untile_band(color_table, rd, t, nmaj, vidx, width=width,
+                                      band_tile_rows=band_tile_rows, rows_out=rows_out,
+                                      show_color=show_color)
+        return _shade_flat(color_table, rd, t, nmaj, vidx, show_color=show_color)
+    from ..utils import cuda_build
+
+    lead = (rows_out, width) if untile else (n,)
+    img = torch.empty(lead + (3,), dtype=torch.uint8, device=dev)
+    depth = torch.empty(lead, dtype=F32, device=dev)
+    n_out = depth.numel()
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.frame_shade_launch(
+            int(bool(show_color)), int(untile), t.data_ptr(), nmaj.data_ptr(),
+            vidx.data_ptr(), rd.data_ptr(), color_table.data_ptr(), color_table.shape[0],
+            n_out, width if untile else 1, img.data_ptr(), depth.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _launched("frame_shade", rc, n_out)
+    return img, depth
+
+
 def render_frame(tree, cam: camera_ops.Camera, width: int, height: int,
-                 show_color: bool = False, *, device, traversal: str = "mega"):
+                 show_color: bool = False, *, device, traversal: str = "mega",
+                 stages: str | None = None):
     """Render one frame on `device`, where the tree must live, through the
-    megakernel or the round driver (`traversal`, models/accel.py). Returns
-    device tensors (u8 [H, W, 3] image, f32 [H, W] depth)."""
+    megakernel or the round driver (`traversal`, models/accel.py), or the
+    brick / octree walk. Ray generation and the shade run their kernels on
+    the card (gen_rays, shade); stages="plain" runs their plain stages and
+    the plain walks on any device, with the camera copied to the device
+    first (the route before the frame's kernels). Returns device tensors
+    (u8 [H, W, 3] image, f32 [H, W] depth)."""
     device = torch.empty(0, device=device).device  # "cuda" -> "cuda:<current>"
     if tree.device != device:
         raise ValueError(f"tree lives on {tree.device}, not {device}")
     kind, depth, meta, root = accel_lib.accel_args(tree, traversal)
-    ro, rd = _gen_rays_tiled(
-        torch.as_tensor(cam.o, dtype=F32, device=device),
-        torch.as_tensor(cam.right, dtype=F32, device=device),
-        torch.as_tensor(cam.up, dtype=F32, device=device),
-        torch.as_tensor(cam.front, dtype=F32, device=device),
-        _f32(cam.tan_half_fovy, device),
-        width=width, height=height,
-    )
+    if stages == "plain":
+        ro, rd = _gen_rays_tiled(
+            torch.as_tensor(cam.o, dtype=F32, device=device),
+            torch.as_tensor(cam.right, dtype=F32, device=device),
+            torch.as_tensor(cam.up, dtype=F32, device=device),
+            torch.as_tensor(cam.front, dtype=F32, device=device),
+            _f32(cam.tan_half_fovy, device),
+            width=width, height=height,
+        )
+    else:
+        ro, rd = gen_rays(camera_of(cam), 0, width=width, height=height,
+                          band_tile_rows=-(-height // TILE), device=device)
     t, nmaj, vidx = accel_lib.intersect_with(
-        kind, depth, meta, root, tree.lower, tree.upper, ro, rd)
-    return _shade_untile(_color_table(tree), rd, t, nmaj, vidx,
-                         width=width, height=height, show_color=show_color)
+        kind, depth, meta, root, tree.lower, tree.upper, ro, rd, stages=stages)
+    if stages == "plain":
+        return _shade_untile(_color_table(tree), rd, t, nmaj, vidx,
+                             width=width, height=height, show_color=show_color)
+    return shade(_color_table(tree), rd, t, nmaj, vidx, show_color=show_color,
+                 width=width, band_tile_rows=-(-height // TILE), rows_out=height)

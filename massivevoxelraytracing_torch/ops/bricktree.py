@@ -14,9 +14,13 @@ The tree is built from the same sorted Morton stream as the octree (shift
 6 a level instead of 3). Grids that are not a power of 4 are padded up:
 the root covers a larger empty box, and `upper` moves with it.
 
-The walk is the octree v2 walk over 64 cells a node (traverse2), stepped
-on the live lanes only (traverse.run_walk); the reference's `block`
-sub-blocking is a TPU workaround and is not ported.
+The walk is the octree v2 walk over 64 cells a node (traverse2). Its
+plain version (`intersect_rays_brick_plain`) steps the tensor body on the
+live lanes only (traverse.run_walk); the wrapper `intersect_rays_brick`
+runs it for CPU tensors and launches the hand-written brick_walk_kernel
+(csrc/walks.cu, one thread a ray to completion) for CUDA tensors, bit for
+bit the same. The reference's `block` sub-blocking is a TPU workaround and
+is not ported.
 """
 
 from __future__ import annotations
@@ -32,9 +36,11 @@ from .traverse import (
     F32,
     I64,
     NEG_INF,
+    launch_walk,
     run_walk,
     stack_push,
     stack_read,
+    walk_device,
     walk_state,
 )
 from .traverse2 import _select_child
@@ -287,7 +293,22 @@ def intersect_rays_brick(meta, root: int, lower, upper, ro, rd, *,
     """The brick walk. meta: int32 [N, 4]; ro/rd f32 [R, 3] on the tree's
     device. Returns (t f32 [R], MAX_FLOAT for a miss; n_major int32 [R];
     v_index int32 [R], the voxel rank). `shadow` changes nothing here:
-    the rank comes from popcounts, not an accumulated prefix."""
+    the rank comes from popcounts, not an accumulated prefix. CPU tensors
+    run the plain walk; CUDA tensors launch brick_walk_kernel. Raises
+    ValueError for another device, a wrong dtype or shape, or n_levels
+    outside [1, 16], before any launch."""
+    kw = dict(n_levels=n_levels, shadow=shadow, max_iters=max_iters)
+    if walk_device("brick_walk", meta, 4, lower, upper, ro, rd, n_levels) == "cpu":
+        return intersect_rays_brick_plain(meta, root, lower, upper, ro, rd, **kw)
+    return launch_walk("brick_walk", meta, root, lower, upper, ro, rd,
+                       depth=n_levels, shadow=shadow, max_iters=max_iters)
+
+
+def intersect_rays_brick_plain(meta, root: int, lower, upper, ro, rd, *,
+                               n_levels: int, shadow: bool = False,
+                               max_iters: int = 100_000, on_step=None):
+    """The brick walk as tensor code on any device (intersect_rays_brick's
+    plain version). on_step: as traverse.run_walk's."""
     st = walk_state(ro, rd, lower, upper, n_levels, _MIRROR64,
                     ("s_node", "s_depth", "s_rkc"),
                     ("s_t1x", "s_t1y", "s_t1z", "s_scale", "s_rkt"))
@@ -295,7 +316,7 @@ def intersect_rays_brick(meta, root: int, lower, upper, ro, rd, *,
               depth=torch.full_like(st["sp"], n_levels - 1),
               rk_t=torch.full_like(st["t"], NEG_INF),
               rk_c=torch.full_like(st["sp"], -1))
-    return run_walk(st, _brick_body(meta), ro.shape[0], max_iters)
+    return run_walk(st, _brick_body(meta), ro.shape[0], max_iters, on_step)
 
 
 def intersect_bricktree(tree: BrickTree, ro, rd, shadow: bool = False,

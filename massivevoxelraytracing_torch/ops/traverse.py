@@ -24,10 +24,21 @@ writes the retired lanes' results and keeps the rest (one host sync), so
 the time follows the live lanes. Lanes are independent, so the bits are
 the same; `max_iters` still bounds each lane's iterations, and a lane
 still walking then keeps its miss.
+
+That tensor walk is the plain version of the brick and v2 walks. On the
+card they are hand-written CUDA kernels (csrc/walks.cu: brick_walk_kernel,
+octree_walk_kernel<SHADOW>, one thread a ray to completion), launched by
+`launch_walk` for the wrappers bricktree.intersect_rays_brick and
+traverse2.intersect_rays2; their CPU tensors run the plain walks. The v1
+walk here stays tensor code (no app path runs it: models/accel sends every
+octree through v2).
+
+Counters: LAUNCHES[name] counts each walk kernel's launches.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .bits import MASK32, to_i32_bits
@@ -38,6 +49,14 @@ INVALID = 0xFFFFFFFF
 F32 = torch.float32
 I64 = torch.int64
 SYNC_EVERY = 4  # walk iterations between host syncs (lane compaction)
+MAX_WALK_DEPTH = 16  # the walk kernels' per-thread stack (16384^3 needs 14)
+WALK_KERNELS = ("brick_walk", "octree_walk")
+LAUNCHES = dict.fromkeys(WALK_KERNELS, 0)
+
+
+def reset_counters() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _max3(a, b, c):
@@ -66,13 +85,15 @@ def stack_read(stack, sp, cur, do_pop):
     return torch.where(do_pop, v.to(cur.dtype), cur)
 
 
-def run_walk(state: dict, body, n: int, max_iters: int):
+def run_walk(state: dict, body, n: int, max_iters: int, on_step=None):
     """Step `body` (state dict -> state dict, every tensor [lanes, ...])
     on the live lanes until none is active or max_iters iterations ran,
     dropping the retired lanes every SYNC_EVERY iterations. state holds
     `lane` (the ray index), `active`, and the outputs `t`, `nmajor`,
-    `vidx`. Returns (t f32 [n], nmajor int32 [n], vidx int32 [n], the
-    ray's attribute rank as a u32 bit pattern)."""
+    `vidx`. on_step (optional) sees the state before each iteration (the
+    measurement scripts count the rows the walk reads). Returns (t f32
+    [n], nmajor int32 [n], vidx int32 [n], the ray's attribute rank as a
+    u32 bit pattern)."""
     dev = state["t"].device
     t = torch.full((n,), MAX_FLOAT, dtype=F32, device=dev)
     nmajor = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -92,6 +113,8 @@ def run_walk(state: dict, body, n: int, max_iters: int):
     it = 0
     while it < max_iters and st["lane"].shape[0] > 0:
         for _ in range(min(SYNC_EVERY, max_iters - it)):
+            if on_step is not None:
+                on_step(st)
             st = body(st)
         it += SYNC_EVERY
         flush(select(st, ~st["active"]))
@@ -281,3 +304,65 @@ def hit_normal(n_major: torch.Tensor, rd: torch.Tensor) -> torch.Tensor:
     ny = torch.where(n_major == 2, s[:, 1], zero)
     nz = torch.where(n_major == 0, s[:, 2], zero)
     return torch.stack([nx, ny, nz], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the walk kernels' launch (csrc/walks.cu)
+# ---------------------------------------------------------------------------
+
+def walk_device(name: str, meta, cols: int, lower, upper, ro, rd, depth: int) -> str:
+    """Check a walk's arguments before any launch: meta int32 [N >= 1,
+    cols], lower / upper f32 [3], ro / rd f32 [R, 3], all on one device,
+    the cpu or a CUDA device, and 1 <= depth <= MAX_WALK_DEPTH. Returns the
+    device type; raises ValueError otherwise."""
+    dev = ro.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} kernel for device {dev}")
+    R = ro.shape[0] if ro.dim() == 2 else -1
+    for what, x, dtype, shape in (("meta", meta, torch.int32, None),
+                                  ("lower", lower, F32, (3,)),
+                                  ("upper", upper, F32, (3,)),
+                                  ("ro", ro, F32, (R, 3)), ("rd", rd, F32, (R, 3))):
+        ok_shape = (x.dim() == 2 and x.shape[1] == cols and x.shape[0] >= 1
+                    if shape is None else tuple(x.shape) == shape)
+        if x.device != dev or x.dtype != dtype or not ok_shape:
+            want = f"[N >= 1, {cols}]" if shape is None else list(shape)
+            raise ValueError(f"{name}: {what} must be {dtype} {want} on {dev}, got "
+                             f"{x.dtype} {list(x.shape)} on {x.device}")
+    if not 1 <= int(depth) <= MAX_WALK_DEPTH:
+        raise ValueError(f"{name}: stack depth {depth} outside [1, {MAX_WALK_DEPTH}]")
+    return dev.type
+
+
+def launch_walk(name: str, meta, root: int, lower, upper, ro, rd, *, depth: int,
+                shadow: bool, max_iters: int):
+    """Launch brick_walk_kernel or octree_walk_kernel<shadow> on CUDA
+    tensors checked by walk_device. Returns (t f32 [R], nmajor int32 [R],
+    vidx int32 [R]) as run_walk does; raises if the launch is refused."""
+    from ..utils import cuda_build
+
+    dev = ro.device
+    n = ro.shape[0]
+    meta = meta.contiguous()
+    ro, rd = ro.contiguous(), rd.contiguous()
+    bounds = torch.cat([lower, upper]).contiguous()
+    t = torch.empty(n, dtype=F32, device=dev)
+    nmaj = torch.empty(n, dtype=torch.int32, device=dev)
+    vidx = torch.empty(n, dtype=torch.int32, device=dev)
+    consts = (float(np.float32(0.25 * MAX_FLOAT)), float(np.float32(MAX_FLOAT)),
+              float(np.float32(NEG_INF)))
+    head = (meta.data_ptr(), meta.shape[0], bounds.data_ptr(), ro.data_ptr(),
+            rd.data_ptr(), n, int(root) & MASK32, int(depth), max(int(max_iters), 0),
+            *consts, t.data_ptr(), nmaj.data_ptr(), vidx.data_ptr())
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if name == "brick_walk":
+            rc = lib.brick_walk_launch(*head, stream)
+        else:
+            rc = lib.octree_walk_launch(int(bool(shadow)), *head, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({lib.cuda_error_string(rc).decode()})")
+    LAUNCHES[name] += n > 0
+    return t, nmaj, vidx

@@ -12,8 +12,11 @@ voxCommon.hpp:368), so the stack stays shallow. One row read a visit:
 meta = children ++ psum.
 
 The reference's `block` / lax.map sub-blocking keeps a while-loop carry
-resident in TPU VMEM and changes no result; it is not ported. The walk
-steps the live lanes only (traverse.run_walk).
+resident in TPU VMEM and changes no result; it is not ported. The plain
+walk (`intersect_rays2_plain`) steps the live lanes only
+(traverse.run_walk); the wrapper `intersect_rays2` runs it for CPU tensors
+and launches the hand-written octree_walk_kernel<SHADOW> (csrc/walks.cu,
+one thread a ray to completion) for CUDA tensors, bit for bit the same.
 """
 
 from __future__ import annotations
@@ -29,10 +32,12 @@ from .traverse import (
     I64,
     _min3,
     _max3,
+    launch_walk,
     root_entry_of,
     run_walk,
     stack_push,
     stack_read,
+    walk_device,
     walk_state,
 )
 
@@ -167,7 +172,22 @@ def intersect_rays2(meta, root_entry: int, lower, upper, ro, rd, *,
     """The v2 walk. meta: int32 [N, 16] (children ++ psum, u32 patterns);
     root_entry: rootIndex | mask[root] << 24; ro/rd f32 [R, 3] on the
     tree's device. Returns (t f32 [R], n_major int32 [R], v_index int32
-    [R]) as traverse.intersect_rays."""
+    [R]) as traverse.intersect_rays. CPU tensors run the plain walk; CUDA
+    tensors launch octree_walk_kernel<shadow>. Raises ValueError for
+    another device, a wrong dtype or shape, or stack_depth outside [1, 16],
+    before any launch."""
+    kw = dict(stack_depth=stack_depth, shadow=shadow, max_iters=max_iters)
+    if walk_device("octree_walk", meta, 16, lower, upper, ro, rd, stack_depth) == "cpu":
+        return intersect_rays2_plain(meta, root_entry, lower, upper, ro, rd, **kw)
+    return launch_walk("octree_walk", meta, root_entry, lower, upper, ro, rd,
+                       depth=stack_depth, shadow=shadow, max_iters=max_iters)
+
+
+def intersect_rays2_plain(meta, root_entry: int, lower, upper, ro, rd, *,
+                          stack_depth: int, shadow: bool = False,
+                          max_iters: int = 100_000, on_step=None):
+    """The v2 walk as tensor code on any device (intersect_rays2's plain
+    version)."""
     st = walk_state(ro, rd, lower, upper, stack_depth, (1, 2, 4),
                     ("s_node", "s_rkc", "s_skip"),
                     ("s_t1x", "s_t1y", "s_t1z", "s_scale", "s_rkt"))
@@ -175,7 +195,7 @@ def intersect_rays2(meta, root_entry: int, lower, upper, ro, rd, *,
               rk_t=torch.full_like(st["t"], NEG_INF),
               rk_c=torch.full_like(st["sp"], -1),
               skipped=torch.zeros_like(st["sp"]))
-    return run_walk(st, _v2_body(meta, shadow), ro.shape[0], max_iters)
+    return run_walk(st, _v2_body(meta, shadow), ro.shape[0], max_iters, on_step)
 
 
 def tree_meta(tree) -> torch.Tensor:

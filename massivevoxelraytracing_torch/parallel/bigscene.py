@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.raycast import _shade_flat
+from ..models.raycast import shade
 from ..ops import hako as hako_ops
 from ..ops.bits import MASK32, to_i32_bits
 from ..ops.hako import HakoTree
@@ -125,11 +125,11 @@ def render_rays_sharded(shards: list, ro, rd, show_color: bool = False):
     first shard's device."""
     imgs, ts = [], []
     for sh in shards:
-        rd_d = torch.as_tensor(rd, dtype=torch.float32, device=sh.device)
+        rd_d = torch.as_tensor(rd, dtype=torch.float32, device=sh.device).contiguous()
         t, nmaj, vidx = intersect_hako(sh, ro, rd_d)
         color = sh.color if sh.color is not None else torch.zeros(
             1, dtype=torch.int32, device=sh.device)
-        img, t = _shade_flat(color, rd_d, t, nmaj, vidx, show_color=show_color)
+        img, t = shade(color, rd_d, t, nmaj, vidx, show_color=show_color)
         imgs.append(img)
         ts.append(t)
     t, _win, img = _select(ts, imgs)

@@ -33,10 +33,12 @@ def make_sharded_render(mesh: Mesh, *, width: int, height: int, kind: str,
                         depth, show_color: bool = False):
     """Primary-ray frame over every entry of the mesh: band b of
     ceil(tile rows / entries) tile rows goes to entry b; it generates its
-    rays from pixel row b * band_rows, traces them (intersect_with) and
-    shades and un-tiles them. The bands are concatenated and cut to
-    `height` (rows of the last band past the frame start parked, miss,
-    and are dropped). Every lane equals render_frame's bit for bit."""
+    rays from pixel row b * band_rows (raycast.gen_rays), traces them
+    (intersect_with) and shades and un-tiles them (raycast.shade): the
+    frame's kernels on a CUDA entry, their plain stages on a CPU one. The
+    bands are concatenated and cut to `height` (rows of the last band past
+    the frame start parked, miss, and are dropped). Every lane equals
+    render_frame's bit for bit."""
     devs = mesh.flat()
     nty = -(-height // raycast.TILE)
     band_nty = -(-nty // len(devs))
@@ -45,19 +47,19 @@ def make_sharded_render(mesh: Mesh, *, width: int, height: int, kind: str,
     def render(meta, root, lower, upper, color_table, cam_o, cam_right,
                cam_up, cam_front, tan_half_fovy):
         imgs, ts = [], []
+        cam = raycast.host_camera(cam_o, cam_right, cam_up, cam_front,
+                                  tan_half_fovy)
         for b, dev in enumerate(devs):
-            (meta_d, root_d, lower_d, upper_d, color_d, o, r, u, f,
-             th) = _on(dev, meta, root, lower, upper, color_table, cam_o,
-                       cam_right, cam_up, cam_front, tan_half_fovy)
-            ro, rd = raycast._gen_rays_band(
-                o, r, u, f, th, b * band_rows, width=width, height=height,
-                band_tile_rows=band_nty)
+            meta_d, root_d, lower_d, upper_d, color_d = _on(
+                dev, meta, root, lower, upper, color_table)
+            ro, rd = raycast.gen_rays(
+                cam, b * band_rows, width=width, height=height,
+                band_tile_rows=band_nty, device=dev)
             t, nmaj, vidx = accel_lib.intersect_with(
                 kind, depth, meta_d, root_d, lower_d, upper_d, ro, rd)
-            img, t = raycast._shade_untile_band(
-                color_d, rd, t, nmaj, vidx, width=width,
-                band_tile_rows=band_nty, rows_out=band_rows,
-                show_color=show_color)
+            img, t = raycast.shade(
+                color_d, rd, t, nmaj, vidx, show_color=show_color,
+                width=width, band_tile_rows=band_nty, rows_out=band_rows)
             imgs.append(img)
             ts.append(t)
         return all_gather(imgs)[:height], all_gather(ts)[:height]

@@ -529,14 +529,12 @@ def sky_img() -> np.ndarray:
 
 
 def camera_rays(cam, width: int, height: int, device) -> tuple:
-    """(ro, rd): the tile-major rays render_frame traces for this camera."""
+    """(ro, rd): the tile-major rays render_frame traces for this camera
+    (raycast.gen_rays: the ray kernel on the card)."""
     from ..models import raycast
 
-    return raycast._gen_rays_tiled(
-        *(torch.as_tensor(np.asarray(v, np.float32), device=device)
-          for v in (cam.o, cam.right, cam.up, cam.front)),
-        torch.as_tensor(np.float32(cam.tan_half_fovy), device=device),
-        width=width, height=height)
+    return raycast.gen_rays(raycast.camera_of(cam), 0, width=width, height=height,
+                            band_tile_rows=-(-height // raycast.TILE), device=device)
 
 
 def frame_bound(tree, ro, rd) -> dict:
@@ -555,16 +553,99 @@ def frame_bound(tree, ro, rd) -> dict:
                 bytes=n_bytes, ops=n_ops, bound_ms=b_ms, bound_by=b_by)
 
 
+# The frame's stages (models/raycast.py, csrc/frame.cu): float32
+# operations a lane, counted from the plain stages' code: ray generation
+# ~5 for u, ~4 for v and 12 for rd; the shade ~10 (the normal or the
+# colour's three scales, the pixel's multiply-add and clamp).
+RAYGEN_OPS = 21
+SHADE_OPS = 10
+
+
+def raygen_bound(n_lanes: int) -> tuple:
+    """frame_raygen on n_lanes lanes: it reads nothing (the camera comes by
+    value) and writes ro and rd, 24 B a lane."""
+    return bound(24 * n_lanes, RAYGEN_OPS * n_lanes)
+
+
+def shade_bound(t, nmaj, vidx, show_color: bool, color_table, lanes=None) -> tuple:
+    """frame_shade on the lanes it shades (all, or the bool mask `lanes`,
+    the output pixels' lanes): every pixel reads t (4 B) and writes its
+    RGB8 and depth (7 B); a hit pixel reads nmajor and rd (16 B), or vidx
+    (4 B) and its colour, each distinct table entry once (4 B)."""
+    if lanes is None:
+        lanes = torch.ones_like(t, dtype=torch.bool)
+    n = int(lanes.sum())
+    hit = lanes & (t < 1e37)
+    n_hit = int(hit.sum())
+    if show_color:
+        extra = 4 * n_hit + _touched(color_table, vidx[hit])
+    else:
+        extra = 16 * n_hit
+    return bound(11 * n + extra, SHADE_OPS * n)
+
+
+# The walks' float32 operations a visit (an active lane's iteration),
+# counted from the plain bodies as a lower bound: the brick walk's 15
+# cell planes (4 each), the v2 walk's 6 planes (2 each) and its 8
+# octants' entry / exit max / min (4 each).
+WALK_VISIT_OPS = {"brick": 60, "octree": 44}
+# the bytes of a node's row a visit must read: the brick walk's 16 B row;
+# the v2 walk's children[c] and psum[c], two words in two 32 B sectors of
+# the 64 B row (children[c] alone for a shadow ray)
+WALK_ROW_BYTES = {"brick": 16, "octree": 64, "octree_shadow": 32}
+
+
+def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool = False):
+    """(rays entering the box, distinct rows, row visits) of the brick or
+    v2 walk of these rays, read off the plain walk (every active lane
+    stands on one node an iteration and reads its row; a v2 lane that
+    finds no child pops without reading it, so this counts at most one
+    row more a lane and visit)."""
+    from ..ops import bricktree, traverse2
+
+    n_rows = meta.shape[0]
+    seen = torch.zeros(n_rows, dtype=torch.bool, device=meta.device)
+    visits = [0, 0]
+
+    def on_step(st):
+        if visits[1] == 0:
+            visits[1] = int(st["lane"].shape[0])  # the lanes that entered
+        node = st["node"][st["active"]]
+        if kind == "octree":
+            node = node & 0xFFFFFF
+        seen[torch.clamp(node, 0, n_rows - 1)] = True
+        visits[0] += int(node.shape[0])
+
+    if kind == "brick":
+        bricktree.intersect_rays_brick_plain(meta, root, lower, upper, ro, rd,
+                                             n_levels=depth, shadow=shadow, on_step=on_step)
+    else:
+        traverse2.intersect_rays2_plain(meta, root, lower, upper, ro, rd,
+                                        stack_depth=depth, shadow=shadow, on_step=on_step)
+    return visits[1], int(seen.sum()), visits[0]
+
+
+def walk_bound(kind: str, n_rays: int, rows: int, visits: int, shadow: bool = False) -> tuple:
+    """The brick or v2 walk on n_rays rays: each reads its ro / rd (24 B)
+    and writes t, nmajor and vidx (12 B); each distinct row it reaches is
+    read once (WALK_ROW_BYTES); WALK_VISIT_OPS float ops a visit."""
+    key = "octree_shadow" if kind == "octree" and shadow else kind
+    return bound(36 * n_rays + WALK_ROW_BYTES[key] * rows, WALK_VISIT_OPS[kind] * visits)
+
+
 def profile_call(fn) -> dict:
     """fn() under torch.profiler on the card: wall ms (host clock, synced),
     device busy ms (the sum of the device events), its idle share, the
     hako_mega kernels' ms, the device kernels launched, the top 8 by time
-    as (name, ms, calls), and each sample-chain and scene-build kernel's
-    (ms, calls).
+    as (name, ms, calls), and each sample-chain, scene-build, frame and
+    walk kernel's (ms, calls).
     Reads the profiler's raw trace events: prof.events() would first build
     the host ops' call tree, about a minute of host time for a PT step's
     ~10^6 ops."""
     from torch.profiler import ProfilerActivity, profile
+
+    from ..models import raycast
+    from ..ops import traverse
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -593,7 +674,8 @@ def profile_call(fn) -> dict:
                 mega_ms=sum(ms for name, (ms, _) in kernels.items() if "hako_mega" in name),
                 kernels=sum(calls for _ms, calls in kernels.values()),
                 top=[(name[:70], ms, calls) for name, (ms, calls) in top],
-                chain=by_kernel(pt_chain.KERNELS), vox=by_kernel(vox_ops.KERNELS))
+                chain=by_kernel(pt_chain.KERNELS), vox=by_kernel(vox_ops.KERNELS),
+                frame=by_kernel(raycast.KERNELS), walks=by_kernel(traverse.WALK_KERNELS))
 
 
 # The sample chain's stages (ops/pt_chain.py): float32-equivalent operations

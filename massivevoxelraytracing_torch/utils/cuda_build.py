@@ -215,6 +215,19 @@ def _bind(lib):
         i, p, p, p, p, q,                              # mode, s_key, perm, boundary, seg, n
         p, p, p, p,                                    # in[7], code, out[7], stream
     ]
+    lib.frame_raygen_launch.argtypes = [
+        p, q, q, q, q,                                 # cam[16] (host), py0, w, h, tile rows
+        p, p, p,                                       # ro, rd, stream
+    ]
+    lib.frame_shade_launch.argtypes = [
+        i, i, p, p, p, p, p,                           # color, untile, t, nmaj, vidx, rd, table
+        q, q, q, p, p, p,                              # n_color, n_out, width, img, depth, stream
+    ]
+    walk = [p, q, p, p, p, q,                          # meta, nodes, bounds, ro, rd, n
+            u, i, q, f, f, f,                          # root, depth, max_iters, constants
+            p, p, p, p]                                # t, nmaj, vidx, stream
+    lib.brick_walk_launch.argtypes = walk
+    lib.octree_walk_launch.argtypes = [i] + walk       # shadow
     lib.smem_optin_bytes.argtypes = [i]
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
@@ -232,6 +245,8 @@ def _bind(lib):
                lib.pt_bounce_sample_launch, lib.pt_bounce_shade_launch,
                lib.pt_compact_gather_launch, lib.vox_count_launch,
                lib.vox_emit_launch, lib.vox_unique_reduce_launch,
+               lib.frame_raygen_launch, lib.frame_shade_launch,
+               lib.brick_walk_launch, lib.octree_walk_launch,
                lib.smem_optin_bytes):
         fn.restype = ctypes.c_int
     return lib

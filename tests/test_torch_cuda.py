@@ -32,7 +32,17 @@ template case) and on the stage calls a PT step makes, a PT step through
 the kernels against the same step through the plain stages (2 and 8
 bounces, with and without emission and sky; PCG32), the sats HDRI
 backend's counted plain stage, a build failure that raises, and the nvcc
-command of pt_chain.cu.
+command of pt_chain.cu; the frame's kernels (models/raycast.py,
+csrc/frame.cu: frame_raygen on whole frames and bands past row 0 at widths
+that are not multiples of 128, frame_shade for normals and colours,
+un-tiled and flat, on lanes with ±0 and NaN directions) and the walk
+kernels (csrc/walks.cu: brick_walk, octree_walk with DAG on and off,
+shadow on and off, max_iters cuts of 1, 7 and 100, on mirrored,
+axis-parallel, inside, parked, NaN and inf rays, and on stacks shallower
+than the walk needs) against their plain versions bit for bit, a stack
+deeper than 16 refused before any launch, render_frame / render_rays
+against stages="plain" (HakoTree, brick tree, octree with DAG on and
+off), and a PT step through the walk kernels against the plain walks.
 Imports nothing of JAX. Run on a card with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -1521,3 +1531,226 @@ def test_build_scene_vox_kernels_equal_plain_stages(cuda, monkeypatch):
     assert trees["kernels_grouped"].build_stats["n_dumped"] > 2 * 20000
     for label in ("plain", "kernels_grouped", "plain_grouped"):
         assert trees_equal(trees["kernels"], trees[label]), label
+
+
+# ---------------------------------------------------------------------------
+# the frame's kernels (csrc/frame.cu) and the walk kernels (csrc/walks.cu)
+# against their plain versions on the card, bit for bit
+# ---------------------------------------------------------------------------
+
+def assert_bits(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{what}: output {i}"
+        if g.dtype == torch.float32:
+            g, w = g.contiguous().view(torch.int32), w.contiguous().view(torch.int32)
+        assert torch.equal(g, w), f"{what}: output {i} differs"
+
+
+def frame_cam():
+    center = np.full(3, 0.5, np.float32)
+    return camera.Camera.look_at(eye=center + np.array([0.9, 0.4, 1.4], np.float32) * 0.9,
+                                 target=center, fovy_deg=40.0)
+
+
+@pytest.mark.parametrize("width,height,py0,rows", [
+    (1920, 1080, 0, 9), (200, 130, 0, 2), (200, 330, 128, 2), (333, 77, 0, 1)])
+def test_frame_raygen_kernel_matches_plain(cuda, width, height, py0, rows):
+    cam = raycast.camera_of(frame_cam())
+    raycast.reset_counters()
+    got = raycast.gen_rays(cam, py0, width=width, height=height, band_tile_rows=rows,
+                           device=cuda)
+    assert raycast.LAUNCHES["frame_raygen"] == 1
+    want = raycast._gen_rays_band(
+        *(torch.from_numpy(v).to(cuda) for v in cam[:4]),
+        torch.tensor(cam[4], dtype=torch.float32, device=cuda), py0, width=width,
+        height=height, band_tile_rows=rows)
+    assert_bits(got, want, f"raygen {width}x{height} py0={py0}")
+
+
+def card_lanes(n, seed, device):
+    rng = np.random.default_rng(seed)
+    t = np.where(rng.random(n) < 0.6, rng.uniform(0.01, 3.0, n),
+                 np.float32(3.402823466e38)).astype(np.float32)
+    rd = rng.normal(size=(n, 3)).astype(np.float32)
+    rd[::7, 0] = 0.0
+    rd[::11, 1] = -0.0
+    rd[::13, 2] = np.nan
+    arrays = (rng.integers(-2 ** 31, 2 ** 31, 300).astype(np.int32), rd, t,
+              rng.integers(-1, 3, n).astype(np.int32),
+              rng.integers(-20, 320, n).astype(np.int32))
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.mark.parametrize("show_color", [False, True])
+@pytest.mark.parametrize("width,rows,rows_out", [(1920, 9, 1080), (200, 2, 130),
+                                                 (333, 1, 128), (None, 1, None)])
+def test_frame_shade_kernel_matches_plain(cuda, show_color, width, rows, rows_out):
+    n = (-(-width // 128) if width else 2) * 128 * rows * 128
+    args = card_lanes(n, rows + show_color, cuda)
+    raycast.reset_counters()
+    if width:
+        got = raycast.shade(*args, show_color=show_color, width=width,
+                            band_tile_rows=rows, rows_out=rows_out)
+        want = raycast._shade_untile_band(*args, width=width, band_tile_rows=rows,
+                                          rows_out=rows_out, show_color=show_color)
+    else:
+        got = raycast.shade(*args, show_color=show_color)
+        want = raycast._shade_flat(*args, show_color=show_color)
+    assert raycast.LAUNCHES["frame_shade"] == 1
+    assert_bits(got, want, f"shade {width} color={show_color}")
+
+
+@pytest.mark.parametrize("accel,dag", [("hako", True), ("brick", True), ("octree", True),
+                                       ("octree", False)])
+def test_render_frame_kernels_equal_plain_route(cuda, accel, dag):
+    """render_frame through the frame's kernels (and the walk kernels)
+    against stages="plain" (the eager stages and walks) on the card, at a
+    width that is not a multiple of 128; render_rays likewise."""
+    from massivevoxelraytracing_torch.ops import traverse
+
+    tri, cols = meshgen.sphere_lattice(2, 2)
+    tree = scene.build_scene(tri, cols, origin=np.zeros(3, np.float32), dps=1.0 / 128,
+                             grid_res=128, accel=accel, dag=dag, device=cuda)
+    cam = frame_cam()
+    for show_color in (False, True):
+        raycast.reset_counters()
+        traverse.reset_counters()
+        got = raycast.render_frame(tree, cam, 333, 190, show_color, device=cuda)
+        assert raycast.LAUNCHES == dict.fromkeys(raycast.KERNELS, 1)
+        walks = dict(traverse.LAUNCHES)
+        want = raycast.render_frame(tree, cam, 333, 190, show_color, device=cuda,
+                                    stages="plain")
+        assert raycast.LAUNCHES == dict.fromkeys(raycast.KERNELS, 1)
+        assert traverse.LAUNCHES == walks
+        if accel != "hako":
+            assert walks[f"{'brick' if accel == 'brick' else 'octree'}_walk"] == 1
+        assert int((want[1] < 1e37).sum()) > 5000
+        assert_bits(got, want, f"{accel} dag={dag} color={show_color}")
+    ro, rd = raycast.gen_rays(raycast.camera_of(cam), 0, width=333, height=190,
+                              band_tile_rows=2, device=cuda)
+    from massivevoxelraytracing_torch.models import accel as accel_lib
+
+    kind, depth, meta, root = accel_lib.accel_args(tree)
+    traced = accel_lib.intersect_with(kind, depth, meta, root, tree.lower, tree.upper,
+                                      ro, rd, stages="plain")
+    assert_bits(raycast.render_rays(tree, ro, rd, True),
+                raycast._shade_flat(raycast._color_table(tree), rd, *traced, show_color=True),
+                "render_rays")
+
+
+def walk_rays(codes, grid_res, n, seed, device):
+    """Rays aimed at voxels, then mirrored and axis-parallel ones with ±0
+    components, rays from inside the box, parked, NaN and inf rays."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-1.0, 2.0, (n, 3)).astype(np.float32)
+    x, y, z = (v.numpy() for v in morton.decode(
+        codes.cpu()[rng.integers(0, codes.shape[0], n)]))
+    rd = ((np.stack([x, y, z], -1) + 0.5) / grid_res - ro).astype(np.float32)
+    m = n // 8
+    rd[:m, 0] = 0.0
+    rd[m:2 * m, 1] = -0.0
+    rd[2 * m:3 * m, :2] = -0.0
+    rd[3 * m:3 * m + 64, :2] = 0.0
+    ro[4 * m:5 * m] = rng.uniform(0.0, 1.0, (m, 3)).astype(np.float32)
+    ro[5 * m:5 * m + 8] = 1e9
+    rd[5 * m + 8] = np.nan
+    ro[5 * m + 9, 1] = np.nan
+    ro[5 * m + 10] = np.inf
+    rd[5 * m + 11] = 0.0
+    return torch.from_numpy(ro).to(device), torch.from_numpy(rd).to(device)
+
+
+def walk_pair(kind):
+    from massivevoxelraytracing_torch.ops import bricktree, traverse2
+
+    if kind == "brick":
+        return bricktree.intersect_rays_brick, bricktree.intersect_rays_brick_plain, "n_levels"
+    return traverse2.intersect_rays2, traverse2.intersect_rays2_plain, "stack_depth"
+
+
+@pytest.mark.parametrize("max_iters", [1, 7, 100, 100_000])
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("kind,dag", [("brick", True), ("octree", True), ("octree", False)])
+def test_walk_kernels_match_plain(cuda, kind, dag, shadow, max_iters):
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.ops import traverse
+
+    codes, _ro, _rd = structure_case(256, 20000)
+    tree = build_structure(kind, codes, 256, cuda, dag)
+    ro, rd = walk_rays(codes, 256, 8192, 256 + max_iters, cuda)
+    _kind, depth, meta, root = accel.accel_args(tree)
+    kernel, plain, key = walk_pair(kind)
+    traverse.reset_counters()
+    got = kernel(meta, root, tree.lower, tree.upper, ro, rd, shadow=shadow,
+                 max_iters=max_iters, **{key: depth})
+    assert sum(traverse.LAUNCHES.values()) == 1
+    want = plain(meta, root, tree.lower, tree.upper, ro, rd, shadow=shadow,
+                 max_iters=max_iters, **{key: depth})
+    assert_bits(got, want, f"{kind} dag={dag} shadow={shadow} max_iters={max_iters}")
+    if max_iters == 100_000:
+        assert int((want[0] < 1e37).sum()) > 2000
+
+
+@pytest.mark.parametrize("kind", ["brick", "octree"])
+def test_walk_kernels_match_plain_on_a_shallow_stack(cuda, kind):
+    """A stack shallower than the walk needs: pushes past it write nothing
+    and pops there read 0, in both versions."""
+    from massivevoxelraytracing_torch.models import accel
+
+    codes, _ro, _rd = structure_case(256, 20000)
+    tree = build_structure(kind, codes, 256, cuda)
+    ro, rd = walk_rays(codes, 256, 4096, 9, cuda)
+    _kind, _depth, meta, root = accel.accel_args(tree)
+    kernel, plain, key = walk_pair(kind)
+    for depth in (1, 2, 3):
+        assert_bits(kernel(meta, root, tree.lower, tree.upper, ro, rd, **{key: depth}),
+                    plain(meta, root, tree.lower, tree.upper, ro, rd, **{key: depth}),
+                    f"{kind} stack {depth}")
+
+
+def test_walk_kernels_refuse_a_deep_stack_before_launch(cuda):
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.ops import traverse
+
+    codes, ro, rd = structure_case(64, 2000, 64)
+    ro, rd = torch.from_numpy(ro).to(cuda), torch.from_numpy(rd).to(cuda)
+    traverse.reset_counters()
+    for kind in ("brick", "octree"):
+        tree = build_structure(kind, codes, 64, cuda)
+        _kind, _depth, meta, root = accel.accel_args(tree)
+        kernel, _plain, key = walk_pair(kind)
+        with pytest.raises(ValueError, match="stack depth"):
+            kernel(meta, root, tree.lower, tree.upper, ro, rd, **{key: 17})
+    assert traverse.LAUNCHES == dict.fromkeys(traverse.WALK_KERNELS, 0)
+
+
+@pytest.mark.parametrize("accel_kind", ["brick", "octree"])
+def test_pt_step_walk_kernels_equal_plain_walks(cuda, monkeypatch, accel_kind):
+    """A PT step through the walk kernels (primary, BSDF and NEE shadow
+    rays) against the same step through the plain walks: accumulators
+    bit for bit."""
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.ops import traverse
+    from massivevoxelraytracing_torch.utils import hdr
+
+    tri, cols = meshgen.sphere_lattice(2, 2)
+    tree = scene.build_scene(tri, cols, origin=np.zeros(3, np.float32), dps=1.0 / 128,
+                             grid_res=128, accel=accel_kind, device=cuda)
+    accums = []
+    for route in (None, "plain"):
+        if route == "plain":
+            real = accel.intersect_with
+            monkeypatch.setattr(accel, "intersect_with",
+                                lambda *a, **k: real(*a, **{**k, "stages": "plain"}))
+        traverse.reset_counters()
+        pt = pathtracer.PathTracer(width=96, height=64, device=cuda)
+        pt.setup()
+        env = hdr.procedural_sky(64, 32)
+        pt.load_hdri(env, env)
+        pt.update_scene(tree)
+        pt.step(frame_cam())
+        launched = sum(traverse.LAUNCHES.values())
+        assert (launched > 8) if route is None else launched == 0
+        accums.append(pt.accum)
+    assert_bits(accums[:1], accums[1:], f"PT step through {accel_kind}")
+    assert float(accums[0][:, :3].mean()) > 0

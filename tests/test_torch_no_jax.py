@@ -148,8 +148,8 @@ def test_no_module_imports_jax():
 def test_nvcc_command_keeps_ieee_floats():
     srcs = cuda_build.sources()
     assert [os.path.basename(s) for s in srcs] == [
-        "hako_mega.cu", "hako_probes.cu", "hako_rounds.cu", "pt_chain.cu",
-        "vox_build.cu"]
+        "frame.cu", "hako_mega.cu", "hako_probes.cu", "hako_rounds.cu", "pt_chain.cu",
+        "vox_build.cu", "walks.cu"]
     compile_cmds, link_cmd = cuda_build.nvcc_commands(
         "nvcc", cuda_build.LIB_PATH, srcs)
     assert [c[-1] for c in compile_cmds] == srcs  # one nvcc per source
