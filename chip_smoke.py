@@ -38,7 +38,10 @@ Phases (any failure raises, and the script exits non-zero):
      against its plain stage on the lattice's one group, on the same card
      tensors, bit for bit (the counts, the dump buffers, the unique stream
      in its three modes), with its ms, the plain stage's ms, its bound on
-     the call's data (scripts/common.vox_bound) and share, and the
+     the call's data (scripts/common.vox_bound; the count's and emit's on
+     the units and slab-clipped cells the kernels test,
+     common.vox_tested_cells, whose valid cells must equal the count's,
+     with the bound on the bbox cells beside it) and share, and the
      reduce's library call (index_add_ of the segment sums alone); then
      the lattice built through the plain stages and through the kernels
      (route_builds: each build's split and peak memory, a profiled build
@@ -62,7 +65,8 @@ Phases (any failure raises, and the script exits non-zero):
      kernel route must launch at most a tenth of the plain route's device
      kernels), and each kernel against its plain stage on every stage call
      of the first packet, recorded in the warm step, bit for bit, with its
-     ms, plain ms and bytes bound on the bounce-1 call; and on one packet's full
+     ms, plain ms and bytes bound on the bounce-1 call (the bounce sample
+     also through the sats HDRI backend, with its bound); and on one packet's full
      bounce-1 BSDF and NEE batches (the inputs the step gives the
      kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
      against its plain version, round by round, and hako_mega against its
@@ -215,7 +219,11 @@ Phases (any failure raises, and the script exits non-zero):
      (7.0M triangles) in one process, the first cold, each with its split
      and peak memory; the scene build's counts around the phase (each must
      launch); then the last rebuild again through both routes
-     (route_builds), each tree == the script's.
+     (route_builds), each tree == the script's; each build kernel's
+     launches in the kernel route's profiled build, its ms there and its
+     bound on that build's calls (route_kernel_bounds: on the units and
+     slab-clipped cells the kernels test, beside the bbox cells' yardstick;
+     the count's bbox and slab-clipped cells).
   The scene build's, the frame's and the walks' kernels' counts are also
   read around phases 6, 7a, 7c, 8 and 9 (launches_by_path in the kernels
   line: the frame kernels' main path is phase 3's counted frame and 7a's
@@ -866,6 +874,7 @@ def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
     T = t.shape[0]
     runs = [(a, min(a + BUILD_CHUNK, T)) for a in range(0, T, BUILD_CHUNK)]
     n_cells = common.vox_cells(t, origin, dps, GRID, 4)
+    tested = common.vox_tested_cells(t, origin, dps, GRID, 4)
     out = {}
 
     def record(name, kern, plain, bnd, err, library_ms=None, **extra):
@@ -883,8 +892,12 @@ def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
                                       for a, b in runs])
     err = held_equal((counts,), (plain_counts(),), "vox_count")
     record("vox_count", lambda: vox.count(t, origin, dps, **kw), plain_counts,
-           common.vox_bound("vox_count", n_tri=T, n_cells=n_cells), err,
-           triangles=T, cells=n_cells)
+           common.vox_bound("vox_count", n_tri=T, n_cells=n_cells, walk=tested), err,
+           triangles=T, cells=n_cells, tested_cells=tested["cells"], units=tested["units"],
+           bbox_bound_ms=common.vox_bound("vox_count", n_tri=T, n_cells=n_cells)[0])
+    if tested["valid"] != int(counts.sum()):
+        raise AssertionError(f"the enumeration's valid cells {tested['valid']} are not the "
+                             f"count's {int(counts.sum())}")
 
     end = torch.cumsum(counts, 0, dtype=torch.int64)
     start = end - counts
@@ -909,8 +922,10 @@ def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
     del want
     record("vox_emit", lambda: vox.emit(t, c, e, start, origin, dps, dump, **kw),
            lambda: plain_emit(dump),
-           common.vox_bound("vox_emit", n_tri=T, n_cells=n_cells, n_dumped=n), err,
-           dumped=n)
+           common.vox_bound("vox_emit", n_tri=T, n_cells=n_cells, n_dumped=n, walk=tested),
+           err, dumped=n, cells=n_cells, tested_cells=tested["cells"],
+           bbox_bound_ms=common.vox_bound("vox_emit", n_tri=T, n_cells=n_cells,
+                                          n_dumped=n)[0])
     del t, c, e
 
     code, color, emission = dump
@@ -987,14 +1002,18 @@ def route_builds(args, kwargs, want, what: str, smi: str) -> dict:
             prof, launched = vox_counted(lambda: common.profile_call(
                 lambda: kept.append(build(stages))), what, need=False)
             launched = {k: launched[k] for k in prof["vox"]}
-            if not trees_equal(kept.pop(), want):
+            tree = kept.pop()
+            if not trees_equal(tree, want):
                 raise AssertionError(f"{what}: the {route} route's profiled tree differs")
+            n_unique = tree.build_stats["n_unique"]
+            del tree
             seen = {k: calls for k, (_, calls) in prof["vox"].items()}
             if seen == launched:
                 break
         out[route].update(device_kernels=prof["kernels"], busy_ms=prof["busy_ms"],
                           profiled_wall_ms=prof["wall_ms"], idle_share=prof["idle_share"],
                           vox_ms=prof["vox"], top=prof["top"][:4], profile_tries=tries,
+                          launches=launched, n_unique=n_unique,
                           profile_missed={k: launched[k] - seen[k] for k in launched})
     for route in ("plain", "kernels"):
         r = out[route]
@@ -1010,6 +1029,111 @@ def route_builds(args, kwargs, want, what: str, smi: str) -> dict:
     if out["kernels"]["device_kernels"] >= out["plain"]["device_kernels"]:
         raise AssertionError(f"{what}: the kernel route launched no fewer device kernels "
                              f"than the plain route")
+    return out
+
+
+def route_kernel_bounds(args, kwargs, routes: dict, what: str, smi: str) -> dict:
+    """Each build kernel's launches in the kernel route's profiled build
+    (route_builds: its wrapper's count), its ms there, and its bound on that
+    build's calls (common.vox_bound with the kernels' walk; the bbox cells'
+    count beside it, the yardstick of the designs with a bbox cell loop):
+    the count on all triangles, the emit on each group's, the unique
+    reduce on each group's dump (the means, or the sums and the merge).
+    The sizes come from the build's triangles split again as build_scene
+    splits them, counted, grouped (scene.chunk_offsets, dump_groups), each
+    group emitted and sorted; these launches are outside any counted run."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from massivevoxelraytracing_torch.models import scene
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+    from massivevoxelraytracing_torch.ops.octree import bucket
+    from massivevoxelraytracing_torch.scripts import common
+    from massivevoxelraytracing_torch.utils import meshprep
+
+    a = inspect.signature(scene.build_scene).bind(*args, **kwargs)
+    a.apply_defaults()
+    a = a.arguments
+    r = routes["kernels"]
+    launched, prof = r["launches"], r["vox_ms"]
+    tri = np.asarray(a["tri_verts"], np.float32).reshape(-1, 3, 3)
+    split = meshprep.split_to_cap(tri, np.ones_like(tri), np.zeros_like(tri), a["origin"],
+                                  a["dps"], a["grid_res"], a["cap"])
+    del tri
+    dev = torch.device(a["device"])
+    t, c, e = (torch.from_numpy(x).to(dev) for x in split)
+    del split
+    T = len(t)
+    origin = torch.as_tensor(np.asarray(a["origin"], np.float32), device=dev)
+    dps = torch.tensor(a["dps"], dtype=torch.float32, device=dev)
+    kw = dict(grid_res=a["grid_res"], six_separating=a["six_separating"], cap=a["cap"])
+    counts = vox.count(t, origin, dps, **kw)
+    end = torch.cumsum(counts, 0, dtype=torch.int64)
+    start = end - counts
+    del counts
+    chunk = min(a["chunk_tris"], bucket(T, floor=1024))
+    offsets = scene.chunk_offsets(end, chunk)
+    groups = scene.dump_groups(offsets)
+    out = {k: dict(calls=launched[k], bound_ms=0.0, bbox_bound_ms=0.0, bound_by=set())
+           for k in vox.KERNELS}
+
+    def add(name, walk=None, **sizes):
+        rec = out[name]
+        bnd = common.vox_bound(name, walk=walk, **sizes)
+        rec["bound_ms"] += bnd[0]
+        rec["bound_by"].add(bnd[1])
+        rec["bbox_bound_ms"] += common.vox_bound(name, **sizes)[0]
+
+    total = dict(units=0, cells=0, valid=0)
+    n_cells = 0
+    uniques = []
+    for ka, kb in groups:
+        ga, gb = ka * chunk, min(kb * chunk, T)
+        off0 = int(offsets[ka])
+        n = int(offsets[kb]) - off0
+        bufs = (torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev))
+        vox.emit(t[ga:gb], c[ga:gb], e[ga:gb], start[ga:gb] - off0, origin, dps, bufs, **kw)
+        uniques.append(vox._sorted_segments(bufs[0])[4])
+        del bufs
+        cells = common.vox_cells(t[ga:gb], origin, dps, a["grid_res"], a["cap"])
+        walk = common.vox_tested_cells(t[ga:gb], origin, dps, a["grid_res"], a["cap"],
+                                       a["six_separating"])
+        if walk["valid"] != n:
+            raise AssertionError(f"{what}: the enumeration's valid cells {walk['valid']} "
+                                 f"are not the group's dumped {n}")
+        n_cells += cells
+        total = {k: total[k] + walk[k] for k in total}
+        add("vox_emit", walk, n_tri=gb - ga, n_cells=cells, n_dumped=n)
+        add("vox_unique_reduce", n_sorted=n, n_unique=uniques[-1],
+            mode="means" if len(groups) == 1 else "sums")
+    if len(groups) > 1:
+        add("vox_unique_reduce", n_sorted=sum(uniques), n_unique=r["n_unique"], mode="merge")
+    add("vox_count", total, n_tri=T, n_cells=n_cells)
+    del t, c, e, end, start
+    want = dict(vox_count=1, vox_emit=len(groups),
+                vox_unique_reduce=len(groups) + (len(groups) > 1))
+    if {k: launched[k] for k in want} != want:
+        raise AssertionError(f"{what}: the kernel route launched {launched}, its groups "
+                             f"need {want}")
+    out["vox_count"].update(triangles=T, cells=n_cells, tested_cells=total["cells"],
+                            units=total["units"])
+    for name, rec in out.items():
+        ms, profiled_calls = prof[name]
+        rec.update(ms=ms, profiled_calls=profiled_calls, share=rec["bound_ms"] / ms,
+                   bound_by="/".join(sorted(rec["bound_by"])))
+        cells = (f"; {rec['triangles']} triangles, bbox cells {rec['cells']}, slab-clipped "
+                 f"cells tested {rec['tested_cells']} in {rec['units']} units"
+                 if name == "vox_count" else "")
+        bbox = ("" if name == "vox_unique_reduce" else f" (on the bbox cells "
+                f"{rec['bbox_bound_ms']:.4f} ms, {rec['bbox_bound_ms'] / ms:.1%})")
+        print(f"[{what}] kernel route {name}: {rec['calls']} launches a build, {ms:.3f} ms "
+              f"in the profiled build ({profiled_calls} calls); bound {rec['bound_ms']:.4f} "
+              f"ms ({rec['bound_by']}), share {rec['share']:.1%}{bbox}{cells} [{smi}]",
+              flush=True)
     return out
 
 
@@ -1615,6 +1739,8 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
             _r, e["sats_ms"] = common.timed(lambda: pt_chain.bounce_sample(*sats, **k), 20)
             _r, e["sats_plain_ms"] = common.timed(
                 lambda: pt_chain.bounce_sample_plain(*sats, **k), 3)
+            e["sats_bound_ms"], e["sats_bound_by"] = common.chain_bound(
+                "bounce_sample", sats, k, skern)
             del skern
         del kern, plain
     for name, e in out.items():
@@ -1629,7 +1755,9 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
         if "sats_ms" in e:
             print(f"[phase4] {name} with the sats HDRI backend == its plain stage bit for "
                   f"bit on the timed call: {e['sats_ms']:.4f} ms, plain "
-                  f"{e['sats_plain_ms']:.2f} ms [{smi}]", flush=True)
+                  f"{e['sats_plain_ms']:.2f} ms, bound {e['sats_bound_ms']:.4f} ms "
+                  f"({e['sats_bound_by']}), share {e['sats_bound_ms'] / e['sats_ms']:.2f} "
+                  f"[{smi}]", flush=True)
     return dict(routes=routes, kernels=out)
 
 
@@ -3271,6 +3399,8 @@ def main() -> int:
     rb_args, rb_kwargs, rb_tree = CAPTURED.pop("rebuild_timing")
     scale["rebuild_timing"]["routes"] = route_builds(rb_args, rb_kwargs, rb_tree, "phase9",
                                                      smi)
+    scale["rebuild_timing"]["kernels"] = route_kernel_bounds(
+        rb_args, rb_kwargs, scale["rebuild_timing"]["routes"], "phase9", smi)
     del rb_tree
     torch.cuda.empty_cache()
 
@@ -3374,7 +3504,8 @@ def main() -> int:
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             share=e["share"], lanes=e["lanes"], ms_a_step=e["ms_a_step"],
             calls_checked=e["calls_checked"],
-            **{k: e[k] for k in ("sats_ms", "sats_plain_ms") if k in e}))
+            **{k: e[k] for k in ("sats_ms", "sats_plain_ms", "sats_bound_ms", "sats_bound_by")
+               if k in e}))
     # the scene build (phase 3c): launches by path, each counted from 0
     for name, e in build3c["stages"].items():
         by_path = {path: got[name] for path, got in vox_paths.items()}

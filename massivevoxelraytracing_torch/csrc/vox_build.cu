@@ -1,5 +1,4 @@
-// The scene build's device work on Hopper: one thread a triangle (count,
-// emit) or a sorted entry (the unique reduce), one kernel a stage of
+// The scene build's device work on Hopper, one kernel a stage of
 // ops/voxelize.py.
 //
 // Replaces XLA-fused work of the reference (no pallas_call): on the TPU
@@ -11,23 +10,28 @@
 //
 //   vox_count_kernel<SIX>           replaces massivevoxelraytracing_tpu/
 //       ops/voxelize.py:266-349 (voxelize_dense's valid mask, count_voxels)
-//       and models/scene.py:160-161 (the count pass). The triangle's
-//       context (triangle_contexts :79-177) lives in registers; its cap^3
-//       candidates (coverage_mask :180-237) are a loop over the cells of
-//       its voxel bbox, the major-axis edge tests and the z slab once a
-//       column. Bound: operations (~190 a triangle and ~40 a bbox cell
-//       against 40 B a triangle: scripts/common.vox_bound), so the design
-//       spends nothing on memory: one pass over the vertices, one int
-//       written.
+//       and models/scene.py:160-161 (the count pass). Bound: bytes (40 B
+//       a triangle) over the operations of its walk (~190 a triangle, ~22
+//       a unit, ~26 a tested cell; on the bbox, ~40 a cell, operations
+//       bound: scripts/common.vox_bound). One thread a triangle, its context
+//       (triangle_contexts :79-177) in registers. Its candidates
+//       (coverage_mask :180-237) are walked as units in candidate order, a
+//       unit a column (X, Y) of the voxel bbox and a run of up to kZCells Z
+//       cells: the major-axis edge tests and the z slab once a unit, then
+//       only the cells inside the slab (on the bench lattice 37.3M of the
+//       151.7M bbox cells); int counters.
 //   vox_emit_kernel<SIX>            replaces ops/voxelize.py:266-343
-//       (voxelize_dense) and models/scene.py:36-49 (_chunk_emit). It reruns
-//       the coverage test, as the reference's two passes do, and for each
-//       valid candidate in increasing candidate index writes the int64
-//       Morton code, and the colour and emission at the closest point of
-//       the cell corner (closest_barycentric :240-263, pack_rgb8 :45) at
-//       offsets[t] + its rank. Bound: bytes (16 B a dumped voxel) and the
-//       closest-point arithmetic; no candidate tensor exists, so the dense
-//       [chunk, cap^3] temporaries and the host's nonzero sync go.
+//       (voxelize_dense) and models/scene.py:36-49 (_chunk_emit). A warp
+//       takes 32 triangles, one a lane, and its lanes walk their units in
+//       step as the count does; the units with valid cells go to the
+//       warp's queue in shared memory (their cells' bit mask and first
+//       position), and whenever 32 cells wait each lane emits one: the
+//       int64 Morton code, and the colour and emission at the closest point
+//       of the cell corner (closest_barycentric :240-263, pack_rgb8 :45), at
+//       offsets[t] + its rank (increasing candidate index). The closest-point
+//       arithmetic so runs on full warps whatever the triangles' sizes.
+//       Bound: bytes (16 B a dumped voxel) and the closest-point arithmetic;
+//       no candidate tensor exists.
 //   vox_unique_reduce_kernel<MODE>  replaces ops/voxelize.py:351-506
 //       (sort_and_unique_sums, merge_unique_sums, sort_and_unique: the
 //       segment sums). The stable sort, the neighbour compare and the
@@ -53,7 +57,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocks = 132 * 16;
+constexpr int kZCells = 32;  // Z cells of a unit, a bit each
 constexpr int kMeans = 0, kSums = 1, kMerge = 2;  // voxelize.MODES
 
 __device__ __forceinline__ long long lane0() {
@@ -230,56 +236,97 @@ __device__ __forceinline__ bool edges_pass(const float* ex, const float* ey, con
          ex[2] * pu + ey[2] * pv + ed[2] >= 0.0f;
 }
 
-// Visit the triangle's valid candidates in increasing candidate index
-// c = (ox * cap + oy) * cap + oz (X = lo_u + ox, Y = lo_v + oy, Z = lo_w +
-// oz; voxelize_dense's meshgrid order), calling f(X, Y, Z, xc, yc, zc).
-// Cells outside the voxel bbox are invalid, so the loops stop at it; the
-// major-axis edge tests and the z slab depend on (X, Y) alone.
-template <bool SIX, typename F>
-__device__ __forceinline__ void for_valid(const Ctx& c, float dps, int cap, F&& f) {
-  if (c.empty) return;
-  long long ext[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    long long e = static_cast<long long>(c.up[k]) - c.lo[k] + 1;
-    ext[k] = e < cap ? e : cap;
+// The valid cells of unit (X, Y, zbase) of triangle c (its column and a
+// run of kZCells Z cells) as the bits Z - zbase. The major-axis edge tests
+// and the z slab run once (yRangeInclusive, zRangeInclusive), then only the
+// cells of the slab's range [max(zmin, lo_w), min(zmax, up_w)] within the
+// cap (zend) and this run are tested: intersect(p), the other two axes'
+// edge tests, skipped when the bbox is flat along the remainder axis.
+template <bool SIX>
+__device__ __forceinline__ unsigned unit_mask(const Ctx& c, int X, int Y, int zbase, int zend,
+                                              bool flat, float dps) {
+  const float xc = c.o[0] + static_cast<float>(X) * dps;
+  const float yc = c.o[1] + static_cast<float>(Y) * dps;
+  if (!edges_pass(c.ex[0], c.ey[0], c.ed[0], xc, yc)) return 0u;
+  const float var = c.kx * xc + c.ky * yc;
+  int zmin, zmax;
+  if (SIX) {
+    float indexf = (var + c.c_hi - c.o[2]) / dps;
+    float zf = floorf(indexf);
+    zmax = f2i(zf);
+    zmin = indexf == zf ? minus1(zmax) : zmax;
+  } else {
+    zmin = f2i(floorf((var + c.c_lo - c.o[2]) / dps));
+    zmax = f2i(floorf((var + c.c_hi - c.o[2]) / dps));
   }
-  const bool flat = c.lo[2] == c.up[2];
-  for (long long ox = 0; ox < ext[0]; ++ox) {
-    int X = c.lo[0] + static_cast<int>(ox);
-    float xc = c.o[0] + static_cast<float>(X) * dps;
-    for (long long oy = 0; oy < ext[1]; ++oy) {
-      int Y = c.lo[1] + static_cast<int>(oy);
-      float yc = c.o[1] + static_cast<float>(Y) * dps;
-      // the major-axis edge functions (yRangeInclusive)
-      if (!edges_pass(c.ex[0], c.ey[0], c.ed[0], xc, yc)) continue;
-      // the z slab (zRangeInclusive)
-      float var = c.kx * xc + c.ky * yc;
-      int zmin, zmax;
-      if (SIX) {
-        float indexf = (var + c.c_hi - c.o[2]) / dps;
-        float zf = floorf(indexf);
-        zmax = f2i(zf);
-        zmin = indexf == zf ? minus1(zmax) : zmax;
-      } else {
-        zmin = f2i(floorf((var + c.c_lo - c.o[2]) / dps));
-        zmax = f2i(floorf((var + c.c_hi - c.o[2]) / dps));
-      }
-      zmin = zmin > c.lo[2] ? zmin : c.lo[2];
-      zmax = zmax < c.up[2] ? zmax : c.up[2];
-      for (long long oz = 0; oz < ext[2]; ++oz) {
-        int Z = c.lo[2] + static_cast<int>(oz);
-        if (Z < zmin || Z > zmax) continue;
-        float zc = c.o[2] + static_cast<float>(Z) * dps;
-        // intersect(p): the other two axes' edge tests, skipped when the
-        // bbox is flat along the remainder axis
-        if (flat || (edges_pass(c.ex[1], c.ey[1], c.ed[1], yc, zc) &&
-                     edges_pass(c.ex[2], c.ey[2], c.ed[2], zc, xc))) {
-          f(X, Y, Z, xc, yc, zc);
-        }
+  // zbase >= lo_w and zend <= up_w: no int arithmetic on zmin / zmax
+  const int zlo = zmin > zbase ? zmin : zbase;
+  int zhi = zmax < zend ? zmax : zend;
+  zhi = zhi < zbase + (kZCells - 1) ? zhi : zbase + (kZCells - 1);
+  unsigned mask = 0u;
+  for (int Z = zlo; Z <= zhi; ++Z) {
+    const float zc = c.o[2] + static_cast<float>(Z) * dps;
+    if (flat || (edges_pass(c.ex[1], c.ey[1], c.ed[1], yc, zc) &&
+                 edges_pass(c.ex[2], c.ey[2], c.ed[2], zc, xc))) {
+      mask |= 1u << (Z - zbase);
+    }
+  }
+  return mask;
+}
+
+// A triangle's units in candidate order: columns (ox, oy) < (ext_u,
+// ext_v), each a run of Z chunks zb < nz (one unless cap > kZCells)
+struct Units {
+  int lo_u, lo_v, lo_w, ext_u, ext_v, nz, zend;
+  bool flat;
+  int ox, oy, zb;
+
+  __device__ __forceinline__ void init(const Ctx& c, int cap) {
+    ox = oy = zb = 0;
+    lo_u = lo_v = lo_w = ext_u = ext_v = zend = 0;
+    nz = 1;
+    flat = false;
+    if (c.empty) return;
+    int ext[3];  // lo <= up < grid_res: no overflow
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int e = c.up[k] - c.lo[k] + 1;
+      ext[k] = e < cap ? e : cap;
+    }
+    lo_u = c.lo[0];
+    lo_v = c.lo[1];
+    lo_w = c.lo[2];
+    ext_u = ext[0];
+    ext_v = ext[1];
+    nz = (ext[2] + kZCells - 1) / kZCells;
+    zend = c.lo[2] + ext[2] - 1;
+    flat = c.lo[2] == c.up[2];
+  }
+  __device__ __forceinline__ bool more() const { return ox < ext_u; }
+  __device__ __forceinline__ void next() {
+    if (++zb == nz) {
+      zb = 0;
+      if (++oy == ext_v) {
+        oy = 0;
+        ++ox;
       }
     }
   }
+};
+
+// The position of the k-th (from 0) set bit of m (which has more than k)
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
 }
 
 __device__ __forceinline__ void load3x3(const float* p, long long t, float* v0, float* v1,
@@ -302,7 +349,7 @@ struct CountArgs {
 };
 
 template <bool SIX>
-__global__ void __launch_bounds__(kThreads) vox_count_kernel(CountArgs a) {
+__global__ void __launch_bounds__(kThreads, 4) vox_count_kernel(CountArgs a) {
   const float dps = *a.dps;
   const float origin[3] = {a.origin[0], a.origin[1], a.origin[2]};
   for (long long t = lane0(); t < a.n; t += lane_step()) {
@@ -310,8 +357,13 @@ __global__ void __launch_bounds__(kThreads) vox_count_kernel(CountArgs a) {
     load3x3(a.tri, t, v0, v1, v2);
     Ctx c;
     make_ctx<SIX>(v0, v1, v2, origin, dps, a.grid_res, c);
+    Units u;
+    u.init(c, a.cap);
     int n = 0;
-    for_valid<SIX>(c, dps, a.cap, [&](int, int, int, float, float, float) { ++n; });
+    for (; u.more(); u.next()) {
+      n += __popc(unit_mask<SIX>(c, u.lo_u + u.ox, u.lo_v + u.oy, u.lo_w + u.zb * kZCells,
+                                 u.zend, u.flat, dps));
+    }
     a.count[t] = n;
   }
 }
@@ -367,43 +419,158 @@ __device__ __forceinline__ int shade(const float* bc, const float* a0, const flo
   return pack_rgb8(ch[0], ch[1], ch[2]);
 }
 
+constexpr int kQueue = 64;  // a warp's queue: < 32 pending units + 32 new ones
+
+// A warp's units with valid cells, in the order the lanes find them (a
+// ring), and its lanes' triangles, for the voxel expansion: cell s of the
+// warp's stream lies in the unit whose first cell (vstart) is the last at
+// or before s.
+struct WarpQueue {
+  float tri[27][32];  // v0, v1, v2, colours, emissions of each lane's triangle
+  int major[32];
+  unsigned mask[kQueue];
+  int X[kQueue], Y[kQueue], zbase[kQueue], lane[kQueue];
+  long long vstart[kQueue], pos[kQueue];
+};
+
+// The unit of queue entries [head, tail) that holds stream cell s
+__device__ __forceinline__ int find_unit(const WarpQueue& q, int head, int tail, long long s) {
+  int lo = head, hi = tail - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (q.vstart[mid % kQueue] <= s) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  return lo;
+}
+
+// Stream cells done + lane, lane < cnt: one a lane, its code, colour and
+// emission at its unit's position + its rank among the unit's cells.
+__device__ __forceinline__ void emit_cells(const WarpQueue& q, const EmitArgs& a,
+                                           const float* origin, float dps, int head, int tail,
+                                           long long done, int cnt) {
+  const int lane = threadIdx.x & 31;
+  if (lane >= cnt) return;
+  const long long s = done + lane;
+  const int j = find_unit(q, head, tail, s) % kQueue;
+  const int k = static_cast<int>(s - q.vstart[j]);
+  const long long pos = q.pos[j] + k;
+  if (pos < 0 || pos >= a.n_out) return;
+  const int owner = q.lane[j];
+  const int m = q.major[owner];
+  const int X = q.X[j], Y = q.Y[j], Z = q.zbase[j] + nth_bit(q.mask[j], k);
+  const float xc = pick(origin, m) + static_cast<float>(X) * dps;
+  const float yc = pick(origin, (m + 1) % 3) + static_cast<float>(Y) * dps;
+  const float zc = pick(origin, (m + 2) % 3) + static_cast<float>(Z) * dps;
+  // unproject: grid coordinates and the cell corner in axis order
+  const int i0 = m == 0 ? X : (m == 1 ? Z : Y);
+  const int i1 = m == 0 ? Y : (m == 1 ? X : Z);
+  const int i2 = m == 0 ? Z : (m == 1 ? Y : X);
+  const float p[3] = {m == 0 ? xc : (m == 1 ? zc : yc), m == 0 ? yc : (m == 1 ? xc : zc),
+                      m == 0 ? zc : (m == 1 ? yc : xc)};
+  a.code[pos] = part1by2(i0) | (part1by2(i1) << 1) | (part1by2(i2) << 2);
+  float v0[3], v1[3], v2[3];
+  for (int i = 0; i < 3; ++i) {
+    v0[i] = q.tri[i][owner];
+    v1[i] = q.tri[3 + i][owner];
+    v2[i] = q.tri[6 + i][owner];
+  }
+  float e0[3], e1[3], e2[3], ng[3], bc[3];
+  for (int i = 0; i < 3; ++i) {
+    e0[i] = v2[i] - v0[i];
+    e1[i] = v0[i] - v1[i];
+    e2[i] = v1[i] - v2[i];
+  }
+  cross(e2, e0, ng);
+  closest_bc(v0, v1, v2, ng, e0, e1, e2, p, bc);
+  float f[9];
+  for (int i = 0; i < 9; ++i) f[i] = q.tri[9 + i][owner];
+  a.color[pos] = shade(bc, f, f + 3, f + 6);
+  for (int i = 0; i < 9; ++i) f[i] = q.tri[18 + i][owner];
+  a.emission[pos] = shade(bc, f, f + 3, f + 6);
+}
+
+// A warp takes 32 triangles, one a lane: each lane walks its own units
+// (its context in registers), a unit a step; the units with valid cells go
+// to the warp's queue, and whenever 32 cells wait, each lane emits one.
 template <bool SIX>
-__global__ void __launch_bounds__(kThreads) vox_emit_kernel(EmitArgs a) {
+__global__ void __launch_bounds__(kThreads, 3) vox_emit_kernel(EmitArgs a) {
+  __shared__ WarpQueue queues[kWarps];
+  WarpQueue& q = queues[threadIdx.x >> 5];
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
   const float dps = *a.dps;
   const float origin[3] = {a.origin[0], a.origin[1], a.origin[2]};
-  for (long long t = lane0(); t < a.n; t += lane_step()) {
-    float v0[3], v1[3], v2[3];
-    load3x3(a.tri, t, v0, v1, v2);
+  for (long long base = lane0() - lane; base < a.n; base += lane_step()) {
+    const long long t = base + lane;
     Ctx c;
-    make_ctx<SIX>(v0, v1, v2, origin, dps, a.grid_res, c);
-    float e0[3], e1[3], e2[3], ng[3];
-    for (int k = 0; k < 3; ++k) {
-      e0[k] = v2[k] - v0[k];
-      e1[k] = v0[k] - v1[k];
-      e2[k] = v1[k] - v2[k];
-    }
-    cross(e2, e0, ng);
-    float c0[3], c1[3], c2[3], m0[3], m1[3], m2[3];
-    load3x3(a.col, t, c0, c1, c2);
-    load3x3(a.emi, t, m0, m1, m2);
-    long long pos = a.offsets[t];
-    const int m = c.major;
-    for_valid<SIX>(c, dps, a.cap, [&](int X, int Y, int Z, float xc, float yc, float zc) {
-      if (pos >= 0 && pos < a.n_out) {
-        // unproject: grid coordinates and the cell corner in axis order
-        int i0 = m == 0 ? X : (m == 1 ? Z : Y);
-        int i1 = m == 0 ? Y : (m == 1 ? X : Z);
-        int i2 = m == 0 ? Z : (m == 1 ? Y : X);
-        float r[3] = {m == 0 ? xc : (m == 1 ? zc : yc), m == 0 ? yc : (m == 1 ? xc : zc),
-                      m == 0 ? zc : (m == 1 ? yc : xc)};
-        a.code[pos] = part1by2(i0) | (part1by2(i1) << 1) | (part1by2(i2) << 2);
-        float bc[3];
-        closest_bc(v0, v1, v2, ng, e0, e1, e2, r, bc);
-        a.color[pos] = shade(bc, c0, c1, c2);
-        a.emission[pos] = shade(bc, m0, m1, m2);
+    c.empty = true;
+    long long pos = 0;
+    if (t < a.n) {
+      float v0[3], v1[3], v2[3];
+      load3x3(a.tri, t, v0, v1, v2);
+      make_ctx<SIX>(v0, v1, v2, origin, dps, a.grid_res, c);
+      for (int k = 0; k < 3; ++k) {
+        q.tri[k][lane] = v0[k];
+        q.tri[3 + k][lane] = v1[k];
+        q.tri[6 + k][lane] = v2[k];
       }
-      ++pos;
-    });
+      for (int k = 0; k < 9; ++k) {
+        q.tri[9 + k][lane] = a.col[9 * t + k];
+        q.tri[18 + k][lane] = a.emi[9 * t + k];
+      }
+      q.major[lane] = c.major;
+      pos = a.offsets[t];
+    }
+    Units u;
+    u.init(c, a.cap);
+    long long queued = 0, done = 0;  // the warp's stream cells queued, emitted
+    int head = 0, tail = 0;          // queue entries: the first pending, the next free
+    while (__any_sync(0xFFFFFFFFu, u.more())) {
+      unsigned m = 0u;
+      int X = u.lo_u + u.ox, Y = u.lo_v + u.oy, zbase = u.lo_w + u.zb * kZCells;
+      if (u.more()) {
+        m = unit_mask<SIX>(c, X, Y, zbase, u.zend, u.flat, dps);
+        u.next();
+      }
+      const int n = __popc(m);
+      int incl = n;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+        if (lane >= d) incl += y;
+      }
+      const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+      const unsigned has = __ballot_sync(0xFFFFFFFFu, n > 0);
+      __syncwarp();  // the last windows' reads before these writes
+      if (n > 0) {
+        const int e = (tail + __popc(has & below)) % kQueue;
+        q.mask[e] = m;
+        q.X[e] = X;
+        q.Y[e] = Y;
+        q.zbase[e] = zbase;
+        q.lane[e] = lane;
+        q.vstart[e] = queued + incl - n;
+        q.pos[e] = pos;
+      }
+      pos += n;
+      tail += __popc(has);
+      queued += total;
+      __syncwarp();
+      for (; queued - done >= 32; done += 32) {
+        emit_cells(q, a, origin, dps, head, tail, done, 32);
+        head = queued - done > 32 ? find_unit(q, head, tail, done + 32) : tail;
+      }
+      if (head >= kQueue) {  // keep the counters small: entries are taken mod kQueue
+        head -= kQueue;
+        tail -= kQueue;
+      }
+    }
+    emit_cells(q, a, origin, dps, head, tail, done, static_cast<int>(queued - done));
+    __syncwarp();  // before the next triangles overwrite the queue
   }
 }
 

@@ -87,6 +87,33 @@ def build_accel_from_unique(uniq, *, origin, dps, grid_res: int, accel: str,
                                    dag=dag, lower=lower_t, upper=upper, **attrs)
 
 
+def chunk_offsets(end, chunk: int):
+    """The dumped voxels before each chunk of `chunk` triangles and the
+    total (n_chunks + 1 ints, one readback); end: the counts' int64
+    inclusive prefix."""
+    n_tri = len(end)
+    ends = torch.clamp(torch.arange(1, -(-n_tri // chunk) + 1, device=end.device) * chunk,
+                       max=n_tri) - 1
+    return np.concatenate([[0], end[ends].cpu().numpy()])
+
+
+def dump_groups(offsets) -> list:
+    """The emit groups, as chunk ranges [ka, kb): all chunks in one group up
+    to GROUP_DUMPED dumped voxels, else consecutive chunks until a group
+    reaches it. offsets: the dumped voxels before each chunk and the total
+    (n_chunks + 1 ints)."""
+    n_chunks = len(offsets) - 1
+    if offsets[-1] <= GROUP_DUMPED:
+        return [(0, n_chunks)]
+    groups = []
+    k0 = 0
+    for k in range(n_chunks):
+        if offsets[k + 1] - offsets[k0] >= GROUP_DUMPED or k == n_chunks - 1:
+            groups.append((k0, k + 1))
+            k0 = k + 1
+    return groups
+
+
 def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
                 dps, grid_res: int, device, six_separating: bool = True,
                 cap: int = 4, chunk_tris: int = 65536, accel: str = "hako",
@@ -113,7 +140,6 @@ def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
     t_split = time.time()
     n_tri = len(arrays[0])
     chunk = min(chunk_tris, bucket(n_tri, floor=1024))
-    n_chunks = -(-n_tri // chunk)
     origin_t = torch.as_tensor(np.asarray(origin, np.float32), device=device)
     dps_t = torch.tensor(dps, dtype=torch.float32, device=device)
     kw = dict(grid_res=grid_res, six_separating=six_separating, cap=cap)
@@ -136,8 +162,7 @@ def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
     counts = torch.cat([S.count(*tris(a, b, 1), origin_t, dps_t, **kw)
                         for a, b in runs(0, n_tri)])
     end = torch.cumsum(counts, 0, dtype=torch.int64)
-    ends = torch.clamp(torch.arange(1, n_chunks + 1, device=device) * chunk, max=n_tri) - 1
-    offsets = np.concatenate([[0], end[ends].cpu().numpy()])  # readback 1
+    offsets = chunk_offsets(end, chunk)  # readback 1
     t_count = time.time()
     total_dumped = int(offsets[-1])
     if total_dumped == 0:
@@ -146,16 +171,7 @@ def build_scene(tri_verts, tri_colors=None, tri_emissions=None, *, origin,
 
     # pass 2: emit the groups, then sort + unique (hierarchically by
     # groups of chunks above GROUP_DUMPED)
-    if total_dumped <= GROUP_DUMPED:
-        groups = [(0, n_chunks)]
-    else:
-        groups = []
-        k0 = 0
-        for k in range(n_chunks):
-            if offsets[k + 1] - offsets[k0] >= GROUP_DUMPED or k == n_chunks - 1:
-                groups.append((k0, k + 1))
-                k0 = k + 1
-
+    groups = dump_groups(offsets)
     parts = []
     for ka, kb in groups:
         off0 = int(offsets[ka])

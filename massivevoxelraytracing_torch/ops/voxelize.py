@@ -10,8 +10,10 @@ and `segment_sum` becomes `scatter_add_`. Attribute means are sums of
 integers, so the order of duplicates does not matter.
 
 The scene build runs three stages, each a plain PyTorch function and a
-hand-written CUDA kernel (csrc/vox_build.cu, one thread a triangle or a
-sorted entry):
+hand-written CUDA kernel (csrc/vox_build.cu: one thread a triangle
+walking its units, a column and a run of Z cells, in candidate order;
+the emit's warps queue those units and emit one cell a lane; the unique
+reduce one thread a sorted entry):
 
   count          the valid candidates of each triangle (the voxCount
                  pass: voxelize_dense's coverage mask summed a triangle)
@@ -25,7 +27,8 @@ sorted entry):
                  groups' sums ("merge")
 
 `*_plain` are the code of voxelize_dense and sort_and_unique moved as it
-was. The wrappers (`count`, `emit`, `unique_reduce`) run the plain stage
+was; `count_columns` / `emit_columns` the count and emit kernels'
+enumeration as tensor code (for the tests). The wrappers (`count`, `emit`, `unique_reduce`) run the plain stage
 for CPU tensors and launch the kernel for CUDA tensors (or raise; there is
 no fallback). `voxelize_dense` stays the candidate-level reference.
 
@@ -472,6 +475,134 @@ def emit_plain(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
     pos = (offsets[:, None] + torch.cumsum(valid, 1) - 1)[valid]
     for buf, key in zip(out, ("code", "color", "emission")):
         buf[pos] = cands[key][valid.reshape(-1)]
+    return out
+
+
+# The count and emit kernels' enumeration as tensor code (for the tests and
+# for counting the cells the kernels test): a triangle's units are its
+# columns (ox, oy) and runs of Z_CELLS Z cells of its bbox, in candidate
+# order; a unit runs the major-axis edge tests and the z slab once and tests
+# only the Z cells inside the slab.
+Z_CELLS = 32  # csrc/vox_build.cu kZCells
+
+
+def _axis_edges(ctx, j: int):
+    """(nex, ney, d) of the three edges of axis major + j, per triangle."""
+    major, E = ctx["major"], ctx["edges"]
+    return [tuple(torch.where(major == 0, E[j % 3][edge][f],
+                              torch.where(major == 1, E[(j + 1) % 3][edge][f],
+                                          E[(j + 2) % 3][edge][f])) for f in range(3))
+            for edge in range(3)]
+
+
+def column_cells(tri, origin, dps, *, grid_res: int, six_separating: bool = True,
+                 cap: int = 4):
+    """The cells the count and emit kernels test, in their order: each
+    triangle's units (ox, oy, zb) from the exclusive scan of its unit count
+    ext_u * ext_v * ceil(ext_w / Z_CELLS), each unit's slab-clipped z range
+    [max(zmin, lo_w, zbase), min(zmax, lo_w + ext_w - 1, zbase + Z_CELLS -
+    1)] where its column passes the major-axis edge tests, and each cell of
+    it. Returns (ctx, dict of [C] tensors: tri, X, Y, Z (projected int
+    coordinates), xc, yc, zc, valid; and units, the units' count)."""
+    ctx = triangle_contexts(tri, six_separating, origin, dps, grid_res)
+    dev = tri.device
+    T = tri.shape[0]
+
+    def ext(u):
+        return torch.clamp(ctx[f"up_{u}"].to(I64) - ctx[f"lo_{u}"] + 1, 0, cap)
+
+    ext_u, ext_v, ext_w = ext("u"), ext("v"), ext("w")
+    nz = (ext_w + Z_CELLS - 1) // Z_CELLS
+    units = torch.where(ctx["empty"], 0, ext_u * ext_v * nz)
+    t = torch.repeat_interleave(torch.arange(T, device=dev), units)
+    first = torch.cumsum(units, 0) - units
+    l = torch.arange(len(t), device=dev) - first[t]
+    col = l // nz[t]
+    zb = l - col * nz[t]
+    ox = col // ext_v[t]
+    oy = col - ox * ext_v[t]
+    X = (ctx["lo_u"][t] + ox).to(I32)
+    Y = (ctx["lo_v"][t] + oy).to(I32)
+    xc = ctx["o_u"][t] + X.to(F32) * dps
+    yc = ctx["o_v"][t] + Y.to(F32) * dps
+    ok = torch.ones_like(xc, dtype=torch.bool)
+    for nex, ney, d in _axis_edges(ctx, 0):
+        ok &= nex[t] * xc + ney[t] * yc + d[t] >= 0.0
+    var = ctx["kx"][t] * xc + ctx["ky"][t] * yc
+    o_w, lo_w = ctx["o_w"][t], ctx["lo_w"][t]
+    if six_separating:
+        indexf = (var + ctx["c_six"][t] - o_w) / dps
+        zf = torch.floor(indexf)
+        zmax = zf.to(I32)
+        zmin = torch.where(indexf == zf, zmax - 1, zmax)
+    else:
+        zmin = torch.floor((var + ctx["c_min"][t] - o_w) / dps).to(I32)
+        zmax = torch.floor((var + ctx["c_max"][t] - o_w) / dps).to(I32)
+    zmin = torch.maximum(zmin, lo_w)
+    zmax = torch.minimum(zmax, ctx["up_w"][t])
+    zbase = lo_w + zb * Z_CELLS
+    zlo = torch.maximum(zmin, zbase)
+    zhi = torch.minimum(torch.minimum(zmax, lo_w + ext_w[t] - 1), zbase + Z_CELLS - 1)
+    length = torch.where(ok, torch.clamp(zhi - zlo + 1, min=0), 0)
+
+    u = torch.repeat_interleave(torch.arange(len(t), device=dev), length)
+    k = torch.arange(len(u), device=dev) - (torch.cumsum(length, 0) - length)[u]
+    tc = t[u]
+    Z = (zlo[u] + k).to(I32)
+    zc = ctx["o_w"][tc] + Z.to(F32) * dps
+    valid = (ctx["lo_w"] == ctx["up_w"])[tc]
+    inside = torch.ones_like(valid)
+    for j, (pu, pv) in ((1, (yc[u], zc)), (2, (zc, xc[u]))):
+        for nex, ney, d in _axis_edges(ctx, j):
+            inside &= nex[tc] * pu + ney[tc] * pv + d[tc] >= 0.0
+    return ctx, dict(tri=tc, X=X[u], Y=Y[u], Z=Z, xc=xc[u], yc=yc[u], zc=zc,
+                     valid=valid | inside, units=len(t))
+
+
+def count_columns(tri, origin, dps, *, grid_res: int, six_separating: bool = True,
+                  cap: int = 4):
+    """count_plain's output through the kernels' enumeration (column_cells)."""
+    _, cells = column_cells(tri, origin, dps, grid_res=grid_res,
+                            six_separating=six_separating, cap=cap)
+    return torch.bincount(cells["tri"][cells["valid"]], minlength=tri.shape[0]).to(I32)
+
+
+def emit_columns(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
+                 six_separating: bool = True, cap: int = 4):
+    """emit_plain through the kernels' enumeration: each valid cell at
+    offsets[t] + its rank among its triangle's valid cells (the kernel's
+    within-triangle scan), written only where 0 <= pos < the buffers'
+    length (as the kernel writes; emit_plain needs every position in
+    range). Returns out."""
+    ctx, cells = column_cells(tri, origin, dps, grid_res=grid_res,
+                              six_separating=six_separating, cap=cap)
+    valid = cells["valid"]
+    c = {k: v[valid] for k, v in cells.items() if k not in ("valid", "units")}
+    t = c["tri"]
+    counts = torch.bincount(t, minlength=tri.shape[0])
+    rank = torch.arange(len(t), device=tri.device) - (torch.cumsum(counts, 0) - counts)[t]
+    pos = offsets[t] + rank
+    keep = (pos >= 0) & (pos < out[0].shape[0])
+    c = {k: v[keep] for k, v in c.items()}
+    t, pos = c["tri"], pos[keep]
+    m = ctx["major"][t]
+    X, Y, Z, xc, yc, zc = (c[k] for k in ("X", "Y", "Z", "xc", "yc", "zc"))
+    i0 = torch.where(m == 0, X, torch.where(m == 1, Z, Y))
+    i1 = torch.where(m == 0, Y, torch.where(m == 1, X, Z))
+    i2 = torch.where(m == 0, Z, torch.where(m == 1, Y, X))
+    r0 = torch.where(m == 0, xc, torch.where(m == 1, zc, yc))
+    r1 = torch.where(m == 0, yc, torch.where(m == 1, xc, zc))
+    r2 = torch.where(m == 0, zc, torch.where(m == 1, yc, xc))
+    bc = closest_barycentric(ctx["v0"][t], ctx["v1"][t], ctx["v2"][t],
+                             torch.stack([r0, r1, r2], dim=-1))
+    attrs = []
+    for a in (col, emi):
+        a0, a1, a2 = a[t, 0], a[t, 1], a[t, 2]
+        ch = bc[:, 0:1] * a1 + bc[:, 1:2] * a2 + bc[:, 2:3] * a0
+        attrs.append(pack_rgb8(ch[:, 0], ch[:, 1], ch[:, 2]))
+    out[0][pos] = morton.encode(i0, i1, i2)
+    out[1][pos] = attrs[0]
+    out[2][pos] = attrs[1]
     return out
 
 

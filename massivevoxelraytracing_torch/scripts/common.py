@@ -715,6 +715,28 @@ def _pmj_touched(pmj_table, stream, spp, dims) -> int:
     return int(torch.unique(lin).numel()) * 8
 
 
+def _sats_touched(env, n, u0, u1) -> int:
+    """Bytes of the distinct prefix-table entries (int64) and texels that
+    the sats backend's importance_sample reads for these lanes: every
+    clipped take of its two binary searches, the texel's 2x2 corners and
+    its pixel, recorded while it runs."""
+    from ..ops import hdri as hdri_ops
+
+    read = {}
+    real = hdri_ops._take
+
+    def take(flat, lin):
+        read.setdefault(flat.data_ptr(), (flat, []))[1].append(lin.reshape(-1))
+        return real(flat, lin)
+
+    hdri_ops._take = take
+    try:
+        hdri_ops.importance_sample(env, n, u0, u1, torch.zeros_like(u0), torch.zeros_like(u0))
+    finally:
+        hdri_ops._take = real
+    return sum(_touched(flat, torch.cat(idx)) for flat, idx in read.values())
+
+
 def chain_bytes(name: str, args: tuple, kwargs: dict, out) -> int:
     """The bytes one call of a sample-chain stage's kernel must move on its
     inputs (`args` / `kwargs`, bound to the plain stage's parameter names)
@@ -722,7 +744,9 @@ def chain_bytes(name: str, args: tuple, kwargs: dict, out) -> int:
     kernel reads it (what a lane's outcome does not use is not read), each
     table entry the lanes touch once, each output written once, a tensor
     passed through (bounce_shade's t, a PCG32 increment) not at all. The
-    HDRI counts the alias tables' backend only (the main path's)."""
+    HDRI's tables are those of its backend: the alias tables (the main
+    path's), or the prefix tables' entries that the binary searches read
+    (_sats_touched)."""
     from ..ops import hdri as hdri_ops
 
     a = inspect.signature(getattr(pt_chain, name + "_plain")).bind(*args, **kwargs).arguments
@@ -758,17 +782,18 @@ def chain_bytes(name: str, args: tuple, kwargs: dict, out) -> int:
         else:
             b += _rows(pcg[0]) + _rows(pcg[1]) + _rows(pcg_out[0])
         if a["hdri"]:
-            if not env.use_alias:
-                raise ValueError("chain_bytes counts the alias tables' backend only")
             (u0, u1), _ = pt_chain.sample2d(a["pmj_table"], a["stream"], a["spp"], pcg,
                                             a["dim"])
-            table = hdri_ops.select_table(env, hit_n, True)
-            lin, texel = hdri_ops.alias_texel(env, table, u0, u1)
-            nt = env.width * env.height
-            b += (_touched(env.alias_prob.reshape(-1), lin)
-                  + _touched(env.alias_idx.reshape(-1), lin)
-                  + _touched(env.alias_pdf.reshape(-1), table * nt + texel)
-                  + _touched(env.pixels.reshape(-1, 3), texel))
+            if env.use_alias:
+                table = hdri_ops.select_table(env, hit_n, True)
+                lin, texel = hdri_ops.alias_texel(env, table, u0, u1)
+                nt = env.width * env.height
+                b += (_touched(env.alias_prob.reshape(-1), lin)
+                      + _touched(env.alias_idx.reshape(-1), lin)
+                      + _touched(env.alias_pdf.reshape(-1), table * nt + texel)
+                      + _touched(env.pixels.reshape(-1, 3), texel))
+            else:
+                b += _sats_touched(env, hit_n, u0, u1)
         return b + sum(_rows(x) for x in (refl, hit_n, hit_p, rd_out, dir_e, dir_s,
                                           emissive, pdf))
     if name == "bounce_shade":
@@ -827,8 +852,14 @@ def flat_tensors(xs) -> list:
 # axes' six edge functions); a dumped voxel ~110 (the closest point's
 # three cross products and dots, two colours mixed and packed); a sorted
 # entry of the unique reduce ~8 (three channels unpacked and added a word).
+# The count and emit kernels walk units and the slab-clipped cells
+# (vox_tested_cells), not the bbox: a unit ~22 (its column's corner 4,
+# three major-axis edge functions 12, its z range 6), a tested cell ~26
+# (its z corner 2, the other two axes' six edge functions 24).
 VOX_CTX_OPS = 190
 VOX_CELL_OPS = 40
+VOX_UNIT_OPS = 22
+VOX_TESTED_OPS = 26
 VOX_EMIT_OPS = 110
 VOX_ENTRY_OPS = 8
 
@@ -843,10 +874,31 @@ def vox_cells(tri, origin, dps, grid_res: int, cap: int) -> int:
     return int(ext.prod(1).sum())
 
 
+def vox_tested_cells(tri, origin, dps, grid_res: int, cap: int, six: bool = True,
+                     chunk: int = 1 << 18) -> dict:
+    """What the count and emit kernels test on these triangles
+    (ops/voxelize.column_cells, a chunk of triangles at a time): their
+    units (a column's run of up to 32 Z cells), the slab-clipped cells they
+    test, and the valid cells among them."""
+    units = cells = valid = 0
+    for a in range(0, tri.shape[0], chunk):
+        _, c = vox_ops.column_cells(tri[a:a + chunk], origin, dps, grid_res=grid_res,
+                                    six_separating=six, cap=cap)
+        units += c["units"]
+        cells += len(c["tri"])
+        valid += int(c["valid"].sum())
+    return dict(units=units, cells=cells, valid=valid)
+
+
 def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0,
-              n_sorted: int = 0, n_unique: int = 0, mode: str = "means") -> tuple:
+              n_sorted: int = 0, n_unique: int = 0, mode: str = "means",
+              walk: dict | None = None) -> tuple:
     """(bound_ms, bound_by) of one call of a scene-build kernel on its
-    call's data (n_cells: vox_cells of its triangles). Bytes it must move:
+    call's data (n_cells: vox_cells of its triangles; with `walk`, the
+    vox_tested_cells of its triangles, the count's and emit's cell work is
+    that of their units and slab-clipped cells instead: the kernels' own
+    bound, where the bbox cells are the yardstick that compares designs
+    with a bbox cell loop). Bytes it must move:
     count, a triangle's 36 B in and its 4 B count out; emit, a triangle's
     vertices, colours and emissions (108 B) and its 8 B offset in, 16 B out
     a dumped voxel; the unique reduce, a sorted entry's key, perm,
@@ -854,12 +906,14 @@ def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0
     int64) in, a unique voxel's seg and its outputs (the code and two
     packed means, or the code, six sums and the count). Operations: the
     VOX_*_OPS counts."""
+    cell_ops = (VOX_CELL_OPS * n_cells if walk is None else
+                VOX_UNIT_OPS * walk["units"] + VOX_TESTED_OPS * walk["cells"])
     if stage == "vox_count":
         n_bytes = n_tri * (36 + 4)
-        ops = VOX_CTX_OPS * n_tri + VOX_CELL_OPS * n_cells
+        ops = VOX_CTX_OPS * n_tri + cell_ops
     elif stage == "vox_emit":
         n_bytes = n_tri * (108 + 8) + n_dumped * 16
-        ops = VOX_CTX_OPS * n_tri + VOX_CELL_OPS * n_cells + VOX_EMIT_OPS * n_dumped
+        ops = VOX_CTX_OPS * n_tri + cell_ops + VOX_EMIT_OPS * n_dumped
     elif stage == "vox_unique_reduce":
         attrs = 7 * 8 if mode == "merge" else 2 * 4
         outs = 8 + (7 * 8 if mode == "sums" else 2 * 4)

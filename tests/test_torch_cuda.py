@@ -1407,6 +1407,7 @@ def vox_stages_equal(tris, origin, dps, grid, six, cap=4, chunk=None):
     runs = [(a, min(a + (chunk or T), T)) for a in range(0, T, chunk or max(T, 1))]
     vox.reset_counters()
     counts = vox.count(t, origin, dps, **kw)
+    torch.cuda.synchronize()
     assert vox.LAUNCHES["vox_count"] == 1
     want = torch.cat([vox.count_plain(t[a:b], origin, dps, **kw) for a, b in runs])
     assert torch.equal(counts, want)
@@ -1419,6 +1420,7 @@ def vox_stages_equal(tris, origin, dps, grid, six, cap=4, chunk=None):
                torch.full((n,), 7, dtype=torch.int32, device=t.device))
         if kernel:
             vox.emit(t, c, e, end - counts, origin, dps, out, **kw)
+            torch.cuda.synchronize()
         for a, b in runs if not kernel else ():
             vox.emit_plain(t[a:b], c[a:b], e[a:b], (end - counts)[a:b], origin, dps, out, **kw)
         dumps.append(out)
@@ -1499,6 +1501,119 @@ def test_vox_kernels_match_plain_on_the_lattice_group(cuda):
                                       torch.tensor(1.0 / 1024, device=cuda), 1024, True,
                                       chunk=262144)
     assert (n, n_unique) == (33_545_375, 13_645_228)
+
+
+BIG = [[-0.8, -0.7, 0.1], [0.8, -0.25, 0.35], [0.05, 0.85, -0.3]]  # ~25 cells across at 32^3
+# tests/test_torch_vox_build.WIDE: one plane whose normal's largest axis is
+# z or x, in fractions of the grid; 44 cells deep along it at 64^3, so at
+# cap 64 each column is two runs of Z cells with the slab's cells in both
+WIDE = ([[0.25, 0.25, 0.923], [0.85, 0.4, 0.255], [0.35, 0.9, 0.331]],
+        [[0.923, 0.25, 0.25], [0.255, 0.85, 0.4], [0.331, 0.35, 0.9]])
+
+
+def vox_mix(device, T, cap, big_at=(), grid=32, wide_at=()):
+    """The first T split triangles of the bumpy sphere at grid^3 (cap 4),
+    with BIG at the indices `big_at` (at cap 32, ~600 columns each) and
+    WIDE[0], WIDE[1] at those of `wide_at`."""
+    (t, c, e), origin, dps = vox_inputs(VOX_MESHES["bumpy"](), grid, device)
+    t, c, e = (x[:T].clone() for x in (t, c, e))
+    for i in big_at:
+        t[i] = torch.tensor(BIG, device=device)
+    for i, w in zip(wide_at, WIDE):
+        t[i] = origin + torch.tensor(w, device=device) * grid * dps
+    return (t, c, e), origin, dps
+
+
+@pytest.mark.parametrize("six", [False, True])
+def test_vox_kernels_match_plain_with_several_passes_a_tile(cuda, six):
+    """cap 32: two triangles of ~600 columns (BIG) among 298 small ones, so
+    one warp's queue takes units of lanes whose walks differ in length by
+    hundreds of units, and emits their cells in many rounds of 32; 300
+    triangles (the last block partial)."""
+    tris, origin, dps = vox_mix(cuda, 300, 32, big_at=(5, 90))
+    _, n, _ = vox_stages_equal(tris, origin, dps, 32, six, cap=32, chunk=64)
+    assert n > 1000
+
+
+@pytest.mark.parametrize("six", [False, True])
+def test_vox_kernels_match_plain_in_several_z_runs(cuda, six):
+    """cap 64 at 64^3: WIDE's columns are two runs of Z cells each (the
+    kernels' units past the first run, the emit's positions carried across
+    a column's runs), among 98 small triangles; then the emit with gapped
+    offsets into buffers cut into WIDE[1]'s run."""
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    tris, origin, dps = vox_mix(cuda, 100, 4, grid=64, wide_at=(20, 99))
+    kw = dict(grid_res=64, six_separating=six, cap=64)
+    ctx, cells = vox.column_cells(tris[0].cpu(), origin.cpu(), dps.cpu(), **kw)
+    past = cells["valid"] & (cells["Z"] - ctx["lo_w"][cells["tri"]] >= vox.Z_CELLS)
+    assert set(cells["tri"][past].tolist()) == {20, 99}
+    vox_stages_equal(tris, origin, dps, 64, six, cap=64, chunk=25)
+    vox_emit_gapped_equal(tris, origin, dps, kw, cut=5, seed=64)
+
+
+@pytest.mark.parametrize("six", [False, True])
+@pytest.mark.parametrize("T", [1, 31, 33, 200])
+def test_vox_kernels_match_plain_at_odd_triangle_counts(cuda, T, six):
+    """T of one, below and above a warp, and not a multiple of a block."""
+    tris, origin, dps = vox_mix(cuda, T, 4, big_at=(T // 2,) if T > 1 else ())
+    vox_stages_equal(tris, origin, dps, 32, six)
+
+
+def vox_emit_gapped_equal(tris, origin, dps, kw, cut, seed):
+    """Offsets with gaps (0-2 entries after each triangle's run) into
+    sentinel-filled buffers, the last `cut` entries cut off (n_out short of
+    the last triangle's run): the kernel's buffers == the plain stage's
+    (into full-length buffers) up to n_out, the gaps left at the sentinel."""
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    t, c, e = tris
+    counts = vox.count(t, origin, dps, **kw).long()
+    gaps = torch.as_tensor(np.random.default_rng(seed).integers(0, 3, len(counts)),
+                           device=t.device)
+    end = torch.cumsum(counts + gaps, 0)
+    start = end - counts - gaps
+    n = int(end[-1])
+
+    def bufs(m):
+        return (torch.full((m,), -1, dtype=torch.int64, device=t.device),
+                torch.full((m,), 7, dtype=torch.int32, device=t.device),
+                torch.full((m,), 7, dtype=torch.int32, device=t.device))
+
+    n_out = n - int(gaps[-1]) - cut
+    got = vox.emit(t, c, e, start, origin, dps, bufs(n_out), **kw)
+    torch.cuda.synchronize()
+    want = vox.emit_plain(t, c, e, start, origin, dps, bufs(n), **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y[:n_out])
+    assert int((got[0] == -1).sum()) == int(gaps[:-1].sum())
+
+
+@pytest.mark.parametrize("cut", [0, 5])
+def test_vox_emit_gapped_offsets_and_truncated_n_out(cuda, cut):
+    """vox_emit_gapped_equal at cap 32, BIG last."""
+    tris, origin, dps = vox_mix(cuda, 200, 32, big_at=(7, 199))
+    vox_emit_gapped_equal(tris, origin, dps, dict(grid_res=32, six_separating=True, cap=32),
+                          cut, seed=7)
+
+
+def test_voxtriangle_on_card_equals_cpu_in_two_z_runs(cuda, tmp_path):
+    """voxtriangle at --res 128 (cap 128): its triangle is 33 cells deep
+    along its normal's largest axis, so its columns are two runs of Z
+    cells; the card's PNG == the CPU's, byte for byte."""
+    from massivevoxelraytracing_torch.apps import voxtriangle
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    one = torch.tensor([[[-0.62, -0.3, -0.11], [0.58, -0.22, 0.3], [0.0, 0.61, -0.2]]])
+    for six in (False, True):
+        ctx, cells = vox.column_cells(one, torch.full((3,), -1.0), torch.tensor(2.0 / 128),
+                                      grid_res=128, six_separating=six, cap=128)
+        assert bool((cells["valid"] & (cells["Z"] - ctx["lo_w"][0] >= vox.Z_CELLS)).any())
+    got = {dev: voxtriangle.main(["--res", "128", "--device", dev,
+                                  "--out", str(tmp_path / dev)]) for dev in ("cuda", "cpu")}
+    assert got["cuda"]["counts"] == got["cpu"]["counts"]
+    assert ((tmp_path / "cuda/coverage.png").read_bytes()
+            == (tmp_path / "cpu/coverage.png").read_bytes())
 
 
 def test_build_scene_vox_kernels_equal_plain_stages(cuda, monkeypatch):

@@ -622,7 +622,8 @@ def test_chain_bytes_count_what_each_kernel_moves(monkeypatch):
     a lane); every other stage moves its outputs at least, and less than
     all of its lane tensors and tables read whole and its outputs
     (pass-through outputs, lanes that skip a read and untouched table
-    entries are not counted)."""
+    entries are not counted); the bounce sample through the sats HDRI
+    backend likewise, its prefix tables in place of the alias tables."""
     from massivevoxelraytracing_torch.scripts import common
 
     tri, col, emi, kw, cam = ico_scene(64)
@@ -656,10 +657,15 @@ def test_chain_bytes_count_what_each_kernel_moves(monkeypatch):
     shade = next(c for c in calls if c[0] == "bounce_shade")
     t_b = shade[3][2]  # passed through: read on live lanes only, never written
     assert t_b is shade[1][16]
-    with pytest.raises(ValueError, match="alias"):
-        sats_env = dataclasses.replace(pt.env, use_alias=False)
-        c = next(c for c in calls if c[0] == "bounce_sample")
-        common.chain_bytes("bounce_sample", (sats_env, *c[1][1:]), c[2], c[3])
+    # the sats backend: its prefix tables' entries that the searches read
+    sats_env = dataclasses.replace(pt.env, use_alias=False)
+    c = next(c for c in calls if c[0] == "bounce_sample")
+    sats_out = pt_chain.bounce_sample_plain(sats_env, *c[1][1:], **c[2])
+    b = common.chain_bytes("bounce_sample", (sats_env, *c[1][1:]), c[2], sats_out)
+    outs = common.flat_tensors(sats_out)
+    whole = sum(common.nbytes(x) for x in common.flat_tensors((sats_env.sats, sats_env.pixels,
+                                                               *c[1][1:])) + outs)
+    assert sum(common.nbytes(x) for x in outs) < b < whole
 
 
 def test_cpu_pt_sample_runs_the_plain_stages():

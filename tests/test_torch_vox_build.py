@@ -14,7 +14,17 @@ icosphere and bumpy sphere, and build_scene / the wrappers on the CPU.
   * build_scene on the CPU gives the same tree at chunk_tris 1,024 and
     65,536, through the wrappers and through the plain stages;
   * the wrappers refuse a wrong dtype, shape or device before any launch
-    (no counter moves).
+    (no counter moves);
+  * count_columns / emit_columns, the kernels' enumeration as tensor code
+    (each triangle's units, a column and a run of up to 32 Z cells, from
+    the scan of its unit count; the slab-clipped z range; the rank within
+    the triangle to the position), bit-equal to count_plain / emit_plain
+    (and through them to the JAX voxelizer op by op) for both values of
+    six_separating, on the edge cases the card tests use, at cap 1, 2, 4
+    and 32 (a triangle of more than 256 units), at cap 64 (columns of two
+    runs of Z cells; both values of six_separating, gapped offsets and a
+    cut), and with gapped offsets and an n_out that cuts the last
+    triangle's run; the enumeration's Z_CELLS is the kernels' kZCells.
 
 The kernels themselves run on the card only (tests/test_torch_cuda.py).
 """
@@ -63,7 +73,7 @@ def case(request):
     out = (torch.full((n,), -1, dtype=torch.int64), torch.zeros(n, dtype=torch.int32),
            torch.zeros(n, dtype=torch.int32))
     vox.emit_plain(tt, ct, et, end - counts, origin_t, dps_t, out, **kw)
-    return dict(ref=ref, counts=counts, dump=out, n_tri=len(t))
+    return dict(ref=ref, counts=counts, dump=out, n_tri=len(t), name=name, six=six)
 
 
 def test_count_plain_equals_jax_op_by_op(case):
@@ -216,3 +226,174 @@ def test_dump_candidates_equals_the_stages():
     dense = vox.voxelize_dense(tri, col, emi, origin, dps, **kw)
     for key in ("code", "color", "emission"):
         assert torch.equal(got[key], dense[key][dense["valid"]]), key
+
+
+# ---------------------------------------------------------------------------
+# the kernels' enumeration (count_columns / emit_columns) against the plain
+# stages
+# ---------------------------------------------------------------------------
+
+def _buffers(n):
+    return (torch.full((n,), -1, dtype=torch.int64), torch.full((n,), 7, dtype=torch.int32),
+            torch.full((n,), 7, dtype=torch.int32))
+
+
+def columns_equal_plain(t, c, e, origin, dps, *, gaps=None, cut=0, **kw):
+    """count_columns == count_plain; emit_columns into buffers cut `cut`
+    entries short == emit_plain into full-length ones, up to the cut, with
+    `gaps` free entries after each triangle's run. Returns (counts, n)."""
+    counts = vox.count_plain(t, origin, dps, **kw)
+    assert torch.equal(vox.count_columns(t, origin, dps, **kw), counts)
+    step = counts.long() + (0 if gaps is None else gaps)
+    end = torch.cumsum(step, 0)
+    n = int(end[-1]) if len(end) else 0
+    want = vox.emit_plain(t, c, e, end - step, origin, dps, _buffers(n), **kw)
+    got = vox.emit_columns(t, c, e, end - step, origin, dps, _buffers(n - cut), **kw)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y[:n - cut])
+    return counts, n
+
+
+def test_columns_equal_plain_and_jax(case):
+    """The module's meshes, both values of six_separating: the enumeration's
+    counts == the JAX reference's valid mask summed a triangle, its dump ==
+    the plain stage's (held against the JAX candidates above)."""
+    ref = case["ref"]
+    name, six = case["name"], case["six"]
+    tri, col, emi, origin, dps = mesh_inputs(name)
+    t, c, e = (torch.from_numpy(np.ascontiguousarray(a)) for a in
+               meshprep.split_to_cap(tri, col, emi, origin, dps, GRID, CAP))
+    kw = dict(grid_res=GRID, six_separating=six, cap=CAP)
+    origin_t, dps_t = torch.from_numpy(origin), torch.tensor(dps, dtype=torch.float32)
+    counts = vox.count_columns(t, origin_t, dps_t, **kw)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  ref["valid"].reshape(case["n_tri"], CAP ** 3).sum(1))
+    got = vox.emit_columns(t, c, e, torch.cumsum(counts, 0, dtype=torch.int64) - counts,
+                           origin_t, dps_t, _buffers(int(counts.sum())), **kw)
+    for x, y in zip(got, case["dump"]):
+        assert torch.equal(x, y)
+
+
+def _edge_inputs():
+    """test_torch_cuda's edge cases on the bumpy sphere at 64^3: triangles
+    past the grid (one far enough that the bbox's casts saturate on the
+    card), padding, a degenerate one, NaN / inf colours, triangles on cell
+    corners."""
+    tri, col, emi, origin, dps = mesh_inputs("bumpy")
+    t, c, e = (torch.from_numpy(np.ascontiguousarray(a)) for a in
+               meshprep.split_to_cap(tri, col, emi, origin, dps, GRID, CAP))
+    t, c, e = (torch.cat([x, torch.zeros((6, 3, 3))]) for x in (t, c, e))
+    origin_t, dps_t = torch.from_numpy(origin), torch.tensor(dps, dtype=torch.float32)
+    t[0] += 1.5
+    t[1] -= 3.0
+    t[2] = t[2] * 1e12
+    t[3, 2] = t[3, 0]
+    c[4, 0, 0] = float("nan")
+    c[5] = float("inf")
+    e[6, 1, 2] = float("nan")
+    corner = torch.tensor([[0.25, 0.25, 0.25], [0.5, 0.25, 0.25], [0.25, 0.5, 0.25]])
+    t[-1] = origin_t + corner * GRID * dps_t
+    t[-2] = origin_t + corner[[0, 2, 1]] * GRID * dps_t
+    return t.contiguous(), c.contiguous(), e.contiguous(), origin_t, dps_t
+
+
+@pytest.mark.parametrize("six", [False, True])
+def test_columns_equal_plain_on_edge_cases(six):
+    t, c, e, origin, dps = _edge_inputs()
+    counts, n = columns_equal_plain(t, c, e, origin, dps, grid_res=GRID, six_separating=six,
+                                    cap=CAP)
+    assert n > 10000 and int(counts[3]) == 0 and int(counts[2]) == 0
+
+
+BIG = [[-0.8, -0.7, 0.1], [0.8, -0.25, 0.35], [0.05, 0.85, -0.3]]  # ~25 cells across at 32^3
+# Two triangles of one plane whose normal's largest axis is z (WIDE[0]) or
+# x (WIDE[1]), in fractions of the grid: 44 cells deep along that axis at
+# 64^3, so at cap 64 each column is two runs of Z cells and the slab's
+# cells lie in both.
+WIDE = ([[0.25, 0.25, 0.923], [0.85, 0.4, 0.255], [0.35, 0.9, 0.331]],
+        [[0.923, 0.25, 0.25], [0.255, 0.85, 0.4], [0.331, 0.35, 0.9]])
+
+
+def _mix(T, big_at=(), grid=32, wide_at=()):
+    """The first T split triangles of the bumpy sphere at grid^3 (cap 4),
+    BIG at the indices `big_at`, WIDE[0] and WIDE[1] at those of `wide_at`."""
+    from massivevoxelraytracing_torch.utils import meshgen
+
+    tri, col, emi, _, _ = mesh_inputs("bumpy")
+    origin, dps = meshgen.fit_grid(tri, grid)
+    origin = np.asarray(origin, np.float32)
+    t, c, e = (torch.from_numpy(np.ascontiguousarray(a[:T])) for a in
+               meshprep.split_to_cap(tri, col, emi, origin, dps, grid, CAP))
+    for i in big_at:
+        t[i] = torch.tensor(BIG)
+    origin_t, dps_t = torch.from_numpy(origin), torch.tensor(dps, dtype=torch.float32)
+    for i, w in zip(wide_at, WIDE):
+        t[i] = origin_t + torch.tensor(w) * grid * dps_t
+    return t, c, e, origin_t, dps_t
+
+
+def _cells_past_a_run(t, origin, dps, **kw):
+    """Each triangle's valid cells at or past Z_CELLS of its bbox's w start
+    (in a unit's second or later run of Z cells)."""
+    ctx, cells = vox.column_cells(t, origin, dps, **kw)
+    tri = cells["tri"]
+    past = cells["valid"] & (cells["Z"] - ctx["lo_w"][tri] >= vox.Z_CELLS)
+    return torch.bincount(tri[past], minlength=t.shape[0])
+
+
+@pytest.mark.parametrize("cap", [1, 2, 4, 32, 64])
+def test_columns_equal_plain_at_each_cap(cap):
+    """cap 1 and 2 cut the cap-4 triangles' bboxes; at cap 32 one triangle
+    has ~600 units (more than a warp's or a block's pass); at cap 64 (a
+    64^3 grid) WIDE's columns are two runs of Z cells each."""
+    if cap == 64:
+        t, c, e, origin, dps = _mix(10, grid=64, wide_at=(5, 8))
+    else:
+        t, c, e, origin, dps = _mix(40 if cap == 32 else 400, big_at=(5,) if cap == 32 else ())
+    grid = 64 if cap == 64 else 32
+    counts, n = columns_equal_plain(t, c, e, origin, dps, grid_res=grid, six_separating=True,
+                                    cap=cap)
+    assert n > 0
+    if cap == 32:
+        assert int(counts[5]) > 256
+    if cap == 64:
+        past = _cells_past_a_run(t, origin, dps, grid_res=64, six_separating=True, cap=64)
+        assert int(past[5]) > 0 and int(past[8]) > 0
+
+
+@pytest.mark.parametrize("six", [False, True])
+def test_columns_in_several_z_runs_gapped_and_cut(six):
+    """cap 64 at 64^3, WIDE (both major axes) among small triangles: the
+    units' Z runs, the positions carried across a column's runs, with
+    0-2 free entries after each triangle's run and buffers cut 3 entries
+    into the last one (WIDE[1])."""
+    T = 12
+    t, c, e, origin, dps = _mix(T, grid=64, wide_at=(4, T - 1))
+    kw = dict(grid_res=64, six_separating=six, cap=64)
+    gaps = torch.from_numpy(np.random.default_rng(64).integers(0, 3, T))
+    gaps[-1] = 0
+    counts, _ = columns_equal_plain(t, c, e, origin, dps, gaps=gaps, cut=3, **kw)
+    past = _cells_past_a_run(t, origin, dps, **kw)
+    assert int(past[4]) > 0 and int(past[-1]) > 3
+
+
+def test_z_cells_match_the_kernels():
+    """The enumeration's run of Z cells is the kernels' kZCells."""
+    import pathlib
+    import re
+
+    src = pathlib.Path(vox.__file__).parent.parent / "csrc" / "vox_build.cu"
+    got = re.search(r"constexpr int kZCells = (\d+);", src.read_text())
+    assert got and int(got.group(1)) == vox.Z_CELLS
+
+
+@pytest.mark.parametrize("T", [1, 33, 130])
+def test_columns_gapped_offsets_and_cut_last_run(T):
+    """Offsets with 0-2 free entries after each run, and buffers cut 3
+    entries into the last triangle's run (BIG, at cap 32)."""
+    t, c, e, origin, dps = _mix(T, big_at=(T - 1,))
+    gaps = torch.from_numpy(np.random.default_rng(T).integers(0, 3, T))
+    gaps[-1] = 0
+    counts, _ = columns_equal_plain(t, c, e, origin, dps, gaps=gaps, cut=3, grid_res=32,
+                                    six_separating=False, cap=32)
+    assert int(counts[-1]) > 3
