@@ -34,15 +34,19 @@ Phases (any failure raises, and the script exits non-zero):
      route first, both images and depths equal to the frame's;
   3c. the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu): the
      lattice's split triangles to the card from pageable and from pinned
-     memory (ms, GB/s); vox_count, vox_emit and vox_unique_reduce each
-     against its plain stage on the lattice's one group, on the same card
-     tensors, bit for bit (the counts, the dump buffers, the unique stream
-     in its three modes), with its ms, the plain stage's ms, its bound on
-     the call's data (scripts/common.vox_bound; the count's and emit's on
-     the units and slab-clipped cells the kernels test,
-     common.vox_tested_cells, whose valid cells must equal the count's,
-     with the bound on the bbox cells beside it) and share, and the
-     reduce's library call (index_add_ of the segment sums alone); then
+     memory (ms, GB/s); vox_count, vox_emit, vox_run_heads and
+     vox_unique_reduce each against its plain stage on the lattice's one
+     group, on the same card tensors, bit for bit (the counts, the dump
+     buffers, each tile's run heads, the unique stream in its three
+     modes), with its ms, the plain stage's ms, its bound on the call's
+     data (scripts/common.vox_bound; the count's and emit's on the units
+     and slab-clipped cells the kernels test, common.vox_tested_cells,
+     whose valid cells must equal the count's, with the bound on the bbox
+     cells beside it; the reduce's the unique stage's, with the earlier
+     design's boundary flags and segment ids beside it) and share, the reduce's
+     library call (index_add_ of the segment sums alone), the sort alone
+     and the unique stage after it (run heads, cumsum, readback, reduce)
+     against the stage bound; then
      the lattice built through the plain stages and through the kernels
      (route_builds: each build's split and peak memory, a profiled build
      of each route with its device kernels and idle share), every tree
@@ -223,7 +227,8 @@ Phases (any failure raises, and the script exits non-zero):
      launches in the kernel route's profiled build, its ms there and its
      bound on that build's calls (route_kernel_bounds: on the units and
      slab-clipped cells the kernels test, beside the bbox cells' yardstick;
-     the count's bbox and slab-clipped cells).
+     the count's bbox and slab-clipped cells; the unique stage's two
+     kernels against the stage bound).
   The scene build's, the frame's and the walks' kernels' counts are also
   read around phases 6, 7a, 7c, 8 and 9 (launches_by_path in the kernels
   line: the frame kernels' main path is phase 3's counted frame and 7a's
@@ -315,6 +320,8 @@ VOX_REPLACES = {
                  "models/scene.py:160-161",
     "vox_emit": "ops/voxelize.py:266-343 (voxelize_dense); models/scene.py:36-49 "
                 "(_chunk_emit)",
+    "vox_run_heads": "ops/voxelize.py:366-374, 416-424, 475-483 (the boundary flags, their "
+                     "cumsum and n_unique)",
     "vox_unique_reduce": "ops/voxelize.py:351-506 (sort_and_unique_sums :352, "
                          "merge_unique_sums :407, sort_and_unique :456)",
 }
@@ -863,7 +870,9 @@ def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
     events, common.timed), the plain stage's ms (BUILD_CHUNK triangles at a
     time, as the plain route runs it), the bound on the call's data and,
     for the reduce, index_add_ of the sorted entries' seven int64 columns
-    (the segment sums alone) as the library call."""
+    (the segment sums alone) as the library call; the reduce alone
+    (reduce_tiles) beside the unique stage after the sort (unique_reduce)
+    and the sort alone."""
     import torch
 
     from massivevoxelraytracing_torch.ops import voxelize as vox
@@ -929,35 +938,57 @@ def vox_stage_timing(arrays, origin, dps, device, smi: str) -> dict:
     del t, c, e
 
     code, color, emission = dump
-    _, sort_ms = timed(lambda: vox._sorted_segments(code), reps=3)
-    segs = vox._sorted_segments(code)
-    s_key, perm, boundary, seg, n_u = segs
+    _, sort_ms = timed(lambda: torch.sort(code, stable=True), reps=3)
+    s_key, perm = torch.sort(code, stable=True)
+    attrs = (color, emission)
     errs = []
     for mode in ("means", "sums"):
-        got = vox.unique_reduce(*segs, (color, emission), mode=mode)
-        plain = vox.unique_reduce_plain(*segs, (color, emission), mode=mode)
+        got, n_u = vox.unique_reduce(s_key, perm, attrs, mode=mode)
+        plain, n_plain = vox.unique_reduce_plain(s_key, perm, attrs, mode=mode)
+        if n_u != n_plain:
+            raise AssertionError(f"vox_unique_reduce ({mode}): {n_u} unique, plain {n_plain}")
         errs.append(held_equal(common.flat_tensors(got), common.flat_tensors(plain),
                                f"vox_unique_reduce ({mode})"))
     parts = [vox.sort_and_unique_sums(code[sl], color[sl], emission[sl])[0]
              for sl in (slice(0, n // 3), slice(n // 3, n))]
-    merged = vox._sorted_segments(torch.cat([p[0] for p in parts]))
-    attrs = (*[torch.cat([p[1][i] for p in parts]) for i in range(6)],
-             torch.cat([p[2] for p in parts]))
-    errs.append(held_equal(vox.unique_reduce(*merged, attrs, mode="merge"),
-                           vox.unique_reduce_plain(*merged, attrs, mode="merge"),
-                           "vox_unique_reduce (merge)"))
-    del parts, merged, attrs
+    m_key, m_perm = torch.sort(torch.cat([p[0] for p in parts]), stable=True)
+    m_attrs = (*[torch.cat([p[1][i] for p in parts]) for i in range(6)],
+               torch.cat([p[2] for p in parts]))
+    got, plain = (f(m_key, m_perm, m_attrs, mode="merge")
+                  for f in (vox.unique_reduce, vox.unique_reduce_plain))
+    if got[1] != plain[1]:
+        raise AssertionError(f"vox_unique_reduce (merge): {got[1]} unique, plain {plain[1]}")
+    errs.append(held_equal(got[0], plain[0], "vox_unique_reduce (merge)"))
+    del parts, m_key, m_perm, m_attrs, got, plain
+    heads = vox.run_heads(s_key)
+    err = held_equal((heads,), (vox.run_heads_plain(s_key),), "vox_run_heads")
+    record("vox_run_heads", lambda: vox.run_heads(s_key), lambda: vox.run_heads_plain(s_key),
+           common.vox_bound("vox_run_heads", n_sorted=n), err,
+           sorted=n, tiles=len(heads))
+    ends = torch.cumsum(heads, 0)
+    # the stage after the sort (the run heads, their cumsum, n_unique's
+    # readback, the reduce) beside the reduce alone
+    _, stage_ms = timed(lambda: vox.unique_reduce(s_key, perm, attrs, mode="means"), reps=5)
+    seg = vox._segments(s_key)[1]
     cols7 = torch.stack([*vox.unpack_rgb8(color[perm]), *vox.unpack_rgb8(emission[perm]),
                          torch.ones_like(perm)], 1)
     _, library_ms = timed(lambda: torch.zeros((n_u + 1, 7), dtype=torch.int64,
                                               device=device).index_add_(0, seg, cols7), reps=5)
-    del cols7
+    del cols7, seg
+    bnd = common.vox_bound("vox_unique_reduce", n_sorted=n, n_unique=n_u, mode="means")
     record("vox_unique_reduce",
-           lambda: vox.unique_reduce(*segs, (color, emission), mode="means"),
-           lambda: vox.unique_reduce_plain(*segs, (color, emission), mode="means"),
-           common.vox_bound("vox_unique_reduce", n_sorted=n, n_unique=n_u, mode="means"),
-           max(errs), library_ms=library_ms, sorted=n, unique=n_u, sort_ms=sort_ms,
+           lambda: vox.reduce_tiles(s_key, perm, attrs, ends, n_u, mode="means"),
+           lambda: vox.unique_reduce_plain(s_key, perm, attrs, mode="means"),
+           bnd, max(errs), library_ms=library_ms, sorted=n, unique=n_u, sort_ms=sort_ms,
+           stage_ms=stage_ms, stage_share=bnd[0] / stage_ms,
+           segments_bound_ms=common.vox_bound("vox_unique_reduce", n_sorted=n,
+                                              n_unique=n_u, mode="means",
+                                              segments=True)[0],
            modes_equal=list(vox.MODES))
+    print(f"[phase3c] the unique stage after the sort: {stage_ms:.4f} ms (the run heads, "
+          f"their cumsum, n_unique read back, the reduce) against the stage bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}), share {bnd[0] / stage_ms:.1%}; the sort alone "
+          f"{sort_ms:.4f} ms [{smi}]", flush=True)
     return out
 
 
@@ -1084,7 +1115,10 @@ def route_kernel_bounds(args, kwargs, routes: dict, what: str, smi: str) -> dict
         bnd = common.vox_bound(name, walk=walk, **sizes)
         rec["bound_ms"] += bnd[0]
         rec["bound_by"].add(bnd[1])
-        rec["bbox_bound_ms"] += common.vox_bound(name, **sizes)[0]
+        # the earlier designs' yardsticks: the bbox cells (count, emit), the
+        # boundary flags and segment ids (the unique reduce)
+        rec["bbox_bound_ms"] += common.vox_bound(
+            name, segments=name == "vox_unique_reduce", **sizes)[0]
 
     total = dict(units=0, cells=0, valid=0)
     n_cells = 0
@@ -1097,7 +1131,7 @@ def route_kernel_bounds(args, kwargs, routes: dict, what: str, smi: str) -> dict
                 torch.empty(n, dtype=torch.int32, device=dev),
                 torch.empty(n, dtype=torch.int32, device=dev))
         vox.emit(t[ga:gb], c[ga:gb], e[ga:gb], start[ga:gb] - off0, origin, dps, bufs, **kw)
-        uniques.append(vox._sorted_segments(bufs[0])[4])
+        uniques.append(vox._segments(torch.sort(bufs[0], stable=True)[0])[2])
         del bufs
         cells = common.vox_cells(t[ga:gb], origin, dps, a["grid_res"], a["cap"])
         walk = common.vox_tested_cells(t[ga:gb], origin, dps, a["grid_res"], a["cap"],
@@ -1108,13 +1142,16 @@ def route_kernel_bounds(args, kwargs, routes: dict, what: str, smi: str) -> dict
         n_cells += cells
         total = {k: total[k] + walk[k] for k in total}
         add("vox_emit", walk, n_tri=gb - ga, n_cells=cells, n_dumped=n)
-        add("vox_unique_reduce", n_sorted=n, n_unique=uniques[-1],
-            mode="means" if len(groups) == 1 else "sums")
+        mode = "means" if len(groups) == 1 else "sums"
+        add("vox_run_heads", n_sorted=n)
+        add("vox_unique_reduce", n_sorted=n, n_unique=uniques[-1], mode=mode)
     if len(groups) > 1:
+        add("vox_run_heads", n_sorted=sum(uniques))
         add("vox_unique_reduce", n_sorted=sum(uniques), n_unique=r["n_unique"], mode="merge")
     add("vox_count", total, n_tri=T, n_cells=n_cells)
     del t, c, e, end, start
     want = dict(vox_count=1, vox_emit=len(groups),
+                vox_run_heads=len(groups) + (len(groups) > 1),
                 vox_unique_reduce=len(groups) + (len(groups) > 1))
     if {k: launched[k] for k in want} != want:
         raise AssertionError(f"{what}: the kernel route launched {launched}, its groups "
@@ -1128,12 +1165,19 @@ def route_kernel_bounds(args, kwargs, routes: dict, what: str, smi: str) -> dict
         cells = (f"; {rec['triangles']} triangles, bbox cells {rec['cells']}, slab-clipped "
                  f"cells tested {rec['tested_cells']} in {rec['units']} units"
                  if name == "vox_count" else "")
-        bbox = ("" if name == "vox_unique_reduce" else f" (on the bbox cells "
-                f"{rec['bbox_bound_ms']:.4f} ms, {rec['bbox_bound_ms'] / ms:.1%})")
+        yard = {"vox_run_heads": None, "vox_unique_reduce": "with the earlier design's "
+                "boundary flags and segment ids"}.get(name, "on the bbox cells")
+        bbox = ("" if yard is None else f" ({yard} {rec['bbox_bound_ms']:.4f} ms, "
+                f"{rec['bbox_bound_ms'] / ms:.1%})")
         print(f"[{what}] kernel route {name}: {rec['calls']} launches a build, {ms:.3f} ms "
               f"in the profiled build ({profiled_calls} calls); bound {rec['bound_ms']:.4f} "
               f"ms ({rec['bound_by']}), share {rec['share']:.1%}{bbox}{cells} [{smi}]",
               flush=True)
+    heads, red = out["vox_run_heads"], out["vox_unique_reduce"]
+    print(f"[{what}] kernel route unique stage: the run heads and the reduce "
+          f"{heads['ms'] + red['ms']:.3f} ms in {heads['calls'] + red['calls']} launches against "
+          f"the stage bound {red['bound_ms']:.4f} ms, share "
+          f"{red['bound_ms'] / (heads['ms'] + red['ms']):.1%} [{smi}]", flush=True)
     return out
 
 

@@ -32,16 +32,36 @@
 //       arithmetic so runs on full warps whatever the triangles' sizes.
 //       Bound: bytes (16 B a dumped voxel) and the closest-point arithmetic;
 //       no candidate tensor exists.
-//   vox_unique_reduce_kernel<MODE>  replaces ops/voxelize.py:351-506
+//   vox_run_heads_kernel            replaces ops/voxelize.py:366-374, 416-424,
+//       475-483 (the boundary flags, their cumsum and n_unique of the three
+//       functions below). A block a tile of kUniqueTile sorted entries
+//       counts its run heads (a valid key that differs from the key before
+//       it), the keys read once and coalesced; torch.cumsum over the tiles'
+//       counts gives each tile's first unique index and n_unique. Bound:
+//       bytes (8 B a sorted entry, 8 B a tile).
+//   vox_unique_reduce_kernel<MODE>  replaces ops/voxelize.py:352-506
 //       (sort_and_unique_sums, merge_unique_sums, sort_and_unique: the
-//       segment sums). The stable sort, the neighbour compare and the
-//       boundaries' cumsum stay torch ops. A thread on a run's first
-//       entry walks the run through perm and sums the six 8-bit channels
-//       and the count in int64 (or the groups' sums); exact integer sums
-//       need no atomics and equal the scatter_add_ sums in any order.
-//       Bound: bytes (perm, key and
-//       the attribute words a sorted entry; the gathers through perm are
-//       random, so each touches a 32 B sector).
+//       segment sums). The stable sort stays torch.sort. A block takes the
+//       same tile: its keys and perm are loaded coalesced into shared
+//       memory, then each thread takes kUniqueItems consecutive entries,
+//       finds their heads and gathers their attribute words through perm
+//       (every gather of the tile in flight at once); a segmented scan
+//       keyed by the heads (warp shuffles, then the warps' totals) gives
+//       each thread the sum of the run it starts in. A run belongs to the
+//       tile that holds its head: the thread holding its last entry stages
+//       it in shared memory at the head's rank in the tile, and the block
+//       writes the staged uniques coalesced at the tile's first unique
+//       index (a thread's runs lie kUniqueItems entries apart, so writing
+//       them in place scatters the stores); a tile's last run that goes on
+//       past the tile is summed by the whole block a chunk of kThreads
+//       entries at a time, to the run's end, and written by one thread.
+//       Sums are exact integers in any order (no atomics), equal to the
+//       scatter_add_ sums: the means / sums mode adds the 8-bit channels
+//       three to a 64-bit word in 21-bit fields (a tile's sums stay below
+//       2^21), the merge int64 sums. Bound: bytes (the key, perm and
+//       attribute words of a sorted entry, each word counted at its 4 B or
+//       8 B though the gathers through perm are random; the code and
+//       outputs of a unique voxel: scripts/common.vox_bound).
 //
 // Exactness: every value equals the plain stage's bit for bit. Built with
 // -fmad=false (no contraction) and IEEE division; float expressions keep
@@ -53,6 +73,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -574,14 +595,143 @@ __global__ void __launch_bounds__(kThreads, 3) vox_emit_kernel(EmitArgs a) {
   }
 }
 
+constexpr long long kInvalidKey = LLONG_MAX;  // voxelize.INVALID_KEY
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Sorted entries a thread of the unique stage's kernels, and a tile
+// (voxelize.UNIQUE_TILE)
+constexpr int kUniqueItems = 4;
+constexpr int kUniqueTile = kThreads * kUniqueItems;
+
+// Shared-memory slot of tile entry j: one pad word every kUniqueItems
+// entries, so the consecutive entries of each of 16 threads fall in
+// distinct banks
+__device__ __forceinline__ int pad(int j) { return j + j / kUniqueItems; }
+
 struct ReduceArgs {
-  const long long *s_key, *perm, *seg;
-  const bool* boundary;
+  const long long *s_key, *perm;
+  const long long* ends;  // the run heads of tiles 0..b, inclusive
   long long n;
   const void* in[7];  // means / sums: color, emission (int32); merge: 6 sums, count (int64)
   long long* code;
   void* out[7];  // means / merge: color, emission (int32); sums: 6 sums, count (int64)
 };
+
+// An entry's attribute words: means / sums, the packed colour and emission
+struct Colors {
+  uint32_t c, e;
+};
+
+// Their running sums: the 8-bit channels three to a word in 21-bit fields
+// (at most kUniqueTile * 255 < 2^21 a field, so no field carries into the
+// next), and the count
+struct Packed {
+  unsigned long long c, e;
+  unsigned n;
+};
+
+// The merge's entry and sums: six int64 sums and the count
+struct Wide {
+  long long s[6];
+  long long n;
+};
+
+constexpr unsigned long long kField = (1ull << 21) - 1;
+
+__device__ __forceinline__ unsigned long long fields(uint32_t p) {
+  return (p & 0xFFull) | ((p >> 8 & 0xFFull) << 21) | ((p >> 16 & 0xFFull) << 42);
+}
+
+__device__ __forceinline__ void zero(Packed& x) {
+  x.c = x.e = 0ull;
+  x.n = 0u;
+}
+
+__device__ __forceinline__ void zero(Wide& x) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x.s[k] = 0;
+  x.n = 0;
+}
+
+__device__ __forceinline__ void add(Packed& x, const Packed& y) {
+  x.c += y.c;
+  x.e += y.e;
+  x.n += y.n;
+}
+
+__device__ __forceinline__ void add(Wide& x, const Wide& y) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x.s[k] += y.s[k];
+  x.n += y.n;
+}
+
+__device__ __forceinline__ Packed sum_of(const Colors& r) {
+  return Packed{fields(r.c), fields(r.e), 1u};
+}
+
+__device__ __forceinline__ Wide sum_of(const Wide& r) { return r; }
+
+__device__ __forceinline__ void gather(const ReduceArgs& a, long long p, Colors& r) {
+  r.c = static_cast<uint32_t>(__ldg(static_cast<const int*>(a.in[0]) + p));
+  r.e = static_cast<uint32_t>(__ldg(static_cast<const int*>(a.in[1]) + p));
+}
+
+__device__ __forceinline__ void gather(const ReduceArgs& a, long long p, Wide& r) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.s[k] = __ldg(static_cast<const long long*>(a.in[k]) + p);
+  r.n = __ldg(static_cast<const long long*>(a.in[6]) + p);
+}
+
+__device__ __forceinline__ Packed shfl_up(const Packed& x, int d) {
+  return Packed{__shfl_up_sync(kFull, x.c, d), __shfl_up_sync(kFull, x.e, d),
+                __shfl_up_sync(kFull, x.n, d)};
+}
+
+__device__ __forceinline__ Wide shfl_up(const Wide& x, int d) {
+  Wide y;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) y.s[k] = __shfl_up_sync(kFull, x.s[k], d);
+  y.n = __shfl_up_sync(kFull, x.n, d);
+  return y;
+}
+
+__device__ __forceinline__ Packed shfl_xor(const Packed& x, int d) {
+  return Packed{__shfl_xor_sync(kFull, x.c, d), __shfl_xor_sync(kFull, x.e, d),
+                __shfl_xor_sync(kFull, x.n, d)};
+}
+
+__device__ __forceinline__ Wide shfl_xor(const Wide& x, int d) {
+  Wide y;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) y.s[k] = __shfl_xor_sync(kFull, x.s[k], d);
+  y.n = __shfl_xor_sync(kFull, x.n, d);
+  return y;
+}
+
+// The sums as int64: six channel (or group) sums and the count, added to s
+__device__ __forceinline__ void widen(const Packed& x, long long* s) {
+  s[0] += static_cast<long long>(x.c & kField);
+  s[1] += static_cast<long long>(x.c >> 21 & kField);
+  s[2] += static_cast<long long>(x.c >> 42);
+  s[3] += static_cast<long long>(x.e & kField);
+  s[4] += static_cast<long long>(x.e >> 21 & kField);
+  s[5] += static_cast<long long>(x.e >> 42);
+  s[6] += x.n;
+}
+
+__device__ __forceinline__ void widen(const Wide& x, long long* s) {
+#pragma unroll
+  for (int k = 0; k < 6; ++k) s[k] += x.s[k];
+  s[6] += x.n;
+}
+
+// The segmented scan's operator: (heads, sum) of an earlier span, then of a
+// later one; the later one's sum restarts at its first head
+template <typename Acc>
+__device__ __forceinline__ void combine(int h0, const Acc& x0, int& h, Acc& x) {
+  if (h == 0) add(x, x0);
+  h += h0;
+}
 
 __device__ __forceinline__ int pack_means(const long long* s, long long cnt) {
   return static_cast<int>(static_cast<uint32_t>(s[0] / cnt) |
@@ -589,38 +739,252 @@ __device__ __forceinline__ int pack_means(const long long* s, long long cnt) {
                           (static_cast<uint32_t>(s[2] / cnt) << 16) | 0xFF000000u);
 }
 
+// Unique voxel u: its code, and its packed means (sum / max(count, 1)) or
+// its six sums and count; s = six sums and the count
+template <int MODE>
+__device__ __forceinline__ void write_sums(const ReduceArgs& a, long long u, long long key,
+                                           const long long* s) {
+  a.code[u] = key;
+  if (MODE == kSums) {
+#pragma unroll
+    for (int k = 0; k < 7; ++k) static_cast<long long*>(a.out[k])[u] = s[k];
+  } else {
+    const long long cnt = s[6] > 1 ? s[6] : 1;
+    static_cast<int*>(a.out[0])[u] = pack_means(s, cnt);
+    static_cast<int*>(a.out[1])[u] = pack_means(s + 3, cnt);
+  }
+}
+
+// A tile's outputs staged in shared memory (over its keys and perm, once
+// those are read), a unique voxel at its rank r in the tile: its code, then
+// its packed means (means, merge) or its packed sums (sums)
+template <int MODE>
+struct Stage {
+  static constexpr int kWords =
+      MODE == kSums ? 3 * kUniqueTile + kUniqueTile / 2 : 2 * kUniqueTile;
+  long long* w;
+
+  __device__ __forceinline__ int* color() const {
+    return reinterpret_cast<int*>(w + kUniqueTile);
+  }
+  __device__ __forceinline__ unsigned long long* c() const {
+    return reinterpret_cast<unsigned long long*>(w + kUniqueTile);
+  }
+  __device__ __forceinline__ unsigned* n() const {
+    return reinterpret_cast<unsigned*>(w + 3 * kUniqueTile);
+  }
+
+  template <typename Acc>
+  __device__ __forceinline__ void put(int r, long long key, const Acc& x) const {
+    w[r] = key;
+    if constexpr (MODE == kSums) {
+      c()[r] = x.c;
+      c()[kUniqueTile + r] = x.e;
+      n()[r] = x.n;
+    } else {
+      long long s[7] = {0, 0, 0, 0, 0, 0, 0};
+      widen(x, s);
+      const long long cnt = s[6] > 1 ? s[6] : 1;
+      color()[r] = pack_means(s, cnt);
+      color()[kUniqueTile + r] = pack_means(s + 3, cnt);
+    }
+  }
+
+  // staged unique r to unique u of the outputs
+  __device__ __forceinline__ void write(const ReduceArgs& a, int r, long long u) const {
+    a.code[u] = w[r];
+    if constexpr (MODE == kSums) {
+      long long s[7] = {0, 0, 0, 0, 0, 0, 0};
+      widen(Packed{c()[r], c()[kUniqueTile + r], n()[r]}, s);
+#pragma unroll
+      for (int k = 0; k < 7; ++k) static_cast<long long*>(a.out[k])[u] = s[k];
+    } else {
+      static_cast<int*>(a.out[0])[u] = color()[r];
+      static_cast<int*>(a.out[1])[u] = color()[kUniqueTile + r];
+    }
+  }
+};
+
+// The run heads of each tile of kUniqueTile sorted entries
+__global__ void __launch_bounds__(kThreads) vox_run_heads_kernel(const long long* s_key,
+                                                                 long long n,
+                                                                 long long* heads) {
+  __shared__ int warp_heads[kWarps];
+  const long long base = static_cast<long long>(blockIdx.x) * kUniqueTile;
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < kUniqueItems; ++k) {
+    const long long i = base + k * kThreads + threadIdx.x;
+    if (i < n) {
+      const long long key = s_key[i];
+      const long long prev = i > 0 ? s_key[i - 1] : kInvalidKey;
+      c += key != kInvalidKey && key != prev;
+    }
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(kFull, c, d);
+  if ((threadIdx.x & 31) == 0) warp_heads[threadIdx.x >> 5] = c;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += warp_heads[w];
+    heads[blockIdx.x] = total;
+  }
+}
+
 template <int MODE>
 __global__ void __launch_bounds__(kThreads) vox_unique_reduce_kernel(ReduceArgs a) {
-  for (long long i = lane0(); i < a.n; i += lane_step()) {
-    if (!a.boundary[i]) continue;
-    const long long key = a.s_key[i];
-    long long s[6] = {0, 0, 0, 0, 0, 0};
-    long long cnt = 0;
-    for (long long j = i; j < a.n && a.s_key[j] == key; ++j) {
-      long long p = a.perm[j];
-      if (MODE == kMerge) {
-        for (int k = 0; k < 6; ++k) s[k] += static_cast<const long long*>(a.in[k])[p];
-        cnt += static_cast<const long long*>(a.in[6])[p];
-      } else {
-        for (int w = 0; w < 2; ++w) {
-          uint32_t packed = static_cast<uint32_t>(static_cast<const int*>(a.in[w])[p]);
-          s[3 * w] += packed & 0xFF;
-          s[3 * w + 1] += (packed >> 8) & 0xFF;
-          s[3 * w + 2] += (packed >> 16) & 0xFF;
-        }
-        ++cnt;
-      }
+  using Entry = typename std::conditional<MODE == kMerge, Wide, Colors>::type;
+  using Acc = typename std::conditional<MODE == kMerge, Wide, Packed>::type;
+  constexpr int I = kUniqueItems;
+  constexpr int T = kUniqueTile;
+  constexpr int kIn = 2 * (T + T / I);
+  __shared__ long long words[kIn > Stage<MODE>::kWords ? kIn : Stage<MODE>::kWords];
+  long long* keys = words;
+  long long* perms = words + (T + T / I);
+  const Stage<MODE> stage{words};
+  __shared__ int warp_heads[kWarps];
+  __shared__ Acc warp_sum[kWarps];
+  __shared__ long long tail_key, tail_u;
+  __shared__ Acc tail_sum;
+  __shared__ int tail_open;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = static_cast<long long>(blockIdx.x) * T;
+  // the tile's keys and perm, coalesced (past n: an invalid key)
+#pragma unroll
+  for (int k = 0; k < I; ++k) {
+    const int j = k * kThreads + t;
+    const long long i = base + j;
+    keys[pad(j)] = i < a.n ? a.s_key[i] : kInvalidKey;
+    perms[pad(j)] = i < a.n ? a.perm[i] : 0;
+  }
+  if (t == 0) tail_open = 0;
+  __syncthreads();
+
+  // this thread's I consecutive entries: keys, heads (a valid key that
+  // differs from the one before it), attribute words
+  long long key[I];
+  Entry v[I];
+  unsigned heads = 0u;
+  long long prev = t > 0 ? keys[pad(t * I - 1)] : (base > 0 ? a.s_key[base - 1] : kInvalidKey);
+#pragma unroll
+  for (int m = 0; m < I; ++m) {
+    const int j = t * I + m;
+    key[m] = keys[pad(j)];
+    if (key[m] != kInvalidKey) {
+      gather(a, perms[pad(j)], v[m]);
+      if (key[m] != prev) heads |= 1u << m;
     }
-    long long u = a.seg[i];
-    a.code[u] = key;
-    if (MODE == kSums) {
-      for (int k = 0; k < 6; ++k) static_cast<long long*>(a.out[k])[u] = s[k];
-      static_cast<long long*>(a.out[6])[u] = cnt;
-    } else {
-      cnt = cnt > 1 ? cnt : 1;
-      static_cast<int*>(a.out[0])[u] = pack_means(s, cnt);
-      static_cast<int*>(a.out[1])[u] = pack_means(s + 3, cnt);
+    prev = key[m];
+  }
+  const long long next = t < kThreads - 1 ? keys[pad(t * I + I)]
+                                          : (base + T < a.n ? a.s_key[base + T] : kInvalidKey);
+
+  // (heads, the sum since the last head) of this thread's entries, then
+  // the block's exclusive segmented scan of them
+  int h = __popc(heads);
+  Acc x;
+  zero(x);
+#pragma unroll
+  for (int m = 0; m < I; ++m) {
+    if (heads >> m & 1u) zero(x);
+    if (key[m] != kInvalidKey) add(x, sum_of(v[m]));
+  }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int h0 = __shfl_up_sync(kFull, h, d);
+    const Acc x0 = shfl_up(x, d);
+    if (lane >= d) combine(h0, x0, h, x);
+  }
+  if (lane == 31) {
+    warp_heads[warp] = h;
+    warp_sum[warp] = x;
+  }
+  int h_lane = __shfl_up_sync(kFull, h, 1);
+  Acc x_lane = shfl_up(x, 1);
+  if (lane == 0) {
+    h_lane = 0;
+    zero(x_lane);
+  }
+  __syncthreads();
+  int h_ex = 0;
+  Acc carry;
+  zero(carry);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) {
+      int hw = warp_heads[w];
+      Acc xw = warp_sum[w];
+      combine(h_ex, carry, hw, xw);
+      h_ex = hw;
+      carry = xw;
     }
+  }
+  combine(h_ex, carry, h_lane, x_lane);
+  h_ex = h_lane;
+  carry = x_lane;
+
+  // each run this thread ends and the tile owns (its head in the tile),
+  // staged at the head's rank r in the tile (the keys and perm are read:
+  // the barrier above)
+  const long long first = blockIdx.x > 0 ? a.ends[blockIdx.x - 1] : 0;
+  bool owned = h_ex > 0;
+  int r = h_ex - 1;
+#pragma unroll
+  for (int m = 0; m < I; ++m) {
+    if (heads >> m & 1u) {
+      owned = true;
+      zero(carry);
+      ++r;
+    }
+    if (key[m] == kInvalidKey) continue;
+    add(carry, sum_of(v[m]));
+    const long long after = m + 1 < I ? key[m + 1] : next;
+    if (owned && after != key[m]) {
+      stage.put(r, key[m], carry);
+    } else if (owned && m == I - 1 && t == kThreads - 1) {  // goes on past the tile
+      tail_open = 1;
+      tail_key = key[m];
+      tail_u = first + r;
+      tail_sum = carry;
+    }
+  }
+  __syncthreads();
+  // the staged uniques, coalesced: all of the tile's but a run past it
+  const int n_staged = static_cast<int>(a.ends[blockIdx.x] - first) - tail_open;
+  for (int q = t; q < n_staged; q += kThreads) stage.write(a, q, first + q);
+  if (!tail_open) return;
+
+  // the tile's last run, past the tile: a chunk of kThreads entries a pass
+  // (the run's entries are a prefix of each chunk) until a chunk ends it
+  const long long run_key = tail_key;
+  long long s[7] = {0, 0, 0, 0, 0, 0, 0};
+  for (long long c0 = base + T;; c0 += kThreads) {
+    const long long i = c0 + t;
+    const bool in_run = i < a.n && a.s_key[i] == run_key;
+    Acc y;
+    zero(y);
+    if (in_run) {
+      Entry e;
+      gather(a, a.perm[i], e);
+      y = sum_of(e);
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) add(y, shfl_xor(y, d));
+    if (lane == 0) warp_sum[warp] = y;
+    const int taken = __syncthreads_count(in_run);
+    if (t == 0) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) widen(warp_sum[w], s);
+    }
+    if (taken < kThreads) break;
+    __syncthreads();  // thread 0 has read the warps' sums
+  }
+  if (t == 0) {
+    widen(tail_sum, s);
+    write_sums<MODE>(a, tail_u, run_key, s);
   }
 }
 
@@ -661,26 +1025,41 @@ extern "C" int vox_emit_launch(int six, const void* tri, const void* col, const 
              : launch(vox_emit_kernel<false>, a, n, stream);
 }
 
-// mode: 0 means, 1 sums, 2 merge (voxelize.MODES); in / out: 7 device
-// pointers each (those a mode does not use are ignored); the outputs hold
-// seg's largest value on a boundary entry, plus one.
+// Sorted entries a tile (voxelize.UNIQUE_TILE)
+extern "C" int vox_unique_tile() { return kUniqueTile; }
+
+// heads: int64 [ceil(n / kUniqueTile)], each tile's run heads
+extern "C" int vox_run_heads_launch(const void* s_key, long long n, void* heads, void* stream) {
+  if (n <= 0) return 0;
+  const unsigned grid = static_cast<unsigned>((n + kUniqueTile - 1) / kUniqueTile);
+  vox_run_heads_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(s_key), n, static_cast<long long*>(heads));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ends: the inclusive cumsum of vox_run_heads_launch's heads; in / out: 7
+// device pointers each (those a mode does not use are ignored), the outputs
+// of ends' last value entries
 extern "C" int vox_unique_reduce_launch(int mode, const void* s_key, const void* perm,
-                                        const void* boundary, const void* seg, long long n,
+                                        const void* ends, long long n,
                                         const void* const* in, void* code,
                                         void* const* out, void* stream) {
+  if (n <= 0) return 0;
   ReduceArgs a{};
   a.s_key = static_cast<const long long*>(s_key);
   a.perm = static_cast<const long long*>(perm);
-  a.seg = static_cast<const long long*>(seg);
-  a.boundary = static_cast<const bool*>(boundary);
+  a.ends = static_cast<const long long*>(ends);
   a.n = n;
   int n_in = mode == kMerge ? 7 : 2, n_out = mode == kSums ? 7 : 2;
   for (int k = 0; k < n_in; ++k) a.in[k] = in[k];
   for (int k = 0; k < n_out; ++k) a.out[k] = out[k];
   a.code = static_cast<long long*>(code);
+  const unsigned grid = static_cast<unsigned>((n + kUniqueTile - 1) / kUniqueTile);
+  auto st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kMeans: return launch(vox_unique_reduce_kernel<kMeans>, a, n, stream);
-    case kSums: return launch(vox_unique_reduce_kernel<kSums>, a, n, stream);
-    default: return launch(vox_unique_reduce_kernel<kMerge>, a, n, stream);
+    case kMeans: vox_unique_reduce_kernel<kMeans><<<grid, kThreads, 0, st>>>(a); break;
+    case kSums: vox_unique_reduce_kernel<kSums><<<grid, kThreads, 0, st>>>(a); break;
+    default: vox_unique_reduce_kernel<kMerge><<<grid, kThreads, 0, st>>>(a); break;
   }
+  return static_cast<int>(cudaGetLastError());
 }

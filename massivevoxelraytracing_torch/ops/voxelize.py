@@ -9,11 +9,12 @@ The two-key limb sort of the reference becomes one int64 `torch.sort`,
 and `segment_sum` becomes `scatter_add_`. Attribute means are sums of
 integers, so the order of duplicates does not matter.
 
-The scene build runs three stages, each a plain PyTorch function and a
-hand-written CUDA kernel (csrc/vox_build.cu: one thread a triangle
+The scene build runs three stages, each a plain PyTorch function and
+hand-written CUDA kernels (csrc/vox_build.cu: one thread a triangle
 walking its units, a column and a run of Z cells, in candidate order;
 the emit's warps queue those units and emit one cell a lane; the unique
-reduce one thread a sorted entry):
+reduce a block a tile of sorted entries, in two launches: each tile's
+run heads, then after their cumsum the tile's segmented sums):
 
   count          the valid candidates of each triangle (the voxCount
                  pass: voxelize_dense's coverage mask summed a triangle)
@@ -21,14 +22,15 @@ reduce one thread a sorted entry):
                  index, written at its offset into the dump buffers: the
                  Morton code, the packed colour and emission at the
                  closest point of the cell corner (the voxelize pass)
-  unique_reduce  after the stable sort of the codes and the segment ids:
-                 each unique voxel's channel sums and count, and its code
-                 and packed means ("means"), sums ("sums") or the merge of
-                 groups' sums ("merge")
+  unique_reduce  after the stable sort of the codes: each run of equal
+                 valid codes (a unique voxel) found, its channel sums and
+                 count, and its code and packed means ("means"), sums
+                 ("sums") or the merge of groups' sums ("merge")
 
 `*_plain` are the code of voxelize_dense and sort_and_unique moved as it
 was; `count_columns` / `emit_columns` the count and emit kernels'
-enumeration as tensor code (for the tests). The wrappers (`count`, `emit`, `unique_reduce`) run the plain stage
+enumeration as tensor code (for the tests). The wrappers (`count`,
+`emit`, `run_heads`, `unique_reduce`, `reduce_tiles`) run the plain stage
 for CPU tensors and launch the kernel for CUDA tensors (or raise; there is
 no fallback). `voxelize_dense` stays the candidate-level reference.
 
@@ -366,11 +368,11 @@ def count_voxels(cands) -> torch.Tensor:
 # sort + unique
 # ---------------------------------------------------------------------------
 
-def _sorted_segments(key):
-    """Stable sort of int64 keys (INVALID_KEY = no voxel). Returns
-    (s_key, perm, boundary, seg, n_unique): seg is each sorted entry's
+def _segments(s_key):
+    """(boundary, seg, n_unique) of a sorted stream of int64 keys
+    (INVALID_KEY = no voxel): boundary marks each run's head (a valid key
+    that differs from the key before it), seg is each sorted entry's
     unique-voxel index, n_unique (the dump segment) for invalid entries."""
-    s_key, perm = torch.sort(key, stable=True)
     s_valid = s_key != INVALID_KEY
     ne = torch.ones_like(s_valid)
     ne[1:] = s_key[1:] != s_key[:-1]
@@ -378,7 +380,7 @@ def _sorted_segments(key):
     n_unique = int(boundary.sum())
     seg = torch.cumsum(boundary, 0) - 1
     seg = torch.where(s_valid, seg, n_unique)
-    return s_key, perm, boundary, seg, n_unique
+    return boundary, seg, n_unique
 
 
 def _segment_sum(x, seg, n_unique):
@@ -406,11 +408,9 @@ def sort_and_unique(cands, stages: str | None = None):
     code/color/emission tensors of length n_unique, n_unique and
     has_emission. stages: None, the wrappers; "plain", the plain stages
     (`_stages`)."""
-    s_key, perm, boundary, seg, n_unique = _sorted_segments(
-        _key(cands["code"], cands.get("valid")))
-    code, color, emission = _stages(stages).unique_reduce(
-        s_key, perm, boundary, seg, n_unique, (cands["color"], cands["emission"]),
-        mode="means")
+    s_key, perm = torch.sort(_key(cands["code"], cands.get("valid")), stable=True)
+    (code, color, emission), n_unique = _stages(stages).unique_reduce(
+        s_key, perm, (cands["color"], cands["emission"]), mode="means")
     return dict(code=code, color=color, emission=emission, n_unique=n_unique,
                 has_emission=_has_emission(emission))
 
@@ -421,19 +421,17 @@ def sort_and_unique_sums(code, color, emission, valid=None, stages: str | None =
     channel sums and counts, so groups merge later with exact
     true-duplicate means. Returns ((code, sums6, count) of length
     n_unique, n_unique)."""
-    s_key, perm, boundary, seg, n_unique = _sorted_segments(_key(code, valid))
-    out = _stages(stages).unique_reduce(s_key, perm, boundary, seg, n_unique,
-                                        (color, emission), mode="sums")
-    return out, n_unique
+    s_key, perm = torch.sort(_key(code, valid), stable=True)
+    return _stages(stages).unique_reduce(s_key, perm, (color, emission), mode="sums")
 
 
 def merge_unique_sums(code, sums6, count, stages: str | None = None):
     """Merge stage: concatenated per-group (code, sums, count) rows ->
     unique voxels with true-duplicate-mean attributes (same dict as
     sort_and_unique)."""
-    s_key, perm, boundary, seg, n_unique = _sorted_segments(code)
-    code, color, emission = _stages(stages).unique_reduce(
-        s_key, perm, boundary, seg, n_unique, (*sums6, count), mode="merge")
+    s_key, perm = torch.sort(code, stable=True)
+    (code, color, emission), n_unique = _stages(stages).unique_reduce(
+        s_key, perm, (*sums6, count), mode="merge")
     return dict(code=code, color=color, emission=emission, n_unique=n_unique,
                 has_emission=_has_emission(emission))
 
@@ -442,9 +440,12 @@ def merge_unique_sums(code, sums6, count, stages: str | None = None):
 # the build's stages: the plain versions
 # ---------------------------------------------------------------------------
 
-KERNELS = ("vox_count", "vox_emit", "vox_unique_reduce")
+KERNELS = ("vox_count", "vox_emit", "vox_run_heads", "vox_unique_reduce")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 MODES = ("means", "sums", "merge")
+# sorted entries a tile of the unique stage's kernels (csrc/vox_build.cu
+# kUniqueTile)
+UNIQUE_TILE = 1024
 I32 = torch.int32
 I64 = torch.int64
 
@@ -606,27 +607,39 @@ def emit_columns(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
     return out
 
 
-def unique_reduce_plain(s_key, perm, boundary, seg, n_unique: int, attrs, *, mode: str):
-    """The segment sums of a sorted stream (_sorted_segments' outputs).
-    mode "means": attrs (color, emission) int32 [N] -> (code, color,
-    emission) of the unique voxels, the packed integer means; "sums": the
-    same attrs -> (code, sums6, count), the six 8-bit channels' sums and
-    the count, int64; "merge": attrs (*sums6, count) int64 [N] -> (code,
-    color, emission), sum of sums / sum of counts."""
+def run_heads_plain(s_key):
+    """The run heads (_segments' boundary) of each tile of UNIQUE_TILE
+    sorted entries, the last tile partial: int64 [ceil(N / UNIQUE_TILE)]."""
+    boundary = _segments(s_key)[0]
+    n_tiles = -(-len(boundary) // UNIQUE_TILE)
+    flags = torch.zeros(n_tiles * UNIQUE_TILE, dtype=torch.bool, device=s_key.device)
+    flags[:len(boundary)] = boundary
+    return flags.view(n_tiles, UNIQUE_TILE).sum(1)
+
+
+def unique_reduce_plain(s_key, perm, attrs, *, mode: str):
+    """The segment sums of a sorted stream (s_key, perm: torch.sort's
+    outputs; its runs from _segments). mode "means": attrs (color,
+    emission) int32 [N] -> (code, color, emission) of the unique voxels,
+    the packed integer means; "sums": the same attrs -> (code, sums6,
+    count), the six 8-bit channels' sums and the count, int64; "merge":
+    attrs (*sums6, count) int64 [N] -> (code, color, emission), sum of sums
+    / sum of counts. Returns (those outputs, n_unique)."""
+    boundary, seg, n_unique = _segments(s_key)
     code = s_key[boundary]
     if mode == "merge":
         *sums6, count = attrs
         tot = [_segment_sum(s[perm], seg, n_unique) for s in sums6]
         cnt = torch.clamp(_segment_sum(count[perm], seg, n_unique), min=1)
-        return code, _pack_means(tot[0:3], cnt), _pack_means(tot[3:6], cnt)
+        return (code, _pack_means(tot[0:3], cnt), _pack_means(tot[3:6], cnt)), n_unique
     sums = []
     for packed in attrs:
         sums += [_segment_sum(ch, seg, n_unique) for ch in unpack_rgb8(packed[perm])]
     count = _segment_sum(torch.ones_like(seg), seg, n_unique)
     if mode == "sums":
-        return code, tuple(sums), count
+        return (code, tuple(sums), count), n_unique
     cnt = torch.clamp(count, min=1)
-    return code, _pack_means(sums[0:3], cnt), _pack_means(sums[3:6], cnt)
+    return (code, _pack_means(sums[0:3], cnt), _pack_means(sums[3:6], cnt)), n_unique
 
 
 # ---------------------------------------------------------------------------
@@ -722,45 +735,91 @@ def emit(tri, col, emi, offsets, origin, dps, out, *, grid_res: int,
     return out
 
 
-def unique_reduce(s_key, perm, boundary, seg, n_unique: int, attrs, *, mode: str):
-    """unique_reduce_plain's outputs; CUDA tensors launch
-    vox_unique_reduce_kernel<MODE>."""
+def _check_sorted(s_key, perm, attrs, mode: str):
+    """Checks what the unique stage's wrappers share; returns (device, N)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, not {mode!r}")
-    device = _device_of(s_key)
     dev = s_key.device
-    N = s_key.shape[0]
+    N = s_key.shape[0] if s_key.dim() == 1 else -1
     _check("s_key", s_key, I64, (N,), dev)
     _check("perm", perm, I64, (N,), dev)
-    _check("boundary", boundary, torch.bool, (N,), dev)
-    _check("seg", seg, I64, (N,), dev)
     dtypes = (I64,) * 7 if mode == "merge" else (I32, I32)
     if len(attrs) != len(dtypes):
         raise ValueError(f"mode {mode!r} takes {len(dtypes)} attribute arrays, not {len(attrs)}")
     for i, (x, dtype) in enumerate(zip(attrs, dtypes)):
         _check(f"attrs[{i}]", x, dtype, (N,), dev)
-    if device == "cpu":
-        return unique_reduce_plain(s_key, perm, boundary, seg, n_unique, attrs, mode=mode)
+    return dev, N
+
+
+def _run_heads_launch(s_key, dev, N: int):
+    from ..utils import cuda_build
+
+    heads = torch.empty(-(-N // UNIQUE_TILE), dtype=I64, device=dev)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.vox_run_heads_launch(s_key.data_ptr(), N, heads.data_ptr(), _stream(dev))
+    _launched("vox_run_heads", rc, N)
+    return heads
+
+
+def _reduce_launch(s_key, perm, attrs, ends, n_unique: int, mode: str, dev, N: int):
     from ..utils import cuda_build
 
     code = torch.empty(n_unique, dtype=I64, device=dev)
     if mode == "sums":
-        sums = torch.empty((7, n_unique), dtype=I64, device=dev)
-        outs = list(sums)
+        outs = list(torch.empty((7, n_unique), dtype=I64, device=dev))
     else:
         outs = [torch.empty(n_unique, dtype=I32, device=dev) for _ in range(2)]
-    in_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in attrs])
-    out_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in outs])
-    lib = cuda_build.load()
-    with torch.cuda.device(dev):
-        rc = lib.vox_unique_reduce_launch(
-            MODES.index(mode), s_key.data_ptr(), perm.data_ptr(), boundary.data_ptr(),
-            seg.data_ptr(), N, ctypes.addressof(in_ptrs), code.data_ptr(),
-            ctypes.addressof(out_ptrs), _stream(dev))
-    _launched("vox_unique_reduce", rc, N)
+    if n_unique > 0:
+        in_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in attrs])
+        out_ptrs = (ctypes.c_void_p * 7)(*[x.data_ptr() for x in outs])
+        lib = cuda_build.load()
+        with torch.cuda.device(dev):
+            rc = lib.vox_unique_reduce_launch(
+                MODES.index(mode), s_key.data_ptr(), perm.data_ptr(), ends.data_ptr(), N,
+                ctypes.addressof(in_ptrs), code.data_ptr(), ctypes.addressof(out_ptrs),
+                _stream(dev))
+        _launched("vox_unique_reduce", rc, n_unique)
     if mode == "sums":
         return code, tuple(outs[:6]), outs[6]
     return code, outs[0], outs[1]
+
+
+def run_heads(s_key):
+    """run_heads_plain's output; CUDA tensors launch vox_run_heads_kernel."""
+    device = _device_of(s_key)
+    N = s_key.shape[0] if s_key.dim() == 1 else -1
+    _check("s_key", s_key, I64, (N,), s_key.device)
+    if device == "cpu":
+        return run_heads_plain(s_key)
+    return _run_heads_launch(s_key, s_key.device, N)
+
+
+def reduce_tiles(s_key, perm, attrs, ends, n_unique: int, *, mode: str):
+    """The reduce alone: unique_reduce_plain's outputs from the tiles' run
+    heads' inclusive cumsum `ends` (int64) and n_unique (its last value);
+    CUDA tensors launch vox_unique_reduce_kernel<MODE> (none when n_unique
+    is 0)."""
+    device = _device_of(s_key)
+    dev, N = _check_sorted(s_key, perm, attrs, mode)
+    _check("ends", ends, I64, (-(-N // UNIQUE_TILE),), dev)
+    if device == "cpu":
+        return unique_reduce_plain(s_key, perm, attrs, mode=mode)[0]
+    return _reduce_launch(s_key, perm, attrs, ends, n_unique, mode, dev, N)
+
+
+def unique_reduce(s_key, perm, attrs, *, mode: str):
+    """unique_reduce_plain's (outputs, n_unique); CUDA tensors launch
+    vox_run_heads_kernel (each tile's run heads), take their cumsum and
+    read n_unique back once, then launch vox_unique_reduce_kernel<MODE>
+    into outputs of that length."""
+    device = _device_of(s_key)
+    dev, N = _check_sorted(s_key, perm, attrs, mode)
+    if device == "cpu":
+        return unique_reduce_plain(s_key, perm, attrs, mode=mode)
+    ends = torch.cumsum(_run_heads_launch(s_key, dev, N), 0)
+    n_unique = int(ends[-1]) if N else 0
+    return _reduce_launch(s_key, perm, attrs, ends, n_unique, mode, dev, N), n_unique
 
 
 def dump_candidates(tri, col, emi, origin, dps, *, grid_res: int,

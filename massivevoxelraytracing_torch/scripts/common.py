@@ -851,7 +851,8 @@ def flat_tensors(xs) -> list:
 # column's three major-axis edge functions and z range, the other two
 # axes' six edge functions); a dumped voxel ~110 (the closest point's
 # three cross products and dots, two colours mixed and packed); a sorted
-# entry of the unique reduce ~8 (three channels unpacked and added a word).
+# entry of the unique reduce ~8 (three channels unpacked and added a word),
+# of the run heads' count ~2 (a compare with the key before it, a sum).
 # The count and emit kernels walk units and the slab-clipped cells
 # (vox_tested_cells), not the bbox: a unit ~22 (its column's corner 4,
 # three major-axis edge functions 12, its z range 6), a tested cell ~26
@@ -862,6 +863,7 @@ VOX_UNIT_OPS = 22
 VOX_TESTED_OPS = 26
 VOX_EMIT_OPS = 110
 VOX_ENTRY_OPS = 8
+VOX_HEAD_OPS = 2
 
 
 def vox_cells(tri, origin, dps, grid_res: int, cap: int) -> int:
@@ -892,7 +894,7 @@ def vox_tested_cells(tri, origin, dps, grid_res: int, cap: int, six: bool = True
 
 def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0,
               n_sorted: int = 0, n_unique: int = 0, mode: str = "means",
-              walk: dict | None = None) -> tuple:
+              walk: dict | None = None, segments: bool = False) -> tuple:
     """(bound_ms, bound_by) of one call of a scene-build kernel on its
     call's data (n_cells: vox_cells of its triangles; with `walk`, the
     vox_tested_cells of its triangles, the count's and emit's cell work is
@@ -901,11 +903,15 @@ def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0
     with a bbox cell loop). Bytes it must move:
     count, a triangle's 36 B in and its 4 B count out; emit, a triangle's
     vertices, colours and emissions (108 B) and its 8 B offset in, 16 B out
-    a dumped voxel; the unique reduce, a sorted entry's key, perm,
-    boundary flag and attribute words (two int32, or the merge's seven
-    int64) in, a unique voxel's seg and its outputs (the code and two
-    packed means, or the code, six sums and the count). Operations: the
-    VOX_*_OPS counts."""
+    a dumped voxel; the run heads' count, a sorted entry's key in and a
+    tile's count out (int64); the unique reduce, the bound of the whole
+    unique stage after the sort: a sorted entry's key, perm and attribute
+    words (two int32, or the merge's seven int64) in, a unique voxel's
+    outputs (the code and two packed means, or the code, six sums and the
+    count) out. With `segments`, the unique reduce's bound also counts a
+    sorted entry's boundary flag (1 B) and a unique voxel's segment id
+    (8 B), the inputs of the earlier design that walked a run a thread:
+    the yardstick that compares designs. Operations: the VOX_*_OPS counts."""
     cell_ops = (VOX_CELL_OPS * n_cells if walk is None else
                 VOX_UNIT_OPS * walk["units"] + VOX_TESTED_OPS * walk["cells"])
     if stage == "vox_count":
@@ -914,10 +920,15 @@ def vox_bound(stage: str, *, n_tri: int = 0, n_cells: int = 0, n_dumped: int = 0
     elif stage == "vox_emit":
         n_bytes = n_tri * (108 + 8) + n_dumped * 16
         ops = VOX_CTX_OPS * n_tri + cell_ops + VOX_EMIT_OPS * n_dumped
+    elif stage == "vox_run_heads":
+        n_bytes = n_sorted * 8 + -(-n_sorted // vox_ops.UNIQUE_TILE) * 8
+        ops = VOX_HEAD_OPS * n_sorted
     elif stage == "vox_unique_reduce":
         attrs = 7 * 8 if mode == "merge" else 2 * 4
         outs = 8 + (7 * 8 if mode == "sums" else 2 * 4)
-        n_bytes = n_sorted * (8 + 8 + 1 + attrs) + n_unique * (8 + outs)
+        n_bytes = n_sorted * (8 + 8 + attrs) + n_unique * outs
+        if segments:
+            n_bytes += n_sorted * 1 + n_unique * 8
         ops = VOX_ENTRY_OPS * n_sorted
     else:
         raise ValueError(f"no scene-build kernel {stage!r}")

@@ -211,10 +211,12 @@ def _bind(lib):
         p, p, i, i, q,                                 # origin, dps, grid_res, cap, n_out
         p, p, p, p,                                    # code, color, emission, stream
     ]
+    lib.vox_run_heads_launch.argtypes = [p, q, p, p]     # s_key, n, heads, stream
     lib.vox_unique_reduce_launch.argtypes = [
-        i, p, p, p, p, q,                              # mode, s_key, perm, boundary, seg, n
+        i, p, p, p, q,                                 # mode, s_key, perm, ends, n
         p, p, p, p,                                    # in[7], code, out[7], stream
     ]
+    lib.vox_unique_tile.argtypes = []
     lib.frame_raygen_launch.argtypes = [
         p, q, q, q, q,                                 # cam[16] (host), py0, w, h, tile rows
         p, p, p,                                       # ro, rd, stream
@@ -244,7 +246,8 @@ def _bind(lib):
                lib.pt_lane_init_launch, lib.pt_primary_shade_launch,
                lib.pt_bounce_sample_launch, lib.pt_bounce_shade_launch,
                lib.pt_compact_gather_launch, lib.vox_count_launch,
-               lib.vox_emit_launch, lib.vox_unique_reduce_launch,
+               lib.vox_emit_launch, lib.vox_run_heads_launch,
+               lib.vox_unique_reduce_launch, lib.vox_unique_tile,
                lib.frame_raygen_launch, lib.frame_shade_launch,
                lib.brick_walk_launch, lib.octree_walk_launch,
                lib.smem_optin_bytes):

@@ -1429,23 +1429,28 @@ def vox_stages_equal(tris, origin, dps, grid, six, cap=4, chunk=None):
         assert torch.equal(x, y)
     code, color, emission = dumps[0]
     assert bool((code >= 0).all())
-    segs = vox._sorted_segments(code)
+    s_key, perm = torch.sort(code, stable=True)
     for mode in ("means", "sums"):
-        got = vox.unique_reduce(*segs, (color, emission), mode=mode)
-        plain = vox.unique_reduce_plain(*segs, (color, emission), mode=mode)
-        for x, y in zip(torch.utils._pytree.tree_leaves(got),
-                        torch.utils._pytree.tree_leaves(plain)):
+        got = vox.unique_reduce(s_key, perm, (color, emission), mode=mode)
+        plain = vox.unique_reduce_plain(s_key, perm, (color, emission), mode=mode)
+        assert got[1] == plain[1], mode
+        for x, y in zip(torch.utils._pytree.tree_leaves(got[0]),
+                        torch.utils._pytree.tree_leaves(plain[0])):
             assert torch.equal(x, y), mode
+    n_unique = got[1]
     parts = [vox.sort_and_unique_sums(code[sl], color[sl], emission[sl])[0]
              for sl in (slice(0, n // 3), slice(n // 3, n))]
-    merged = vox._sorted_segments(torch.cat([p[0] for p in parts]))
+    m_key, m_perm = torch.sort(torch.cat([p[0] for p in parts]), stable=True)
     attrs = (*[torch.cat([p[1][i] for p in parts]) for i in range(6)],
              torch.cat([p[2] for p in parts]))
-    got = vox.unique_reduce(*merged, attrs, mode="merge")
-    for x, y in zip(got, vox.unique_reduce_plain(*merged, attrs, mode="merge")):
+    got, nu = vox.unique_reduce(m_key, m_perm, attrs, mode="merge")
+    plain, nu_plain = vox.unique_reduce_plain(m_key, m_perm, attrs, mode="merge")
+    assert nu == nu_plain == n_unique
+    for x, y in zip(got, plain):
         assert torch.equal(x, y), "merge"
-    assert vox.LAUNCHES["vox_unique_reduce"] == 5  # means, sums, two groups, merge
-    return dict(vox.LAUNCHES), n, segs[4]
+    # means, sums, two groups, merge: the run heads' count and the reduce each
+    assert vox.LAUNCHES["vox_unique_reduce"] == vox.LAUNCHES["vox_run_heads"] == 5
+    return dict(vox.LAUNCHES), n, n_unique
 
 
 @pytest.mark.parametrize("six", [False, True])
@@ -1616,11 +1621,90 @@ def test_voxtriangle_on_card_equals_cpu_in_two_z_runs(cuda, tmp_path):
             == (tmp_path / "cpu/coverage.png").read_bytes())
 
 
+# sorted streams for the unique reduce: run lengths (then invalid entries),
+# at the edges of tiles of 1,024 and 2,048 entries
+UNIQUE_STREAMS = {
+    "empty": ([], 0),
+    "one": ([1], 0),
+    "one_invalid": ([], 1),
+    "all_invalid": ([], 5000),
+    "each_own_run": ([1] * 4103, 0),
+    "one_key": ([3 * 2048 + 100], 0),
+    "random_runs_invalid_tail": ("random", 700),
+    "head_last_of_a_tile": ([2047, 1, 5, 2041, 1, 1], 0),
+    "head_last_of_a_merge_tile": ([1023, 1, 1022, 2, 3], 0),
+    "run_longer_than_a_tile": ([10, 2048 + 900, 7, 1], 3),
+    "run_over_three_tiles": ([10, 4 * 2048 + 333, 2, 1], 0),
+    "run_to_the_end": ([5, 2 * 2048 + 256 * 3], 0),
+    "run_to_a_chunk_edge": ([2043, 5 + 256, 7], 0),
+    "long_runs": ("long", 37),
+}
+
+
+def unique_stream(name, device, seed):
+    """(s_key, perm, (color, emission), merge attrs) of a sorted stream:
+    increasing random keys repeated by the run lengths, then INVALID_KEY;
+    perm a permutation; random packed words and int64 sums."""
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+
+    rng = np.random.default_rng(seed)
+    runs, n_invalid = UNIQUE_STREAMS[name]
+    if runs == "random":
+        runs = list(rng.integers(1, 6, 2500))
+    elif runs == "long":
+        runs = list(rng.integers(1, 3000, 40))
+    keys = np.cumsum(rng.integers(1, 1 << 20, len(runs))).astype(np.int64)
+    s_key = np.concatenate([np.repeat(keys, runs).astype(np.int64),
+                            np.full(n_invalid, vox.INVALID_KEY, np.int64)])
+    n = len(s_key)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    colors = (t(rng.integers(-2**31, 2**31, n).astype(np.int32)),
+              t(rng.integers(-2**31, 2**31, n).astype(np.int32)))
+    merge = tuple(t(rng.integers(0, 1 << 40, n).astype(np.int64)) for _ in range(6))
+    merge += (t(rng.integers(0, 6, n).astype(np.int64)),)
+    return t(s_key), t(rng.permutation(n).astype(np.int64)), colors, merge
+
+
+@pytest.mark.parametrize("mode", ["means", "sums", "merge"])
+@pytest.mark.parametrize("name", list(UNIQUE_STREAMS))
+def test_vox_unique_reduce_matches_plain_on_adversarial_streams(cuda, name, mode):
+    """The run heads' count and the unique reduce against their plain
+    stages bit for bit on sorted streams at and past the tiles' edges
+    (runs longer than a tile and than three, a head on a tile's last
+    entry, a run to the stream's end or to the edge of the block's chunk
+    past a tile, all-invalid and empty streams: no reduce launch); one
+    launch of each a call (none of the run heads' count for n = 0)."""
+    from massivevoxelraytracing_torch.ops import voxelize as vox
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    assert cuda_build.load().vox_unique_tile() == vox.UNIQUE_TILE
+    s_key, perm, colors, merge = unique_stream(name, cuda, seed=len(name))
+    attrs = merge if mode == "merge" else colors
+    vox.reset_counters()
+    heads = vox.run_heads(s_key)
+    got, nu = vox.unique_reduce(s_key, perm, attrs, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(heads, vox.run_heads_plain(s_key))
+    want, nu_plain = vox.unique_reduce_plain(s_key, perm, attrs, mode=mode)
+    assert nu == nu_plain
+    got, want = (torch.utils._pytree.tree_leaves(x) for x in (got, want))
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert torch.equal(x, y)
+    n = len(s_key)
+    assert vox.LAUNCHES["vox_run_heads"] == 2 * (n > 0)
+    assert vox.LAUNCHES["vox_unique_reduce"] == (nu > 0)
+
+
 def test_build_scene_vox_kernels_equal_plain_stages(cuda, monkeypatch):
     """build_scene through the kernels and through the plain stages on the
     card: the same tree, single pass and grouped; the kernel route launches
-    one count, one emit a group and one reduce a group (plus the merge),
-    the plain route none."""
+    one count, one emit a group and one run-head count and one reduce a
+    group (plus the merge's), the plain route none."""
     from massivevoxelraytracing_torch.entry import trees_equal
     from massivevoxelraytracing_torch.ops import voxelize as vox
 
@@ -1641,6 +1725,7 @@ def test_build_scene_vox_kernels_equal_plain_stages(cuda, monkeypatch):
         elif group:
             assert n["vox_count"] == 1 and n["vox_emit"] >= 2
             assert n["vox_unique_reduce"] == n["vox_emit"] + 1  # the groups' and the merge
+            assert n["vox_run_heads"] == n["vox_unique_reduce"]
         else:
             assert n == dict.fromkeys(vox.KERNELS, 1)
     assert trees["kernels_grouped"].build_stats["n_dumped"] > 2 * 20000

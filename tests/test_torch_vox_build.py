@@ -11,6 +11,11 @@ icosphere and bumpy sphere, and build_scene / the wrappers on the CPU.
   * unique_reduce_plain in its three modes, through sort_and_unique,
     sort_and_unique_sums and merge_unique_sums, against the JAX package's
     same three functions on the same candidates: exact (integer code);
+    and called as the stage (after torch.sort) on hand-made streams (an
+    invalid tail, one key, every entry its own run, a run longer than a
+    tile, the empty stream) against the same functions (sort_and_unique
+    and sort_and_unique_sums with a valid mask), exactly, with
+    run_heads_plain's tile counts; UNIQUE_TILE is the kernels' tile;
   * build_scene on the CPU gives the same tree at chunk_tris 1,024 and
     65,536, through the wrappers and through the plain stages;
   * the wrappers refuse a wrong dtype, shape or device before any launch
@@ -150,6 +155,103 @@ def test_unique_reduce_plain_equals_jax(case, mode):
     _assert_unique(merged, jvox.merge_unique_sums(cat[0], cat[1], cat[2:8], cat[8]))
 
 
+# hand-made streams of the unique stage: (valid codes as (key, run length)
+# pairs, invalid entries); shuffled before the sort
+STREAMS = {
+    "invalid_tail": ([(5, 3), (9, 1), (12, 4), (40, 2), (41, 1), (77, 6)], 9),
+    "one_key": ([(123456789, 30)], 0),
+    "each_own_run": ([(3 * k + 1, 1) for k in range(25)], 0),
+    "run_past_a_tile": ([(2, 2), (1 << 40, 2500), ((1 << 40) + 1, 1), (7, 3)], 2),
+    "empty": ([], 0),
+}
+
+
+def _stream(name, seed):
+    """(code int64, valid bool, color int32, emission int32, sums6 + count
+    int64 for the merge) of a hand-made stream, shuffled."""
+    runs, n_invalid = STREAMS[name]
+    rng = np.random.default_rng(seed)
+    code = np.concatenate([np.full(n, k, np.int64) for k, n in runs]
+                          + [rng.integers(0, 1 << 50, n_invalid)]).astype(np.int64)
+    valid = np.arange(len(code)) < len(code) - n_invalid
+    order = rng.permutation(len(code))
+    code, valid = code[order], valid[order]
+    n = len(code)
+    color = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    emission = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    sums = [np.where(valid, rng.integers(0, 1 << 16, n), 0).astype(np.int64) for _ in range(6)]
+    count = np.where(valid, rng.integers(1, 9, n), 0).astype(np.int64)
+    return code, valid, color, emission, sums + [count]
+
+
+def _limbs(code, valid):
+    """The JAX package's (m_hi, m_lo) uint32 limbs, invalid entries all ones."""
+    hi, lo = morton.to_pair(torch.from_numpy(code))
+    hi = np.where(valid, hi.numpy().astype(np.uint32), np.uint32(0xFFFFFFFF))
+    lo = np.where(valid, lo.numpy().astype(np.uint32), np.uint32(0xFFFFFFFF))
+    return jnp.asarray(hi), jnp.asarray(lo)
+
+
+@pytest.mark.parametrize("mode", vox.MODES)
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_unique_stage_plain_on_hand_made_streams(name, mode):
+    """unique_reduce_plain after torch.sort (the stage as the wrappers call
+    it) against the JAX package: "means" against sort_and_unique with the
+    valid mask, "sums" against sort_and_unique_sums with it, "merge" (the
+    invalid entries' codes INVALID_KEY, as a group's padding) against
+    merge_unique_sums, exactly; run_heads_plain's tiles add up to n_unique."""
+    code, valid, color, emission, merge_in = _stream(name, seed=len(name))
+    t_valid = torch.from_numpy(valid)
+    key = vox._key(torch.from_numpy(code), t_valid)
+    s_key, perm = torch.sort(key, stable=True)
+    hi, lo = _limbs(code, valid)
+    jcol, jemi = jnp.asarray(color.view(np.uint32)), jnp.asarray(emission.view(np.uint32))
+    if mode == "merge":
+        attrs = tuple(torch.from_numpy(x) for x in merge_in)
+        (u_code, u_col, u_emi), nu = vox.unique_reduce_plain(s_key, perm, attrs, mode=mode)
+        want = jvox.merge_unique_sums(hi, lo, [jnp.asarray(x.astype(np.uint32))
+                                               for x in merge_in[:6]],
+                                      jnp.asarray(merge_in[6].astype(np.uint32)))
+        _assert_unique(dict(code=u_code, color=u_col, emission=u_emi, n_unique=nu,
+                            has_emission=vox._has_emission(u_emi)), want)
+    elif mode == "means":
+        (u_code, u_col, u_emi), nu = vox.unique_reduce_plain(
+            s_key, perm, (torch.from_numpy(color), torch.from_numpy(emission)), mode=mode)
+        want = jvox.sort_and_unique(dict(m_hi=hi, m_lo=lo, color=jcol, emission=jemi,
+                                         valid=jnp.asarray(valid)))
+        _assert_unique(dict(code=u_code, color=u_col, emission=u_emi, n_unique=nu,
+                            has_emission=vox._has_emission(u_emi)), want)
+    else:
+        (u_code, sums6, count), nu = vox.unique_reduce_plain(
+            s_key, perm, (torch.from_numpy(color), torch.from_numpy(emission)), mode=mode)
+        jout, jn = jvox.sort_and_unique_sums(hi, lo, jcol, jemi, jnp.asarray(valid))
+        assert nu == int(jn)
+        np.testing.assert_array_equal(u_code.numpy(),
+                                      unique_codes(dict(m_hi=jout[0], m_lo=jout[1]), nu))
+        for got, w in zip((*sums6, count), jout[2:]):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(w)[:nu])
+    n_runs = len(STREAMS[name][0])
+    assert nu == n_runs
+    heads = vox.run_heads_plain(s_key)
+    tile = vox.UNIQUE_TILE
+    assert heads.dtype == torch.int64 and len(heads) == -(-len(code) // tile)
+    assert int(heads.sum()) == nu
+    firsts = torch.unique_consecutive(s_key[s_key != vox.INVALID_KEY], return_counts=True)[1]
+    first_at = torch.cumsum(firsts, 0) - firsts
+    assert torch.equal(heads, torch.bincount(first_at // tile, minlength=len(heads)))
+
+
+def test_unique_tile_matches_the_kernels():
+    """UNIQUE_TILE is the kernels' tile: kThreads * kUniqueItems."""
+    import re
+    from pathlib import Path
+
+    src = (Path(vox.__file__).parent.parent / "csrc" / "vox_build.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    items = int(re.search(r"constexpr int kUniqueItems = (\d+);", src).group(1))
+    assert vox.UNIQUE_TILE == threads * items
+
+
 @pytest.mark.parametrize("stages", [None, "plain"])
 def test_build_scene_same_tree_at_both_chunk_sizes(stages, monkeypatch):
     """build_scene on the CPU, through the wrappers (stages None) and the
@@ -202,18 +304,28 @@ def test_wrappers_refuse_bad_inputs_and_count_nothing():
     with pytest.raises(ValueError, match="col"):
         vox.emit(tri, col[:3], emi, end - counts, origin, dps, out, **kw)
     vox.emit(tri, col, emi, end - counts, origin, dps, out, **kw)
-    s_key, perm, boundary, seg, nu = vox._sorted_segments(out[0])
+    s_key, perm = torch.sort(out[0], stable=True)
     with pytest.raises(ValueError, match="mode"):
-        vox.unique_reduce(s_key, perm, boundary, seg, nu, out[1:], mode="mean")
+        vox.unique_reduce(s_key, perm, out[1:], mode="mean")
     with pytest.raises(ValueError, match="takes 7"):
-        vox.unique_reduce(s_key, perm, boundary, seg, nu, out[1:], mode="merge")
+        vox.unique_reduce(s_key, perm, out[1:], mode="merge")
     with pytest.raises(ValueError, match="attrs"):
-        vox.unique_reduce(s_key, perm, boundary, seg, nu, (out[1], out[2].long()),
-                          mode="means")
+        vox.unique_reduce(s_key, perm, (out[1], out[2].long()), mode="means")
+    with pytest.raises(ValueError, match="perm"):
+        vox.unique_reduce(s_key, perm.int(), out[1:], mode="means")
+    with pytest.raises(ValueError, match="s_key"):
+        vox.run_heads(s_key[None])
+    with pytest.raises(ValueError, match="ends"):
+        vox.reduce_tiles(s_key, perm, out[1:], torch.zeros(2, dtype=torch.int64), 1,
+                         mode="means")
     with pytest.raises(ValueError, match="stages"):
         vox.sort_and_unique(dict(code=out[0], color=out[1], emission=out[2]), stages="cuda")
-    got = vox.unique_reduce(s_key, perm, boundary, seg, nu, out[1:], mode="means")
+    got, nu = vox.unique_reduce(s_key, perm, out[1:], mode="means")
     assert len(got[0]) == nu > 0
+    ends = torch.cumsum(vox.run_heads(s_key), 0)
+    assert int(ends[-1]) == nu
+    for x, y in zip(vox.reduce_tiles(s_key, perm, out[1:], ends, nu, mode="means"), got):
+        assert torch.equal(x, y)
     assert vox.LAUNCHES == dict.fromkeys(vox.KERNELS, 0)
 
 
