@@ -168,7 +168,10 @@ Phases (any failure raises, and the script exits non-zero):
      through the brick tree at 640x360 (cut from 1080p; its brick_walk
      launches counted), its mean within 1% of the megakernel's step, and
      every structure's walk kernel against its plain walk on that step's
-     recorded bounce-1 BSDF and NEE (shadow) batches, bit for bit;
+     recorded bounce-1 BSDF and NEE (shadow) batches, bit for bit, each
+     then timed with its bound; beside the brick walk's times the cells it
+     tests a visit (walk_rows: the set bits a selection over the whole mask scans, the
+     crossed and occupied cells the current one scans at most);
      (b) the terrain shell through the streamed build: park="device" ==
      park="host" at 2048^3, then apps/scale_shell.py at 16384^3 (the JAX
      package's a1 = 0.0395 run): n_voxels == the column pass, build time,
@@ -2457,12 +2460,12 @@ def camera_rays(cam, width: int, height: int, device):
     return common.camera_rays(cam, width, height, device)
 
 
-def trace(tree, ro, rd):
+def trace(tree, ro, rd, shadow: bool = False):
     from massivevoxelraytracing_torch.models import accel
 
     kind, depth, meta, root = accel.accel_args(tree)
     return accel.intersect_with(kind, depth, meta, root, tree.lower, tree.upper,
-                                ro, rd)
+                                ro, rd, shadow=shadow)
 
 
 def card_vs_cpu(tree, ro, rd, what: str) -> int:
@@ -2496,6 +2499,22 @@ def walk_vs_plain(tree, ro, rd, shadow: bool, what: str) -> tuple:
 
 
 WALK_OF = {"brick": "brick_walk", "octree": "octree_walk", "octree_nodag": "octree_walk"}
+
+
+def cells_a_visit(reach: dict) -> dict:
+    """The brick walk's cells tested a visit, off common.walk_rows: the set
+    bits a selection over the whole mask scans, and the crossed and occupied cells the
+    current one scans at most (none for the octree)."""
+    if "bits" not in reach:
+        return {}
+    v = max(reach["visits"], 1)
+    return dict(bits_a_visit=reach["bits"] / v, cells_a_visit=reach["cells"] / v)
+
+
+def cells_note(reach: dict) -> str:
+    c = cells_a_visit(reach)
+    return (f"; a visit {c['bits_a_visit']:.2f} set bits (a scan of the whole mask) vs "
+            f"{c['cells_a_visit']:.2f} crossed and occupied cells (at most, now)") if c else ""
 
 
 def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
@@ -2558,7 +2577,8 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
         got, walk_ms = timed(lambda: trace(tree, ro, rd), reps=TIMED_FRAMES)
         _, walk_plain_ms = timed(lambda: accel.intersect_with(*plain_args, stages="plain"),
                                  reps=1, warm=False)
-        entered, rows, visits = common.walk_rows(*plain_args[:6], ro, rd)
+        reach = common.walk_rows(*plain_args[:6], ro, rd)
+        entered, rows, visits = reach["entered"], reach["rows"], reach["visits"]
         b_ms, b_by = common.walk_bound(kind, ro.shape[0], rows, visits)
         got = [x.cpu().numpy() for x in got]
         kinds = classify_structures(*mega, *got, codes, (0.0, 0.0, 0.0), 1.0 / GRID,
@@ -2577,7 +2597,7 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
                          share=b_ms / walk_ms, rays=int(ro.shape[0]), entered=entered,
                          rows=rows, visits=visits, hits=hits, max_abs_err=err,
                          classified=kinds, pixels_differ=n_px, sample_max_ulp=max_ulp,
-                         frame_launches=n)
+                         frame_launches=n, **cells_a_visit(reach))
         print(f"[phase7] {name} {GRID}^3 lattice: {tree.n_voxels} voxels, "
               f"{tree.n_nodes} nodes, {tree.memory_bytes()} bytes; build "
               f"{build_s:.3f} s (accel {st['t_accel_s'] * 1e3:.1f} ms); frame "
@@ -2592,7 +2612,7 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
               f"{ro.shape[0]} frame rays ({hits} hits, {entered} entering): "
               f"{walk_ms:.3f} ms vs plain walk on the card {walk_plain_ms:.1f} ms; "
               f"bound {b_ms:.4f} ms ({b_by}: {rows} distinct rows, {visits} visits), "
-              f"share {b_ms / walk_ms:.1%} [{smi}]", flush=True)
+              f"share {b_ms / walk_ms:.1%}{cells_note(reach)} [{smi}]", flush=True)
         trees[name] = tree
         del img, depth, p_img, p_depth
 
@@ -2645,13 +2665,24 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
     if sb or not ss:
         raise AssertionError("recorded batches are not BSDF then NEE")
     for name, tree in trees.items():
+        kind, depth_, meta, root = accel.accel_args(tree)
         for label, r_o, r_d, shadow in (("BSDF", ro_b, rd_b, False), ("NEE", ro_s, rd_s, True)):
             err, hits = walk_vs_plain(tree, r_o, r_d, shadow, f"{name} bounce-1 {label}")
+            _, ms = timed(lambda: trace(tree, r_o, r_d, shadow), reps=TIMED_FRAMES)
+            reach = common.walk_rows(kind, depth_, meta, root, tree.lower, tree.upper, r_o, r_d,
+                                     shadow=shadow)
+            b_ms, b_by = common.walk_bound(kind, r_o.shape[0], reach["rows"], reach["visits"],
+                                           shadow=shadow)
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-            out[name][f"pt_{label}_hits"] = hits
+            out[name][f"pt_{label}"] = dict(rays=int(r_o.shape[0]), hits=hits, ms=ms,
+                                            bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
+                                            visits=reach["visits"], rows=reach["rows"],
+                                            **cells_a_visit(reach))
             print(f"[phase7] {WALK_OF[name]} ({name}) == plain walk bit for bit on the brick "
                   f"PT step's bounce-1 {label} batch ({r_o.shape[0]} lanes, {hits} hits, "
-                  f"shadow {shadow}) [{smi}]", flush=True)
+                  f"shadow {shadow}): {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                  f"{reach['rows']} distinct rows, {reach['visits']} visits), share "
+                  f"{b_ms / ms:.1%}{cells_note(reach)} [{smi}]", flush=True)
     del trees
     torch.cuda.empty_cache()
     return out
@@ -3361,7 +3392,9 @@ def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_path
             extra = dict(share=tm["bound_ms"] / tm["ms"], structures={
                 k: {f: structures[k][f] for f in (
                     "frame_ms", "plain_frame_ms", "walk_ms", "walk_plain_ms", "bound_ms",
-                    "bound_by", "share", "rays", "entered", "rows", "visits", "hits")}
+                    "bound_by", "share", "rays", "entered", "rows", "visits", "hits",
+                    "pt_BSDF", "pt_NEE", "bits_a_visit", "cells_a_visit")
+                    if f in structures[k]}
                 for k in names})
             err = max(structures[k]["max_abs_err"] for k in names)
         by_path.update({path: got[name] for path, got in others.items() if got.get(name)})

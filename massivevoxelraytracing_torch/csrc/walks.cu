@@ -11,13 +11,20 @@
 //       bricktree.py:240-437 (its while_loop body and the walk's set-up),
 //       the port's ops/bricktree.py _brick_body + traverse.walk_state +
 //       traverse.run_walk. A node's 16-byte meta row [mask_lo, mask_hi,
-//       base, 0] is one vector load. Only an occupied cell can be valid, so
-//       the 64-cell selection visits only the set bits of the node's mask
-//       (a bit b is the walk's cell c = b ^ mirror); it keeps the
-//       lexicographic minimum (entry, c) over the Morton cell index c, and
-//       the strict rule (a valid entry of MAX_FLOAT is never taken).
-//       `shadow` changes nothing in this walk (the rank comes from
-//       popcounts), so one body serves both.
+//       base, 0] is one vector load. A ray crosses at most 10 of a node's
+//       64 cells, so a visit first builds the mask of the cells it can
+//       accept (crossed_cells: the 15 cell planes once, then pairwise
+//       plane comparisons, exact) and ANDs it with the node's occupancy;
+//       the selection then runs over those bits only (a bit b is the
+//       walk's cell c = b ^ mirror), keeping its own test, the
+//       lexicographic minimum (entry, c) over the Morton cell index c and
+//       the strict rule (a valid entry of MAX_FLOAT is never taken). A
+//       visit that returns to a node (a pop, or a leaf cell behind the
+//       origin) takes the candidates its earlier visit left, carried on
+//       the stack or in registers, instead of rebuilding the mask. Each
+//       iteration is still one visit with one decision, as in the plain
+//       walk, so max_iters cuts the same lanes. `shadow` changes nothing in
+//       this walk (the rank comes from popcounts), so one body serves both.
 //   octree_walk_kernel<SHADOW> replaces ops/traverse2.py:54-273 (the v2
 //       walk over children ++ psum), the port's ops/traverse2.py _v2_body.
 //       It reads only the two words of the node's 64-byte row it uses
@@ -48,7 +55,8 @@
 //   - the cell planes: the brick walk's t1 - dt * (scale - (scale * 0.25)
 //     * k), the v2 walk's t1 - dt * (0.5 * scale) and t1 - dt * scale, in
 //     that order, with no FMA (recomputed where used: the same operations
-//     on the same values give the same bits);
+//     on the same values give the same bits); scale is a power of 4 fixed
+//     by the depth, so a brick stack entry keeps the depth alone;
 //   - max / min propagate NaN as torch.maximum / torch.minimum do
 //     (fmaxf / fminf would drop it), and so does the clamp;
 //   - the stack bounds above;
@@ -161,6 +169,81 @@ __device__ __forceinline__ float plane4(float t1, float dt, float scale, float q
   return t1 - dt * (scale - qs * static_cast<float>(k));
 }
 
+// the node's own cell (x, y, z) in [0, 4)^3 as its bit b (the Morton cell
+// index, bricktree._POS_CELL)
+__host__ __device__ constexpr int cell_bit(int x, int y, int z) {
+  return (x & 1) | ((y & 1) << 1) | ((z & 1) << 2) | ((x >> 1) << 3) | ((y >> 1) << 4) |
+         ((z >> 1) << 5);
+}
+
+// The crossed-cell mask's words. A 64-bit cell mask is two words, lo
+// (cells with z < 2) and hi (z >= 2). kXY: the cells (i, j, any z) in one
+// word (the same in both); kXZ / kYZ: the cells (i, any y, k) / (any x,
+// j, k) in word k >> 1.
+__host__ __device__ constexpr uint32_t kXY(int i, int j) {
+  return (1u << cell_bit(i, j, 0)) | (1u << cell_bit(i, j, 1));
+}
+__host__ __device__ constexpr uint32_t kXZ(int i, int k) {
+  uint32_t w = 0;
+  for (int y = 0; y < 4; ++y) w |= 1u << (cell_bit(i, y, k) & 31);
+  return w;
+}
+__host__ __device__ constexpr uint32_t kYZ(int j, int k) {
+  uint32_t w = 0;
+  for (int x = 0; x < 4; ++x) w |= 1u << (cell_bit(x, j, k) & 31);
+  return w;
+}
+
+// One axis of a visit in the node's own cell order: cell r is entered at
+// en[r] and left at ex[r], the planes of walk coordinate r, or 3 - r where
+// the axis is mirrored (the 5 planes computed once, as plane4 does); ex[r]
+// is NaN where the cell's own interval is empty or behind the origin.
+__device__ __forceinline__ void axis_cells(float t1, float dt, const float step[5], bool mir,
+                                           float en[4], float ex[4]) {
+  float p[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) p[k] = t1 - dt * step[k];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    en[r] = mir ? p[3 - r] : p[r];
+    const float x = mir ? p[4 - r] : p[r + 1];
+    ex[r] = (en[r] < x) & (x > 0.0f) ? x : __int_as_float(0x7fc00000);
+  }
+}
+
+// The cells of this visit the selection can accept, as a mask over the
+// node's own bits: cell (x, y, z) passes iff en < ex and ex > 0, that is
+// iff each of its axes' intervals is non-empty and in front (axis_cells)
+// and each pair of them overlaps (en_a < ex_b and en_b < ex_a). That is
+// the nine comparisons en_a < ex_b that max(en) < min(ex) means, and a NaN
+// plane fails one of them as it makes en or ex NaN; a comparison does not
+// round. So the mask is the set the selection accepts before its resume
+// key, exactly (bricktree.crossed_cells_plain is this construction as
+// tensor code). 96 comparisons, each pair's predicated into its word.
+__device__ __forceinline__ uint64_t crossed_cells(float t1x, float t1y, float t1z, float dtx,
+                                                  float dty, float dtz, float scale,
+                                                  float qs, uint32_t vm) {
+  float step[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) step[k] = scale - qs * static_cast<float>(k);
+  float ex_[4], ey_[4], ez_[4], xx[4], xy[4], xz[4];
+  axis_cells(t1x, dtx, step, vm & 1u, ex_, xx);
+  axis_cells(t1y, dty, step, vm & 2u, ey_, xy);
+  axis_cells(t1z, dtz, step, vm & 4u, ez_, xz);
+  uint32_t w_xy = 0, w_xz[2] = {0, 0}, w_yz[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((ex_[i] < xy[j]) & (ey_[j] < xx[i])) w_xy |= kXY(i, j);
+      if ((ex_[i] < xz[j]) & (ez_[j] < xx[i])) w_xz[j >> 1] |= kXZ(i, j);
+      if ((ey_[i] < xz[j]) & (ez_[j] < xy[i])) w_yz[j >> 1] |= kYZ(i, j);
+    }
+  }
+  return static_cast<uint64_t>(w_xy & w_xz[0] & w_yz[0]) |
+         (static_cast<uint64_t>(w_xy & w_xz[1] & w_yz[1]) << 32);
+}
+
 __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
   const uint32_t mirror[3] = {0b001001u, 0b010010u, 0b100100u};  // bricktree._MIRROR64
   const int4* meta = static_cast<const int4*>(a.meta);
@@ -178,10 +261,17 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
     const float dtx = r.dt[0], dty = r.dt[1], dtz = r.dt[2];
     float scale = 1.0f, rk_t = a.k.neg_inf;
     int rk_c = -1, sp = 0;
-    uint32_t s_node[kMaxDepth];
-    int s_depth[kMaxDepth], s_rkc[kMaxDepth];
-    float s_t1x[kMaxDepth], s_t1y[kMaxDepth], s_t1z[kMaxDepth], s_scale[kMaxDepth],
-        s_rkt[kMaxDepth];
+    // the candidates of the coming visit when it stands where an earlier
+    // one stood (a pop, or a leaf cell behind the origin): that visit's
+    // valid cells less the one it took, which are exactly the cells after
+    // its (best_t, best_c) among its crossed and occupied ones
+    bool have = false;
+    uint64_t carried = 0;
+    // a stack entry: node, t1, the resume key, depth (scale = 4^-(levels -
+    // 1 - depth)) and the carried candidates
+    uint32_t s_node[kMaxDepth], s_key[kMaxDepth];
+    float s_t1x[kMaxDepth], s_t1y[kMaxDepth], s_t1z[kMaxDepth], s_rkt[kMaxDepth];
+    uint64_t s_cand[kMaxDepth];
     for (long long it = 0; it < a.max_iters && active; ++it) {
       const long long row_i = static_cast<long long>(node) < a.last
                                   ? static_cast<long long>(node) : a.last;
@@ -190,12 +280,17 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
                             (static_cast<uint64_t>(static_cast<uint32_t>(row.y)) << 32);
       const uint32_t base = static_cast<uint32_t>(row.z);
       const float qs = scale * 0.25f;
+      const uint64_t cand =
+          have ? carried : crossed_cells(t1x, t1y, t1z, dtx, dty, dtz, scale, qs, r.vm) & mask;
+      have = false;
 
-      // the selection over the occupied cells: (en, c) lexicographic min
+      // the selection over the candidates: (en, c) lexicographic min
       float best_t = a.k.max_float;
       int best_c = 64, n_valid = 0;
-      for (uint64_t m = mask; m != 0; m &= m - 1) {
-        const int c = (__ffsll(static_cast<long long>(m)) - 1) ^ static_cast<int>(r.vm);
+      uint64_t valid = 0;
+      for (uint64_t m = cand; m != 0; m &= m - 1) {
+        const int b = __ffsll(static_cast<long long>(m)) - 1;
+        const int c = b ^ static_cast<int>(r.vm);
         int cx, cy, cz;
         cell_coords(c, cx, cy, cz);
         const float en = tmax(plane4(t1x, dtx, scale, qs, cx),
@@ -207,6 +302,7 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
         const bool after = en > rk_t || (en == rk_t && c > rk_c);
         if (en < ex && ex > 0.0f && after) {
           ++n_valid;
+          valid |= 1ull << b;
           if (en < best_t) {
             best_t = en;
             best_c = en < a.k.max_float ? c : 64;
@@ -220,6 +316,7 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
         const int rb = (best_c ^ static_cast<int>(r.vm)) & 63;
         const uint32_t target =
             base + static_cast<uint32_t>(__popcll(mask & ((1ull << rb) - 1ull)));
+        const uint64_t rest = valid & ~(1ull << rb);
         int cx, cy, cz;
         cell_coords(best_c, cx, cy, cz);
         if (depth == 0) {
@@ -233,18 +330,19 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
           } else {  // behind the origin: stay, resume past it
             rk_t = best_t;
             rk_c = best_c;
+            carried = rest;
+            have = true;
           }
         } else {  // descend, pushing this node if another cell is valid
           if (n_valid > 1) {
             if (sp < D) {
               s_node[sp] = node;
-              s_depth[sp] = depth;
+              s_key[sp] = static_cast<uint32_t>(best_c) | (static_cast<uint32_t>(depth) << 8);
               s_t1x[sp] = t1x;
               s_t1y[sp] = t1y;
               s_t1z[sp] = t1z;
-              s_scale[sp] = scale;
               s_rkt[sp] = best_t;
-              s_rkc[sp] = best_c;
+              s_cand[sp] = rest;
             }
             ++sp;
           }
@@ -262,17 +360,20 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
         }
       } else if (sp == 0) {  // nothing left: a miss
         active = false;
-      } else {  // pop
+      } else {  // pop; past the stack's depth every field reads 0
         --sp;
         const bool in = sp < D;
+        const uint32_t key = in ? s_key[sp] : 0u;
         node = in ? s_node[sp] : 0u;
-        depth = in ? s_depth[sp] : 0;
+        depth = static_cast<int>(key >> 8);
         t1x = in ? s_t1x[sp] : 0.0f;
         t1y = in ? s_t1y[sp] : 0.0f;
         t1z = in ? s_t1z[sp] : 0.0f;
-        scale = in ? s_scale[sp] : 0.0f;
+        scale = in ? __int_as_float((127 - 2 * (a.depth - 1 - depth)) << 23) : 0.0f;
         rk_t = in ? s_rkt[sp] : 0.0f;
-        rk_c = in ? s_rkc[sp] : 0;
+        rk_c = static_cast<int>(key & 0xFFu);
+        carried = in ? s_cand[sp] : 0ull;
+        have = in;
       }
     }
     if (active) {  // cut by max_iters: a miss

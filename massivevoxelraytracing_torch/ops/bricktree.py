@@ -190,6 +190,64 @@ def _cell_coords(c):
             ((c >> 2) & 1) | (((c >> 5) & 1) << 1))
 
 
+def _cell_planes(t1x, t1y, t1z, dtx, dty, dtz, scale, quarters):
+    """A visit's 15 cell planes, tb[k] = t1 - dt*(scale - (scale/4)*k) for
+    k = 0..4 (f32 [n, 5] an axis, in the walk's mirrored frame), and
+    scale / 4. quarters: f32 [0, 1, 2, 3, 4]."""
+    qs = scale * 0.25
+    steps = scale[:, None] - qs[:, None] * quarters[None, :]
+    return (t1x[:, None] - dtx[:, None] * steps, t1y[:, None] - dty[:, None] * steps,
+            t1z[:, None] - dtz[:, None] * steps, qs)
+
+
+def _cell_entry_exit(tbx, tby, tbz):
+    """Every cell's entry and exit (f32 [n, 64], x-major 4 x 4 x 4): the max
+    / min of its planes over the axes, NaN if any is NaN."""
+    n = tbx.shape[0]
+    en = torch.maximum(tbx[:, :4, None, None], torch.maximum(
+        tby[:, None, :4, None], tbz[:, None, None, :4])).reshape(n, 64)
+    ex = torch.minimum(tbx[:, 1:, None, None], torch.minimum(
+        tby[:, None, 1:, None], tbz[:, None, None, 1:])).reshape(n, 64)
+    return en, ex
+
+
+def crossed_cells_plain(tbx, tby, tbz, vmask):
+    """brick_walk_kernel's mask of the cells a visit may accept, as tensor
+    code (the tests hold it against the body's own en < ex & ex > 0; no
+    route runs it). tb*: a visit's planes (f32 [n, 5] an axis, as
+    _cell_planes gives them); vmask: int [n], the walk's mirror. Returns
+    int64 [n], a bit pattern over the node's own cells: bit b is set iff
+    walk cell c = b ^ vmask has en < ex and ex > 0.
+
+    The kernel's construction, comparison for comparison. Along each axis
+    the node's cell r enters at E[r] and leaves at X[r], the planes of walk
+    coordinate r, or 3 - r where the axis is mirrored. A cell whose own
+    interval is empty or behind the origin (not E[r] < X[r] and X[r] > 0)
+    gets X[r] = NaN, so every comparison against it fails. Cell (x, y, z)
+    is accepted iff each pair of its axes' intervals overlaps (E_a < X_b
+    and E_b < X_a): with the diagonal terms above, these are the nine
+    comparisons en_a < ex_b that max(E) < min(X) means when nothing is NaN,
+    and a NaN plane fails one of them as it makes en or ex NaN. A
+    comparison does not round, so the mask is the accepted set exactly."""
+    n = tbx.shape[0]
+    dev = tbx.device
+    planes = torch.stack([tbx, tby, tbz], 1)
+    mir = torch.stack([(vmask & m) != 0 for m in _MIRROR64], 1)[:, :, None]
+    r = torch.arange(4, device=dev)
+    enter = torch.where(mir, planes[:, :, 3 - r], planes[:, :, r])
+    leave = torch.where(mir, planes[:, :, 4 - r], planes[:, :, r + 1])
+    leave = torch.where((enter < leave) & (leave > 0.0), leave, float("nan"))
+
+    def overlap(a, b):  # [n, 4, 4]: cell i on axis a, cell j on axis b
+        return ((enter[:, a, :, None] < leave[:, b, None, :])
+                & (enter[:, b, None, :] < leave[:, a, :, None]))
+
+    xy, xz, yz = overlap(0, 1), overlap(0, 2), overlap(1, 2)
+    crossed = (xy[:, :, :, None] & xz[:, :, None, :] & yz[:, None, :, :]).reshape(n, 64)
+    bits = torch.ones(64, dtype=I64, device=dev) << torch.tensor(_POS_CELL, device=dev)
+    return torch.where(crossed, bits[None, :], 0).sum(1)
+
+
 def _brick_body(meta):
     last = meta.shape[0] - 1
     dev = meta.device
@@ -202,25 +260,15 @@ def _brick_body(meta):
         t1x, t1y, t1z = st["t1x"], st["t1y"], st["t1z"]
         scale = st["scale"]
         vm64 = st["vmask"]
-        n = node.shape[0]
 
         # the node's meta row (the one read)
         row = meta[torch.clamp(torch.where(active, node, 0), 0, last)].to(I64) & MASK32
         mask_lo, mask_hi, base = row[:, 0], row[:, 1], row[:, 2]
 
-        # cell boundaries: tb[k] = t1 - dt*(scale - (scale/4)*k), k = 0..4
-        qs = scale * 0.25
-        steps = scale[:, None] - qs[:, None] * quarters[None, :]
-        tbx = t1x[:, None] - st["dtx"][:, None] * steps
-        tby = t1y[:, None] - st["dty"][:, None] * steps
-        tbz = t1z[:, None] - st["dtz"][:, None] * steps
-
-        # every cell's entry and exit: max / min over the axes, broadcast
-        # over the x-major 4 x 4 x 4 layout
-        en = torch.maximum(tbx[:, :4, None, None], torch.maximum(
-            tby[:, None, :4, None], tbz[:, None, None, :4])).reshape(n, 64)
-        ex = torch.minimum(tbx[:, 1:, None, None], torch.minimum(
-            tby[:, None, 1:, None], tbz[:, None, None, 1:])).reshape(n, 64)
+        # cell boundaries, and every cell's entry and exit
+        tbx, tby, tbz, qs = _cell_planes(t1x, t1y, t1z, st["dtx"], st["dty"],
+                                         st["dtz"], scale, quarters)
+        en, ex = _cell_entry_exit(tbx, tby, tbz)
         mask64 = mask_lo | (mask_hi << 32)
         occ = ((mask64[:, None] >> (cells ^ vm64[:, None])) & 1) == 1
         best_t, best_c, n_valid = _select_child(

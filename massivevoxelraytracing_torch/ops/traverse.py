@@ -334,6 +334,25 @@ def walk_device(name: str, meta, cols: int, lower, upper, ro, rd, depth: int) ->
     return dev.type
 
 
+def walk_launch_args(meta, root: int, lower, upper, ro, rd, *, depth: int, max_iters: int):
+    """The walk kernels' launch arguments but the stream (and the octree's
+    shadow flag), and new outputs (t f32 [R], nmajor int32 [R], vidx int32
+    [R]); the tensors the pointers reach are kept alive in the tuple."""
+    n = ro.shape[0]
+    meta = meta.contiguous()
+    ro, rd = ro.contiguous(), rd.contiguous()
+    bounds = torch.cat([lower, upper]).contiguous()
+    out = (torch.empty(n, dtype=F32, device=ro.device),
+           torch.empty(n, dtype=torch.int32, device=ro.device),
+           torch.empty(n, dtype=torch.int32, device=ro.device))
+    consts = (float(np.float32(0.25 * MAX_FLOAT)), float(np.float32(MAX_FLOAT)),
+              float(np.float32(NEG_INF)))
+    head = (meta.data_ptr(), meta.shape[0], bounds.data_ptr(), ro.data_ptr(),
+            rd.data_ptr(), n, int(root) & MASK32, int(depth), max(int(max_iters), 0),
+            *consts, *(x.data_ptr() for x in out))
+    return head, out, (meta, ro, rd, bounds)
+
+
 def launch_walk(name: str, meta, root: int, lower, upper, ro, rd, *, depth: int,
                 shadow: bool, max_iters: int):
     """Launch brick_walk_kernel or octree_walk_kernel<shadow> on CUDA
@@ -343,17 +362,8 @@ def launch_walk(name: str, meta, root: int, lower, upper, ro, rd, *, depth: int,
 
     dev = ro.device
     n = ro.shape[0]
-    meta = meta.contiguous()
-    ro, rd = ro.contiguous(), rd.contiguous()
-    bounds = torch.cat([lower, upper]).contiguous()
-    t = torch.empty(n, dtype=F32, device=dev)
-    nmaj = torch.empty(n, dtype=torch.int32, device=dev)
-    vidx = torch.empty(n, dtype=torch.int32, device=dev)
-    consts = (float(np.float32(0.25 * MAX_FLOAT)), float(np.float32(MAX_FLOAT)),
-              float(np.float32(NEG_INF)))
-    head = (meta.data_ptr(), meta.shape[0], bounds.data_ptr(), ro.data_ptr(),
-            rd.data_ptr(), n, int(root) & MASK32, int(depth), max(int(max_iters), 0),
-            *consts, t.data_ptr(), nmaj.data_ptr(), vidx.data_ptr())
+    head, (t, nmaj, vidx), _keep = walk_launch_args(meta, root, lower, upper, ro, rd,
+                                                    depth=depth, max_iters=max_iters)
     lib = cuda_build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -595,26 +595,43 @@ WALK_VISIT_OPS = {"brick": 60, "octree": 44}
 WALK_ROW_BYTES = {"brick": 16, "octree": 64, "octree_shadow": 32}
 
 
-def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool = False):
-    """(rays entering the box, distinct rows, row visits) of the brick or
-    v2 walk of these rays, read off the plain walk (every active lane
-    stands on one node an iteration and reads its row; a v2 lane that
-    finds no child pops without reading it, so this counts at most one
-    row more a lane and visit)."""
+def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool = False) -> dict:
+    """What the brick or v2 walk of these rays reads, off the plain walk:
+    `entered` (rays entering the box), `rows` (distinct rows) and `visits`
+    (row visits: every active lane stands on one node an iteration and
+    reads its row; a v2 lane that finds no child pops without reading it,
+    so this counts at most one row more a lane and visit). For the brick
+    walk also `bits`, the set bits of the visited nodes' masks (the cells
+    a selection over the whole mask tests a visit), and `cells`, the occupied cells of
+    bricktree.crossed_cells_plain's mask (the most the current selection
+    tests a visit; a visit that returns to a node tests fewer)."""
     from ..ops import bricktree, traverse2
+    from ..ops.bits import MASK32, popcount32
 
     n_rows = meta.shape[0]
     seen = torch.zeros(n_rows, dtype=torch.bool, device=meta.device)
-    visits = [0, 0]
+    out = dict(entered=0, rows=0, visits=0)
+    if kind == "brick":
+        out.update(bits=0, cells=0)
+        quarters = torch.arange(5, dtype=torch.float32, device=meta.device)
 
     def on_step(st):
-        if visits[1] == 0:
-            visits[1] = int(st["lane"].shape[0])  # the lanes that entered
-        node = st["node"][st["active"]]
+        if out["entered"] == 0:
+            out["entered"] = int(st["lane"].shape[0])  # the lanes that entered
+        act = st["active"]
+        node = st["node"][act]
         if kind == "octree":
             node = node & 0xFFFFFF
-        seen[torch.clamp(node, 0, n_rows - 1)] = True
-        visits[0] += int(node.shape[0])
+        row = torch.clamp(node, 0, n_rows - 1)
+        seen[row] = True
+        out["visits"] += int(node.shape[0])
+        if kind == "brick":
+            mask = (meta[row, 0].to(torch.int64) & MASK32) | (meta[row, 1].to(torch.int64) << 32)
+            planes = bricktree._cell_planes(*(st[k][act] for k in (
+                "t1x", "t1y", "t1z", "dtx", "dty", "dtz", "scale")), quarters)[:3]
+            both = mask & bricktree.crossed_cells_plain(*planes, st["vmask"][act])
+            for m, key in ((mask, "bits"), (both, "cells")):
+                out[key] += int((popcount32(m & MASK32) + popcount32((m >> 32) & MASK32)).sum())
 
     if kind == "brick":
         bricktree.intersect_rays_brick_plain(meta, root, lower, upper, ro, rd,
@@ -622,7 +639,8 @@ def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool =
     else:
         traverse2.intersect_rays2_plain(meta, root, lower, upper, ro, rd,
                                         stack_depth=depth, shadow=shadow, on_step=on_step)
-    return visits[1], int(seen.sum()), visits[0]
+    out["rows"] = int(seen.sum())
+    return out
 
 
 def walk_bound(kind: str, n_rays: int, rows: int, visits: int, shadow: bool = False) -> tuple:

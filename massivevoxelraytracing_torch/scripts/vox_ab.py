@@ -34,8 +34,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import subprocess
-import time
 import types
 
 import numpy as np
@@ -59,25 +57,8 @@ def build_old(src: str, out_dir: str):
     suffixed `_old`; returns its launch functions (count, emit, reduce;
     heads and tile when it has this design's run heads' count, else
     None)."""
-    os.makedirs(out_dir, exist_ok=True)
-    with open(src) as f:
-        text = f.read()
-    for name in ENTRY_POINTS:
-        text = text.replace(name + "(", name + "_old(")
-    stem = os.path.splitext(os.path.basename(src))[0]
-    renamed = os.path.join(out_dir, f"{stem}_renamed.cu")
-    with open(renamed, "w") as f:
-        f.write(text)
-    lib_path = os.path.join(out_dir, f"lib{stem}_renamed.so")
-    compile_cmds, link = cuda_build.nvcc_commands(cuda_build.nvcc_path(), lib_path, [renamed])
-    t0 = time.perf_counter()
-    for cmd in (*compile_cmds, link):
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cmd[-1]}:\n{done.stderr[-4000:]}")
-    print(f"[vox_ab] built the earlier design from {src} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    lib = ctypes.CDLL(lib_path)
+    lib, text, seconds, _log = cuda_build.build_renamed(src, out_dir, ENTRY_POINTS)
+    print(f"[vox_ab] built the earlier design from {src} in {seconds:.1f} s", flush=True)
     cur = cuda_build.load()
     lib.vox_count_launch_old.argtypes = cur.vox_count_launch.argtypes
     lib.vox_emit_launch_old.argtypes = cur.vox_emit_launch.argtypes

@@ -255,6 +255,33 @@ def _bind(lib):
     return lib
 
 
+def build_renamed(src: str, out_dir: str, entry_points, suffix: str = "_old"):
+    """An earlier version of one kernel source, built with the library's
+    nvcc flags into a library of its own under out_dir, its C entry points
+    (each name followed by "(") renamed with `suffix` so that it loads
+    beside the current library. Returns (the ctypes library, the source
+    text as built, wall seconds, the ptxas report); raises if nvcc fails."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(src) as f:
+        text = f.read()
+    for name in entry_points:
+        text = text.replace(name + "(", name + suffix + "(")
+    stem = os.path.splitext(os.path.basename(src))[0]
+    renamed = os.path.join(out_dir, f"{stem}_renamed.cu")
+    with open(renamed, "w") as f:
+        f.write(text)
+    lib_path = os.path.join(out_dir, f"lib{stem}_renamed.so")
+    compile_cmds, link = nvcc_commands(nvcc_path(), lib_path, [renamed])
+    t0 = time.perf_counter()
+    log = ""
+    for cmd in (*compile_cmds, link):
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {cmd[-1]}:\n{done.stderr[-4000:]}")
+        log += done.stderr
+    return ctypes.CDLL(lib_path), text, time.perf_counter() - t0, log
+
+
 def load():
     """The loaded kernel library; builds it first if the sources changed.
     Raises if nvcc is missing or the build fails."""

@@ -39,7 +39,10 @@ un-tiled and flat, on lanes with ±0 and NaN directions) and the walk
 kernels (csrc/walks.cu: brick_walk, octree_walk with DAG on and off,
 shadow on and off, max_iters cuts of 1, 7 and 100, on mirrored,
 axis-parallel, inside, parked, NaN and inf rays, and on stacks shallower
-than the walk needs) against their plain versions bit for bit, a stack
+than the walk needs; the brick walk's crossed-cell selection also on a
+full grid, a solid cube and a sparse tree, rays in cell planes, along
+axes and diagonals, from inside or on a voxel, with ±0, NaN and inf)
+against their plain versions bit for bit, a stack
 deeper than 16 refused before any launch, render_frame / render_rays
 against stages="plain" (HakoTree, brick tree, octree with DAG on and
 off), and a PT step through the walk kernels against the plain walks.
@@ -1922,6 +1925,98 @@ def test_walk_kernels_refuse_a_deep_stack_before_launch(cuda):
         with pytest.raises(ValueError, match="stack depth"):
             kernel(meta, root, tree.lower, tree.upper, ro, rd, **{key: 17})
     assert traverse.LAUNCHES == dict.fromkeys(traverse.WALK_KERNELS, 0)
+
+
+def full_grid_codes(grid_res, lo=(0, 0, 0), size=None):
+    g = torch.arange(grid_res if size is None else size)
+    x, y, z = torch.meshgrid(g, g, g, indexing="ij")
+    return morton.encode(x.reshape(-1) + lo[0], y.reshape(-1) + lo[1],
+                         z.reshape(-1) + lo[2]).unique()
+
+
+CELL_DIRS = np.array([[1, 0, 0], [0, -1, 0], [0, 0, 1], [1, 1, 0], [-1, 0, 1], [0, 1, -1],
+                      [1, 1, 1], [-1, 1, -1], [-1, -1, -1]], np.float32)
+
+
+def cell_rays(codes, grid_res, n, seed, device):
+    """Rays for the brick walk's cell selection: aimed at voxels; origins
+    on the cell-plane lattice with directions along the axes, the face
+    diagonals and (1, 1, 1) (both signs); origins inside a voxel and on
+    its face; ±0 components; NaN, inf and parked rays."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-1.0, 2.0, (n, 3)).astype(np.float32)
+    x, y, z = (v.numpy() for v in morton.decode(codes.cpu()[rng.integers(0, codes.shape[0], n)]))
+    vox = np.stack([x, y, z], -1).astype(np.float32)
+    rd = ((vox + 0.5) / grid_res - ro).astype(np.float32)
+    m = n // 8
+    ro[:2 * m] = (rng.integers(0, grid_res + 1, (2 * m, 3)) / grid_res).astype(np.float32)
+    ro[m:2 * m] = ro[m:2 * m] * np.float32(0.5) + np.float32(0.25)
+    rd[:2 * m] = CELL_DIRS[rng.integers(0, len(CELL_DIRS), 2 * m)]
+    ro[2 * m:3 * m] = ((vox[2 * m:3 * m] + 0.375) / grid_res).astype(np.float32)
+    face = vox[3 * m:4 * m] + 0.5
+    face[np.arange(m), rng.integers(0, 3, m)] -= 0.5
+    ro[3 * m:4 * m] = (face / grid_res).astype(np.float32)
+    rd[4 * m:5 * m, 0] = -0.0
+    rd[5 * m:5 * m + m // 2, 1:] = 0.0
+    rd[5 * m + m // 2:6 * m, :2] = -0.0
+    k = 6 * m
+    ro[k:k + 8] = 1e9
+    rd[k + 8:k + 12] = np.nan
+    ro[k + 12, 1] = np.nan
+    ro[k + 13] = np.inf
+    rd[k + 14] = np.inf
+    rd[k + 15, 2] = -np.inf
+    rd[k + 16] = 0.0
+    return torch.from_numpy(ro).to(device), torch.from_numpy(rd).to(device)
+
+
+@pytest.mark.parametrize("max_iters", [1, 7, 100, 100_000])
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("case", ["full grid", "solid cube", "sparse"])
+def test_brick_walk_kernel_cells_match_plain(cuda, case, shadow, max_iters):
+    """brick_walk_kernel's crossed-cell selection against the plain walk,
+    bit for bit: a full grid (every node full), a solid cube inside an
+    empty box and a sparse tree, on rays that lie in cell planes, run
+    along axes and diagonals, start inside or on a voxel, or hold ±0, NaN
+    and inf; max_iters cuts the same lanes."""
+    from massivevoxelraytracing_torch.ops import bricktree, traverse
+
+    grid = 64 if case == "full grid" else 256
+    if case == "full grid":
+        codes = full_grid_codes(grid)
+    elif case == "solid cube":
+        codes = full_grid_codes(grid, lo=(37, 64, 100), size=48)
+    else:
+        codes = structure_case(grid, 20000)[0]
+    tree = build_structure("brick", codes, grid, cuda)
+    ro, rd = cell_rays(codes, grid, 8192, grid + max_iters, cuda)
+    args = (tree.meta, tree.root, tree.lower, tree.upper, ro, rd)
+    traverse.reset_counters()
+    got = bricktree.intersect_rays_brick(*args, n_levels=tree.n_levels, shadow=shadow,
+                                         max_iters=max_iters)
+    assert traverse.LAUNCHES["brick_walk"] == 1
+    want = bricktree.intersect_rays_brick_plain(*args, n_levels=tree.n_levels, shadow=shadow,
+                                                max_iters=max_iters)
+    assert_bits(got, want, f"{case} shadow={shadow} max_iters={max_iters}")
+    if max_iters == 100_000:
+        assert int((want[0] < 1e37).sum()) > 1000
+
+
+@pytest.mark.parametrize("case", ["full grid", "sparse"])
+def test_brick_walk_kernel_cells_match_plain_on_a_shallow_stack(cuda, case):
+    """The carried candidates on the stack: pushes past a shallow stack
+    write nothing and pops there read 0, as in the plain walk."""
+    from massivevoxelraytracing_torch.ops import bricktree
+
+    grid = 64 if case == "full grid" else 256
+    codes = full_grid_codes(grid) if case == "full grid" else structure_case(grid, 20000)[0]
+    tree = build_structure("brick", codes, grid, cuda)
+    ro, rd = cell_rays(codes, grid, 4096, 17, cuda)
+    args = (tree.meta, tree.root, tree.lower, tree.upper, ro, rd)
+    for depth in (1, 2, 3):
+        assert_bits(bricktree.intersect_rays_brick(*args, n_levels=depth),
+                    bricktree.intersect_rays_brick_plain(*args, n_levels=depth),
+                    f"{case} stack {depth}")
 
 
 @pytest.mark.parametrize("accel_kind", ["brick", "octree"])
