@@ -165,13 +165,20 @@ Phases (any failure raises, and the script exits non-zero):
      reached) and share; every ray held against the megakernel's frame up
      to classified ties, grazes and plane drifts (utils/tiecheck.py),
      16,384 sampled rays on the card equal to the CPU's; one 16-spp PT step
-     through the brick tree at 640x360 (cut from 1080p; its brick_walk
-     launches counted), its mean within 1% of the megakernel's step, and
-     every structure's walk kernel against its plain walk on that step's
-     recorded bounce-1 BSDF and NEE (shadow) batches, bit for bit, each
-     then timed with its bound; beside the brick walk's times the cells it
-     tests a visit (walk_rows: the set bits a selection over the whole mask scans, the
-     crossed and occupied cells the current one scans at most);
+     through the brick tree and one through the octree (DAG) at 640x360
+     (cut from 1080p; their brick_walk / octree_walk launches counted),
+     each timed beside the megakernel's step and its mean within 1% of
+     it, and every structure's walk kernel against its plain walk on the
+     brick step's recorded bounce-1 BSDF and NEE (shadow) batches, bit for
+     bit, each then timed with its bound, and the octree walk likewise on
+     the octree step's own bounce-1 batches; beside the brick walk's times
+     the cells it tests a visit (walk_rows: the set bits a selection over
+     the whole mask scans, the crossed and occupied cells the current one
+     scans at most), beside the octree walk's the plain walk's decisions
+     (descends, hits, empty first visits that pop, return visits, stays
+     behind the origin), the occupied and the crossed-and-occupied
+     octants a visit, and the kernel's loop trips a ray against the plain
+     walk's iterations (walk_rows through traverse2.fold_counts);
      (b) the terrain shell through the streamed build: park="device" ==
      park="host" at 2048^3, then apps/scale_shell.py at 16384^3 (the JAX
      package's a1 = 0.0395 run): n_voxels == the column pass, build time,
@@ -2502,19 +2509,27 @@ WALK_OF = {"brick": "brick_walk", "octree": "octree_walk", "octree_nodag": "octr
 
 
 def cells_a_visit(reach: dict) -> dict:
-    """The brick walk's cells tested a visit, off common.walk_rows: the set
-    bits a selection over the whole mask scans, and the crossed and occupied cells the
-    current one scans at most (none for the octree)."""
-    if "bits" not in reach:
-        return {}
+    """What a walk tests, off common.walk_rows. The brick walk: the set
+    bits a selection over the whole mask scans a visit, and the crossed and
+    occupied cells the current one scans at most. The octree walk: the
+    occupied octants a visit (what a scan of every occupied octant tests), the crossed and
+    occupied ones, the plain walk's iterations and the kernel's loop trips
+    a ray that enters, and the plain walk's decisions."""
+    from massivevoxelraytracing_torch.ops import traverse2
+
     v = max(reach["visits"], 1)
-    return dict(bits_a_visit=reach["bits"] / v, cells_a_visit=reach["cells"] / v)
+    if "bits" in reach:
+        return dict(bits_a_visit=reach["bits"] / v, cells_a_visit=reach["cells"] / v)
+    rays = max(reach["entered"], 1)
+    return dict(occupied_a_visit=reach["occupied"] / v, crossed_a_visit=reach["crossed"] / v,
+                iterations_a_ray=reach["visits"] / rays, trips_a_ray=reach["trips"] / rays,
+                fold={k: reach[k] for k in traverse2.FOLD_DECISIONS})
 
 
 def cells_note(reach: dict) -> str:
-    c = cells_a_visit(reach)
-    return (f"; a visit {c['bits_a_visit']:.2f} set bits (a scan of the whole mask) vs "
-            f"{c['cells_a_visit']:.2f} crossed and occupied cells (at most, now)") if c else ""
+    from massivevoxelraytracing_torch.scripts import common
+
+    return "; " + common.visit_note(reach)
 
 
 def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
@@ -2616,26 +2631,30 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
         trees[name] = tree
         del img, depth, p_img, p_depth
 
-    # one 16-spp PT step through the brick tree (its walks counted, its
-    # bounce-1 BSDF and NEE batches recorded), and the same step through the
-    # megakernel for its mean, at a frame cut to 640x360
-    means, calls = {}, []
+    # one 16-spp PT step through the brick tree and one through the octree
+    # (DAG) (their walks counted, their bounce-1 BSDF and NEE batches
+    # recorded), and the same step through the megakernel for its mean, at
+    # a frame cut to 640x360
+    means, calls = {}, {"brick": [], "octree": []}
     real = accel.intersect_with
 
-    def recording(*a, **k):
-        if len(calls) < 5:
-            calls.append((a[6], a[7], k.get("shadow", False)))
-        return real(*a, **k)
+    def recording(into):
+        def call(*a, **k):
+            if len(into) < 5:
+                into.append((a[6], a[7], k.get("shadow", False)))
+            return real(*a, **k)
+        return call
 
-    for name, tree in (("brick", trees["brick"]), ("hako", hako_tree)):
+    for name, tree in (("brick", trees["brick"]), ("octree", trees["octree"]),
+                       ("hako", hako_tree)):
         pt = pathtracer.PathTracer(width=PT7_W, height=PT7_H, device=device)
         pt.setup()
         pt.load_hdri(bench_sky())
         pt.update_scene(tree)
         torch.cuda.synchronize()
         traverse.reset_counters()
-        if name == "brick":
-            accel.intersect_with = recording
+        if name in calls:
+            accel.intersect_with = recording(calls[name])
         try:
             t0 = time.time()
             pt.step(cam)
@@ -2643,43 +2662,54 @@ def phase_structures(hako_tree, cam, mega_img, device, smi: str, rng) -> dict:
             step_s = time.time() - t0
         finally:
             accel.intersect_with = real
-        if name == "brick":
-            out["pt_brick_launches"] = traverse.LAUNCHES["brick_walk"]
-            if out["pt_brick_launches"] < 1:
-                raise AssertionError("the brick PT step launched no brick_walk kernel")
+        note = ""
+        if name in calls:
+            walk = WALK_OF[name]
+            out[f"pt_{name}_launches"] = traverse.LAUNCHES[walk]
+            if out[f"pt_{name}_launches"] < 1:
+                raise AssertionError(f"the {name} PT step launched no {walk} kernel")
+            note = f", {walk} launches {out[f'pt_{name}_launches']}"
         if not bool(torch.isfinite(pt.accum).all()):
             raise AssertionError(f"{name} PT step: non-finite radiance")
         means[name] = float(pt.accum[:, :3].mean())
         out[f"pt_{name}_s"] = step_s
         print(f"[phase7] PT {name} {PT7_W}x{PT7_H} 16 spp: {step_s:.3f} s/step, "
-              f"mean radiance {means[name]:.6f}"
-              + (f", brick_walk launches {out['pt_brick_launches']}" if name == "brick"
-                 else "") + f" [{smi}]", flush=True)
+              f"mean radiance {means[name]:.6f}{note} [{smi}]", flush=True)
         del pt
-    rel = abs(means["brick"] - means["hako"]) / means["hako"]
-    if rel > PT_MEAN_RTOL:
-        raise AssertionError(f"brick PT mean {means['brick']} vs hako {means['hako']}")
+    for name in calls:
+        rel = abs(means[name] - means["hako"]) / means["hako"]
+        if rel > PT_MEAN_RTOL:
+            raise AssertionError(f"{name} PT mean {means[name]} vs hako {means['hako']}")
     out["pt_mean"] = means
 
-    (ro_b, rd_b, sb), (ro_s, rd_s, ss) = calls[3], calls[4]
-    if sb or not ss:
-        raise AssertionError("recorded batches are not BSDF then NEE")
-    for name, tree in trees.items():
+    def bounce1(recorded):
+        (ro_b, rd_b, sb), (ro_s, rd_s, ss) = recorded[3], recorded[4]
+        if sb or not ss:
+            raise AssertionError("recorded batches are not BSDF then NEE")
+        return (("BSDF", ro_b, rd_b, False), ("NEE", ro_s, rd_s, True))
+
+    # every structure on the brick step's batches; the octree (DAG) also on
+    # its own step's
+    runs = [(name, tree, "", "the brick PT step's", bounce1(calls["brick"]))
+            for name, tree in trees.items()]
+    runs.append(("octree", trees["octree"], "pt_step_", "the octree PT step's",
+                 bounce1(calls["octree"])))
+    for name, tree, prefix, whose, batches in runs:
         kind, depth_, meta, root = accel.accel_args(tree)
-        for label, r_o, r_d, shadow in (("BSDF", ro_b, rd_b, False), ("NEE", ro_s, rd_s, True)):
-            err, hits = walk_vs_plain(tree, r_o, r_d, shadow, f"{name} bounce-1 {label}")
+        for label, r_o, r_d, shadow in batches:
+            err, hits = walk_vs_plain(tree, r_o, r_d, shadow, f"{name} {whose} bounce-1 {label}")
             _, ms = timed(lambda: trace(tree, r_o, r_d, shadow), reps=TIMED_FRAMES)
             reach = common.walk_rows(kind, depth_, meta, root, tree.lower, tree.upper, r_o, r_d,
                                      shadow=shadow)
             b_ms, b_by = common.walk_bound(kind, r_o.shape[0], reach["rows"], reach["visits"],
                                            shadow=shadow)
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
-            out[name][f"pt_{label}"] = dict(rays=int(r_o.shape[0]), hits=hits, ms=ms,
-                                            bound_ms=b_ms, bound_by=b_by, share=b_ms / ms,
-                                            visits=reach["visits"], rows=reach["rows"],
-                                            **cells_a_visit(reach))
-            print(f"[phase7] {WALK_OF[name]} ({name}) == plain walk bit for bit on the brick "
-                  f"PT step's bounce-1 {label} batch ({r_o.shape[0]} lanes, {hits} hits, "
+            out[name][f"{prefix or 'pt_'}{label}"] = dict(
+                rays=int(r_o.shape[0]), hits=hits, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                share=b_ms / ms, visits=reach["visits"], rows=reach["rows"],
+                **cells_a_visit(reach))
+            print(f"[phase7] {WALK_OF[name]} ({name}) == plain walk bit for bit on {whose} "
+                  f"bounce-1 {label} batch ({r_o.shape[0]} lanes, {hits} hits, "
                   f"shadow {shadow}): {ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                   f"{reach['rows']} distinct rows, {reach['visits']} visits), share "
                   f"{b_ms / ms:.1%}{cells_note(reach)} [{smi}]", flush=True)
@@ -3387,15 +3417,18 @@ def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_path
             tm = dict(ms=tm["walk_ms"], plain_ms=tm["walk_plain_ms"], bound_ms=tm["bound_ms"],
                       bound_by=tm["bound_by"])
             by_path = {f"{k}_frame": structures[k]["frame_launches"][name] for k in names}
-            if name == "brick_walk":
-                by_path["pt_brick_step"] = structures["pt_brick_launches"]
+            pt_of = "brick" if name == "brick_walk" else "octree"
+            by_path[f"pt_{pt_of}_step"] = structures[f"pt_{pt_of}_launches"]
             extra = dict(share=tm["bound_ms"] / tm["ms"], structures={
                 k: {f: structures[k][f] for f in (
                     "frame_ms", "plain_frame_ms", "walk_ms", "walk_plain_ms", "bound_ms",
                     "bound_by", "share", "rays", "entered", "rows", "visits", "hits",
-                    "pt_BSDF", "pt_NEE", "bits_a_visit", "cells_a_visit")
+                    "pt_BSDF", "pt_NEE", "pt_step_BSDF", "pt_step_NEE", "bits_a_visit",
+                    "cells_a_visit", "occupied_a_visit", "crossed_a_visit",
+                    "iterations_a_ray", "trips_a_ray", "fold")
                     if f in structures[k]}
-                for k in names})
+                for k in names}, pt_step_s={k: structures[f"pt_{k}_s"] for k in (
+                    pt_of, "hako")})
             err = max(structures[k]["max_abs_err"] for k in names)
         by_path.update({path: got[name] for path, got in others.items() if got.get(name)})
         kernels.append(dict(

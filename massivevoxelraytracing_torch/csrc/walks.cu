@@ -28,13 +28,28 @@
 //   octree_walk_kernel<SHADOW> replaces ops/traverse2.py:54-273 (the v2
 //       walk over children ++ psum), the port's ops/traverse2.py _v2_body.
 //       It reads only the two words of the node's 64-byte row it uses
-//       (children[c], psum[c]). Ties at MAX_FLOAT go to the lowest octant
-//       (non-strict); the psum prefix is accumulated only on a real
-//       descend, and not for shadow rays. DAG on or off is the same walk.
+//       (children[c], psum[c]). A ray crosses at most 4 of a node's 8
+//       octants, in an order its planes give: a visit's candidates are
+//       the occupied ones in that order (crossed_octants: the interval the
+//       ray spends in the node cut at the midplanes inside it, exact), so
+//       taking the body's (en, c) minimum is taking the first. Before it
+//       descends the walk builds the child's list from the child word it
+//       read (the occupancy rides in bits 24-31); an empty one is a child
+//       the plain walk would enter only to pop, and the walk takes the
+//       parent's next candidate instead. A return visit (a pop, or a leaf
+//       behind the origin) takes what its earlier visit left, carried on
+//       the stack or in registers. A loop trip thus ends in a real descend,
+//       a hit, a leaf behind the origin, a rejected child or the walk's
+//       end, and counts the plain iterations it stands for, so max_iters
+//       cuts the same lanes (traverse2.fold_counts counts both). The psum
+//       prefix is accumulated only on a real descend, and not for shadow
+//       rays. DAG on or off is the same walk.
 //
 // The per-lane stack is a per-thread array of depth D <= 16 (local
 // memory, L1-cached): a push at sp >= D writes nothing and a pop there
-// reads 0, as traverse.stack_push / stack_read do.
+// reads 0, as traverse.stack_push / stack_read do. A v2 entry is 6 words
+// (t1 and the node in one vector, the candidates left with the depth, the
+// prefix sum; 5 for shadow rays): scale is 2^-depth.
 //
 // What bounds them on an H100: neither bytes nor operations, but the
 // divergence of a walk whose length depends on the ray. The least time
@@ -55,8 +70,8 @@
 //   - the cell planes: the brick walk's t1 - dt * (scale - (scale * 0.25)
 //     * k), the v2 walk's t1 - dt * (0.5 * scale) and t1 - dt * scale, in
 //     that order, with no FMA (recomputed where used: the same operations
-//     on the same values give the same bits); scale is a power of 4 fixed
-//     by the depth, so a brick stack entry keeps the depth alone;
+//     on the same values give the same bits); scale is a power of 4 (of 2)
+//     fixed by the depth, so a stack entry keeps the depth alone;
 //   - max / min propagate NaN as torch.maximum / torch.minimum do
 //     (fmaxf / fminf would drop it), and so does the clamp;
 //   - the stack bounds above;
@@ -65,13 +80,15 @@
 //     patterns;
 //   - max_iters: a lane still walking after max_iters iterations keeps
 //     its miss (t = MAX_FLOAT, nmajor = -1, vidx = 0), as run_walk counts
-//     them; a ray that never enters (enter_ok false, parked padding) is a
-//     miss and takes no iteration.
+//     them (the v2 walk counts the plain iterations its trips stand for);
+//     a ray that never enters (enter_ok false, parked padding) is a miss
+//     and takes no iteration.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -387,6 +404,94 @@ __global__ void __launch_bounds__(kThreads) brick_walk_kernel(WalkArgs a) {
   }
 }
 
+// The octants of a v2 visit the body can accept (en < ex and ex > 0), as
+// a list in the ray's order. The body's planes on each axis are t0 = t1 -
+// dt * scale <= tm = t1 - dt * (0.5 * scale) <= t1 (dt >= 0; every plane of
+// a ray that enters is finite, below 0.75 MAX_FLOAT in magnitude), so the
+// ray is in the node on [lo, hi] = [max t0, min t1], and at a time t in
+// between in the octant whose half on axis a is 1 iff t > tm_a. The
+// midplanes inside (lo, hi), sorted, cut that interval into at most four
+// pieces; an octant passes the body's test iff it is a piece's octant and
+// the piece is non-empty with its right end > 0, and its en and ex are
+// then the piece's ends exactly (max / min return an operand, a comparison
+// does not round). So the accepted octants are those pieces' octants, in
+// the order of their entries (no two share one), the order the body's
+// (en, c) minimum takes them; and a first visit's resume key (NEG_INF, -1)
+// takes every one (traverse2.crossed_octants_plain is this set, built from
+// pairwise plane comparisons as tensor code). Returns the occupied ones:
+// bits 3k..3k+2 the k-th piece's octant (the node's own bit: the walk's
+// octant ^ vm) and bit kListed + k set iff it is a candidate; 0 if none is.
+constexpr int kListed = 12;
+
+__device__ __forceinline__ void sort2(float& fa, uint32_t& ba, float& fb, uint32_t& bb) {
+  if (fb < fa) {
+    const float f = fa;
+    fa = fb;
+    fb = f;
+    const uint32_t b = ba;
+    ba = bb;
+    bb = b;
+  }
+}
+
+__device__ __forceinline__ uint32_t crossed_octants(float t1x, float t1y, float t1z, float dtx,
+                                                    float dty, float dtz, float scale,
+                                                    uint32_t vm, uint32_t occ) {
+  const float hs = 0.5f * scale;
+  const float tmx = t1x - dtx * hs, tmy = t1y - dty * hs, tmz = t1z - dtz * hs;
+  const float tx0 = t1x - dtx * scale, ty0 = t1y - dty * scale, tz0 = t1z - dtz * scale;
+  const float lo = tmax(tx0, tmax(ty0, tz0)), hi = tmin(t1x, tmin(t1y, t1z));
+  // the first piece's octant (walk order), and each axis's cut: its
+  // midplane where inside (lo, hi), else hi (no cut)
+  const uint32_t first = (tmx <= lo ? 1u : 0u) | (tmy <= lo ? 2u : 0u) | (tmz <= lo ? 4u : 0u);
+  float fx = tmx > lo && tmx < hi ? tmx : hi;
+  float fy = tmy > lo && tmy < hi ? tmy : hi;
+  float fz = tmz > lo && tmz < hi ? tmz : hi;
+  uint32_t bx = 1u, by = 2u, bz = 4u;
+  sort2(fx, bx, fy, by);
+  sort2(fy, by, fz, bz);
+  sort2(fx, bx, fy, by);
+  const uint32_t o0 = first ^ vm, o1 = o0 ^ bx, o2 = o1 ^ by, o3 = o2 ^ bz;
+  const uint32_t listed = (((lo < fx) & (fx > 0.0f)) & (occ >> o0)) |
+                          ((((fx < fy) & (fy > 0.0f)) & (occ >> o1)) << 1) |
+                          ((((fy < fz) & (fz > 0.0f)) & (occ >> o2)) << 2) |
+                          ((((fz < hi) & (hi > 0.0f)) & (occ >> o3)) << 3);
+  return (listed & 0xFu) == 0 ? 0u
+                              : (o0 | o1 << 3 | o2 << 6 | o3 << 9 | (listed & 0xFu) << kListed);
+}
+
+// the index of the lowest set bit of a non-zero word
+__device__ __forceinline__ int lowest_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(static_cast<int>(m)) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+__device__ __forceinline__ int float_bits(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(x);
+#else
+  int b;
+  std::memcpy(&b, &x, sizeof b);
+  return b;
+#endif
+}
+
+// The v2 walk. Each visit's candidates are its accepted occupied octants
+// in the ray's order (crossed_octants): built once, when the walk looks
+// into a child before it descends, and carried; a return visit (a pop, or
+// a leaf behind the origin) takes what its earlier visit left. A loop trip
+// takes the first candidate, the body's (en, c) minimum, and ends in a
+// descend into a child with candidates, a hit, a leaf behind the origin,
+// or a child with none: there the plain walk descends, finds nothing and
+// pops, and this walk takes the parent's next candidate on its next trip
+// without descending. `it` counts the plain walk's iterations exactly (a
+// rejected child is its descend and the child's empty visit), so
+// max_iters cuts the same lanes; a rejected child's push and pop cancel
+// only inside the stack, and past it the plain sequence is taken one
+// iteration at a time.
 template <bool SHADOW>
 __global__ void __launch_bounds__(kThreads) octree_walk_kernel(WalkArgs a) {
   const uint32_t mirror[3] = {1u, 2u, 4u};
@@ -398,103 +503,97 @@ __global__ void __launch_bounds__(kThreads) octree_walk_kernel(WalkArgs a) {
     float t_out = a.k.max_float;
     int nmajor = -1;
     uint32_t vidx = 0;
-    bool active = r.enter;
     uint32_t node = a.root, skipped = 0;
     float t1x = r.t1[0], t1y = r.t1[1], t1z = r.t1[2];
     const float dtx = r.dt[0], dty = r.dt[1], dtz = r.dt[2];
-    float scale = 1.0f, rk_t = a.k.neg_inf;
-    int rk_c = -1, sp = 0;
-    uint32_t s_node[kMaxDepth], s_skip[kMaxDepth];
-    int s_rkc[kMaxDepth];
-    float s_t1x[kMaxDepth], s_t1y[kMaxDepth], s_t1z[kMaxDepth], s_scale[kMaxDepth],
-        s_rkt[kMaxDepth];
-    for (long long it = 0; it < a.max_iters && active; ++it) {
+    float scale = 1.0f;  // 2^-depth
+    int depth = 0, sp = 0;
+    // the candidates of the visit at plain iteration it; a ray that does
+    // not enter has none and an empty stack: a miss, no iteration
+    uint32_t cand =
+        r.enter ? crossed_octants(t1x, t1y, t1z, dtx, dty, dtz, scale, r.vm, node >> 24) : 0u;
+    // a stack entry: t1 and node in one vector, the candidates left with
+    // the depth, and the prefix sum
+    int4 s_node[kMaxDepth];
+    uint32_t s_cand[kMaxDepth], s_skip[kMaxDepth];
+    long long it = 0;
+    for (;;) {
+      if (cand == 0) {  // a visit that finds nothing: the walk ends, or a pop
+        if (sp == 0 || it >= a.max_iters) break;
+        --sp;
+        ++it;
+        if (sp >= D) continue;  // past the stack every field reads 0: no octant
+        const int4 e = s_node[sp];
+        t1x = __int_as_float(e.x);
+        t1y = __int_as_float(e.y);
+        t1z = __int_as_float(e.z);
+        node = static_cast<uint32_t>(e.w);
+        cand = s_cand[sp] & 0xFFFFu;
+        depth = static_cast<int>(s_cand[sp] >> 16);
+        scale = __int_as_float((127 - depth) << 23);
+        if (!SHADOW) skipped = s_skip[sp];
+      }
+      if (it >= a.max_iters) break;  // cut: a miss
+
+      // the candidate to take: the first listed, the (en, c) minimum
+      const int k = lowest_bit(cand >> kListed);
+      const int rb = static_cast<int>(cand >> (3 * k)) & 7;
+      const int best_c = rb ^ static_cast<int>(r.vm);
+      uint32_t rest = cand & ~(1u << (kListed + k));
+      if ((rest >> kListed) == 0) rest = 0;
+      const long long idx = static_cast<long long>(node & 0xFFFFFFu);
+      const long long row = (idx < a.last ? idx : a.last) * 16;
+      const uint32_t child = meta[row + rb];
+      const bool bx = best_c & 1, by = best_c & 2, bz = best_c & 4;
       const float hs = 0.5f * scale;
       const float tmx = t1x - dtx * hs, tmy = t1y - dty * hs, tmz = t1z - dtz * hs;
-      const float tx0 = t1x - dtx * scale, ty0 = t1y - dty * scale, tz0 = t1z - dtz * scale;
-      const uint32_t omask = node >> 24;
-
-      // the 8-wide selection over the occupied octants
-      float best_t = a.k.max_float;
-      int best_c = 8, n_valid = 0;
-      for (int c = 0; c < 8; ++c) {
-        if (((omask >> (c ^ static_cast<int>(r.vm))) & 1u) == 0) continue;
-        const bool bx = c & 1, by = c & 2, bz = c & 4;
-        const float ex = tmin(bx ? t1x : tmx, tmin(by ? t1y : tmy, bz ? t1z : tmz));
-        const float en = tmax(bx ? tmx : tx0, tmax(by ? tmy : ty0, bz ? tmz : tz0));
-        const bool after = en > rk_t || (en == rk_t && c > rk_c);
-        if (en < ex && ex > 0.0f && after) {
-          ++n_valid;
-          if (en < best_t) {
-            best_t = en;
-            best_c = c;
-          } else if (en == best_t && c < best_c) {
-            best_c = c;
-          }
+      if (child == kInvalid) {
+        const float en_xa = bx ? tmx : t1x - dtx * scale;
+        const float en_ya = by ? tmy : t1y - dty * scale;
+        const float best_t = tmax(en_xa, tmax(en_ya, bz ? tmz : t1z - dtz * scale));
+        if (best_t > 0.0f) {  // a leaf hit: the in-order first wins
+          t_out = best_t;
+          nmajor = best_t == en_xa ? 1 : (best_t == en_ya ? 2 : 0);
+          vidx = SHADOW ? skipped : skipped + meta[row + 8 + rb];
+          break;
         }
+        cand = rest;  // behind the origin: stay, take the next
+        ++it;
+        continue;
       }
-
-      if (best_c < 8) {
-        const int rb = (best_c ^ static_cast<int>(r.vm)) & 7;
-        const long long idx = static_cast<long long>(node & 0xFFFFFFu);
-        const long long row = (idx < a.last ? idx : a.last) * 16;
-        const uint32_t child = meta[row + rb];
-        const bool bx = best_c & 1, by = best_c & 2, bz = best_c & 4;
-        const uint32_t skipped_here = SHADOW ? skipped : skipped + meta[row + 8 + rb];
-        if (child == kInvalid) {
-          if (best_t > 0.0f) {  // a leaf hit: the in-order first wins
-            t_out = best_t;
-            const float en_xa = bx ? tmx : tx0;
-            const float en_ya = by ? tmy : ty0;
-            nmajor = best_t == en_xa ? 1 : (best_t == en_ya ? 2 : 0);
-            vidx = skipped_here;
-            active = false;
-          } else {  // behind the origin: stay, resume past it
-            rk_t = best_t;
-            rk_c = best_c;
-          }
-        } else {  // descend, pushing this node if another octant is valid
-          if (n_valid > 1) {
-            if (sp < D) {
-              s_node[sp] = node;
-              s_t1x[sp] = t1x;
-              s_t1y[sp] = t1y;
-              s_t1z[sp] = t1z;
-              s_scale[sp] = scale;
-              s_rkt[sp] = best_t;
-              s_rkc[sp] = best_c;
-              s_skip[sp] = skipped;
-            }
-            ++sp;
-          }
-          node = child;
-          t1x = bx ? t1x : tmx;
-          t1y = by ? t1y : tmy;
-          t1z = bz ? t1z : tmz;
-          scale = hs;
-          rk_t = a.k.neg_inf;
-          rk_c = -1;
-          if (!SHADOW) skipped = skipped_here;
+      // look into the child as its own visit would
+      const float cx = bx ? t1x : tmx, cy = by ? t1y : tmy, cz = bz ? t1z : tmz;
+      const uint32_t child_cand =
+          crossed_octants(cx, cy, cz, dtx, dty, dtz, hs, r.vm, child >> 24);
+      if (child_cand == 0) {  // the plain walk descends, finds nothing, pops
+        if (rest != 0 && sp < D) {  // its push and pop cancel: the parent's next
+          cand = rest;
+          it += 2;
+          continue;
         }
-      } else if (sp == 0) {  // nothing left: a miss
-        active = false;
-      } else {  // pop
-        --sp;
-        const bool in = sp < D;
-        node = in ? s_node[sp] : 0u;
-        t1x = in ? s_t1x[sp] : 0.0f;
-        t1y = in ? s_t1y[sp] : 0.0f;
-        t1z = in ? s_t1z[sp] : 0.0f;
-        scale = in ? s_scale[sp] : 0.0f;
-        rk_t = in ? s_rkt[sp] : 0.0f;
-        rk_c = in ? s_rkc[sp] : 0;
-        skipped = in ? s_skip[sp] : 0u;
+        if (rest != 0) ++sp;  // a push past the stack: the pop reads zeros
+        cand = 0;             // at the child's empty visit
+        ++it;
+        continue;
       }
-    }
-    if (active) {  // cut by max_iters: a miss
-      t_out = a.k.max_float;
-      nmajor = -1;
-      vidx = 0;
+      if (rest != 0) {  // descend, pushing this node if another octant is valid
+        if (sp < D) {
+          s_node[sp] = int4{float_bits(t1x), float_bits(t1y), float_bits(t1z),
+                            static_cast<int>(node)};
+          s_cand[sp] = rest | (static_cast<uint32_t>(depth) << 16);
+          if (!SHADOW) s_skip[sp] = skipped;
+        }
+        ++sp;
+      }
+      if (!SHADOW) skipped += meta[row + 8 + rb];
+      node = child;
+      t1x = cx;
+      t1y = cy;
+      t1z = cz;
+      scale = hs;
+      ++depth;
+      cand = child_cand;
+      ++it;
     }
     a.t[i] = t_out;
     a.nmaj[i] = nmajor;

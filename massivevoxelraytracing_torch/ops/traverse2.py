@@ -17,13 +17,23 @@ walk (`intersect_rays2_plain`) steps the live lanes only
 (traverse.run_walk); the wrapper `intersect_rays2` runs it for CPU tensors
 and launches the hand-written octree_walk_kernel<SHADOW> (csrc/walks.cu,
 one thread a ray to completion) for CUDA tensors, bit for bit the same.
+
+That kernel takes a visit's candidates from a list of the octants the ray
+crosses and that are occupied, in the ray's order, looks into a child
+before it descends, and folds the plain walk's empty child visits and its
+pops into its own loop trips. The pieces as tensor code, for the tests
+and the measurement scripts (nothing on the card route uses them):
+`crossed_octants_plain` (the listed set), `child_octants_plain` (the
+look-ahead) and `fold_counts` (the plain walk counted as the kernel runs
+it: each lane's terminating iteration and loop trips, and the walk's
+decisions).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bits import MASK32
+from .bits import MASK32, popcount32
 from .traverse import (
     INVALID,
     MAX_FLOAT,
@@ -166,6 +176,136 @@ def _v2_body(meta, shadow: bool):
     return body
 
 
+def _mirror8(m, vm):
+    """Bit c of the result is bit c ^ vm of the 8-bit octant mask m."""
+    for bit, keep, shift in ((1, 0x55, 1), (2, 0x33, 2), (4, 0x0F, 4)):
+        m = torch.where((vm & bit) != 0, ((m & keep) << shift) | ((m >> shift) & keep), m)
+    return m
+
+
+# the octants (walk order) whose halves on axes (a, b) are (h, k): base << (h << sa | k << sb)
+_PAIRS = ((0, 1, 0x11, 0, 1), (0, 2, 0x05, 0, 2), (1, 2, 0x03, 1, 2))
+
+
+def crossed_octants_plain(t1x, t1y, t1z, dtx, dty, dtz, scale, vm):
+    """The octants octree_walk_kernel lists as a visit's candidates, as a
+    mask: int64 [n], bit b set iff the body accepts the node's own octant b
+    (the walk's octant b ^ vm) before its resume key, en < ex and ex > 0,
+    for any planes. Per axis the halves' planes are the body's (t0 = t1 -
+    dt * scale, tm = t1 - dt * (0.5 * scale)); a half empty or behind the
+    origin gets a NaN exit; an octant passes iff each pair of its axes'
+    halves overlaps (en_a < ex_b and en_b < ex_a): the nine comparisons
+    en_a < ex_b that max(en) < min(ex) means, and ex_a > 0 on each axis.
+    The kernel (csrc/walks.cu crossed_octants) builds the same set, in the
+    ray's order, from the pieces of the ray's interval in the node, which
+    needs finite planes: every visit of a ray that enters has them. AND it
+    with the occupancy (node >> 24) for the visit's candidates."""
+    hs = 0.5 * scale
+    en, ex = [], []
+    for t1, dt in ((t1x, dtx), (t1y, dty), (t1z, dtz)):
+        tm = t1 - dt * hs
+        t0 = t1 - dt * scale
+        en.append((t0, tm))
+        ex.append((torch.where((t0 < tm) & (tm > 0.0), tm, float("nan")),
+                   torch.where((tm < t1) & (t1 > 0.0), t1, float("nan"))))
+    walk = torch.full(t1x.shape, 0xFF, dtype=I64, device=t1x.device)
+    for a, b, base, sa, sb in _PAIRS:
+        w = torch.zeros_like(walk)
+        for h in range(2):
+            for k in range(2):
+                ok = (en[a][h] < ex[b][k]) & (en[b][k] < ex[a][h])
+                w = w | torch.where(ok, base << (h << sa | k << sb), 0)
+        walk = walk & w
+    return _mirror8(walk, vm)
+
+
+def child_octants_plain(t1x, t1y, t1z, dtx, dty, dtz, scale, vm, best_c, child):
+    """The kernel's look-ahead: the candidates the first visit of the
+    child under the walk's octant best_c would build (its planes from the
+    parent's by the body's selects, scale / 2), ANDed with the child
+    word's occupancy (bits 24-31 of index | mask << 24). int64 [n]; 0
+    means the plain walk would descend there, find nothing and pop."""
+    hs = 0.5 * scale
+    t1 = [torch.where(((best_c >> a) & 1) != 0, t, t - d * hs)
+          for a, t, d in ((0, t1x, dtx), (1, t1y, dty), (2, t1z, dtz))]
+    return crossed_octants_plain(*t1, dtx, dty, dtz, hs, vm) & ((child >> 24) & 0xFF)
+
+
+FOLD_DECISIONS = ("descends", "hits", "misses", "stays", "pops", "empty_first",
+                  "return_visits")
+FOLD_EVENTS = FOLD_DECISIONS + ("occupied", "crossed")
+
+
+def fold_counts(meta, root_entry: int, lower, upper, ro, rd, *, stack_depth: int,
+                shadow: bool = False, max_iters: int = 100_000, on_step=None) -> dict:
+    """The plain v2 walk, counted as octree_walk_kernel runs it. Per ray:
+    `end_it`, the plain iteration at which it ends (its hit or its miss
+    with an empty stack; max_iters if still walking then; -1 if it does
+    not enter), `hit`, and `trips`, the kernel's loop trips (one takes a
+    candidate and ends in a descend, a rejected child, a hit or a leaf
+    behind the origin; a pop joins the trip that takes the popped node's
+    candidate; a rejected child whose push and pop cancel in the stack
+    takes no other trip; a walk's end is a trip of its own, as is a ray
+    that does not enter). Summed over the rays (FOLD_EVENTS): the plain
+    walk's decisions (FOLD_DECISIONS: descends, hits, misses, stays behind
+    the origin, pops, empty first visits, a descend's child with nothing,
+    what the look-ahead rejects, and return visits after a pop within the
+    stack), and the occupied and the crossed-and-occupied octants
+    (crossed_octants_plain) of every visit. on_step as in run_walk."""
+    new, pop_in, fold = 0, 1, 2  # how the next iteration joins the kernel's trips
+    st = v2_state(root_entry, lower, upper, ro, rd, stack_depth)
+    n, dev = ro.shape[0], ro.device
+    entered = st["active"].clone()
+    it = torch.zeros(n, dtype=I64, device=dev)
+    end_it = torch.where(entered, int(max_iters), -1)
+    hit_ray = torch.zeros(n, dtype=torch.bool, device=dev)
+    trips = torch.zeros(n, dtype=I64, device=dev)
+    pend = torch.full((n,), new, dtype=I64, device=dev)
+    after_desc = torch.zeros(n, dtype=torch.bool, device=dev)
+    after_pop = torch.zeros(n, dtype=torch.bool, device=dev)
+    out = dict.fromkeys(FOLD_EVENTS, 0)
+    v2 = _v2_body(meta, shadow)
+
+    def body(st):
+        lane, act = st["lane"], st["active"]
+        pre_sp, pre_scale = st["sp"], st["scale"]
+        occ = (st["node"] >> 24) & 0xFF
+        cross = crossed_octants_plain(*(st[k] for k in ("t1x", "t1y", "t1z", "dtx", "dty",
+                                                        "dtz", "scale", "vmask"))) & occ
+        st = v2(st)
+        on, sp = st["active"], st["sp"]
+        hit = act & ~on & (st["nmajor"] >= 0)
+        miss = act & ~on & (st["nmajor"] < 0)
+        pop = act & on & (sp < pre_sp)
+        desc = act & on & (sp >= pre_sp) & (st["scale"] != pre_scale)
+        stay = act & on & ~pop & ~desc
+        empty = pop | miss
+        p = pend[lane]
+        trips[lane] += (act & ((p == new) | ((p == fold) & ~empty))).to(I64)
+        absorbed = act & (p == fold) & empty  # the child's empty visit: its push pops
+        nxt = torch.where(desc & (sp > pre_sp) & (pre_sp < stack_depth), fold, new)
+        nxt = torch.where(pop & ~absorbed & (sp < stack_depth), pop_in, nxt)
+        pend[lane] = torch.where(act, nxt, p)
+        for key, m in (("descends", desc), ("hits", hit), ("misses", miss), ("stays", stay),
+                       ("pops", pop), ("empty_first", empty & after_desc[lane]),
+                       ("return_visits", act & after_pop[lane])):
+            out[key] += int(m.sum())
+        out["occupied"] += int(popcount32(torch.where(act, occ, 0)).sum())
+        out["crossed"] += int(popcount32(torch.where(act, cross, 0)).sum())
+        after_desc[lane] = desc
+        after_pop[lane] = pop & (sp < stack_depth)
+        end_it[lane] = torch.where(hit | miss, it[lane], end_it[lane])
+        hit_ray[lane] |= hit
+        it[lane] += act.to(I64)
+        return st
+
+    run_walk(st, body, n, max_iters, on_step)
+    # a lane still walking at max_iters takes one more trip to end, unless a
+    # pop within the stack brought it there (that trip ends at the cut)
+    trips += (~entered | ((end_it == int(max_iters)) & (pend != pop_in))).to(I64)
+    return dict(end_it=end_it, hit=hit_ray, trips=trips, **out)
+
+
 def intersect_rays2(meta, root_entry: int, lower, upper, ro, rd, *,
                     stack_depth: int, shadow: bool = False,
                     max_iters: int = 100_000):
@@ -188,6 +328,13 @@ def intersect_rays2_plain(meta, root_entry: int, lower, upper, ro, rd, *,
                           max_iters: int = 100_000, on_step=None):
     """The v2 walk as tensor code on any device (intersect_rays2's plain
     version)."""
+    st = v2_state(root_entry, lower, upper, ro, rd, stack_depth)
+    return run_walk(st, _v2_body(meta, shadow), ro.shape[0], max_iters, on_step)
+
+
+def v2_state(root_entry: int, lower, upper, ro, rd, stack_depth: int) -> dict:
+    """The v2 walk's initial state (traverse.walk_state at the root, with
+    the first visit's resume key and no prefix sum)."""
     st = walk_state(ro, rd, lower, upper, stack_depth, (1, 2, 4),
                     ("s_node", "s_rkc", "s_skip"),
                     ("s_t1x", "s_t1y", "s_t1z", "s_scale", "s_rkt"))
@@ -195,7 +342,7 @@ def intersect_rays2_plain(meta, root_entry: int, lower, upper, ro, rd, *,
               rk_t=torch.full_like(st["t"], NEG_INF),
               rk_c=torch.full_like(st["sp"], -1),
               skipped=torch.zeros_like(st["sp"]))
-    return run_walk(st, _v2_body(meta, shadow), ro.shape[0], max_iters, on_step)
+    return st
 
 
 def tree_meta(tree) -> torch.Tensor:

@@ -604,7 +604,11 @@ def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool =
     walk also `bits`, the set bits of the visited nodes' masks (the cells
     a selection over the whole mask tests a visit), and `cells`, the occupied cells of
     bricktree.crossed_cells_plain's mask (the most the current selection
-    tests a visit; a visit that returns to a node tests fewer)."""
+    tests a visit; a visit that returns to a node tests fewer). For the v2
+    walk also traverse2.fold_counts' decisions (descends, hits, misses,
+    stays, pops, empty first visits, return visits; the occupied and the
+    crossed-and-occupied octants over all visits) and `trips`, the
+    octree_walk_kernel's loop trips over the rays that enter."""
     from ..ops import bricktree, traverse2
     from ..ops.bits import MASK32, popcount32
 
@@ -637,10 +641,29 @@ def walk_rows(kind: str, depth, meta, root, lower, upper, ro, rd, shadow: bool =
         bricktree.intersect_rays_brick_plain(meta, root, lower, upper, ro, rd,
                                              n_levels=depth, shadow=shadow, on_step=on_step)
     else:
-        traverse2.intersect_rays2_plain(meta, root, lower, upper, ro, rd,
-                                        stack_depth=depth, shadow=shadow, on_step=on_step)
+        fold = traverse2.fold_counts(meta, root, lower, upper, ro, rd, stack_depth=depth,
+                                     shadow=shadow, on_step=on_step)
+        entered = fold["end_it"] >= 0  # a ray that does not enter takes one trip to end
+        out.update({k: fold[k] for k in traverse2.FOLD_EVENTS},
+                   trips=int(fold["trips"][entered].sum()))
     out["rows"] = int(seen.sum())
     return out
+
+
+def visit_note(rows: dict) -> str:
+    """What a visit of the brick or v2 walk tests, off walk_rows."""
+    visits = max(rows["visits"], 1)
+    if "bits" in rows:
+        return (f"a visit {rows['bits'] / visits:.2f} set bits (a scan of the whole mask) vs "
+                f"{rows['cells'] / visits:.2f} crossed and occupied cells (at most, the "
+                f"current one)")
+    rays = max(rows["entered"], 1)
+    return (f"a visit {rows['occupied'] / visits:.2f} occupied octants (a scan of each) vs "
+            f"{rows['crossed'] / visits:.2f} crossed and occupied; a ray {visits / rays:.2f} "
+            f"plain iterations vs {rows['trips'] / rays:.2f} loop trips (the current one); "
+            f"{rows['descends']} descends, {rows['empty_first']} into a child with nothing, "
+            f"{rows['hits']} hits, {rows['stays']} stays behind the origin, {rows['pops']} "
+            f"pops, {rows['return_visits']} return visits")
 
 
 def walk_bound(kind: str, n_rays: int, rows: int, visits: int, shadow: bool = False) -> tuple:

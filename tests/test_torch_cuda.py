@@ -42,7 +42,12 @@ axis-parallel, inside, parked, NaN and inf rays, and on stacks shallower
 than the walk needs; the brick walk's crossed-cell selection also on a
 full grid, a solid cube and a sparse tree, rays in cell planes, along
 axes and diagonals, from inside or on a voxel, with ±0, NaN and inf)
-against their plain versions bit for bit, a stack
+against their plain versions bit for bit; the octree walk's candidate
+masks, look-ahead and fold also on a solid cube and a sparse tree, DAG on
+and off, shadow on and off, max_iters cuts of 1, 2, 3, 7, 100 and 100000,
+rays from the octant-plane lattice along axes and diagonals, from inside
+or on a voxel or far away, with ±0, NaN and inf, and stacks of 1, 2 and
+3; a stack
 deeper than 16 refused before any launch, render_frame / render_rays
 against stages="plain" (HakoTree, brick tree, octree with DAG on and
 off), and a PT step through the walk kernels against the plain walks.
@@ -2017,6 +2022,79 @@ def test_brick_walk_kernel_cells_match_plain_on_a_shallow_stack(cuda, case):
         assert_bits(bricktree.intersect_rays_brick(*args, n_levels=depth),
                     bricktree.intersect_rays_brick_plain(*args, n_levels=depth),
                     f"{case} stack {depth}")
+
+
+def octree_case(case, dag, device):
+    """A solid cube inside an empty 256^3 box (dense: most children have
+    candidates) or a sparse tree, DAG on or off."""
+    if case == "solid cube":
+        codes = full_grid_codes(256, lo=(37, 64, 100), size=48)
+    else:
+        codes = structure_case(256, 20000)[0]
+    return codes, build_structure("octree", codes, 256, device, dag)
+
+
+def octree_rays(codes, n, seed, device):
+    """cell_rays, with the last eighth aimed from far away (10^3 to 10^6
+    boxes), where deep planes round together."""
+    ro, rd = (x.cpu().numpy() for x in cell_rays(codes, 256, n, seed, device))
+    rng = np.random.default_rng(seed + 1)
+    m = n // 8
+    u = rng.normal(size=(m, 3))
+    far = (0.5 + u / np.linalg.norm(u, axis=1, keepdims=True)
+           * 10.0 ** rng.uniform(3, 6, (m, 1))).astype(np.float32)
+    ro[n - m:] = far
+    rd[n - m:] = (rd[n - m:] + ro[n - m:] - far).astype(np.float32)  # the same targets
+    return torch.from_numpy(ro).to(device), torch.from_numpy(rd).to(device)
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 3, 7, 100, 100_000])
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("dag", [True, False])
+@pytest.mark.parametrize("case", ["solid cube", "sparse"])
+def test_octree_walk_kernel_fold_matches_plain(cuda, case, dag, shadow, max_iters):
+    """octree_walk_kernel's candidate masks, look-ahead and fold against
+    the plain v2 walk, bit for bit: on rays from the octant-plane lattice
+    along the axes, the face diagonals and (1, 1, 1), from inside a leaf
+    voxel and on its face, from far away, with ±0, NaN, inf and parked
+    rays; max_iters
+    cuts the same lanes, also where a cut falls inside a folded trip."""
+    from massivevoxelraytracing_torch.models import accel
+    from massivevoxelraytracing_torch.ops import traverse, traverse2
+
+    codes, tree = octree_case(case, dag, cuda)
+    ro, rd = octree_rays(codes, 8192, 1000 + max_iters, cuda)
+    _kind, depth, meta, root = accel.accel_args(tree)
+    args = (meta, root, tree.lower, tree.upper, ro, rd)
+    kw = dict(stack_depth=depth, shadow=shadow, max_iters=max_iters)
+    traverse.reset_counters()
+    got = traverse2.intersect_rays2(*args, **kw)
+    assert traverse.LAUNCHES["octree_walk"] == 1
+    want = traverse2.intersect_rays2_plain(*args, **kw)
+    assert_bits(got, want, f"{case} dag={dag} shadow={shadow} max_iters={max_iters}")
+    if max_iters == 100_000:
+        assert int((want[0] < 1e37).sum()) > 1000
+
+
+@pytest.mark.parametrize("dag", [True, False])
+@pytest.mark.parametrize("case", ["solid cube", "sparse"])
+def test_octree_walk_kernel_fold_matches_plain_on_a_shallow_stack(cuda, case, dag):
+    """Stacks of 1, 2 and 3: a rejected child's push and pop cancel only
+    inside the stack; past it the kernel takes the plain walk's sequence
+    (a push that writes nothing, a pop that reads 0)."""
+    from massivevoxelraytracing_torch.ops import traverse, traverse2
+
+    codes, tree = octree_case(case, dag, cuda)
+    ro, rd = octree_rays(codes, 4096, 19, cuda)
+    meta, root = traverse2.tree_meta(tree), traverse.root_entry_of(tree)
+    for depth in (1, 2, 3):
+        for shadow in (False, True):
+            kw = dict(stack_depth=depth, shadow=shadow)
+            assert_bits(traverse2.intersect_rays2(meta, root, tree.lower, tree.upper, ro, rd,
+                                                  **kw),
+                        traverse2.intersect_rays2_plain(meta, root, tree.lower, tree.upper, ro,
+                                                        rd, **kw),
+                        f"{case} dag={dag} stack {depth} shadow={shadow}")
 
 
 @pytest.mark.parametrize("accel_kind", ["brick", "octree"])
