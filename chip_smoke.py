@@ -11,12 +11,14 @@ Phases (any failure raises, and the script exits non-zero):
      512^3 tree with supernodes (T = 1, the 1024^3 layout), primary and
      shadow rays; hit mask, nmajor and vrank must be equal, t within
      rtol 3e-7 (bit-exact is expected; the ulp difference is printed);
-  2b. the round driver (kernels hako_probe and hako_dda_merge, the row
-     stage in one launch) on the same trees: against its plain version
-     and against the megakernel, bit for bit, one launch of each a round;
-     then round by round with every kernel against its plain version
-     (hako_probe; hako_dda and hako_merge, the unfused stage; and
-     hako_dda_merge on a copy of the state, equal to the unfused stage's);
+  2b. the round driver on the same trees: intersect_rays_hako (one
+     cooperative launch of hako_rounds a call, the round loop on the card)
+     against its plain version, the two-launch driver (hako_probe and
+     hako_dda_merge a round, a host nonzero between) and the megakernel,
+     bit for bit, with the same rounds; then round by round with every
+     kernel of the earlier drivers against its plain version (hako_probe;
+     hako_dda and hako_merge, the unfused stage; and hako_dda_merge on a
+     copy of the state, equal to the unfused stage's);
   3. the main path's primary frame: build_scene of the bench lattice at
      1024^3 (the scene build's three kernels' counts set to 0 just before
      and read just after: each must launch) and 1920x1080 frames with the
@@ -51,17 +53,28 @@ Phases (any failure raises, and the script exits non-zero):
      (route_builds: each build's split and peak memory, a profiled build
      of each route with its device kernels and idle share), every tree
      == phase 3's field for field;
-  3b. the same frame through the round driver: once with hako_dda_merge
-     held against its plain version at every call, then counted (two
-     launches a round, none of the unfused stage) and timed, then timed
-     with the unfused stage (the route before the row stage was one
-     launch); every image and depth equal to the megakernel's;
+  3b. the same frame through the round driver: once through the
+     two-launch driver with hako_dda_merge held against its plain version
+     at every call; then through hako_rounds (one launch a frame) and the
+     two-launch driver, each counted (launches, rounds, host syncs as
+     torch.cuda.set_sync_debug_mode("warn") reports them), timed in turns
+     and traced by scripts/rounds_trace in a child process (late in this
+     one the profiler drops device events: scripts/profile_window.py; a
+     trace must hold every round kernel launch, else "not measured"),
+     beside an idle share estimated from CUDA events and synced walls;
+     every image and depth equal to the megakernel's;
+     then hako_rounds alone on the frame's rays beside hako_mega and the
+     two-launch driver in turns, its co-resident grid, its bound (the
+     function's on these rays, phase 3's frame bound) and beside it the
+     bytes of the call's rounds (scripts/common.rounds_counts /
+     rounds_bound);
   4. the path tracer: PMJ table build; a warm 16-spp step and 2 timed
      steps at 1024^3 / 1080p through the megakernel (PT Mrays/s counted
      as bench.py does, mean radiance within 1% of the JAX package's
      bench run), a profiled step (device idle share, top device ops),
-     one step through the round driver from the same state, then one with
-     the unfused stage (accumulators bit-equal); the sample chain
+     steps through the round driver from the same state: hako_rounds, the
+     two-launch driver, hako_rounds (host clock, launches, rounds, the
+     hako_rounds step's host syncs; accumulators bit-equal); the sample chain
      (ops/pt_chain.py, csrc/pt_chain.cu): its five kernels' launches a
      step (each must launch), one step through its plain stages on the
      card from the same state (accumulator bit-equal to the kernels'), both
@@ -73,9 +86,14 @@ Phases (any failure raises, and the script exits non-zero):
      also through the sats HDRI backend, with its bound); and on one packet's full
      bounce-1 BSDF and NEE batches (the inputs the step gives the
      kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
-     against its plain version, round by round, and hako_mega against its
+     against its plain version, round by round, hako_rounds against the
+     megakernel with the checked driver's rounds, and hako_mega against its
      plain version. Every kernel's time, plain time and bound are taken on
-     that BSDF batch, and hako_dda_merge's beside the unfused stage it
+     that BSDF batch (hako_rounds' in turns with hako_mega and the
+     two-launch driver, its bound hako_mega's on the batch, the bytes of the
+     batch's rounds beside it), and a line prints
+     hako_rounds beside hako_mega on the frame and the batch;
+     hako_dda_merge's beside the unfused stage it
      replaces on the same inputs (as one train and by part: kernel B on
      the supernode and the brick rows, the hand-off's tensor ops, the
      merge);
@@ -103,8 +121,9 @@ Phases (any failure raises, and the script exits non-zero):
      lattice: each round kernel alone on its first quarter of the
      frame's blocks (hako_dda_merge among them), equal to its plain
      version, the host round work, one round's wall with the unfused
-     and the fused stage, and the full frame's rounds through both with
-     each wall split into kernel and host time; the runs' launches (the
+     and the fused stage, and the full frame's rounds through hako_rounds,
+     the two-launch driver and the unfused stage, with each wall split
+     into kernel and host time; the runs' launches (the
      isolated phases' among them) must add up to the phase's;
   5c. this slice's path, with the probe and round kernels' counts set to
      0 just before and read just after (each must have launched, and the
@@ -199,17 +218,19 @@ Phases (any failure raises, and the script exits non-zero):
      phase 4's single-device step from zero, with its time, peak memory
      and a profiled step's device idle share; (d) the tree as 4
      brick-range shards (parallel/bigscene.py) on the frame's rays,
-     primary, shadow and shaded, against the whole tree (the round
-     kernels: hako_dda_merge held against its plain version at every call
-     of a primary run, then two launches a round; the primary frame timed
-     with the fused and the unfused stage, bit-equal); (e)
+     primary, shadow and shaded, against the whole tree (one hako_rounds
+     launch a shard and call, counted; hako_dda_merge held against its
+     plain version at every call of a primary run through the two-launch
+     driver; the primary frame's rounds and host syncs through both
+     drivers, timed in turns with the two-launch driver, bit-equal); (e)
      apps/dcn_frames.py, 2 processes on the card, checksum == one
      process's; (f) rtcamp --build-devices 2 on phase 6's last
      frame, PNG == phase 6's; (g) entry.dryrun_multichip(8) and entry()'s
-     function (== its plain version). Each route kernel's `launches` in
-     the kernels line is the main path's PT step plus phase 8's parts
-     (`launches_by_path`); hako_dda's and hako_merge's, off the route,
-     add the unfused step's and phases 5b and 5c's;
+     function (== its plain version). hako_rounds' `launches` in the
+     kernels line is the rounds PT step's plus phase 8's parts
+     (`launches_by_path`); the earlier drivers' kernels, off the route,
+     count the two-launch step's and frame's (hako_probe, hako_dda_merge)
+     and phases 5b and 5c's (all four);
   9. the last modules' scripts through their run(), with hako_mega's
      count set to 0 just before each script that launches it and read
      just after (hako_mega's `launches_by_path` adds them): (a)
@@ -474,50 +495,141 @@ def kernel_vs_plain(tree, ro, rd, shadow: bool, what: str, device):
 
 
 def rounds_vs_plain(tree, ro, rd, shadow: bool, what: str, device) -> int:
-    """The round driver through its kernels (hako_probe, hako_dda_merge),
-    against its plain version and against the megakernel, bit for bit,
-    two launches a round; then round by round through Checked (every
-    kernel against its plain version). Returns the rounds it took."""
+    """The round driver through its kernel (intersect_rays_hako: one
+    hako_rounds launch), against its plain version, the two-launch driver
+    (hako_probe, hako_dda_merge a round) and the megakernel, bit for bit,
+    with the same rounds and no lane unresolved; then round by round
+    through Checked (every kernel of the two-launch and unfused drivers
+    against its plain version). Returns the rounds it took."""
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.ops import hako_mega
 
     args, T = tree_args(tree, ro, rd, device)
     hk.reset_counters()
     got = hk.intersect_rays_hako(*args, T=T, shadow=shadow)
+    launches, rounds = dict(hk.LAUNCHES), hk.rounds_run()
+    unresolved = hk.unresolved_lanes()
     want = hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)
+    two = two_launch(args, T, shadow)
     mega = hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow)
     torch_sync()
-    assert_bits_equal(got, want[:3], f"{what}: rounds vs plain")
-    assert_bits_equal(got, mega, f"{what}: rounds vs megakernel")
-    if hk.unresolved_lanes() or int(want[3].item()):
+    assert_bits_equal(got, want[:3], f"{what}: hako_rounds vs plain")
+    assert_bits_equal(got, two[:3], f"{what}: hako_rounds vs the two-launch driver")
+    assert_bits_equal(got, mega, f"{what}: hako_rounds vs megakernel")
+    if unresolved or int(want[3].item()) or int(two[3].item()):
         raise AssertionError(f"{what}: rounds left lanes unresolved")
-    check_route_launches(dict(hk.LAUNCHES), hk.ROUNDS, what)
+    if not rounds == want[4] == two[4]:
+        raise AssertionError(f"{what}: {rounds} rounds against the plain driver's {want[4]} "
+                             f"and the two-launch driver's {two[4]}")
+    check_route_launches(launches, 1, what)
     checked_rounds(tree, args[6], args[7], shadow, what)
-    return hk.ROUNDS
+    _, syncs = host_syncs(lambda: hk.intersect_rays_hako(*args, T=T, shadow=shadow))
+    _, two_syncs = host_syncs(lambda: two_launch(args, T, shadow))
+    turns = in_turns({"hako_rounds": lambda: hk.hako_rounds(*args, T=T, shadow=shadow),
+                      "two_launch": lambda: two_launch(args, T, shadow)})
+    print(f"[phase2b] {what}: a call in turns (CUDA events, ms): hako_rounds "
+          f"{turns['hako_rounds']}, two-launch {turns['two_launch']}; launches 1 / "
+          f"{2 * rounds}, host syncs {syncs} / {two_syncs}, {rounds} rounds", flush=True)
+    return rounds
 
 
-def check_route_launches(launches: dict, rounds: int, what: str) -> None:
-    """The route's counts: hako_probe and hako_dda_merge once a round, and
-    no launch of the unfused stage's kernels (so no hand-off either)."""
-    if not rounds or any(launches[k] != rounds for k in ("hako_probe", "hako_dda_merge")):
+def two_launch(args, T: int, shadow: bool):
+    """The two-launch driver (drive with hako_probe and hako_dda_merge, a
+    host nonzero a round) on tree_args' args: (t, nmaj, vrank, unresolved,
+    rounds)."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    return hk.drive((hk.hako_probe, hk.hako_dda_merge), *args, T=T, shadow=shadow,
+                    max_probes=hk.PROBES, max_dda=hk.DDA_ITERS,
+                    max_rounds=hk.default_max_rounds(args[1], T, hk.PROBES, hk.DDA_ITERS))
+
+
+def check_route_launches(launches: dict, calls: int, what: str) -> None:
+    """The route's counts: one hako_rounds launch a call, and none of the
+    two-launch or unfused drivers' kernels."""
+    if launches["hako_rounds"] != calls or any(
+            v for k, v in launches.items() if k != "hako_rounds"):
+        raise AssertionError(f"{what}: not one hako_rounds launch a call and nothing "
+                             f"else: {launches} over {calls} calls")
+
+
+def check_two_launches(launches: dict, rounds: int, what: str) -> None:
+    """The two-launch driver's counts: hako_probe and hako_dda_merge once a
+    round, and nothing else."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    if not rounds or any(launches[k] != rounds for k in hk.TWO_LAUNCH) or any(
+            v for k, v in launches.items() if k not in hk.TWO_LAUNCH):
         raise AssertionError(f"{what}: not one hako_probe and one hako_dda_merge launch "
                              f"a round: {launches} over {rounds} rounds")
-    if launches["hako_dda"] or launches["hako_merge"]:
-        raise AssertionError(f"{what}: the route launched the unfused stage {launches}")
 
 
 @contextlib.contextmanager
-def route_stage(stage):
-    """The round driver's row stage replaced by `stage` (intersect_rays_hako
-    looks hako_dda_merge up when it runs)."""
+def route_driver(probe, stage):
+    """intersect_rays_hako (which render_frame, the path tracer and
+    bigscene look up when they run) replaced by the host loop of rounds,
+    drive, with (probe, stage): the two-launch driver with the wrappers
+    (hako_probe, hako_dda_merge), or with a checked row stage. The rounds
+    and unresolved lanes go to the same accumulators."""
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
 
-    real = hk.hako_dda_merge
-    hk.hako_dda_merge = stage
+    real = hk.intersect_rays_hako
+
+    def driven(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T, shadow=False,
+               max_probes=hk.PROBES, max_dda=hk.DDA_ITERS, max_rounds=None):
+        if max_rounds is None:
+            max_rounds = hk.default_max_rounds(snodes, T, max_probes, max_dda)
+        t, nmaj, vrank, unresolved, rounds = hk.drive(
+            (probe, stage), bricks, snodes, tabs, root_mask, lower, upper, ro, rd, T=T,
+            shadow=shadow, max_probes=max_probes, max_dda=max_dda, max_rounds=max_rounds)
+        acc = hk._acc(ro.device)
+        acc[0] += rounds
+        acc[1] += unresolved[0]
+        return t, nmaj, vrank
+
+    hk.intersect_rays_hako = driven
     try:
-        yield stage
+        yield
     finally:
-        hk.hako_dda_merge = real
+        hk.intersect_rays_hako = real
+
+
+def two_launch_route():
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    return route_driver(hk.hako_probe, hk.hako_dda_merge)
+
+
+def host_syncs(fn) -> tuple:
+    """(fn()'s result, the host syncs torch reports in it: the warnings of
+    torch.cuda.set_sync_debug_mode("warn"), less the one that calls the
+    mode a prototype)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sum("synchroniz" in str(w.message) and "prototype" not in str(w.message)
+                    for w in seen)
+
+
+def in_turns(fns: dict, reps: int = 2) -> dict:
+    """Each fn timed with CUDA events (timed, `reps` calls after a warm
+    one), in turns: a, b, b, a. Returns {name: [ms, ms]}."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {k: [] for k in names}
+    for k in order:
+        out[k].append(timed(fns[k], reps=reps)[1])
+    return out
 
 
 def unfused():
@@ -1222,60 +1334,166 @@ def phase_build_stages(tree, device, smi: str) -> dict:
     return dict(copy=cp, stages=stages, routes=routes)
 
 
-def phase_rounds_frame(tree, cam, img_mega, depth_mega, device, smi: str):
-    """Phase 3b: the same 1080p frame through the round driver: once with
-    hako_dda_merge held against its plain version at every round, then
-    counted and timed; then timed with the unfused stage (the route
-    before), all equal to the megakernel's frame."""
+def phase_rounds_frame(tree, cam, img_mega, depth_mega, frame_args, frame_bound, device,
+                       smi: str):
+    """Phase 3b: the same 1080p frame through the round driver: once
+    through the two-launch driver with hako_dda_merge held against its
+    plain version at every round; then through hako_rounds (one launch a
+    frame) and the two-launch driver, each counted (launches, rounds,
+    host syncs) and timed in turns, and traced in a child process
+    (scripts/rounds_trace); every image and depth equal to the
+    megakernel's. Then hako_rounds alone on the frame's rays beside
+    the two-launch driver and hako_mega in turns, with its bound: the
+    function's on these rays (`frame_bound`, phase 3's
+    common.frame_bound), and beside it the bytes of this call's rounds
+    (scripts/common.rounds_counts / rounds_bound)."""
     import torch
 
     from massivevoxelraytracing_torch.models import raycast
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import hako_mega
+    from massivevoxelraytracing_torch.scripts import common
 
     def frame():
         return raycast.render_frame(tree, cam, WIDTH, HEIGHT, device=device,
                                     traversal="rounds")
 
-    with route_stage(CheckedStage()) as chk:
-        checked = frame()
-    torch.cuda.synchronize(device)
-    for x, y in zip(checked, (img_mega, depth_mega)):
-        if not torch.equal(x, y):
-            raise AssertionError("rounds frame (checked stage) differs from the megakernel "
-                                 "frame")
+    def equal_mega(out, what):
+        if not torch.equal(out[0], img_mega) or not torch.equal(out[1], depth_mega):
+            raise AssertionError(f"rounds frame ({what}) differs from the megakernel frame")
+
+    chk = CheckedStage()
+    with route_driver(hk.hako_probe, chk):
+        equal_mega(frame(), "two-launch, checked stage")
     frame()
-    hk.reset_counters()
-    t0 = time.time()
-    img, depth = frame()
-    torch.cuda.synchronize(device)
-    wall_ms = (time.time() - t0) * 1e3
-    rounds, launches = hk.ROUNDS, dict(hk.LAUNCHES)
-    unresolved = hk.unresolved_lanes()
-    _, frame_ms = timed(frame, reps=2, warm=False)
-    if not torch.equal(img, img_mega) or not torch.equal(depth, depth_mega):
-        raise AssertionError("rounds frame differs from the megakernel frame")
-    if unresolved != 0:
-        raise AssertionError(f"rounds frame: {unresolved} lanes unresolved")
-    check_route_launches(launches, rounds, "rounds frame")
-    with route_stage(unfused()):
-        hk.reset_counters()
-        old = frame()
-        old_launches = dict(hk.LAUNCHES)
-        _, old_ms = timed(frame, reps=2)
-    if not torch.equal(old[0], img_mega) or not torch.equal(old[1], depth_mega):
-        raise AssertionError("rounds frame (unfused stage) differs from the megakernel frame")
-    if hk.unresolved_lanes() or old_launches["hako_dda_merge"]:
-        raise AssertionError(f"rounds frame (unfused stage): {old_launches}")
+    counts = {}
+    for name, route in (("hako_rounds", contextlib.nullcontext), ("two_launch", two_launch_route)):
+        with route():
+            frame()
+            hk.reset_counters()
+            out, syncs = host_syncs(frame)
+            counts[name] = dict(launches={k: v for k, v in hk.LAUNCHES.items() if v},
+                                rounds=hk.rounds_run(), unresolved=hk.unresolved_lanes(),
+                                host_syncs=syncs)
+            equal_mega(out, name)
+            if counts[name]["unresolved"]:
+                raise AssertionError(f"rounds frame ({name}): lanes unresolved")
+    check_route_launches(hk_launches(counts["hako_rounds"]), 1, "rounds frame")
+    rounds = counts["hako_rounds"]["rounds"]
+    check_two_launches(hk_launches(counts["two_launch"]), rounds,
+                       "rounds frame, two-launch driver")
+    if counts["two_launch"]["rounds"] != rounds:
+        raise AssertionError("rounds frame: the two drivers ran other rounds")
+
+    def two_frame():
+        with two_launch_route():
+            return frame()
+
+    turns = in_turns({"hako_rounds": frame, "two_launch": two_frame})
+    _, mega_syncs = host_syncs(lambda: raycast.render_frame(tree, cam, WIDTH, HEIGHT,
+                                                             device=device))
+    # the host walls of synced frames, and an estimate of the idle share
+    # beside the trace's: the device's time from CUDA events (the frame
+    # queued behind a spin kernel) against a synced frame's host wall
+    walls = {}
+    for name, fn in (("hako_rounds", frame), ("two_launch", two_frame)):
+        walls[name] = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    events_idle = {k: 1 - min(turns[k]) / min(v) for k, v in walls.items()}
+    # the trace, from a process of its own (late in this one the profiler
+    # drops device events: scripts/profile_window.py)
+    child = subprocess.run(
+        [sys.executable, "-m", "massivevoxelraytracing_torch.scripts.rounds_trace",
+         "--res", str(GRID)], cwd=REPO, capture_output=True, text=True, timeout=600)
+    for ln in child.stdout.splitlines():
+        if ln.startswith("[rounds trace]"):
+            print(f"[phase3b] {ln}", flush=True)
+    if child.returncode != 0:
+        raise AssertionError(f"scripts/rounds_trace failed ({child.returncode}): "
+                             f"{child.stderr[-2000:]}")
+    trace = json.loads(child.stdout.strip().splitlines()[-1])["rounds_trace"]
+
+    # the traversal alone on the frame's rays: hako_rounds, the two-launch
+    # driver and hako_mega in turns, and hako_rounds' bound on these rounds
+    args = frame_args
+    T = tree.T
+    kern = hk.hako_rounds(*args, T=T)
+    mega = hako_mega.intersect_rays_hako_mega(*args, T=T)
+    two = two_launch(args, T, False)
+    assert_bits_equal(kern[:3], mega, "hako_rounds vs hako_mega on the frame's rays")
+    assert_bits_equal(two[:3], mega, "two-launch vs hako_mega on the frame's rays")
+    if kern[3].tolist() != [rounds, 0]:
+        raise AssertionError(f"hako_rounds on the frame's rays: info {kern[3].tolist()}")
+    alone = in_turns({"hako_rounds": lambda: hk.hako_rounds(*args, T=T),
+                      "hako_mega": lambda: hako_mega.intersect_rays_hako_mega(*args, T=T),
+                      "two_launch": lambda: two_launch(args, T, False)})
+    rc = common.rounds_counts(*args, T=T)
+    rb = common.rounds_bound(rc)
+    per_sm, sms = hk.rounds_grid(device, tree.snodes is not None, False)
+    # a round's fixed cost: 32 of the frame's hitting rays through many
+    # capped rounds (one probe, one sub-brick visit a round) on the full
+    # co-resident grid and on one block; the difference a round is the
+    # grid barrier (and the idle warps' pass over an empty list)
+    pick = torch.nonzero(mega[0] < 1e37)[:32, 0]
+    fargs = (*args[:6], args[6][pick].contiguous(), args[7][pick].contiguous())
+    fkw = dict(T=T, max_probes=1, max_dda=1)
+    r_full, ms_full = timed(lambda: hk.hako_rounds(*fargs, _blocks=per_sm * sms, **fkw),
+                            reps=10)
+    r_one, ms_one = timed(lambda: hk.hako_rounds(*fargs, _blocks=1, **fkw), reps=10)
+    assert_bits_equal(r_full[:3], r_one[:3], "hako_rounds on the full grid vs one block")
+    tail_rounds = int(r_full[3][0].item())
+    barrier_us = (ms_full - ms_one) / tail_rounds * 1e3
+    fk, fo = counts["hako_rounds"], counts["two_launch"]
     print(f"[phase3b] rounds frame {WIDTH}x{HEIGHT}: image and depth == megakernel "
-          f"bit for bit (and with hako_dda_merge == its plain version at each of "
-          f"{chk.calls} calls); {frame_ms:.3f} ms (mean of 2, CUDA events; one counted "
-          f"run {wall_ms:.1f} ms host clock), {rounds} rounds, launches "
-          f"{ {k: v for k, v in launches.items() if v} }, unresolved lanes {unresolved}; "
-          f"the unfused stage {old_ms:.3f} ms, launches "
-          f"{ {k: v for k, v in old_launches.items() if v} } [{smi}]", flush=True)
-    return dict(frame_ms=frame_ms, rounds=rounds, launches=launches,
-                unfused_frame_ms=old_ms, unfused_launches=old_launches,
-                checked_calls=chk.calls)
+          f"bit for bit through hako_rounds and the two-launch driver (hako_dda_merge == "
+          f"its plain version at each of {chk.calls} calls); "
+          f"{rounds} rounds, unresolved lanes 0 [{smi}]", flush=True)
+    print(f"[phase3b] rounds frame ms in turns (CUDA events, mean of 2 each): hako_rounds "
+          f"{turns['hako_rounds']}, two-launch {turns['two_launch']}; a frame: launches "
+          f"{fk['launches']} / {fo['launches']}, host syncs {fk['host_syncs']} / "
+          f"{fo['host_syncs']}; traced (scripts/rounds_trace in its own process, lines "
+          f"above): idle share of the frame through hako_rounds "
+          f"{trace['frame'].get('idle_share', 'not measured')}, of the frame's rays "
+          f"through hako_rounds {trace['rays_hako_rounds'].get('idle_share', 'not measured')} "
+          f"and through the two-launch driver "
+          f"{trace['rays_two_launch'].get('idle_share', 'not measured')} [{smi}]", flush=True)
+    print(f"[phase3b] the traversal alone on the frame's {args[6].shape[0]} rays, in turns: "
+          f"hako_rounds {alone['hako_rounds']} ms, hako_mega {alone['hako_mega']} ms, the "
+          f"two-launch driver {alone['two_launch']} ms; hako_rounds' grid {per_sm} blocks "
+          f"an SM x {sms} SMs; its bound (the function's on these rays) "
+          f"{frame_bound[0]:.4f} ms ({frame_bound[1]}), share "
+          f"{frame_bound[0] / min(alone['hako_rounds']):.1%}; the schedule's bytes "
+          f"(each round's lanes, resume keys and rows, summed over "
+          f"{len(rc['rounds'])} rounds: {sum(r[0] for r in rc['rounds'])} lane-rounds, "
+          f"{sum(r[3] for r in rc['rounds'])} rows) {rb[0]:.4f} ms ({rb[1]}), share "
+          f"{rb[0] / min(alone['hako_rounds']):.1%}; lanes a round "
+          f"{[r[0] for r in rc['rounds']]} [{smi}]", flush=True)
+    print(f"[phase3b] a round's fixed cost: 32 hitting rays, {tail_rounds} capped rounds, "
+          f"{ms_full:.4f} ms on the full grid ({per_sm * sms} blocks) against "
+          f"{ms_one:.4f} ms on one block: {barrier_us:.2f} us a round; the frame's "
+          f"{rounds} barriers ~{barrier_us * rounds / 1e3:.3f} ms; synced frame walls "
+          f"hako_rounds {walls['hako_rounds']} ms, two-launch {walls['two_launch']} ms: idle "
+          f"share estimated from CUDA events {events_idle['hako_rounds']:.3f} / "
+          f"{events_idle['two_launch']:.3f}; host syncs of the megakernel "
+          f"frame {mega_syncs} [{smi}]", flush=True)
+    return dict(frame_ms=turns["hako_rounds"], two_launch_frame_ms=turns["two_launch"],
+                rounds=rounds, counts=counts, traced=trace, synced_wall_ms=walls,
+                events_idle_share=events_idle, launches=hk_launches(fk),
+                two_launch_launches=hk_launches(fo), checked_calls=chk.calls,
+                alone_ms=alone, bound=frame_bound, schedule_bound=rb, grid=(per_sm, sms),
+                round_fixed_us=barrier_us, mega_frame_syncs=mega_syncs)
+
+
+def hk_launches(count: dict) -> dict:
+    """A counted run's launches with every round kernel's key."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    return {k: count["launches"].get(k, 0) for k in hk.LAUNCHES}
 
 
 class Checked:
@@ -1429,6 +1647,38 @@ def time_round_kernels(chk: Checked, smi: str, what: str) -> dict:
           f"{v['unfused_parts_sum_ms']:.4f}, bounds' sum {v['unfused_bound_sum_ms']:.4f} "
           f"ms) [{smi}]", flush=True)
     return out
+
+
+def time_rounds_kernel(args, T: int, fn_bound: tuple, what: str, smi: str) -> dict:
+    """hako_rounds on a batch beside hako_mega and the two-launch driver,
+    in turns (CUDA events); its plain version's ms (the plain driver, once);
+    its bound `fn_bound`, the function's on the batch (mega_bound: both
+    kernels compute it), and beside it the bytes of the batch's rounds
+    (scripts/common.rounds_counts / rounds_bound)."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+    from massivevoxelraytracing_torch.ops import hako_mega
+    from massivevoxelraytracing_torch.scripts import common
+
+    alone = in_turns({"hako_rounds": lambda: hk.hako_rounds(*args, T=T),
+                      "hako_mega": lambda: hako_mega.intersect_rays_hako_mega(*args, T=T),
+                      "two_launch": lambda: two_launch(args, T, False)})
+    want, p_ms = timed(lambda: hk.intersect_rays_hako_plain(*args, T=T), reps=1, warm=False)
+    assert_bits_equal(hk.hako_rounds(*args, T=T)[:3], want[:3], f"{what}: hako_rounds vs plain")
+    rc = common.rounds_counts(*args, T=T)
+    rb = common.rounds_bound(rc)
+    ops = common.walk_ops(sum(r[0] for r in rc["rounds"]), sum(r[2] for r in rc["rounds"]))
+    print(f"[phase4] hako_rounds on {what} ({args[6].shape[0]} lanes, {len(rc['rounds'])} "
+          f"rounds, {sum(r[0] for r in rc['rounds'])} lane-rounds, "
+          f"{sum(r[3] for r in rc['rounds'])} rows) in turns: hako_rounds "
+          f"{alone['hako_rounds']} ms, hako_mega {alone['hako_mega']} ms, the two-launch "
+          f"driver {alone['two_launch']} ms; plain {p_ms:.1f} ms; bound (the function's) "
+          f"{fn_bound[0]:.4f} ms ({fn_bound[1]}), share "
+          f"{fn_bound[0] / min(alone['hako_rounds']):.1%}; the schedule's bytes "
+          f"{rb[0]:.4f} ms ({rb[1]}), share {rb[0] / min(alone['hako_rounds']):.1%}; lanes "
+          f"a round {[r[0] for r in rc['rounds']]} [{smi}]", flush=True)
+    return dict(ms=min(alone["hako_rounds"]), plain_ms=p_ms, bound=fn_bound,
+                schedule_bound=rb, ops_ms=common.ops_ms(ops), alone_ms=alone,
+                rounds=len(rc["rounds"]))
 
 
 def time_row_stage(chk: Checked, parts: dict) -> dict:
@@ -1599,51 +1849,62 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     for name, ms, count in top:
         print(f"[phase4]   {ms:9.2f} ms  {count:6d} calls  {name}", flush=True)
 
-    # one step through the round driver from the state after the warm step
+    # steps through the round driver from the state after the warm step:
+    # hako_rounds, the two-launch driver, hako_rounds again
     rpt = pathtracer.PathTracer(width=WIDTH, height=HEIGHT, device=device,
                                 traversal="rounds")
     rpt.pmj_table = pt.pmj_table
     rpt.env = pt.env
     rpt.update_scene(tree)
-    rpt.accum = state_accum
-    rpt.spp_done = state_spp
-    hk.reset_counters()
-    t0 = time.time()
-    rpt.step(cam)
-    torch.cuda.synchronize()
-    rounds_s = time.time() - t0
-    launches = dict(hk.LAUNCHES)
-    rounds = hk.ROUNDS
-    if not torch.equal(rpt.accum, after_one):
-        d = (rpt.accum - after_one).abs()
-        raise AssertionError(f"rounds PT step differs from the megakernel's: "
-                             f"{int((d > 0).sum())} values, max {float(d.max())}")
-    if hk.unresolved_lanes():
-        raise AssertionError("rounds PT step: unresolved lanes")
-    check_route_launches(launches, rounds, "rounds PT step")
-    # the same step with the unfused stage (the route before)
+
+    def rounds_step(route, what):
+        rpt.accum = state_accum.clone()
+        rpt.spp_done = state_spp
+        with route():
+            hk.reset_counters()
+            t0 = time.time()
+            rpt.step(cam)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = dict(s=wall, launches=dict(hk.LAUNCHES), rounds=hk.rounds_run())
+        if not torch.equal(rpt.accum, after_one):
+            d = (rpt.accum - after_one).abs()
+            raise AssertionError(f"rounds PT step ({what}) differs from the megakernel's: "
+                                 f"{int((d > 0).sum())} values, max {float(d.max())}")
+        if hk.unresolved_lanes():
+            raise AssertionError(f"rounds PT step ({what}): unresolved lanes")
+        return got
+
+    steps = [rounds_step(route, name) for name, route in (
+        ("hako_rounds", contextlib.nullcontext), ("two-launch", two_launch_route),
+        ("hako_rounds", contextlib.nullcontext))]
+    rounds = steps[0]["rounds"]
+    launches, two_launches = steps[0]["launches"], steps[1]["launches"]
+    n_calls = launches["hako_rounds"]
+    check_route_launches(launches, n_calls, "rounds PT step")
+    check_two_launches(two_launches, rounds, "rounds PT step, two-launch driver")
+    if not steps[1]["rounds"] == steps[2]["rounds"] == rounds or steps[2]["launches"] != launches:
+        raise AssertionError("rounds PT steps: the drivers ran other rounds or launches")
     rpt.accum = state_accum.clone()
     rpt.spp_done = state_spp
-    with route_stage(unfused()):
-        hk.reset_counters()
-        t0 = time.time()
-        rpt.step(cam)
-        torch.cuda.synchronize()
-        unfused_s = time.time() - t0
-        unfused_launches = dict(hk.LAUNCHES)
-    if not torch.equal(rpt.accum, after_one) or hk.ROUNDS != rounds:
-        raise AssertionError("rounds PT step (unfused stage) differs from the fused one's")
-    if hk.unresolved_lanes() or unfused_launches["hako_dda_merge"]:
-        raise AssertionError(f"rounds PT step (unfused stage): {unfused_launches}")
+    _, syncs = host_syncs(lambda: rpt.step(cam))
+    rounds_s = [steps[0]["s"], steps[2]["s"]]
+    two_s = steps[1]["s"]
     n = WIDTH * HEIGHT
     pix_packet = max(min(pt.packet // (n_spp * 2), 1 << (n - 1).bit_length()), 1024)
     calls_per_step = (pt._pixel_perm(pix_packet)[2] // pix_packet
                       * (1 + 2 * pathtracer.MAX_BOUNCES))
-    print(f"[phase4] PT rounds step: accumulator == megakernel step bit for bit; "
-          f"{rounds_s:.2f} s (host clock), {rounds} rounds over {calls_per_step} "
-          f"traversal calls, launches { {k: v for k, v in launches.items() if v} }; the "
-          f"unfused stage {unfused_s:.2f} s, launches "
-          f"{ {k: v for k, v in unfused_launches.items() if v} } [{smi}]", flush=True)
+    if n_calls != mega_launches:
+        raise AssertionError(f"rounds PT step: {n_calls} hako_rounds launches against "
+                             f"{mega_launches} hako_mega launches a step")
+    print(f"[phase4] PT rounds step: accumulator == megakernel step bit for bit through "
+          f"hako_rounds and the two-launch driver; in turns (host "
+          f"clock): hako_rounds {rounds_s[0]:.3f} s, two-launch {two_s:.2f} s, hako_rounds "
+          f"{rounds_s[1]:.3f} s; {rounds} rounds over {calls_per_step} traversal calls; "
+          f"launches {launches['hako_rounds']} hako_rounds / two-launch "
+          f"{ {k: v for k, v in two_launches.items() if v} }; host syncs in a hako_rounds "
+          f"step {syncs} (the two-launch driver adds one nonzero a round and one a call: "
+          f"{rounds + calls_per_step}) [{smi}]", flush=True)
 
     chain = phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
                         chain_launches, step_s, smi)
@@ -1656,7 +1917,7 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     if sb or not ss:
         raise AssertionError("recorded batches are not BSDF then NEE")
     err = {"hako_mega": 0.0, "hako_probe": 0.0, "hako_dda": 0.0, "hako_merge": 0.0,
-           "hako_dda_merge": 0.0}
+           "hako_dda_merge": 0.0, "hako_rounds": 0.0}
     counters, lanes = {}, {}
     for ro, rd, shadow, name in ((ro_b, rd_b, False, "BSDF"), (ro_s, rd_s, True, "NEE")):
         what = f"bounce-1 {name} batch"
@@ -1675,15 +1936,22 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
               f"over {chk.rounds} rounds, max |diff| {chk.err}; hako_mega == plain "
               f"version, max |dt| {st['max_abs_err']:.3g}, max ulp {st['max_ulp']}; "
               f"hako_mega {k_ms:.3f} ms, plain {p_ms:.1f} ms [{smi}]", flush=True)
+        rounds_kernel = hk.hako_rounds(*args, T=T, shadow=shadow)
+        assert_bits_equal(rounds_kernel[:3], ref, f"{what}: hako_rounds vs hako_mega")
+        if rounds_kernel[3].tolist() != [chk.rounds, 0]:
+            raise AssertionError(f"{what}: hako_rounds info {rounds_kernel[3].tolist()}, "
+                                 f"the checked driver's {chk.rounds} rounds")
         if not shadow:
             timing = time_round_kernels(chk, smi, f"one packet's {what}")
             timing["hako_mega"] = dict(ms=k_ms, plain_ms=p_ms,
                                        bound=mega_bound(tree, chk, st["n"]))
+            timing["hako_rounds"] = time_rounds_kernel(args, T, timing["hako_mega"]["bound"],
+                                                       what, smi)
     return dict(first_accum=state_accum, env=pt.env, pmj=pt.pmj_table,
                 step_s=step_s, mrays=mrays, mean=mean, peak_gb=peak_gb,
                 mega_launches=mega_launches, rounds_launches=launches,
-                rounds=rounds, rounds_s=rounds_s, unfused_rounds_s=unfused_s,
-                unfused_launches=unfused_launches, timing=timing, err=err,
+                two_launch_launches=two_launches, two_launch_s=two_s, host_syncs=syncs,
+                rounds=rounds, rounds_s=rounds_s, timing=timing, err=err,
                 busy_ms=busy_ms, wall_ms=wall_ms, mega_ms=mega_ms,
                 counters=counters, lanes=lanes, chain=chain)
 
@@ -3059,6 +3327,8 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     ro, rd = camera_rays(cam, WIDTH, HEIGHT, device)
     ref = hk.intersect_hako(tree, ro, rd)
     ref_shadow = hk.intersect_hako(tree, ro, rd, shadow=True)[0]
+    assert_bits_equal(ref, hako_mega.intersect_hako_mega(tree, ro, rd),
+                      "phase 8d: the whole tree through hako_rounds vs hako_mega")
     ref_img, ref_t = raycast.render_rays(tree, ro, rd)
 
     def sharded_all():
@@ -3066,12 +3336,15 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
                 bigscene.intersect_sharded(shards, ro, rd, shadow=True)[0],
                 bigscene.render_rays_sharded(shards, ro, rd))
 
-    with route_stage(CheckedStage()) as chk:
+    chk = CheckedStage()
+    with route_driver(hk.hako_probe, chk):
         checked = bigscene.intersect_sharded(shards, ro, rd)
     (prim, shadow_t, (simg, st_)), n, big_s = counted(sharded_all, hk.ROUTE_KERNELS)
     launches["bigscene"] = n
-    check_route_launches(dict(hk.LAUNCHES), hk.ROUNDS, "phase 8d")
-    assert_bits_equal(checked, prim, "phase 8d: checked stage vs counted run")
+    big_calls = 3 * len(shards)  # primary, shadow and shading, a call a shard
+    check_route_launches(dict(hk.LAUNCHES), big_calls, "phase 8d")
+    big_rounds = hk.rounds_run()
+    assert_bits_equal(checked, prim, "phase 8d: two-launch checked stage vs counted run")
     t, nmaj, vidx, win = prim
     hit = ref[0] < 1e37
     if not torch.equal(t < 1e37, hit) or not torch.equal(shadow_t < 1e37,
@@ -3086,11 +3359,21 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     winners = torch.bincount(win[hit], minlength=len(shards)).tolist()
     if sum(1 for w in winners if w) < 2:
         raise AssertionError(f"phase 8d: hits won by one shard only {winners}")
-    _, big_ms = timed(lambda: bigscene.intersect_sharded(shards, ro, rd), reps=2)
-    with route_stage(unfused()):
-        prim_unfused = bigscene.intersect_sharded(shards, ro, rd)
-        _, big_unfused_ms = timed(lambda: bigscene.intersect_sharded(shards, ro, rd), reps=2)
-    assert_bits_equal(prim_unfused, prim, "phase 8d: unfused stage vs fused")
+    def primary_two():
+        with two_launch_route():
+            return bigscene.intersect_sharded(shards, ro, rd)
+
+    hk.reset_counters()
+    _, big_syncs = host_syncs(lambda: bigscene.intersect_sharded(shards, ro, rd))
+    big_rounds_primary = hk.rounds_run()
+    hk.reset_counters()
+    two_out, two_syncs = host_syncs(primary_two)
+    two_big = {k: v for k, v in hk.LAUNCHES.items() if v}
+    check_two_launches(dict(hk.LAUNCHES), big_rounds_primary, "phase 8d, two-launch driver")
+    assert_bits_equal(two_out, prim, "phase 8d: two-launch driver vs hako_rounds")
+    big_turns = in_turns({"hako_rounds": lambda: bigscene.intersect_sharded(shards, ro, rd),
+                          "two_launch": primary_two})
+    big_ms = min(big_turns["hako_rounds"])
     exact_t = bool(torch.equal(t, ref[0]))
     per_shard = [dict(bricks=sh.n_bricks, voxels=sh.n_voxels, bytes=sh.memory_bytes(),
                       voxel_base=sh.voxel_base) for sh in shards]
@@ -3101,15 +3384,22 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     print(f"[phase8] bigscene on {ro.shape[0]} frame rays: hit sets (primary and "
           f"shadow), nmajor and global voxel index == the whole tree's, t "
           f"{'bit-equal' if exact_t else 'within rtol 1e-6'}, shading == render_rays; "
-          f"hits won by shard {winners}; hako_dda_merge == its plain version at each of "
-          f"{chk.calls} calls; primary {big_ms:.3f} ms a frame (mean of 2; the unfused "
-          f"stage {big_unfused_ms:.3f} ms, bit-equal); primary + shadow + shading "
-          f"{big_s:.3f} s host clock; launches {n} [{smi}]", flush=True)
-    out["bigscene"] = dict(shards=per_shard, ms=big_ms, unfused_ms=big_unfused_ms,
-                           all_s=big_s, winners=winners, t_bit_equal=exact_t, launches=n,
+          f"hits won by shard {winners}; through the two-launch driver hako_dda_merge == "
+          f"its plain version at each of {chk.calls} calls; primary frame in turns (CUDA "
+          f"events, mean of 2 each): hako_rounds {big_turns['hako_rounds']} ms, the "
+          f"two-launch driver {big_turns['two_launch']} ms, bit-equal; a primary frame: "
+          f"{len(shards)} hako_rounds "
+          f"launches, {big_rounds_primary} rounds, host syncs {big_syncs} (two-launch: "
+          f"launches {two_big}, host syncs {two_syncs}); primary + shadow + shading "
+          f"{big_s:.3f} s host clock, {big_rounds} rounds; launches {n} [{smi}]", flush=True)
+    out["bigscene"] = dict(shards=per_shard, ms=big_ms, ms_turns=big_turns,
+                           all_s=big_s, winners=winners,
+                           t_bit_equal=exact_t, launches=n, rounds=big_rounds,
+                           rounds_primary=big_rounds_primary, host_syncs=big_syncs,
+                           two_launch=dict(launches=two_big, host_syncs=two_syncs),
                            checked_calls=chk.calls, whole_bytes=tree.memory_bytes())
     del shards, ro, rd, ref, ref_shadow, ref_img, ref_t, prim, shadow_t, simg, st_
-    del checked, prim_unfused
+    del checked
     lap("bigscene")
 
     # 8e: dcn_frames, 2 processes on the card, against one process
@@ -3441,6 +3731,18 @@ def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_path
     return kernels
 
 
+def ptxas_summary(lines: list, kernel: str) -> list:
+    """The ptxas report's registers and spills of each instantiation of
+    `kernel` (phase 1's lines)."""
+    out, inside = [], None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            inside = ln.split("'")[1] if kernel in ln else None
+        elif inside and ("registers" in ln or "spill" in ln):
+            out.append(f"{inside}: {ln.split('info    :')[-1].strip()}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3464,14 +3766,32 @@ def main() -> int:
     for ln in regs:
         print(f"[phase1] ptxas: {ln}")
 
+    t_main = time.time()
+
+    def lap(what):
+        print(f"[time] {what} done at {time.time() - t_main:.1f} s", flush=True)
+
     worst = phase_kernel_cases(device, smi, rng)
+    lap("phases 2, 2b")
     tree, cam, img, depth, main_path = phase_main_path(device, smi, rng)
+    lap("phase 3")
     frame3 = phase_frame_kernels(tree, cam, img, depth, device, smi)
+    lap("phase 3 frame kernels")
     build3c = phase_build_stages(tree, device, smi)
     vox_paths = {"build_scene": main_path["vox_launches"]}
-    rframe = phase_rounds_frame(tree, cam, img, depth, device, smi)
+    lap("phase 3c")
+    rframe = phase_rounds_frame(tree, cam, img, depth, main_path["frame_args"],
+                                main_path["frame_bound"], device, smi)
+    lap("phase 3b")
     pt = phase_pt(tree, cam, device, smi)
+    fa, ba = rframe["alone_ms"], pt["timing"]["hako_rounds"]["alone_ms"]
+    print(f"[rounds vs mega] the same rays, in turns (CUDA events, ms): 1080p frame "
+          f"hako_rounds {fa['hako_rounds']} against hako_mega {fa['hako_mega']} (ratio "
+          f"{min(fa['hako_rounds']) / min(fa['hako_mega']):.2f}); bounce-1 BSDF batch "
+          f"hako_rounds {ba['hako_rounds']} against hako_mega {ba['hako_mega']} (ratio "
+          f"{min(ba['hako_rounds']) / min(ba['hako_mega']):.2f}) [{smi}]", flush=True)
     frame_args = main_path["frame_args"]
+    lap("phase 4")
     from massivevoxelraytracing_torch.ops import probes
 
     probes.reset_counters()
@@ -3484,18 +3804,24 @@ def main() -> int:
                           ("NEE", pt["counters"]["NEE"], pt["lanes"]["NEE"])):
         floor[label] = floors(cnt, n, pr)
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
+    lap("phase 5")
     sl = phase_slice(tree, cam, smi)
     pr["slice"] = sl
+    lap("phase 5b")
     sp = phase_split(tree, smi)
     pr["split"] = sp
+    lap("phase 5c")
     gp = phase_gather(smi, sl)
     pr["gather"] = gp
+    lap("phase 5d")
     apps, vox_paths["apps"] = vox_counted(lambda: phase_apps(smi), "phase 6")
     rt_args, rt_kwargs, rt_tree = CAPTURED.pop("rtcamp")
     apps["rtcamp"]["routes"] = route_builds(rt_args, rt_kwargs, rt_tree, "phase6", smi)
     del rt_tree
+    lap("phase 6")
     par, vox_paths["parallel"] = vox_counted(
         lambda: phase_parallel(tree, cam, img, depth, pt, device, smi), "phase 8")
+    lap("phase 8")
     t7 = time.time()
     structures, vox_paths["structures"] = vox_counted(
         lambda: phase_structures(tree, cam, img, device, smi, rng), "phase 7a")
@@ -3505,6 +3831,7 @@ def main() -> int:
     structures["apps"], vox_paths["apps7"] = vox_counted(
         lambda: phase_apps7(smi, str(device)), "phase 7c", need=False)
     print(f"[phase7] {time.time() - t7:.1f} s in all [{smi}]", flush=True)
+    lap("phase 7")
     scale, vox_paths["scale"] = vox_counted(lambda: phase_scale(device, smi, rng), "phase 9")
     rb_args, rb_kwargs, rb_tree = CAPTURED.pop("rebuild_timing")
     scale["rebuild_timing"]["routes"] = route_builds(rb_args, rb_kwargs, rb_tree, "phase9",
@@ -3514,6 +3841,7 @@ def main() -> int:
     del rb_tree
     torch.cuda.empty_cache()
 
+    lap("phase 9")
     loaded = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "massivevoxelraytracing_tpu")]
     if loaded:
@@ -3525,7 +3853,11 @@ def main() -> int:
     for name, replaces in (("hako_probe", "hako_kernels.py:1218,1681"),
                            ("hako_dda_merge", "hako_kernels.py:1252,1700,1735"),
                            ("hako_dda", "hako_kernels.py:1252,1700"),
-                           ("hako_merge", "hako_kernels.py:1735")):
+                           ("hako_merge", "hako_kernels.py:1735"),
+                           ("hako_rounds", "hako_kernels.py:1985,2010 (the while_loop of "
+                                           "rounds, jnp.nonzero compaction :1407,1805) with "
+                                           "kernel A :1218,1681, kernel B :1252,1700 and the "
+                                           "merge :1735 in it")):
         table.append((name, "hako_rounds.cu", replaces,
                       pt["rounds_launches"][name], rframe["launches"][name]))
     # ms, plain_ms, bound and the PT part of max_abs_err come from the same
@@ -3544,13 +3876,17 @@ def main() -> int:
         if sum(by_path.values()) != (launches + par["launch_totals"].get(name, 0)
                                      + (scale["launch_total"] if scripts else 0)):
             raise AssertionError(f"{name}: launches by path do not add up")
-        if name in ("hako_dda", "hako_merge"):
-            # off the route since the row stage is one launch: the paths that
-            # still run them are the unfused stage's step and the phase scripts
-            by_path.update(pt_step_unfused=pt["unfused_launches"][name],
-                           phase5b=sl["round_launches"][name],
+        if name in ("hako_probe", "hako_dda_merge", "hako_dda", "hako_merge"):
+            # off the route since it runs in one launch (and, for kernel B and
+            # the merge, since the row stage is one launch): the paths that
+            # still run them are the two-launch driver's step and frame
+            # (hako_probe, hako_dda_merge) and the phase scripts (all four)
+            by_path.update(phase5b=sl["round_launches"][name],
                            phase5c=sp["round_launches"][name])
-            if min(by_path[k] for k in ("pt_step_unfused", "phase5b", "phase5c")) < 1:
+            if name in ("hako_probe", "hako_dda_merge"):
+                by_path.update(pt_step_two_launch=pt["two_launch_launches"][name],
+                               frame_two_launch=rframe["two_launch_launches"][name])
+            if min(by_path[k] for k in by_path if k != "pt_step") < 1:
                 raise AssertionError(f"{name}: a path that runs it launched it no time")
         kernels.append(dict(
             name=name, route="cuda", source=src + source, replaces=ref + replaces,
@@ -3593,6 +3929,20 @@ def main() -> int:
         k["phase_timing_launches"] = sl["round_launches"][k["name"]]
         k["phase_timing_isolated_launches"] = sl["isolated_launches"][k["name"]]
         k["split_launches"] = sp["round_launches"][k["name"]]
+    rk = kernels[5]
+    rk.update(registers=ptxas_summary(regs, "hako_rounds_kernel"),
+              grid_blocks_per_sm=rframe["grid"][0], sms=rframe["grid"][1],
+              share=rk["bound_ms"] / rk["ms"], rounds_batch=pt["timing"]["hako_rounds"]["rounds"],
+              alone_ms={"bsdf_batch": pt["timing"]["hako_rounds"]["alone_ms"],
+                        "frame": rframe["alone_ms"]},
+              frame_bound_ms=rframe["bound"][0], frame_bound_by=rframe["bound"][1],
+              frame_share=rframe["bound"][0] / min(rframe["alone_ms"]["hako_rounds"]),
+              schedule_bound_ms=pt["timing"]["hako_rounds"]["schedule_bound"][0],
+              frame_schedule_bound_ms=rframe["schedule_bound"][0],
+              phase_timing_launches=sl["round_launches"]["hako_rounds"],
+              split_launches=sp["round_launches"]["hako_rounds"],
+              replaces_scripts="scripts/hako_phase_timing.py and scripts/r3_phase_split.py "
+                               "full frames")
     fused = kernels[2]
     tm = pt["timing"]["hako_dda_merge"]
     fused.update(unfused_ms=tm["unfused_ms"], unfused_parts_ms=tm["unfused_parts_ms"],
@@ -3642,9 +3992,12 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "pt": {
         "s_per_step": pt["step_s"], "mrays": pt["mrays"], "mean": pt["mean"],
         "peak_gib": pt["peak_gb"], "rounds_step_s": pt["rounds_s"],
-        "rounds_step_unfused_s": pt["unfused_rounds_s"],
+        "rounds_step_two_launch_s": pt["two_launch_s"],
+        "rounds_step_host_syncs": pt["host_syncs"],
         "rounds_frame_ms": rframe["frame_ms"],
-        "rounds_frame_unfused_ms": rframe["unfused_frame_ms"],
+        "rounds_frame_two_launch_ms": rframe["two_launch_frame_ms"],
+        "rounds_frame_counts": rframe["counts"], "rounds_frame_traced": rframe["traced"],
+        "rounds_frame_events_idle_share": rframe["events_idle_share"],
         "rounds_per_step": pt["rounds"], "device_busy_ms": pt["busy_ms"],
         "device_mega_ms": pt["mega_ms"], "profiled_wall_ms": pt["wall_ms"],
         "chain_routes": pt["chain"]["routes"]},

@@ -311,8 +311,11 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
 # the legacy round driver (the reference's intersect_rays_hako): kernel A
 # (hako_probe), then the row stage (hako_dda_merge: kernel B on the
 # supernode and brick rows and the merge in one launch) on the lanes still
-# unresolved, round after round; kernel B (hako_dda) and the merge
-# (hako_merge) apart make the unfused stage the phase-timing scripts time
+# unresolved, round after round. On the card the whole loop is one
+# cooperative launch (hako_rounds); `drive` with (hako_probe,
+# hako_dda_merge) is the two-launch driver it replaced, kept for the
+# round-by-round checks; kernel B (hako_dda) and the merge (hako_merge)
+# apart make the unfused stage the phase-timing scripts time
 # ---------------------------------------------------------------------------
 #
 # Each kernel has a plain version (`*_plain`, the per-lane algorithm above
@@ -329,29 +332,40 @@ def _dda_rows(rows, child, dt, vm6, bt1, tqe0, go, *, dt_factor: float,
 PROBES = 4      # kernel A: root descents per round
 DDA_ITERS = 24  # kernel B: sub-brick visits per row stage per round
 
-ROUTE_KERNELS = ("hako_probe", "hako_dda_merge")  # what a round runs
+ROUTE_KERNELS = ("hako_rounds",)  # what intersect_rays_hako launches on the card
+TWO_LAUNCH = ("hako_probe", "hako_dda_merge")  # what a round of drive() runs
 # ... the unfused stage's kernels, and kernel B through a block-local row
 # cache, measured beside hako_dda (scripts/r3_phase_split.py): not on the
 # route
-LAUNCHES = {**dict.fromkeys(ROUTE_KERNELS, 0), "hako_dda": 0, "hako_merge": 0,
-            "hako_dda_cached": 0}
+LAUNCHES = {**dict.fromkeys(ROUTE_KERNELS + TWO_LAUNCH, 0), "hako_dda": 0,
+            "hako_merge": 0, "hako_dda_cached": 0}
 CACHE_BLOCK = 128  # lanes a block of hako_dda_cached dedups its rows over
-ROUNDS = 0      # rounds run by intersect_rays_hako since the last reset
-_UNRESOLVED: dict = {}  # device -> int32 [1] accumulator
+_ACC: dict = {}  # device -> int32 [2]: rounds run, lanes left unresolved
 
 
 def reset_counters() -> None:
-    global ROUNDS
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    ROUNDS = 0
-    for acc in _UNRESOLVED.values():
+    for acc in _ACC.values():
         acc.zero_()
+
+
+def _acc(device) -> torch.Tensor:
+    """The device's accumulators of intersect_rays_hako (int32 [2])."""
+    if device not in _ACC:
+        _ACC[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _ACC[device]
+
+
+def rounds_run() -> int:
+    """Rounds run by intersect_rays_hako since the last reset (summed over
+    its calls; a read of each device's accumulator)."""
+    return sum(int(acc[0].item()) for acc in _ACC.values())
 
 
 def unresolved_lanes() -> int:
     """Lanes left unresolved at max_rounds since the last reset."""
-    return sum(int(acc.item()) for acc in _UNRESOLVED.values())
+    return sum(int(acc[1].item()) for acc in _ACC.values())
 
 
 def level_pack(tabs):
@@ -704,7 +718,8 @@ def default_max_rounds(snodes, T: int, max_probes: int, max_dda: int) -> int:
 
 
 def round_lanes(state):
-    """The round's one host sync: the lanes still unresolved (int32)."""
+    """The two-launch round's one host sync: the lanes still unresolved
+    (int32)."""
     return torch.nonzero(~state[0]).reshape(-1).to(torch.int32)
 
 
@@ -720,9 +735,10 @@ def supernode_handoff(emit, bt1, tqn, sn):
 
 def drive(kernels, bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *,
           T, shadow, max_probes, max_dda, max_rounds):
-    """The round loop with the given (probe, stage): the kernel wrappers
-    (hako_probe, hako_dda_merge), their plain versions, an unfused_stage,
-    or (chip_smoke.py) checked kernels side by side. Returns (t, nmaj,
+    """The host loop of rounds with the given (probe, stage): the kernel
+    wrappers (hako_probe, hako_dda_merge: the two-launch driver, one host
+    sync a round), their plain versions, an unfused_stage, or
+    (chip_smoke.py) checked kernels side by side. Returns (t, nmaj,
     vrank, unresolved int32 [1], rounds)."""
     probe, stage = kernels
     dev = ro.device
@@ -766,27 +782,127 @@ def intersect_rays_hako_plain(bricks, snodes, tabs, root_mask, lower, upper,
                  max_rounds=max_rounds)
 
 
+ROUND_THREADS = 128  # kThreads of csrc/hako_rounds.cu: the lanes of a block
+_GRIDS: dict = {}  # (device, fat, shadow) -> (blocks an SM, SMs)
+
+
+def rounds_grid(device, fat: bool, shadow: bool) -> tuple:
+    """(blocks an SM, SMs) of hako_rounds_kernel<fat, shadow>'s co-resident
+    grid on `device` by the occupancy calculator, asked of the card once a
+    device and instantiation; raises without one."""
+    from ..utils import cuda_build
+
+    key = (torch.device(device), bool(fat), bool(shadow))
+    if key not in _GRIDS:
+        out = (ctypes.c_int * 2)()
+        lib = cuda_build.load()
+        with torch.cuda.device(key[0]):
+            rc = lib.hako_rounds_grid(int(fat), int(shadow), out)
+        if rc != 0:
+            raise RuntimeError(f"hako_rounds grid query failed: CUDA error {rc} "
+                               f"({lib.cuda_error_string(rc).decode()})")
+        _GRIDS[key] = (out[0], out[1])
+    return _GRIDS[key]
+
+
+def hako_rounds(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T: int,
+                shadow: bool = False, max_probes: int = PROBES,
+                max_dda: int = DDA_ITERS, max_rounds: int | None = None,
+                acc=None, _blocks: int = 0):
+    """The round loop on the card in one cooperative launch of
+    hako_rounds_kernel (CUDA tensors only): each round serves its list of
+    lanes with kernel A and the row stage, the survivors appended to the
+    next list on the device, until none is left or max_rounds. Returns (t,
+    nmaj, vrank, info): info int32 [2] on the device holds the rounds run
+    and the lanes left unresolved, as intersect_rays_hako_plain returns
+    them; `acc` (int32 [2]), when given, has info added on the device.
+    Makes no host sync. The grid is the co-resident one (rounds_grid), and
+    no more blocks than the lanes need; `_blocks`, a hook for tests and
+    measurements, launches that many blocks instead. Raises where the
+    launch fails (a grid the card cannot hold co-resident among the
+    causes); there is no fallback."""
+    from ..utils import cuda_build
+
+    if _device_of(ro, "hako_rounds") != "cuda":
+        raise ValueError(f"hako_rounds runs on CUDA tensors, not {ro.device}")
+    if max_rounds is None:
+        max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
+    dev = ro.device
+    n = ro.shape[0]
+    _check("ro", ro, dev, torch.float32, (n, 3))
+    _check("rd", rd, dev, torch.float32, (n, 3))
+    _check("bricks", bricks, dev, torch.int32, (bricks.shape[0], 164))
+    fat = snodes is not None
+    if fat:
+        _check("snodes", snodes, dev, torch.int32, (snodes.shape[0], 164))
+    if len(tabs) != T - 1 or T - 1 > cuda_build.MAX_LEVELS:
+        raise ValueError(f"need T-1 = {T - 1} level tables, got {len(tabs)}")
+    levels, level_off = level_pack(tabs)
+    if levels is not None:
+        _check("levels", levels, dev, torch.int32, (levels.shape[0], 3))
+    if acc is not None:
+        _check("acc", acc, dev, torch.int32, (2,))
+    if n >= 2 ** 30:
+        raise ValueError(f"{n} rays: the lane lists index int32 [2, n]")
+    lower = lower.to(device=dev, dtype=torch.float32).contiguous()
+    upper = upper.to(device=dev, dtype=torch.float32).contiguous()
+    _check("lower", lower, dev, torch.float32, (3,))
+    _check("upper", upper, dev, torch.float32, (3,))
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    nmaj = torch.empty(n, dtype=torch.int32, device=dev)
+    vrank = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return t, nmaj, vrank, torch.zeros(2, dtype=torch.int32, device=dev)
+    info = torch.empty(2, dtype=torch.int32, device=dev)
+    lists = torch.empty((2, n), dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
+    tq = torch.empty(n, dtype=torch.float32, device=dev)
+    if _blocks:
+        blocks = _blocks
+    else:
+        per_sm, sms = rounds_grid(dev, fat, shadow)
+        blocks = min(per_sm * sms, -(-n // ROUND_THREADS))
+    offs = (ctypes.c_int * cuda_build.MAX_LEVELS)(*level_off)
+    lib = cuda_build.load()
+    with torch.cuda.device(dev):
+        rc = lib.hako_rounds_launch(
+            bricks.data_ptr(), snodes.data_ptr() if fat else None,
+            None if levels is None else levels.data_ptr(), ctypes.addressof(offs), T,
+            root_mask[0], root_mask[1], lower.data_ptr(), upper.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), n, lists.data_ptr(), counts.data_ptr(),
+            tq.data_ptr(), t.data_ptr(), nmaj.data_ptr(), vrank.data_ptr(),
+            info.data_ptr(), None if acc is None else acc.data_ptr(), int(shadow),
+            int(max_probes), int(max_dda), int(max_rounds), float(0.25 ** T),
+            float(0.25 ** (T + 2 if fat else T)), int(blocks), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"hako_rounds kernel launch failed: CUDA error {rc} "
+                           f"({lib.cuda_error_string(rc).decode()})")
+    LAUNCHES["hako_rounds"] += 1
+    return t, nmaj, vrank, info
+
+
 def intersect_rays_hako(bricks, snodes, tabs, root_mask, lower, upper, ro,
                         rd, *, T: int, shadow: bool = False,
                         max_probes: int = PROBES, max_dda: int = DDA_ITERS,
                         max_rounds: int | None = None):
     """Full-frame traversal through the round driver. Returns (t, nmajor,
-    vrank). CPU tensors run the plain versions; CUDA tensors launch
-    hako_probe and hako_dda_merge a round (one host sync per round) or
-    raise."""
-    global ROUNDS
+    vrank). CPU tensors run the plain version; CUDA tensors launch
+    hako_rounds once (no host sync) or raise. The rounds run and the lanes
+    left unresolved go to the device's accumulators (rounds_run(),
+    unresolved_lanes())."""
     if max_rounds is None:
         max_rounds = default_max_rounds(snodes, T, max_probes, max_dda)
-    _device_of(ro, "round driver")
     dev = torch.device(ro.device)
-    if dev not in _UNRESOLVED:
-        _UNRESOLVED[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
-    t, nmaj, vrank, unresolved, rounds = drive(
-        (hako_probe, hako_dda_merge), bricks, snodes, tabs, root_mask,
-        lower, upper, ro, rd, T=T, shadow=shadow, max_probes=max_probes,
-        max_dda=max_dda, max_rounds=max_rounds)
-    _UNRESOLVED[dev] += unresolved
-    ROUNDS += rounds
+    kw = dict(T=T, shadow=shadow, max_probes=max_probes, max_dda=max_dda,
+              max_rounds=max_rounds)
+    if _device_of(ro, "round driver") == "cuda":
+        return hako_rounds(bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
+                           acc=_acc(dev), **kw)[:3]
+    t, nmaj, vrank, unresolved, rounds = intersect_rays_hako_plain(
+        bricks, snodes, tabs, root_mask, lower, upper, ro, rd, **kw)
+    acc = _acc(dev)
+    acc[0] += rounds
+    acc[1] += unresolved[0]
     return t, nmaj, vrank
 
 

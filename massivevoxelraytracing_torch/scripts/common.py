@@ -177,6 +177,65 @@ def dda_merge_counts(state, idx, emit, stages, hit) -> tuple:
             int((act & hit).sum()))
 
 
+def rounds_counts(bricks, snodes, tabs, root_mask, lower, upper, ro, rd, *, T: int,
+                  shadow: bool = False, max_probes: int | None = None,
+                  max_dda: int | None = None) -> dict:
+    """What each round of a round-driver call serves and reads: its lanes,
+    the lanes it leaves unresolved, the row DDAs it runs (the supernode and
+    the brick stage's go-lanes) and the distinct rows of each table its
+    lanes read, from the two-launch driver with the unfused stage
+    recording kernel B's rows (the kernels on CUDA tensors, the plain
+    versions on CPU ones). Returns {"rounds": [(lanes, left, row walks,
+    distinct rows), ...], "unresolved", "table_words"}."""
+    from ..ops import hako_kernels as hk
+
+    cuda = ro.device.type == "cuda"
+    max_probes = hk.PROBES if max_probes is None else max_probes
+    max_dda = hk.DDA_ITERS if max_dda is None else max_dda
+    dda_stage = hk.hako_dda if cuda else hk.hako_dda_plain
+    per_round = []
+
+    def probe(*a, **k):
+        per_round.append([int(a[7].shape[0]), 0, 0, 0])
+        return (hk.hako_probe if cuda else hk.hako_probe_plain)(*a, **k)
+
+    def dda(rows, *a, **k):
+        go, child = a[4], a[5]
+        per_round[-1][2] += int(go.sum())
+        per_round[-1][3] += int(torch.unique(child[go]).numel())
+        return dda_stage(rows, *a, **k)
+
+    stage = hk.unfused_stage(dda, hk.hako_merge if cuda else hk.hako_merge_plain)
+    out = hk.drive((probe, stage), bricks, snodes, tabs, root_mask, lower, upper, ro, rd,
+                   T=T, shadow=shadow, max_probes=max_probes, max_dda=max_dda,
+                   max_rounds=hk.default_max_rounds(snodes, T, max_probes, max_dda))
+    unresolved = int(out[3].item())
+    for r, rec in enumerate(per_round):
+        rec[1] = per_round[r + 1][0] if r + 1 < len(per_round) else unresolved
+    return dict(rounds=[tuple(x) for x in per_round], unresolved=unresolved,
+                table_words=sum(int(t.numel()) for t in tabs))
+
+
+def rounds_bound(counts: dict) -> tuple:
+    """hako_rounds on one call, its rounds as the round kernels' bounds
+    count them, summed over the rounds, without kernel A's outputs (they
+    stay in registers): a round's lanes read their ray (ro / rd 24) and,
+    after round 0, their list entry and resume key (8); the lanes it
+    leaves write their resume key and next list entry (8); the lanes it
+    resolves write t / nmaj / vrank once (12), as do the lanes left at
+    max_rounds; each round reads the distinct rows its lanes walk and the
+    level tables once. Operations: a preamble a lane a round, a row walk
+    a row DDA (rounds_counts)."""
+    n_bytes = ops_pre = ops_walk = 0
+    for r, (lanes, left, walks, rows) in enumerate(counts["rounds"]):
+        n_bytes += (lanes * (24 + (8 if r else 0)) + left * 8 + (lanes - left) * 12
+                    + rows * ROW_BYTES + 4 * counts["table_words"])
+        ops_pre += lanes
+        ops_walk += walks
+    n_bytes += 12 * counts["unresolved"]
+    return bound(n_bytes, walk_ops(ops_pre, ops_walk))
+
+
 HOST_CYCLES_A_CALL = 400_000  # ~0.2 ms of the card's clock: a wrapper call's host time
 
 
@@ -674,12 +733,14 @@ def walk_bound(kind: str, n_rays: int, rows: int, visits: int, shadow: bool = Fa
     return bound(36 * n_rays + WALK_ROW_BYTES[key] * rows, WALK_VISIT_OPS[kind] * visits)
 
 
-def profile_call(fn) -> dict:
-    """fn() under torch.profiler on the card: wall ms (host clock, synced),
-    device busy ms (the sum of the device events), its idle share, the
-    hako_mega kernels' ms, the device kernels launched, the top 8 by time
-    as (name, ms, calls), and each sample-chain, scene-build, frame and
-    walk kernel's (ms, calls).
+def profile_call(fn, pad_s: float = 0.0, names: tuple = ()) -> dict:
+    """fn() under torch.profiler on the card, the session held open `pad_s`
+    of idle host time before the call and after it: wall ms (host clock,
+    synced, the call alone), device busy ms (the sum of the device events),
+    its idle share, the hako_mega kernels' ms, the device kernels launched,
+    the top 8 by time as (name, ms, calls), and each sample-chain,
+    scene-build, frame, walk and round kernel's (ms, calls), and those of
+    `names` under "named".
     Reads the profiler's raw trace events: prof.events() would first build
     the host ops' call tree, about a minute of host time for a PT step's
     ~10^6 ops."""
@@ -690,10 +751,12 @@ def profile_call(fn) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(pad_s)
     busy_us = 0.0
     kernels = {}
     for e in prof.profiler.kineto_results.events():
@@ -716,7 +779,37 @@ def profile_call(fn) -> dict:
                 kernels=sum(calls for _ms, calls in kernels.values()),
                 top=[(name[:70], ms, calls) for name, (ms, calls) in top],
                 chain=by_kernel(pt_chain.KERNELS), vox=by_kernel(vox_ops.KERNELS),
-                frame=by_kernel(raycast.KERNELS), walks=by_kernel(traverse.WALK_KERNELS))
+                frame=by_kernel(raycast.KERNELS), walks=by_kernel(traverse.WALK_KERNELS),
+                rounds=by_kernel(("hako_rounds", "hako_probe", "hako_dda_merge")),
+                named=by_kernel(names))
+
+
+# torch.profiler on the card drops a short session's device events, some
+# or all, once the process has run for half a minute or so; which idle
+# pads around the call keep them changes with the process and its age,
+# and late in a long process none may (scripts/profile_window.py).
+# profile_counted takes the profile again with the next pad until the
+# trace holds what the wrappers counted.
+PROFILE_PADS_S = (0.02, 0.2, 0.0, 0.05, 0.1, 0.5, 0.01, 0.3)
+
+
+def profile_counted(fn, launches: dict, tries: int = len(PROFILE_PADS_S)) -> dict:
+    """profile_call(fn), taken again with the next of PROFILE_PADS_S until
+    the trace holds each kernel counted in `launches` (a wrapper module's
+    counts, such as hako_kernels.LAUNCHES; the kernel named `<key>_kernel`)
+    as often as that run of fn launched it. Adds "tries" and "pad_s".
+    Raises if `tries` profiles all missed a launch. fn must be safe to run
+    again."""
+    for i in range(tries):
+        before = dict(launches)
+        pad = PROFILE_PADS_S[i % len(PROFILE_PADS_S)]
+        r = profile_call(fn, pad_s=pad, names=tuple(launches))
+        launched = {k: launches[k] - before[k] for k in launches}
+        missed = {k: n - r["named"][k][1] for k, n in launched.items() if n != r["named"][k][1]}
+        if not missed:
+            return dict(r, tries=i + 1, pad_s=pad)
+    raise AssertionError(f"{tries} profiles missed launches the wrappers counted: {missed} "
+                         f"(last try's pad {pad} s)")
 
 
 # The sample chain's stages (ops/pt_chain.py): float32-equivalent operations

@@ -25,13 +25,17 @@ version, then timed with CUDA events beside its bound on these inputs
     end (round_lanes, kernel A and the row stage on a fresh round state),
     with the unfused stage (kernel B and the merge apart, the hand-off
     between) and with the fused one.
-Then the full frame through intersect_rays_hako (the fused stage) and
-through the driver with the unfused stage: their wall times, rounds and
-launches (counted as differences, so a caller's counts run on), each
-result against intersect_rays_hako_plain, and the wall of one run of each
-under torch.profiler split into the round kernels' device time, the other
+Then the full frame through intersect_rays_hako (on the card the round
+loop in one launch of hako_rounds), through the two-launch driver (drive
+with hako_probe and the fused stage) and through the driver with the
+unfused stage: their wall times, rounds and launches (counted as
+differences, so a caller's counts run on), each result against
+intersect_rays_hako_plain, and the wall of one run of each under
+torch.profiler split into the round kernels' device time, the other
 device ops' (the driver's nonzero, wheres, stacks) and the rest, where
-the device waits on the host loop.
+the device waits on the host: from a trace that holds every round kernel
+launch (common.profile_counted), else "not measured" (late in a long
+process the profiler drops device events: scripts/profile_window.py).
 
 The reference's XLA brick-row gather (its :121) has no counterpart:
 hako_dda reads the rows itself, so that time is inside hako_dda's. Its
@@ -112,26 +116,21 @@ def _launched_since(before: dict) -> dict:
     return {k: hk.LAUNCHES[k] - before[k] for k in hk.LAUNCHES}
 
 
-def _profiled(fn):
-    """(wall ms, the round kernels' device ms, every other device op's ms)
-    of fn() under torch.profiler (CUPTI device times)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = other = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            if any(k in e.name for k in ("hako_probe", "hako_dda", "hako_merge")):
-                kernels += ms
-            else:
-                other += ms
-    return wall, kernels, other
+def _profiled(fn) -> dict:
+    """fn() under torch.profiler (CUPTI device times), from a trace that
+    holds each round kernel launch the wrappers counted
+    (common.profile_counted): split_wall_ms, kernels_ms (the round
+    kernels'), other_device_ms, host_ms (the rest, where the device waits)
+    and device_events; or not_measured (the reason) where no try gave a
+    whole trace (late in a long process: scripts/profile_window.py)."""
+    try:
+        r = common.profile_counted(fn, hk.LAUNCHES)
+    except AssertionError as e:
+        return dict(not_measured=str(e))
+    kernels = sum(ms for ms, _calls in r["named"].values())
+    return dict(split_wall_ms=r["wall_ms"], kernels_ms=kernels,
+                other_device_ms=r["busy_ms"] - kernels,
+                host_ms=r["wall_ms"] - r["busy_ms"], device_events=r["kernels"])
 
 
 def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
@@ -257,7 +256,7 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     kw = dict(T=T, max_probes=max_probes, max_dda=max_dda)
     dkw = dict(T=T, shadow=False, max_probes=max_probes, max_dda=max_dda,
                max_rounds=hk.default_max_rounds(snodes, T, max_probes, max_dda))
-    before, rounds0, unresolved0 = dict(hk.LAUNCHES), hk.ROUNDS, hk.unresolved_lanes()
+    before, rounds0, unresolved0 = dict(hk.LAUNCHES), hk.rounds_run(), hk.unresolved_lanes()
     if cuda:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -265,40 +264,36 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     if cuda:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    rounds, launches = hk.ROUNDS - rounds0, _launched_since(before)
+    rounds, launches = hk.rounds_run() - rounds0, _launched_since(before)
     unresolved = hk.unresolved_lanes() - unresolved0
     want = hk.intersect_rays_hako_plain(*args, **kw)
     _equal("full frame", got, want[:3])
-    if unresolved or int(want[3].item()):
-        raise AssertionError(f"full frame: {unresolved} lanes unresolved")
+    if unresolved or int(want[3].item()) or rounds != want[4]:
+        raise AssertionError(f"full frame: {unresolved} lanes unresolved, {rounds} rounds "
+                             f"against the plain driver's {want[4]}")
     outputs["frame"] = got
-
-    def unfused_frame():
-        return hk.drive((hk.hako_probe, stages["unfused"]), *args, **dkw)
-
-    before = dict(hk.LAUNCHES)
+    frame = dict(rays=n_rays, rounds=rounds, launches=launches)
+    drivers = {"two_launch": (hk.hako_probe, stages["fused"]),
+               "unfused": (hk.hako_probe, stages["unfused"])}
+    for name, kernels in drivers.items():
+        before = dict(hk.LAUNCHES)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        old = hk.drive(kernels, *args, **dkw)
+        if cuda:
+            torch.cuda.synchronize()
+        frame[name] = dict(launches=_launched_since(before),
+                           wall_ms=(time.perf_counter() - t0) * 1e3)
+        _equal(f"full frame, {name} driver", old[:3], want[:3])
+        if int(old[3].item()) or old[4] != rounds:
+            raise AssertionError(f"full frame, {name} driver: lanes unresolved or other "
+                                 f"rounds")
     if cuda:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    old = unfused_frame()
-    if cuda:
-        torch.cuda.synchronize()
-    old_wall = (time.perf_counter() - t0) * 1e3
-    _equal("full frame, unfused stage", old[:3], want[:3])
-    if int(old[3].item()) or old[4] != rounds:
-        raise AssertionError("full frame, unfused stage: lanes unresolved or other rounds")
-    frame = dict(rays=n_rays, rounds=rounds, launches=launches,
-                 unfused=dict(launches=_launched_since(before)))
-    if cuda:
-        split_wall, kernels_ms, other_ms = _profiled(
-            lambda: hk.intersect_rays_hako(*args, **kw))
-        frame.update(wall_ms=wall, mrays=n_rays / wall / 1e3, split_wall_ms=split_wall,
-                     kernels_ms=kernels_ms, other_device_ms=other_ms,
-                     host_ms=split_wall - kernels_ms - other_ms)
-        split_wall, kernels_ms, other_ms = _profiled(unfused_frame)
-        frame["unfused"].update(wall_ms=old_wall, split_wall_ms=split_wall,
-                                kernels_ms=kernels_ms, other_device_ms=other_ms,
-                                host_ms=split_wall - kernels_ms - other_ms)
+        frame.update(wall_ms=wall, mrays=n_rays / wall / 1e3,
+                     **_profiled(lambda: hk.intersect_rays_hako(*args, **kw)))
+        for name, kernels in drivers.items():
+            frame[name].update(_profiled(lambda k=kernels: hk.drive(k, *args, **dkw)))
 
     total = _launched_since(launches0)
     print(f"[phase timing] {label} T={T} fat={fat}: {n_rays} rays, {cap} blocks "
@@ -317,16 +312,21 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         print(f"[phase timing]   one round's wall (host clock, synced): unfused "
               f"{round_wall['unfused']:.4f} ms, fused {round_wall['fused']:.4f} ms [{card}]",
               flush=True)
-        for name, rec in (("fused", frame), ("unfused", frame["unfused"])):
-            print(f"[phase timing]   full frame, {name} stage: {rec['wall_ms']:.3f} ms, "
-                  f"{rounds} rounds, launches {rec['launches']}, == plain; profiled run "
-                  f"{rec['split_wall_ms']:.3f} ms = round kernels {rec['kernels_ms']:.3f} "
-                  f"ms + other device ops {rec['other_device_ms']:.3f} ms (device times) + "
-                  f"device idle (the host loop) {rec['host_ms']:.3f} ms [{card}]",
+        for name, rec in (("hako_rounds", frame), ("two-launch", frame["two_launch"]),
+                          ("unfused-stage", frame["unfused"])):
+            split = (f"profiled run: not measured ({rec['not_measured']})"
+                     if "not_measured" in rec else
+                     f"profiled run ({rec['device_events']} device events recorded) "
+                     f"{rec['split_wall_ms']:.3f} ms = round kernels {rec['kernels_ms']:.3f} "
+                     f"ms + other device ops {rec['other_device_ms']:.3f} ms (device times) "
+                     f"+ device idle (the host loop) {rec['host_ms']:.3f} ms")
+            print(f"[phase timing]   full frame, {name} driver: {rec['wall_ms']:.3f} ms, "
+                  f"{rounds} rounds, launches {rec['launches']}, == plain; {split} [{card}]",
                   flush=True)
     else:
-        print(f"[phase timing]   full frame: {rounds} rounds, launches {launches} (unfused "
-              f"{frame['unfused']['launches']}), == plain", flush=True)
+        print(f"[phase timing]   full frame: {rounds} rounds, launches {launches} (two-launch "
+              f"{frame['two_launch']['launches']}, unfused {frame['unfused']['launches']}), "
+              f"== plain", flush=True)
     print(f"[phase timing]   launches in all (phases, frame{', profiled frame' if cuda else ''}"
           f"): {total}", flush=True)
     return dict(label=label, T=T, fat=fat, rays=n_rays, cap=cap, lanes=n,

@@ -318,9 +318,9 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
 
     args = (bricks, snodes, tabs, root, tree.lower, tree.upper, ro, rd)
     fkw = dict(T=T, max_probes=max_probes, max_dda=max_dda)
-    before, rounds0 = dict(hk.LAUNCHES), hk.ROUNDS
+    before, rounds0 = dict(hk.LAUNCHES), hk.rounds_run()
     got = hk.intersect_rays_hako(*args, **fkw)
-    rounds = hk.ROUNDS - rounds0
+    rounds = hk.rounds_run() - rounds0
     want = hk.intersect_rays_hako_plain(*args, **fkw)
     _equal("full frame", got, want[:3])
     if int(want[3].item()):

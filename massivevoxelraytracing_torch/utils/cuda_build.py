@@ -31,7 +31,7 @@ MAX_LEVELS = 8  # top-tree level tables the kernels take (T <= 9)
 
 _lib = None
 last_build_seconds = None  # wall seconds of this process's nvcc run, if any
-last_build_log = ""        # its ptxas report (registers, spills per kernel)
+last_build_log = ""        # the library's ptxas report (registers, spills per kernel)
 
 
 def sources() -> list:
@@ -148,6 +148,17 @@ def _bind(lib):
         p, p, p, p, p,                                 # state: resolved, tq, t, nmaj, vrank
         p,                                             # stream
     ]
+    lib.hako_rounds_launch.argtypes = [
+        p, p, p, p, i,                                 # bricks, snodes, levels, offs, T
+        u, u, p, p,                                    # root mask, lower, upper
+        p, p, i,                                       # ro, rd, n
+        p, p, p,                                       # lists, counts, tq
+        p, p, p, p, p,                                 # t, nmaj, vrank, info, acc
+        i, i, i, i,                                    # shadow, caps, rounds
+        f, f, i,                                       # dt factors, blocks
+        p,                                             # stream
+    ]
+    lib.hako_rounds_grid.argtypes = [i, i, p]            # fat, shadow, out[2]
     lib.row_chase_launch.argtypes = [
         p, p, p, i, i,                                 # rows, start, end, chains, hops
         i, i, i, i, p,                                 # mode, chains/thread, blocks, threads, stream
@@ -235,8 +246,8 @@ def _bind(lib):
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
                lib.hako_dda_launch, lib.hako_merge_launch,
-               lib.hako_dda_merge_launch,
-               lib.row_chase_launch, lib.walk_probe_launch,
+               lib.hako_dda_merge_launch, lib.hako_rounds_launch,
+               lib.hako_rounds_grid, lib.row_chase_launch, lib.walk_probe_launch,
                lib.fetch_probe_launch, lib.construct_probe_launch,
                lib.node_gather_probe_launch, lib.table_select_probe_launch,
                lib.calib_probe_launch, lib.hako_dda_cached_launch,
@@ -306,5 +317,10 @@ def load():
         install(tmp, LIB_PATH, want)
         last_build_seconds = time.time() - t0
         last_build_log = log
+        with open(LIB_PATH + ".ptxas", "w") as f:
+            f.write(log)
+    elif os.path.exists(LIB_PATH + ".ptxas"):
+        with open(LIB_PATH + ".ptxas") as f:
+            last_build_log = f.read()
     _lib = _bind(ctypes.CDLL(LIB_PATH))
     return _lib

@@ -27,9 +27,6 @@ ptxas parsing and its refusal without a card, and walk_rows' counts.
 
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -37,6 +34,8 @@ import torch
 
 from massivevoxelraytracing_torch.ops import bricktree, morton, traverse
 from massivevoxelraytracing_torch.utils import cuda_build
+
+import cuda_host_stub
 
 torch.set_num_threads(1)
 
@@ -198,57 +197,17 @@ def test_mask_equals_accepted_cells_from_t1_dt_scale(scale):
 # the kernel source on the host
 # ---------------------------------------------------------------------------
 
-STUB = r"""
-#pragma once
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(...)
-struct int4 { int x, y, z, w; };
-struct Dim { unsigned x, y, z; };
-static Dim blockIdx, threadIdx, gridDim, blockDim;
-typedef void* cudaStream_t;
-enum { cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
-inline int __ffsll(long long v) { return __builtin_ffsll(v); }
-inline int __popcll(unsigned long long v) { return __builtin_popcountll(v); }
-inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
-template <typename K, typename A> void host_launch(K k, long long g, int b, const A& a) {
-  gridDim = {unsigned(g), 1, 1};
-  blockDim = {unsigned(b), 1, 1};
-  for (long long i = 0; i < g; ++i)
-    for (int j = 0; j < b; ++j) {
-      blockIdx = {unsigned(i), 0, 0};
-      threadIdx = {unsigned(j), 0, 0};
-      k(a);
-    }
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_walks(tmp_path_factory):
     """csrc/walks.cu compiled for the host: each launch a loop over its
     blocks and threads (the walks use no shared memory or barriers); the
     NaN-propagating max / min take their off-device branch."""
-    gxx = shutil.which("g++")
-    assert gxx, "g++ builds the port's host library; it is needed here too"
     d = tmp_path_factory.mktemp("walks_host")
     with open(os.path.join(cuda_build.CSRC, "walks.cu")) as f:
         src = f.read()
-    src, n = re.subn(r"kernel<<<([^,]+),\s*kThreads,\s*0,\s*static_cast<cudaStream_t>"
-                     r"\(stream\)>>>\(a\);", r"host_launch(kernel, \1, kThreads, a);", src)
+    src, n = cuda_host_stub.rewrite_launches(src)
     assert n == 1 and "<<<" not in src
-    (d / "cuda_runtime.h").write_text(STUB)
-    (d / "walks.cpp").write_text(src)
-    lib_path = str(d / "libwalks_host.so")
-    subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-I", str(d), "-o", lib_path, str(d / "walks.cpp")], check=True)
-    lib = ctypes.CDLL(lib_path)
+    lib = cuda_host_stub.build(d, "walks_host", src)
     p, q, u, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
                      ctypes.c_float)
     lib.brick_walk_launch.argtypes = [p, q, p, p, p, q, u, i, q, f, f, f, p, p, p, p]

@@ -3,7 +3,10 @@ torch.cuda.is_available() is false): the hako_mega kernel, and the round
 driver's hako_probe / hako_dda / hako_merge and its fused row stage
 hako_dda_merge round by round, against their plain PyTorch versions on the
 same device tensors, plain and fat layouts, primary and shadow rays, bit
-for bit (and the route, two launches a round, against hako_mega); the whole slice on the card
+for bit (and the route, one hako_rounds launch a call, against hako_mega;
+hako_rounds against the two-launch and plain drivers with their rounds,
+at the default caps, capped and cut, with no host sync under
+set_sync_debug_mode("error"), and a grid the card refuses raising); the whole slice on the card
 (build_scene + render_frame through the kernel) against the same slice on
 the CPU (plain version); a path-tracer step through both routes; the kernel
 at small ray counts and on permuted rays, and its counting variant; the
@@ -195,7 +198,7 @@ def test_round_kernels_match_plain_bit_for_bit(cuda, monkeypatch, grid_res,
     n_rounds = got[4]
     assert int(got[3]) == 0 and n_rounds > 1
     n_stages = 2 if args[1] is not None else 1
-    assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda_merge": 0,
+    assert hk.LAUNCHES == {"hako_rounds": 0, "hako_probe": n_rounds, "hako_dda_merge": 0,
                            "hako_dda": n_stages * n_rounds, "hako_merge": n_rounds,
                            "hako_dda_cached": 0}
     assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)[:3],
@@ -254,8 +257,9 @@ def test_dda_merge_matches_plain_bit_for_bit(cuda, monkeypatch, grid_res, n_vox,
                    max_dda=2, max_rounds=hk.default_max_rounds(args[1], T, hk.PROBES, 2))
     n_rounds = got[4]
     assert int(got[3]) == 0 and n_rounds > 1 and sum(resumed) > 0
-    assert hk.LAUNCHES == {"hako_probe": n_rounds, "hako_dda_merge": n_rounds,
-                           "hako_dda": 0, "hako_merge": 0, "hako_dda_cached": 0}
+    assert hk.LAUNCHES == {"hako_rounds": 0, "hako_probe": n_rounds,
+                           "hako_dda_merge": n_rounds, "hako_dda": 0, "hako_merge": 0,
+                           "hako_dda_cached": 0}
     assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T, shadow=shadow)[:3],
                  "fused rounds vs plain")
     assert_equal(got[:3], hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
@@ -266,17 +270,87 @@ def test_dda_merge_matches_plain_bit_for_bit(cuda, monkeypatch, grid_res, n_vox,
 @pytest.mark.parametrize("grid_res,n_vox,snodes_above", CASES)
 def test_rounds_route_equals_megakernel(cuda, monkeypatch, grid_res, n_vox,
                                         snodes_above, shadow):
-    """intersect_rays_hako on the card: two launches a round (hako_probe,
-    hako_dda_merge), none of the unfused stage, equal to hako_mega."""
+    """intersect_rays_hako on the card: one hako_rounds launch a call, none
+    of the two-launch or unfused drivers' kernels, equal to hako_mega."""
     args, T = case_args(cuda, monkeypatch, grid_res, n_vox, snodes_above)
     hk.reset_counters()
     got = hk.intersect_rays_hako(*args, T=T, shadow=shadow)
     torch.cuda.synchronize()
-    assert hk.ROUNDS > 1 and hk.unresolved_lanes() == 0
-    assert hk.LAUNCHES == {"hako_probe": hk.ROUNDS, "hako_dda_merge": hk.ROUNDS,
+    assert hk.rounds_run() > 1 and hk.unresolved_lanes() == 0
+    assert hk.LAUNCHES == {"hako_rounds": 1, "hako_probe": 0, "hako_dda_merge": 0,
                            "hako_dda": 0, "hako_merge": 0, "hako_dda_cached": 0}
     assert_equal(got, hako_mega.intersect_rays_hako_mega(*args, T=T, shadow=shadow),
                  "rounds route vs megakernel")
+
+
+ROUND_CAPS = [(hk.PROBES, hk.DDA_ITERS, None), (1, 1, None), (1, 2, 3)]
+
+
+@pytest.mark.parametrize("caps", ROUND_CAPS, ids=["default", "capped", "cut"])
+@pytest.mark.parametrize("shadow", [False, True])
+@pytest.mark.parametrize("grid_res,n_vox,snodes_above", CASES)
+def test_rounds_kernel_equals_two_launch_and_plain(cuda, monkeypatch, grid_res, n_vox,
+                                                   snodes_above, shadow, caps):
+    """hako_rounds (the round loop in one cooperative launch) against the
+    two-launch driver (hako_probe, hako_dda_merge a round) and the plain
+    driver on the same card tensors: t, nmajor, vrank bit for bit, the
+    same rounds and unresolved lanes; with the default caps, with one
+    probe and one sub-brick visit a round (every resume path), and cut
+    at 3 rounds (lanes left unresolved)."""
+    args, T = case_args(cuda, monkeypatch, grid_res, n_vox, snodes_above)
+    max_probes, max_dda, max_rounds = caps
+    if max_rounds is None:
+        max_rounds = hk.default_max_rounds(args[1], T, max_probes, max_dda)
+    kw = dict(T=T, shadow=shadow, max_probes=max_probes, max_dda=max_dda,
+              max_rounds=max_rounds)
+    hk.reset_counters()
+    got = hk.hako_rounds(*args, **kw)
+    assert hk.LAUNCHES["hako_rounds"] == 1
+    two = hk.drive((hk.hako_probe, hk.hako_dda_merge), *args, **kw)
+    want = hk.intersect_rays_hako_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert_equal(got[:3], want[:3], "hako_rounds vs plain")
+    assert_equal(two[:3], want[:3], "two-launch vs plain")
+    assert got[3].tolist() == [want[4], int(want[3])] == [two[4], int(two[3])]
+    if caps[2] is None:
+        assert want[4] > 1 and int(want[3]) == 0
+    else:
+        assert want[4] == 3 and int(want[3]) > 0
+
+
+def test_rounds_kernel_makes_no_host_sync(cuda, monkeypatch):
+    """Once the kernel is built, intersect_rays_hako on CUDA tensors runs
+    under torch.cuda.set_sync_debug_mode("error"): no nonzero, no .item(),
+    no copy to the host; one launch a call."""
+    args, T = case_args(cuda, monkeypatch, 512, 8000, 128)
+    want = hk.intersect_rays_hako(*args, T=T)  # builds the library
+    torch.cuda.synchronize()
+    hk.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = hk.intersect_rays_hako(*args, T=T)
+        shadow = hk.intersect_rays_hako(*args, T=T, shadow=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert hk.LAUNCHES["hako_rounds"] == 2 and hk.LAUNCHES["hako_probe"] == 0
+    assert_equal(got, want, "a call under the sync check")
+    assert bool((shadow[0] < 1e37).any())
+    assert hk.unresolved_lanes() == 0 and hk.rounds_run() > 2
+
+
+def test_rounds_kernel_failed_launch_raises(cuda, monkeypatch):
+    """A grid the card cannot hold co-resident is refused by the
+    cooperative launch, and the wrapper raises: no fallback, no count."""
+    args, T = case_args(cuda, monkeypatch, 64, 1536, None)
+    per_sm, sms = hk.rounds_grid(cuda, False, False)
+    assert per_sm >= 1 and sms >= 1
+    hk.reset_counters()
+    with pytest.raises(RuntimeError, match="hako_rounds kernel launch failed"):
+        hk.hako_rounds(*args, T=T, _blocks=per_sm * sms + 1)
+    assert set(hk.LAUNCHES.values()) == {0}
+    got = hk.hako_rounds(*args, T=T, _blocks=per_sm * sms)  # the largest grid it takes
+    assert_equal(got[:3], hk.intersect_rays_hako_plain(*args, T=T)[:3],
+                 "hako_rounds on the full co-resident grid")
 
 
 def test_dda_merge_checks_inputs(cuda):
@@ -340,7 +414,7 @@ def test_pt_step_rounds_equals_mega_on_card(cuda):
         pt.step(cam, n_spp=4)
         torch.cuda.synchronize()
         if traversal == "mega":
-            assert hako_mega.LAUNCHES > 0 and hk.ROUNDS == 0
+            assert hako_mega.LAUNCHES > 0 and hk.rounds_run() == 0
         else:
             assert hako_mega.LAUNCHES == 0 and min(hk.LAUNCHES[k] for k in hk.ROUTE_KERNELS) > 0
         assert pt.accum.device.type == "cuda"

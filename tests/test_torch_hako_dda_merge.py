@@ -116,7 +116,7 @@ def test_fused_route_matches_jax(fat):
     pt, ro, rd, ref = make_case(fat)
     hk.reset_counters()
     t, nm, vr = hk.intersect_hako(pt, ro, rd)
-    assert hk.ROUNDS > 1 and hk.unresolved_lanes() == 0
+    assert hk.rounds_run() > 1 and hk.unresolved_lanes() == 0
     assert_matches_reference((t.numpy(), nm.numpy(), vr.numpy().view(np.uint32)), ref)
 
 

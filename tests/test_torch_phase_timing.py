@@ -80,9 +80,10 @@ def test_phases_and_frame_equal_the_plain_driver(monkeypatch, snodes_above):
     if snodes_above is not None:
         monkeypatch.setattr(hako, "USE_SNODES_ABOVE", snodes_above)
     # the script counts its rounds as differences: a caller's count runs on
-    monkeypatch.setattr(hk, "ROUNDS", 1000)
+    hk.reset_counters()
+    hk._acc(torch.device("cpu"))[0] += 1000
     got = pt.main(ARGV)
-    assert hk.ROUNDS == 1000 + got["frame"]["rounds"]
+    assert hk.rounds_run() == 1000 + got["frame"]["rounds"]
     # on the CPU the wrappers run the plain versions and launch nothing
     assert set(got["launches"].values()) == {0}
     assert all(set(r["launches"].values()) == {0} for r in got["phases"].values())
