@@ -30,10 +30,14 @@ Phases (any failure raises, and the script exits non-zero):
      un-tiled and flat) against their plain stages on the same card
      tensors, bit for bit, on the frame and on a 1000x700 band from row
      256; each kernel's ms, its plain stage's ms and its bytes bound
-     (scripts/common.raygen_bound / shade_bound) and share; the frame
-     through stages="plain" (the route before these kernels) and through
-     the kernels, timed and profiled (device kernels, busy, idle), parent
-     route first, both images and depths equal to the frame's;
+     (scripts/common.raygen_bound / shade_bound) and share; frame_raygen
+     in turns with the parent commit's kernel (scripts/render_ab.py, both
+     == the plain stage first); the frame through stages="plain" (the
+     route before these kernels) and through the kernels, timed and
+     profiled (device kernels, busy, idle; a trace must hold every launch
+     the frame's wrappers and hako_mega counted, common.profile_counted,
+     else "not measured"), parent route first, both images and depths
+     equal to the frame's, and frame_raygen's share by that trace;
   3c. the scene build's kernels (ops/voxelize.py, csrc/vox_build.cu): the
      lattice's split triangles to the card from pageable and from pinned
      memory (ms, GB/s); vox_count, vox_emit, vox_run_heads and
@@ -83,7 +87,9 @@ Phases (any failure raises, and the script exits non-zero):
      kernels), and each kernel against its plain stage on every stage call
      of the first packet, recorded in the warm step, bit for bit, with its
      ms, plain ms and bytes bound on the bounce-1 call (the bounce sample
-     also through the sats HDRI backend, with its bound); and on one packet's full
+     also through the sats HDRI backend, with its bound, and through both
+     backends in turns with the parent commit's kernel, scripts/render_ab.py);
+     and on one packet's full
      bounce-1 BSDF and NEE batches (the inputs the step gives the
      kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
      against its plain version, round by round, hako_rounds against the
@@ -285,6 +291,7 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import collections.abc
 import contextlib
 import json
 import os
@@ -821,7 +828,7 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
     import torch
 
     from massivevoxelraytracing_torch.models import accel, raycast
-    from massivevoxelraytracing_torch.scripts import common
+    from massivevoxelraytracing_torch.scripts import common, render_ab
 
     kind, T, meta, root = accel.accel_args(tree)
     table = raycast._color_table(tree)
@@ -877,6 +884,17 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
             out["timing"] = {name: dict(ms=k_ms[name], plain_ms=p_ms[name],
                                         bound_ms=bnd[name][0], bound_by=bnd[name][1],
                                         share=bnd[name][0] / k_ms[name]) for name in k_ms}
+            # frame_raygen in turns with the parent commit's kernel
+            # (scripts/render_ab.py), both == the plain stage first
+            render_ab.build_earlier()  # both parents' libraries, built together
+            ab = render_ab.raygen_ab(render_ab.parent("frame_raygen"), camv, w, h, device,
+                                     smi)
+            print(f"[phase3] frame_raygen in turns with its parent's kernel (CUDA events, "
+                  f"{render_ab.REPS} calls a turn): current {fmt_ms(ab['ms'])} ms, parent "
+                  f"{fmt_ms(ab['old_ms'])} ms; share current {ab['share']:.1%}, parent "
+                  f"{ab['old_share']:.1%} of {ab['bound_ms']:.4f} ms; faster in every turn: "
+                  f"{ab['faster']} [{smi}]", flush=True)
+            out["timing"]["frame_raygen"]["ab"] = ab
 
     # the frame through both routes, in turns, the parent's route first
     def frame(stages):
@@ -888,17 +906,58 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
         if not torch.equal(got[0], img) or not torch.equal(got[1], depth):
             raise AssertionError(f"phase 3: the frame through the {label} route differs")
         ms = timed(lambda: frame(stages), reps=TIMED_FRAMES)[1]
-        prof = common.profile_call(lambda: frame(stages))
-        routes[label] = dict(ms=ms, kernels=prof["kernels"], busy_ms=prof["busy_ms"],
-                             idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
-                             mega_ms=prof["mega_ms"], frame=prof["frame"])
+        routes[label] = dict(ms=ms)
+        note = "not measured (8 profiles missed a launch the wrappers counted)"
+        try:  # a trace that holds every launch of the frame and its traversal
+            prof = common.profile_counted(lambda: frame(stages), FrameCounts())
+        except AssertionError:
+            prof = None
+        if prof is not None:
+            routes[label].update(kernels=prof["kernels"], busy_ms=prof["busy_ms"],
+                                 idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                                 mega_ms=prof["mega_ms"], frame=prof["frame"],
+                                 profile_tries=prof["tries"])
+            note = (f"{prof['kernels']} device kernels, busy {prof['busy_ms']:.3f} ms, "
+                    f"hako_mega {prof['mega_ms']:.3f} ms, frame kernels {prof['frame']}, "
+                    f"idle {prof['idle_share']:.3f} (every counted launch traced, try "
+                    f"{prof['tries']})")
         print(f"[phase3] frame route {label}: {ms:.3f} ms (mean of {TIMED_FRAMES}, CUDA "
-              f"events) = {WIDTH * HEIGHT / (ms * 1e-3) / 1e6:.1f} Mrays/s; profiled: "
-              f"{prof['kernels']} device kernels, busy {prof['busy_ms']:.3f} ms, hako_mega "
-              f"{prof['mega_ms']:.3f} ms, frame kernels {prof['frame']}, idle "
-              f"{prof['idle_share']:.3f}; image and depth == phase 3's [{smi}]", flush=True)
+              f"events) = {WIDTH * HEIGHT / (ms * 1e-3) / 1e6:.1f} Mrays/s; profiled: {note}; "
+              f"image and depth == phase 3's [{smi}]", flush=True)
+    kr = routes["kernels"]
+    if "frame" in kr:
+        raygen_ms = kr["frame"]["frame_raygen"][0]
+        tm = out["timing"]["frame_raygen"]
+        tm.update(profiled_ms=raygen_ms, profiled_share=tm["bound_ms"] / raygen_ms)
+        print(f"[phase3] frame_raygen in the counted profile: {raygen_ms:.4f} ms device time, "
+              f"share {tm['profiled_share']:.1%} of {tm['bound_ms']:.4f} ms [{smi}]", flush=True)
+    else:
+        print(f"[phase3] frame_raygen in the counted profile: not measured [{smi}]", flush=True)
     out.update(err=err, routes=routes)
     return out
+
+
+class FrameCounts(collections.abc.Mapping):
+    """The frame's launch counts read live for common.profile_counted: the
+    frame's kernels (raycast.LAUNCHES) and the traversal's (hako_mega)."""
+
+    def __getitem__(self, name):
+        from massivevoxelraytracing_torch.models import raycast
+        from massivevoxelraytracing_torch.ops import hako_mega
+
+        return hako_mega.LAUNCHES if name == "hako_mega" else raycast.LAUNCHES[name]
+
+    def __iter__(self):
+        from massivevoxelraytracing_torch.models import raycast
+
+        return iter((*raycast.KERNELS, "hako_mega"))
+
+    def __len__(self):
+        return len(tuple(iter(self)))
+
+
+def fmt_ms(values) -> str:
+    return " / ".join(f"{v:.4f}" for v in values)
 
 
 # ---------------------------------------------------------------------------
@@ -1982,7 +2041,7 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
 
     from massivevoxelraytracing_torch.models import pathtracer
     from massivevoxelraytracing_torch.ops import pt_chain
-    from massivevoxelraytracing_torch.scripts import common
+    from massivevoxelraytracing_torch.scripts import common, render_ab
     from massivevoxelraytracing_torch.scripts.common import flat_tensors
 
     ppt = pathtracer.PathTracer(width=WIDTH, height=HEIGHT, device=pt.device)
@@ -2064,6 +2123,18 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
             e["sats_bound_ms"], e["sats_bound_by"] = common.chain_bound(
                 "bounce_sample", sats, k, skern)
             del skern
+            # both backends in turns with the parent commit's kernel
+            # (scripts/render_ab.py), both == the plain stage first
+            old_fn = render_ab.parent("pt_bounce_sample")
+            for backend in ("sats", "alias"):
+                ab = render_ab.bounce_ab(old_fn, a, k, backend, smi)
+                e[f"{backend}_ab"] = ab
+                print(f"[phase4] pt_bounce_sample ({backend}) in turns with its parent's "
+                      f"kernel (CUDA events, {render_ab.REPS} calls a turn): current "
+                      f"{fmt_ms(ab['ms'])} ms, parent {fmt_ms(ab['old_ms'])} ms; share "
+                      f"current {ab['share']:.1%}, parent {ab['old_share']:.1%} of "
+                      f"{ab['bound_ms']:.4f} ms; faster in every turn: {ab['faster']} "
+                      f"[{smi}]", flush=True)
         del kern, plain
     for name, e in out.items():
         ms_step, calls_step = prof["chain"][name]
@@ -3696,6 +3767,9 @@ def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_path
                        "structure_frames": sum(v["frame_launches"][name] for k, v in
                                                structures.items() if k in WALK_OF)}
             extra = dict(share=tm["share"], frame_routes=frame3["routes"])
+            if name == "frame_raygen":
+                extra.update(ab=tm["ab"], profiled_ms=tm.get("profiled_ms"),
+                             profiled_share=tm.get("profiled_share"))
             if name == "frame_shade":
                 c = frame3["timing"]["frame_shade_colour"]
                 extra.update(colour_ms=c["ms"], colour_plain_ms=c["plain_ms"],
@@ -3964,8 +4038,8 @@ def main() -> int:
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             share=e["share"], lanes=e["lanes"], ms_a_step=e["ms_a_step"],
             calls_checked=e["calls_checked"],
-            **{k: e[k] for k in ("sats_ms", "sats_plain_ms", "sats_bound_ms", "sats_bound_by")
-               if k in e}))
+            **{k: e[k] for k in ("sats_ms", "sats_plain_ms", "sats_bound_ms", "sats_bound_by",
+                                 "sats_ab", "alias_ab") if k in e}))
     # the scene build (phase 3c): launches by path, each counted from 0
     for name, e in build3c["stages"].items():
         by_path = {path: got[name] for path, got in vox_paths.items()}

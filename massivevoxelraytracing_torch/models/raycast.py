@@ -202,13 +202,30 @@ def _band_lanes(width: int, band_tile_rows: int) -> int:
     return -(-width // TILE) * TILE * band_tile_rows * TILE
 
 
+INT32_MAX = 2 ** 31 - 1
+
+
+def _check_int32_band(width: int, height: int, py0: int, band_tile_rows: int,
+                      n_pad: int) -> None:
+    """frame_raygen_kernel's lane arithmetic is 32-bit: refuse a band whose
+    floats (3 n_pad), pixel rows or sizes an int cannot index."""
+    last_row = py0 + band_tile_rows * TILE
+    if 3 * n_pad > INT32_MAX or max(width, height, last_row, -py0) > INT32_MAX:
+        raise ValueError(
+            f"band of {n_pad} lanes ({width}x{height}, rows from {py0}, "
+            f"{band_tile_rows} tile rows) is past frame_raygen's 32-bit lane "
+            f"arithmetic: 3 n_pad and every row must fit an int32")
+
+
 def gen_rays(cam: tuple, py0: int, *, width: int, height: int,
              band_tile_rows: int, device):
     """The tile-major rays (ro, rd f32 [n_pad, 3]) of a band of
     band_tile_rows tile rows starting at pixel row py0, on `device`. cam:
     (o, right, up, front, tan_half_fovy), anything numpy takes or tensors
     (host_camera). The CPU runs _gen_rays_band; a CUDA device launches
-    frame_raygen_kernel; another device raises ValueError."""
+    frame_raygen_kernel (a band past its 32-bit lane arithmetic raises
+    ValueError before anything is allocated); another device raises
+    ValueError."""
     device = torch.empty(0, device=device).device
     route = _route(device, "frame_raygen")
     o, right, up, front, th = host_camera(*cam)
@@ -218,6 +235,7 @@ def gen_rays(cam: tuple, py0: int, *, width: int, height: int,
             *(torch.from_numpy(v).to(device) for v in (o, right, up, front)),
             _f32(th, device), py0, width=width, height=height,
             band_tile_rows=band_tile_rows)
+    _check_int32_band(width, height, int(py0), band_tile_rows, n_pad)
     import ctypes
 
     from ..utils import cuda_build

@@ -34,10 +34,13 @@ kernels against its plain stage bit for bit on random lanes (every
 template case) and on the stage calls a PT step makes, a PT step through
 the kernels against the same step through the plain stages (2 and 8
 bounces, with and without emission and sky; PCG32), the sats HDRI
-backend's counted plain stage, a build failure that raises, and the nvcc
+backend's counted plain stage (and the bounce sample through it on a sky
+whose column prefixes step down and on skies either side of the limit of
+its staged rows), a build failure that raises, and the nvcc
 command of pt_chain.cu; the frame's kernels (models/raycast.py,
 csrc/frame.cu: frame_raygen on whole frames and bands past row 0 at widths
-that are not multiples of 128, frame_shade for normals and colours,
+1 to 1920, multiples of 128 or not, 1 to 9 tile rows, and its refusal of
+a band past 32-bit lane arithmetic; frame_shade for normals and colours,
 un-tiled and flat, on lanes with ±0 and NaN directions) and the walk
 kernels (csrc/walks.cu: brick_walk, octree_walk with DAG on and off,
 shadow on and off, max_iters cuts of 1, 7 and 100, on mirrored,
@@ -1252,6 +1255,74 @@ def edge_skies() -> dict:
             "wide": rng.random((5, 300, 3)).astype(np.float32) ** 8}
 
 
+def step_down_sky() -> np.ndarray:
+    """A sky whose prefix tables' columns step down: every third column is
+    black over rows 10-49 while its neighbours are lit, so the floors of
+    _build_sat_u32 make the masked column prefix fall by one at some rows
+    (sats_step_downs counts them; the bench sky has none)."""
+    img = (np.random.default_rng(7).random((64, 96, 3)) ** 2).astype(np.float32)
+    img[10:50, ::3] = 0.0
+    return img
+
+
+def sats_step_downs(sats: np.ndarray) -> int:
+    """Rows y at which a column's masked prefix, (sat[y, X] - sat[y, X -
+    1]) & 0xFFFFFFFF, is below the row before's, over all tables and
+    columns of an int64 [7, h, w] prefix table."""
+    prev = np.concatenate([np.zeros_like(sats[:, :, :1]), sats[:, :, :-1]], 2)
+    col = (sats - prev) & 0xFFFFFFFF
+    return int((col[:, 1:] < col[:, :-1]).sum())
+
+
+def sats_case(cuda, img, seed: int, n: int = 5000):
+    """The bounce sample's arguments with the sats backend on `img`."""
+    from massivevoxelraytracing_torch.ops import hdri
+
+    x = chain_tensors(chain_case(np.random.default_rng(seed), n), cuda)
+    env = hdri.load(img, scale=1.0, use_alias=False, device=cuda)
+    return (env, x["color"], x["pmj"], x["vidx"], x["nmaj"], x["ro"], x["rd"], x["t"],
+            x["miss"], x["stream"], x["spp"], None)
+
+
+@pytest.mark.parametrize("extra", [True, False])
+def test_bounce_sample_sats_kernel_matches_plain_on_step_down_sky(cuda, extra):
+    """The kernel replays the plain stage's bisections where a column's
+    masked prefix steps down (there the bisection's index is not the
+    smallest i with f(i) > b), its last rows staged in shared memory."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    args = sats_case(cuda, step_down_sky(), 39, 20000)
+    assert sats_step_downs(args[0].sats.cpu().numpy()) > 100
+    pt_chain.reset_counters()
+    got = pt_chain.bounce_sample(*args, dim=2, hdri=True, extra=extra)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_bounce_sample"] == 1
+    bits_equal(got, pt_chain.bounce_sample_plain(*args, dim=2, hdri=True, extra=extra),
+               "sats bounce_sample, step-down sky")
+
+
+@pytest.mark.parametrize("w,h", [(2341, 3), (2400, 2), (2340, 2), (2339, 5), (600, 40),
+                                 (293, 9), (292, 9), (100, 1), (50, 2), (3, 129)])
+def test_bounce_sample_sats_kernel_global_and_staged_paths(cuda, w, h):
+    """Skies on both sides of the staging limit (7 w u32 last-row entries
+    over 64 KiB: w > 2340) and of the Y levels staged with them (7 2^levels
+    w u32 within 64 KiB: 3 levels up to w = 292, 2 up to 585, 1 up to
+    1170, none past; no more than the Y search's steps): the global-memory
+    search and the staged one == the plain stage, with lanes spread over
+    every table."""
+    from massivevoxelraytracing_torch.ops import pt_chain
+
+    img = (np.random.default_rng(w + h).random((h, w, 3)) ** 3).astype(np.float32)
+    img[:, w // 3: w // 2] = 0.0
+    args = sats_case(cuda, img, 40)
+    pt_chain.reset_counters()
+    got = pt_chain.bounce_sample(*args, dim=4, hdri=True, extra=True)
+    torch.cuda.synchronize()
+    assert pt_chain.LAUNCHES["pt_bounce_sample"] == 1
+    bits_equal(got, pt_chain.bounce_sample_plain(*args, dim=4, hdri=True, extra=True),
+               f"sats bounce_sample, {w}x{h} sky")
+
+
 @pytest.mark.parametrize("sky", ["holes", "one_texel", "black", "wide"])
 def test_bounce_sample_sats_kernel_matches_plain_on_edge_skies(cuda, sky):
     """The sats backend's binary searches in the kernel == the plain
@@ -1835,7 +1906,11 @@ def frame_cam():
 
 
 @pytest.mark.parametrize("width,height,py0,rows", [
-    (1920, 1080, 0, 9), (200, 130, 0, 2), (200, 330, 128, 2), (333, 77, 0, 1)])
+    (1920, 1080, 0, 9), (200, 130, 0, 2), (200, 330, 128, 2), (333, 77, 0, 1),
+    # widths 1, 127, 128, 129; band_tile_rows 1-9; py0 > 0; partial last tiles
+    (1, 1, 0, 1), (127, 300, 0, 3), (128, 128, 0, 1), (129, 1000, 0, 8),
+    (1920, 1080, 0, 4), (1920, 1080, 512, 5), (129, 700, 384, 6), (127, 900, 0, 7),
+    (1, 2000, 640, 9), (128, 257, 128, 2), (1920, 1079, 896, 2)])
 def test_frame_raygen_kernel_matches_plain(cuda, width, height, py0, rows):
     cam = raycast.camera_of(frame_cam())
     raycast.reset_counters()
@@ -1847,6 +1922,16 @@ def test_frame_raygen_kernel_matches_plain(cuda, width, height, py0, rows):
         torch.tensor(cam[4], dtype=torch.float32, device=cuda), py0, width=width,
         height=height, band_tile_rows=rows)
     assert_bits(got, want, f"raygen {width}x{height} py0={py0}")
+
+
+def test_frame_raygen_refuses_a_band_past_32_bits(cuda):
+    """3 n_pad past an int32: refused before anything is allocated or
+    launched."""
+    cam = raycast.camera_of(frame_cam())
+    raycast.reset_counters()
+    with pytest.raises(ValueError, match="32-bit"):
+        raycast.gen_rays(cam, 0, width=65536, height=65536, band_tile_rows=90, device=cuda)
+    assert raycast.LAUNCHES["frame_raygen"] == 0
 
 
 def card_lanes(n, seed, device):

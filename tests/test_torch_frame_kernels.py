@@ -11,7 +11,8 @@ fusion, no FMA contraction), bit for bit:
   * render_frame's two routes (the wrappers; stages="plain") are the same
     on the CPU;
   * the wrappers refuse a wrong dtype, shape or device before any launch
-    (no counter moves).
+    (no counter moves), and gen_rays a band past its kernel's 32-bit lane
+    arithmetic.
 
 The kernels themselves run on the card only (tests/test_torch_cuda.py).
 """
@@ -81,6 +82,24 @@ def test_gen_rays_matches_jax_op_by_op(width, height, py0, rows):
     # the padding past the frame's edge is parked
     live = np.asarray(want[0])[:, 0] < 1e8
     assert 0 < live.sum() < n_pad
+
+
+@pytest.mark.parametrize("width,height,py0,rows", [
+    (65536, 65536, 0, 86),               # 3 n_pad = 2,164,260,864
+    (1 << 31, 8, 0, 1),                  # the width itself
+    (128, 1 << 31, 0, 1),                # the height
+    (128, 128, (1 << 31) - 128, 1),      # the band's last row
+    (128, 128, -(1 << 31), 1)])          # its first
+def test_gen_rays_refuses_a_band_past_32_bits_before_launch(monkeypatch, width, height,
+                                                            py0, rows):
+    """frame_raygen_kernel's lane arithmetic is 32-bit: the kernel route
+    refuses such a band before it allocates or launches anything (the
+    route forced to the kernel's; the fixture fails the test if the
+    kernel library is loaded or a counter moves)."""
+    monkeypatch.setattr(raycast, "_route", lambda device, name: "cuda")
+    with pytest.raises(ValueError, match="32-bit"):
+        raycast.gen_rays(raycast.camera_of(frame_camera()), py0, width=width, height=height,
+                         band_tile_rows=rows, device="cpu")
 
 
 def traced_lanes(n, rng):
@@ -171,3 +190,18 @@ def test_wrappers_refuse_bad_inputs_before_launch():
     meta = [x.to("meta") for x in (table, rd, t, nmaj, vidx)]
     with pytest.raises(ValueError, match="no frame_shade kernel"):
         raycast.shade(*meta, show_color=False)
+
+
+def test_render_ab_has_its_earlier_sources_and_needs_a_card():
+    """scripts/render_ab.py times frame_raygen and the bounce sample
+    against the sources it keeps under csrc/earlier/, whose C entry points
+    it renames; without a card it raises before building anything."""
+    from massivevoxelraytracing_torch.scripts import render_ab
+
+    for kernel, src in render_ab.EARLIER.items():
+        with open(src) as f:
+            text = f.read()
+        assert all(name + "(" in text for name in render_ab.ENTRIES[kernel]), src
+        assert f"{kernel}_kernel" in text, src
+    with pytest.raises(RuntimeError, match="needs a card"):
+        render_ab.run(device="cpu")
