@@ -75,16 +75,20 @@ Phases (any failure raises, and the script exits non-zero):
   4. the path tracer: PMJ table build; a warm 16-spp step and 2 timed
      steps at 1024^3 / 1080p through the megakernel (PT Mrays/s counted
      as bench.py does, mean radiance within 1% of the JAX package's
-     bench run), a profiled step (device idle share, top device ops),
+     bench run), a profiled step (device idle share, top device ops; the
+     trace must hold every hako_mega and sample-chain launch the wrappers
+     counted, taken again with other idle pads until it does, else "not
+     measured": scripts/common.profile_or_none),
      steps through the round driver from the same state: hako_rounds, the
      two-launch driver, hako_rounds (host clock, launches, rounds, the
      hako_rounds step's host syncs; accumulators bit-equal); the sample chain
      (ops/pt_chain.py, csrc/pt_chain.cu): its five kernels' launches a
      step (each must launch), one step through its plain stages on the
      card from the same state (accumulator bit-equal to the kernels'), both
-     routes profiled (device kernels a step, busy ms, idle share; the
-     kernel route must launch at most a tenth of the plain route's device
-     kernels), and each kernel against its plain stage on every stage call
+     routes profiled, each trace held to its counts (device kernels a
+     step, busy ms, idle share; where both are measured, the kernel route
+     must launch at most a tenth of the plain route's device kernels),
+     and each kernel against its plain stage on every stage call
      of the first packet, recorded in the warm step, bit for bit, with its
      ms, plain ms and bytes bound on the bounce-1 call (the bounce sample
      also through the sats HDRI backend, with its bound, and through both
@@ -161,8 +165,14 @@ Phases (any failure raises, and the script exits non-zero):
      shared form refuses; smem_alloc_probe up to the opt-in limit, which
      must launch, and one row more, which must be refused; ohg_probe from
      shared memory, through L1 and on the tensor cores at 128 and 1024
-     rows, k and 2k hops); every case held bit for bit against its plain
-     version before it is timed;
+     rows, k and 2k hops, beside its torch.matmul yardstick); every case
+     held bit for bit against its plain version before it is timed; then,
+     its launches not counted, scripts/gather_ab.run: the redesigned
+     ohg_probe mma mode and take_along_probe<0, SHARED> in turns with the
+     parent commit's kernels (csrc/earlier/hako_probes_5ace4b1.cu, built
+     there first), each == its plain version, with torch.matmul (one CUDA
+     graph of the 32 hops, and launched a call at a time) / torch.gather
+     in the same turns and each kernel's ptxas registers;
   6. the apps on the card, each through its main(argv) into build/:
      rtcamp (the animated lattice, frames 0-2 of 24 at 1440x900, a full
      rebuild a frame at 512^3 then 1024^3, one 16-spp step; every PNG
@@ -222,7 +232,8 @@ Phases (any failure raises, and the script exits non-zero):
      hako_mega launch a band; (c) a 16-spp step over dp 2 x sp 4
      (make_sharded_pt_step, 4 spp an entry), within rtol / atol 2e-5 of
      phase 4's single-device step from zero, with its time, peak memory
-     and a profiled step's device idle share; (d) the tree as 4
+     and a profiled step's device idle share (its trace held to the
+     step's counts, else "not measured"); (d) the tree as 4
      brick-range shards (parallel/bigscene.py) on the frame's rays,
      primary, shadow and shaded, against the whole tree (one hako_rounds
      launch a shard and call, counted; hako_dda_merge held against its
@@ -248,7 +259,8 @@ Phases (any failure raises, and the script exits non-zero):
      scripts/pt_phase_attrib.py at its defaults (the lattice at 1024^3,
      960x540, cells b0 b1 b2 b4 b8 b8_nosky b8_nocompact, a profiled step
      of b0, b8 and b8_nocompact with the sample chain's kernels' ms in
-     it): b8 == b8_nocompact bit for bit, b8_nosky's mean 0, b0's and
+     it, its trace held to the step's counts, else "not measured"): b8 ==
+     b8_nocompact bit for bit, b8_nosky's mean 0, b0's and
      b8's means the values every run has printed (21.283392, 37.108360),
      every mean finite, and the step's split by the cells' differences;
      (d) scripts/scale_demo.py at 2048^3: the lattice's build with its
@@ -291,7 +303,6 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
-import collections.abc
 import contextlib
 import json
 import os
@@ -909,7 +920,8 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
         routes[label] = dict(ms=ms)
         note = "not measured (8 profiles missed a launch the wrappers counted)"
         try:  # a trace that holds every launch of the frame and its traversal
-            prof = common.profile_counted(lambda: frame(stages), FrameCounts())
+            prof = common.profile_counted(lambda: frame(stages),
+                                          common.LiveCounts(raycast.LAUNCHES))
         except AssertionError:
             prof = None
         if prof is not None:
@@ -935,25 +947,6 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
         print(f"[phase3] frame_raygen in the counted profile: not measured [{smi}]", flush=True)
     out.update(err=err, routes=routes)
     return out
-
-
-class FrameCounts(collections.abc.Mapping):
-    """The frame's launch counts read live for common.profile_counted: the
-    frame's kernels (raycast.LAUNCHES) and the traversal's (hako_mega)."""
-
-    def __getitem__(self, name):
-        from massivevoxelraytracing_torch.models import raycast
-        from massivevoxelraytracing_torch.ops import hako_mega
-
-        return hako_mega.LAUNCHES if name == "hako_mega" else raycast.LAUNCHES[name]
-
-    def __iter__(self):
-        from massivevoxelraytracing_torch.models import raycast
-
-        return iter((*raycast.KERNELS, "hako_mega"))
-
-    def __len__(self):
-        return len(tuple(iter(self)))
 
 
 def fmt_ms(values) -> str:
@@ -1794,16 +1787,6 @@ def bench_sky():
     return common.sky_img()
 
 
-def profile_call(fn) -> tuple:
-    """fn() under torch.profiler (scripts/common.profile_call, which reads
-    the raw trace events): (device busy ms, wall ms, top device kernels as
-    (name, ms, calls), hako_mega kernel ms, device kernels)."""
-    from massivevoxelraytracing_torch.scripts import common
-
-    r = common.profile_call(fn)
-    return r["busy_ms"], r["wall_ms"], r["top"], r["mega_ms"], r["kernels"]
-
-
 def phase_pt(tree, cam, device, smi: str) -> dict:
     """Phase 4: the path tracer at 1024^3 / 1080p."""
     import torch
@@ -1898,15 +1881,20 @@ def phase_pt(tree, cam, device, smi: str) -> dict:
     if mega_launches < 1 or unresolved:
         raise AssertionError("PT mega step: no launch or unresolved lanes")
 
-    prof = common.profile_call(lambda: pt.step(cam))
-    busy_ms, wall_ms, top, mega_ms, n_kernels = (
-        prof[k] for k in ("busy_ms", "wall_ms", "top", "mega_ms", "kernels"))
-    print(f"[phase4] profiled mega step: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms in {n_kernels} device kernels, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, hako_mega kernels {mega_ms:.1f} ms; "
-          f"top device kernels: [{smi}]", flush=True)
-    for name, ms, count in top:
-        print(f"[phase4]   {ms:9.2f} ms  {count:6d} calls  {name}", flush=True)
+    # a trace that holds every hako_mega and sample-chain launch of the step
+    prof = common.profile_or_none(lambda: pt.step(cam), common.step_counts(),
+                                  "[phase4] profiled mega step", smi)
+    busy_ms = wall_ms = mega_ms = None
+    if prof is not None:
+        busy_ms, wall_ms, top, mega_ms, n_kernels = (
+            prof[k] for k in ("busy_ms", "wall_ms", "top", "mega_ms", "kernels"))
+        print(f"[phase4] profiled mega step: wall {wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms in {n_kernels} device kernels, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}, hako_mega kernels {mega_ms:.1f} ms (every "
+              f"counted launch traced, try {prof['tries']}); top device kernels: [{smi}]",
+              flush=True)
+        for name, ms, count in top:
+            print(f"[phase4]   {ms:9.2f} ms  {count:6d} calls  {name}", flush=True)
 
     # steps through the round driver from the state after the warm step:
     # hako_rounds, the two-launch driver, hako_rounds again
@@ -2062,18 +2050,28 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
         d = (ppt.accum - after_one).abs()
         raise AssertionError(f"plain-chain step differs from the kernels' step: "
                              f"{int((d > 0).sum())} values, max {float(d.max())}")
-    pprof = common.profile_call(lambda: ppt.step(cam, chain="plain"))
+    pprof = common.profile_or_none(lambda: ppt.step(cam, chain="plain"), common.step_counts(),
+                                   "[phase4] profiled plain-chain step", smi)
     del ppt
     routes = {}
     for route, r, s in (("kernels", prof, step_s), ("plain", pprof, plain_s)):
+        if r is None:
+            routes[route] = dict(s_per_step=s, profile="not measured")
+            print(f"[phase4] chain={route}: {s:.3f} s/step (CUDA events), profiled step not "
+                  f"measured [{smi}]", flush=True)
+            continue
         routes[route] = dict(s_per_step=s, device_kernels=r["kernels"], busy_ms=r["busy_ms"],
                              wall_ms=r["wall_ms"], idle_share=r["idle_share"],
-                             mega_ms=r["mega_ms"], chain=r["chain"])
+                             mega_ms=r["mega_ms"], chain=r["chain"], profile_tries=r["tries"])
         print(f"[phase4] chain={route}: {s:.3f} s/step (CUDA events), profiled step "
               f"{r['kernels']} device kernels, busy {r['busy_ms']:.1f} of "
               f"{r['wall_ms']:.1f} ms, idle share {r['idle_share']:.3f}, hako_mega "
-              f"{r['mega_ms']:.1f} ms [{smi}]", flush=True)
-    if routes["kernels"]["device_kernels"] * 10 > routes["plain"]["device_kernels"]:
+              f"{r['mega_ms']:.1f} ms (every counted launch traced, try {r['tries']}) "
+              f"[{smi}]", flush=True)
+    # the kernel route's device kernels against the plain route's, where
+    # both traces hold every counted launch
+    if prof is not None and pprof is not None and (
+            routes["kernels"]["device_kernels"] * 10 > routes["plain"]["device_kernels"]):
         raise AssertionError(f"the kernel route launches {routes['kernels']['device_kernels']}"
                              f" device kernels a step, over a tenth of the plain route's "
                              f"{routes['plain']['device_kernels']}")
@@ -2403,11 +2401,15 @@ def phase_gather(smi: str, sl: dict) -> dict:
     scripts/gather_probe3.main with every probe), through their entry
     points, with the probe kernels' counts set to 0 just before and read
     just after; the one-hot chase's latency floors from phase 5b's
-    dependent node fetches of this run."""
+    dependent node fetches of this run; then the tensor-core one-hot
+    gather and the shared axis-0 take-along in turns with the parent
+    commit's kernels (scripts/gather_ab.py, which first builds the
+    parent's library)."""
     import torch
 
     from massivevoxelraytracing_torch.ops import probes
-    from massivevoxelraytracing_torch.scripts import common, dyngather_probe2, gather_probe3
+    from massivevoxelraytracing_torch.scripts import (common, dyngather_probe2, gather_ab,
+                                                      gather_probe3)
 
     t0 = time.time()
     device = torch.device("cuda", 0)
@@ -2447,7 +2449,23 @@ def phase_gather(smi: str, sl: dict) -> dict:
     print(f"[phase5d] {len(cases)} gather cases == plain versions; capacity "
           f"{cap['largest_launched_bytes']} B (the opt-in limit), {cap['refused_rows']} rows "
           f"refused; launches {launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
-    return dict(dyngather=dyn, gather_probe3=g3, launches=launches, fetch_ns=fetch_ns)
+    # the two redesigned kernels in turns with the parent commit's
+    # (scripts/gather_ab.py; its launches are not counted)
+    ab = gather_ab.run(card=smi)
+    for key in ("ohg 128", "ohg 1024", "k_taa0t", "a0small 128"):
+        if ab[key]["faster"] != "current":
+            print(f"[phase5d] {key}: the redesigned kernel is not faster in every turn "
+                  f"({ab[key]['faster']}) [{smi}]", flush=True)
+    for n in (128, 1024):
+        r = ab[f"ohg {n}"]
+        lib = r["torch.matmul_ms"]
+        print(f"[phase5d] ohg {n} rows: the tensor-core kernel {min(r['ms']):.4f}-"
+              f"{max(r['ms']):.4f} ms against torch.matmul in one CUDA graph "
+              f"{min(lib):.4f}-{max(lib):.4f} ms in the same turns: "
+              f"{'faster' if max(r['ms']) < min(lib) else 'not faster'} [{smi}]", flush=True)
+    print(f"[phase5d] in turns with the parent's kernels: {time.time() - t0:.1f} s [{smi}]",
+          flush=True)
+    return dict(dyngather=dyn, gather_probe3=g3, launches=launches, fetch_ns=fetch_ns, ab=ab)
 
 
 def gather_entries(gp: dict, src: str) -> list:
@@ -2481,20 +2499,26 @@ def gather_entries(gp: dict, src: str) -> list:
     bodies += [(f"a0small n_rows={n}", "scripts/gather_probe3.py:70",
                 [c for c in a0 if c["n_rows"] == n], 1)
                for n in dict.fromkeys(r["n_rows"] for r in a0)]
+    ab = gp["ab"]
+    ab_keys = ("old_ms", "ms", "share", "old_share", "faster", "torch.gather_ms",
+               "sliced_ms")
     for body, replaces, recs, batch in bodies:
         e = next(r for r in recs if r["batch"] == batch and not r["refused"]
                  and r["form"] in ("shared", "global"))
+        key = body.replace("a0small n_rows=", "a0small ")
         taa.append(dict(
             name=f"take_along_probe {body}", kernel="take_along_probe", route="cuda",
             source=src + "hako_probes.cu", replaces=replaces,
             launches=total(recs, "take_along_launches"), max_abs_err=0.0, form=e["form"], batch=batch,
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"], shell_ms=e["shell_ms"],
-            bytes=e["bytes"], cases=brief(recs, keys)))
+            bytes=e["bytes"], cases=brief(recs, keys),
+            **({"in_turns": {k: ab[key][k] for k in ab_keys if k in ab[key]}}
+               if key in ab else {})))
     if total(taa, "launches") != gp["launches"]["take_along_probe"]:
         raise AssertionError("phase 5d: the take-along bodies' launches do not add up")
-    ohg_keys = ("ms", "ms_2k", "us_per_hop", "plain_ms", "bound_ms", "bound_by",
-                "latency_floor_ms", "refused", "launches")
+    ohg_keys = ("ms", "ms_2k", "us_per_hop", "plain_ms", "library_ms", "library_host_bound_ms",
+                "bound_ms", "bound_by", "latency_floor_ms", "refused", "launches", "cluster")
     ohg = gp["gather_probe3"]["ohg"]["cases"] + gp["gather_probe3"]["ohg1k"]["cases"]
     return taa + [
         dict(name="smem_alloc_probe", route="cuda", source=src + "hako_probes.cu",
@@ -2507,8 +2531,14 @@ def gather_entries(gp: dict, src: str) -> list:
         dict(name="ohg_probe", route="cuda", source=src + "hako_probes.cu",
              replaces="scripts/gather_probe3.py:147", launches=gp["launches"]["ohg_probe"],
              max_abs_err=0.0, ms=total(mma, "ms"), plain_ms=total(mma, "plain_ms"),
-             bound_ms=total(mma, "bound_ms"), bound_by="operations", library_ms=None,
-             cases=brief(ohg, ohg_keys)),
+             bound_ms=total(mma, "bound_ms"), bound_by="operations",
+             library_ms=total(mma, "library_ms"),
+             library_host_bound_ms=total(mma, "library_host_bound_ms"),
+             cases=brief(ohg, ohg_keys),
+             in_turns={f"{n} rows": {k: ab[f"ohg {n}"][k]
+                                     for k in ab_keys[:5] + ("torch.matmul_ms",
+                                                             "torch.matmul host-bound_ms")}
+                       for n in (128, 1024)}),
     ]
 
 
@@ -3284,6 +3314,7 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     from massivevoxelraytracing_torch.parallel import mesh as pmesh
     from massivevoxelraytracing_torch.parallel import render as prender
     from massivevoxelraytracing_torch.parallel.render import _on
+    from massivevoxelraytracing_torch.scripts import common
 
     t_phase = time.time()
     part_s = {}
@@ -3355,7 +3386,8 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
     stop.record()
     torch.cuda.synchronize()
     step_s = start.elapsed_time(stop) / 1e3
-    busy_ms, wall_ms, top, mega_ms, n_kernels = profile_call(one_step)
+    prof = common.profile_or_none(one_step, common.step_counts(),
+                                  "[phase8] profiled sharded step", smi)
     want = pt["first_accum"]
     if not torch.equal(acc, again):
         raise AssertionError("phase 8c: two sharded steps from zero differ")
@@ -3380,16 +3412,19 @@ def phase_parallel(tree, cam, img, depth, pt, device, smi: str) -> dict:
           f"differ), mean {mean:.4f} vs {mean1:.4f}; peak {peak:.2f} GiB above the "
           f"{base / 2**30:.2f} GiB already held; hako_mega launches "
           f"{n['hako_mega']} [{smi}]", flush=True)
-    print(f"[phase8] profiled sharded step: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms in {n_kernels} device kernels, idle share "
-          f"{1 - busy_ms / wall_ms:.3f}, hako_mega kernels {mega_ms:.1f} ms [{smi}]",
-          flush=True)
     out["pt_step"] = dict(s_per_step=step_s, first_s=first_s, peak_gib=peak,
                           max_abs_diff=float(diff.max()), max_rel_diff=rel,
-                          mean=mean, single_mean=mean1, busy_ms=busy_ms,
-                          wall_ms=wall_ms, idle_share=1 - busy_ms / wall_ms,
-                          mega_ms=mega_ms, device_kernels=n_kernels,
-                          launches=n["hako_mega"], lanes_per_call=lanes)
+                          mean=mean, single_mean=mean1, launches=n["hako_mega"],
+                          lanes_per_call=lanes, profile="not measured")
+    if prof is not None:
+        print(f"[phase8] profiled sharded step: wall {prof['wall_ms']:.1f} ms, device busy "
+              f"{prof['busy_ms']:.1f} ms in {prof['kernels']} device kernels, idle share "
+              f"{prof['idle_share']:.3f}, hako_mega kernels {prof['mega_ms']:.1f} ms (every "
+              f"counted launch traced, try {prof['tries']}) [{smi}]", flush=True)
+        out["pt_step"].update(busy_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+                              idle_share=prof["idle_share"], mega_ms=prof["mega_ms"],
+                              device_kernels=prof["kernels"], profile_tries=prof["tries"])
+        del out["pt_step"]["profile"]
     del acc, again, want
     lap("pt_step")
 
@@ -3627,8 +3662,9 @@ def phase_scale(device, smi: str, rng) -> dict:
         if f"{cells[cell]['mean']:.6f}" != want:
             raise AssertionError(f"pt_phase_attrib: {cell}'s mean {cells[cell]['mean']:.6f}, "
                                  f"not {want}")
-    # a warm step, the timed steps and a profiled one in the profiled cells
-    steps = sum(c["launches_a_step"] * (attrib["steps"] + 1 + ("profile" in c))
+    # a warm step, the timed steps and the profiled ones (a try each) in
+    # the profiled cells
+    steps = sum(c["launches_a_step"] * (attrib["steps"] + 1 + c.get("profiled_steps", 0))
                 for c in cells.values())
     if got["hako_mega"] != steps:
         raise AssertionError(f"pt_phase_attrib: {got} launches, its cells' steps {steps}")

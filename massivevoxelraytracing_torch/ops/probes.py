@@ -80,7 +80,14 @@ TAA_FORMS = ("shared", "shfl", "global")
 OHG_MODES = ("shared", "global", "mma")
 OHG_COLS = 128        # the one-hot gather's table row
 OHG_PLANES = 3        # its byte planes: table values below 2^24
-OHG_THREADS = 128     # its block: 128 lanes a block, 64 in the mma mode
+OHG_THREADS = 128     # the shared and global modes' block: 128 lanes
+OHG_CHUNK = 32        # the mma mode's table rows an mma takes (its K)
+OHG_TILES = OHG_COLS // 8  # its 8-column n-tiles: a warp each
+OHG_CLUSTERS = (1, 2, 4, 8)  # its cluster sizes; a cluster chases 16 x size lanes
+OHG_SLICE_BYTES = 192 * 1024  # the byte planes a block of it holds at most
+TAA_THREADS = 256     # the whole-tile take-along's block (kTaaThreads)
+TAA_SECTOR = 8        # int32 columns of a 32-byte sector
+TAA_SLICE = 32        # the sliced shared axis-0 take-along's widest slice
 SMEM_ROW_FLOATS = 128  # a row of the shared-memory allocation probe
 LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
             "construct_probe": 0, "node_gather_probe": 0,
@@ -754,6 +761,10 @@ def probe_stage_probe(stage: int, rays, bounds, root_mask, tabs, *, T: int,
 # ---------------------------------------------------------------------------
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def smem_optin_bytes(device) -> int:
     """The shared memory a block of `device` can opt in to
     (cudaDevAttrMaxSharedMemoryPerBlockOptin)."""
@@ -786,14 +797,67 @@ def take_along_plain(t, idx, *, axis: int, mod: int, c_out: int | None = None):
     return t[b, x, torch.arange(c_out, device=x.device)[None, None, :]]
 
 
+def taa0_whole(R: int, C: int, r: int, mod: int, B: int, sms: int) -> bool:
+    """Whether the shared axis-0 take-along stages whole R x C tiles, a
+    block a tile (take_along_probe_kernel<0, SHARED>): where the r indices
+    a column, spread over the tile's R rows (mod 0 or mod >= R), are
+    expected to reach nearly every sector (2 r >= R: 1 - exp(-8 r / R) >=
+    98% of them for uniform indices), so that marking would stage no
+    less, and either the B tiles fill the card's `sms` SMs or a block
+    stages a tile with one 16-byte load a thread (R x C x 4 <= TAA_THREADS
+    x 16), so that slices would spread no latency over SMs (PERF.md §6:
+    k_taa0's batch and a0small's 8-row tile are faster whole, its 32-row
+    tile in slices). Elsewhere a block takes a slice of a tile's columns
+    (taa0_slice) and stages only the sectors its indices reach
+    (taa0_sectors)."""
+    reach_all = 2 * r >= R and not 0 < mod < R
+    return reach_all and (B >= sms or R * C * 4 <= TAA_THREADS * 16)
+
+
+def taa0_slice(C: int, B: int, sms: int) -> int:
+    """The columns a block of the sliced shared axis-0 take-along takes:
+    TAA_SLICE, halved while the B tiles' blocks are fewer than the `sms`
+    SMs (one tile's loads spread over more SMs), down to one sector of
+    TAA_SECTOR columns; cut to the tile's columns, rounded up to a sector,
+    where it is wider."""
+    width = -(-C // TAA_SECTOR) * TAA_SECTOR
+    s = min(TAA_SLICE, width)
+    while s > TAA_SECTOR and B * -(-C // s) < sms:
+        s = max(s // 2 // TAA_SECTOR * TAA_SECTOR, TAA_SECTOR)
+    return s
+
+
+def taa0_sectors(t, idx, *, mod: int):
+    """The 32-byte sectors (a row's 8 columns) that the shared axis-0
+    take-along stages: sectors[b, m, q] is set where an index of column
+    8q..8q+7 of tile b, reduced by mod, is row m (an index outside the
+    tile is read through L1 and marks none). Every slice is a multiple of
+    8 columns, so a sector belongs to one block. bool [B, R, ceil(C / 8)]."""
+    B, R, C = t.shape
+    x = idx[:, :, :C].long()
+    if mod:
+        x = torch.remainder(x, mod)
+    ok = (x >= 0) & (x < R)
+    sec = torch.arange(C, device=x.device) // TAA_SECTOR
+    flat = ((torch.arange(B, device=x.device)[:, None, None] * R + x) * -(-C // TAA_SECTOR)
+            + sec[None, None, :])
+    out = torch.zeros(B * R * -(-C // TAA_SECTOR), dtype=torch.bool, device=x.device)
+    out[flat[ok]] = True
+    return out.reshape(B, R, -(-C // TAA_SECTOR))
+
+
 def take_along_probe(t, idx, *, axis: int, mod: int, form: str, c_out: int | None = None):
-    """As take_along_plain, a block a tile; t int32 [B, R, C], idx int32
-    [B, r, Ci], mod 0 or a power of two no larger than the gathered axis
-    (C along rows, R along columns). With mod 0 the kernel takes idx as it
-    is and does not check it: an index outside the tile reads past it,
-    where the plain version raises an IndexError. form "shared" needs
-    R x C x 4 bytes of shared memory and raises a ValueError naming them
-    where they exceed what a block can have."""
+    """As take_along_plain; t int32 [B, R, C], idx int32 [B, r, Ci], mod 0
+    or a power of two no larger than the gathered axis (C along rows, R
+    along columns). A block a tile, but for the shared form along columns,
+    where a block takes a slice of a tile's columns (taa0_slice) and
+    stages the sectors its indices reach (taa0_sectors), unless the
+    indices reach nearly every sector of a batch that fills the card
+    (taa0_whole). With mod 0 the kernel takes idx as it is
+    and does not check it: an index outside the tile reads past it, where
+    the plain version raises an IndexError. form "shared" needs the R x C
+    x 4 bytes of the tile in a block's shared memory and raises a
+    ValueError naming them where they exceed what a block can have."""
     if form not in TAA_FORMS:
         raise ValueError(f"no take-along form {form!r}")
     if axis not in (0, 1) or form == "shfl" and axis != 1:
@@ -828,11 +892,16 @@ def take_along_probe(t, idx, *, axis: int, mod: int, form: str, c_out: int | Non
         if need > limit:
             raise ValueError(f"take_along_probe: a {R} x {C} int32 tile is {need} bytes "
                              f"of shared memory, over the {limit} bytes a block can have")
+    slice_cols = 0  # whole tiles
+    if axis == 0 and form == "shared":
+        sms = _sm_count(dev)
+        if not taa0_whole(R, C, r, mod, B, sms):
+            slice_cols = taa0_slice(C, B, sms)
     out = torch.empty(B, r, c_out, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = cuda_build.load().take_along_probe_launch(
             axis, TAA_FORMS.index(form), t.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            B, R, C, r, Ci, c_out, int(mod), _stream(dev))
+            B, R, C, r, Ci, c_out, int(mod), slice_cols, _stream(dev))
     _launched("take_along_probe", rc)
     return out
 
@@ -896,16 +965,82 @@ def ohg_plain(table, idx, k: int, mode: str = "gather"):
     return x.to(torch.int32).reshape(idx.shape)
 
 
+def ohg_cluster(n_rows: int) -> int:
+    """The mma mode's cluster for a table of n_rows: the fewest blocks (of
+    OHG_CLUSTERS, at most one a 32-row chunk) whose shares of its byte
+    planes (n_rows x 384 bytes) are at most OHG_SLICE_BYTES each."""
+    need = -(-n_rows * OHG_COLS * OHG_PLANES // OHG_SLICE_BYTES)
+    cl = next((c for c in OHG_CLUSTERS if c >= need), OHG_CLUSTERS[-1])
+    return min(cl, max(n_rows // OHG_CHUNK, 1))
+
+
+def ohg_smem_bytes(n_rows: int, cluster: int) -> int:
+    """The shared memory a block of the mma mode takes: its share of the
+    B fragments (n_rows x 384 / cluster bytes) and its two hops' slots (a
+    block and lane of the cluster's 16 x cluster lanes)."""
+    return n_rows * OHG_COLS * OHG_PLANES // cluster + 2 * cluster * 16 * cluster * 4
+
+
+def ohg_mma_check(n_rows: int, limit: int) -> int:
+    """The mma mode's cluster for a table of n_rows (ohg_cluster) where a
+    block's share of it (ohg_smem_bytes) fits the `limit` bytes of shared
+    memory a block can have, else a ValueError naming the bytes. The mode
+    holds the table in its cluster's shared memory and reads none of it
+    from global memory in its hops: a cluster is at most OHG_CLUSTERS[-1]
+    blocks, so on an H100 (232,448 bytes) a table of 4,096 rows is the
+    largest it takes."""
+    cluster = ohg_cluster(n_rows)
+    need = ohg_smem_bytes(n_rows, cluster)
+    if need > limit:
+        raise ValueError(f"ohg_probe: the byte planes of a {n_rows}-row table over "
+                         f"{cluster} blocks are {need} bytes of shared memory a block, "
+                         f"over the {limit} bytes a block can have")
+    return cluster
+
+
+def ohg_max_clusters(n_rows: int, cluster: int, device) -> int:
+    """The clusters of `cluster` blocks of the mma mode on a table of
+    n_rows that `device` runs at once (cudaOccupancyMaxActiveClusters)."""
+    from ..utils import cuda_build
+
+    with torch.cuda.device(device):
+        v = cuda_build.load().ohg_mma_max_clusters(int(n_rows), int(cluster))
+    if v < 0:
+        raise RuntimeError(f"no occupancy for clusters of {cluster} on {n_rows} rows: CUDA "
+                           f"error {-v}")
+    return v
+
+
+def ohg_fragments(table, cluster: int = 1):
+    """The mma mode's shared-memory image of each block of a cluster: the
+    table's three byte planes in the order mma.sync m16n8k32 reads its B
+    fragments. int32 [cluster, chunks, 16 n-tiles, 3 planes, 32 threads, 2
+    registers]: block r holds the 32-row chunks r x chunks..; thread (g,
+    t) = (lane // 4, lane % 4) of n-tile nt holds in register 0 the plane's
+    bytes of rows 32 c + 4t + j (byte j) at column 8 nt + g, in register 1
+    those of rows 32 c + 16 + 4t + j."""
+    n_rows = table.shape[0]
+    chunks = n_rows // OHG_CHUNK
+    w = u32(table).reshape(chunks, 2, 4, 4, OHG_TILES, 8)  # [c, half, t, j, nt, g]
+    planes = torch.stack([(w >> (8 * p)) & 255 for p in range(OHG_PLANES)])
+    planes = planes.permute(1, 5, 0, 6, 3, 2, 4)  # [c, nt, p, g, t, half, j]
+    regs = (planes << (8 * torch.arange(4, device=w.device))).sum(-1)
+    return to_i32_bits(regs).reshape(cluster, chunks // cluster, OHG_TILES, OHG_PLANES,
+                                     32, 2)
+
+
 def ohg_probe(table, idx, *, k: int, mode: str):
     """As ohg_plain (the "mma" mode's for mode "mma"); table int32
     [n_rows, 128] with n_rows a power of two (at least 32 for "mma"), idx
     int32 of any shape; k a multiple of UNROLL ("mma": any k >= 1).
-    "shared" needs the table in a block's shared memory and raises a
-    ValueError naming its bytes where they exceed what a block can have."""
+    "shared" needs the table in a block's shared memory, and "mma" its
+    share of the byte planes in each block of its cluster (ohg_mma_check:
+    4,096 rows at most on an H100): each raises a ValueError naming the
+    bytes where they exceed what a block can have."""
     if mode not in OHG_MODES:
         raise ValueError(f"no one-hot gather mode {mode!r}")
     n_rows = table.shape[0]
-    if not _is_pow2(n_rows) or mode == "mma" and n_rows < 32:
+    if not _is_pow2(n_rows) or mode == "mma" and n_rows < OHG_CHUNK:
         raise ValueError(f"a table of {n_rows} rows: need a power of two"
                          + (", 32 or more" if mode == "mma" else ""))
     if k <= 0 or mode != "mma" and k % UNROLL:
@@ -926,12 +1061,13 @@ def ohg_probe(table, idx, *, k: int, mode: str):
                              f"memory, over the {limit} bytes a block can have")
         if table.data_ptr() % 16:
             raise ValueError("table: need a 16-byte aligned table")
+    cluster = ohg_mma_check(n_rows, smem_optin_bytes(dev)) if mode == "mma" else 0
     out = torch.empty_like(idx)
     if idx.numel() == 0:
         return out
     with torch.cuda.device(dev):
         rc = cuda_build.load().ohg_probe_launch(
             OHG_MODES.index(mode), table.data_ptr(), n_rows, idx.data_ptr(), idx.numel(),
-            int(k), out.data_ptr(), OHG_THREADS, _stream(dev))
+            int(k), out.data_ptr(), OHG_THREADS, cluster, _stream(dev))
     _launched("ohg_probe", rc)
     return out

@@ -7,6 +7,7 @@ bounds and a profiled call's device time."""
 
 from __future__ import annotations
 
+import collections.abc
 import inspect
 import itertools
 import math
@@ -310,6 +311,27 @@ def event_ms_each(fn, setup, reps: int = 10, calls: int = 1) -> float:
     return total / reps
 
 
+def event_ms_median(fn, setup, reps: int = 10) -> float:
+    """The median ms of `reps` single calls of fn(setup()), each timed by
+    CUDA events around fn alone behind a spin kernel (setup untimed, e.g.
+    an L2 flush): a call that the host stalls past the spin does not set
+    it, as it sets a mean."""
+    fn(setup())
+    ms = []
+    for _ in range(reps):
+        arg = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        queue_ahead(1)
+        start.record()
+        fn(arg)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+    return float(np.median(ms))
+
+
 def _outputs(x):
     return x if isinstance(x, tuple) else (x,)
 
@@ -495,7 +517,8 @@ def gather_case(name: str, t, idx, *, axis: int, mod: int, form: str, c_out: int
     the copy shell's on the same bytes, and the bytes bound at the HBM rate;
     its launches of all GATHER_CASE_KERNELS and of take_along_probe alone.
     Every timed launch reads its inputs from HBM: one tile after the L2 is
-    flushed, a batch from copies taken in turn (cold_copies). A shared-memory
+    flushed (the median of 10 launches), a batch from copies taken in turn
+    (cold_copies). A shared-memory
     refusal is the case's answer only where `refusable` and the tile exceeds
     the block's opt-in limit; any other error propagates."""
     dev = idx.device
@@ -538,7 +561,7 @@ def gather_case(name: str, t, idx, *, axis: int, mod: int, form: str, c_out: int
         cases = ((run, (t, idx)), (library, (t, red)), (probes.shell_copy_probe, (copy,)))
         if B == 1:
             flush = l2_flush(dev)
-            ms, lib_ms, shell_ms = (event_ms_each(lambda _, f=f, a=a: f(*a), flush)
+            ms, lib_ms, shell_ms = (event_ms_median(lambda _, f=f, a=a: f(*a), flush)
                                     for f, a in cases)
         else:
             ms, lib_ms, shell_ms = best_ms([in_turn(f, cold_copies(a, dev))
@@ -810,6 +833,47 @@ def profile_counted(fn, launches: dict, tries: int = len(PROFILE_PADS_S)) -> dic
             return dict(r, tries=i + 1, pad_s=pad)
     raise AssertionError(f"{tries} profiles missed launches the wrappers counted: {missed} "
                          f"(last try's pad {pad} s)")
+
+
+class LiveCounts(collections.abc.Mapping):
+    """Launch counts read live for profile_counted: the wrapper modules'
+    LAUNCHES dicts given, and hako_mega's count (an int the module
+    rebinds at each launch)."""
+
+    def __init__(self, *counts: dict):
+        self.counts = counts
+
+    def __getitem__(self, name):
+        from ..ops import hako_mega
+
+        if name == "hako_mega":
+            return hako_mega.LAUNCHES
+        for c in self.counts:
+            if name in c:
+                return c[name]
+        raise KeyError(name)
+
+    def __iter__(self):
+        return iter((*(k for c in self.counts for k in c), "hako_mega"))
+
+    def __len__(self):
+        return len(tuple(iter(self)))
+
+
+def step_counts() -> LiveCounts:
+    """The PT step's launch counts: the sample chain's kernels and
+    hako_mega."""
+    return LiveCounts(pt_chain.LAUNCHES)
+
+
+def profile_or_none(fn, launches, what: str, card: str = ""):
+    """profile_counted(fn, launches), or None where every try missed a
+    launch the wrappers counted: then `what` is printed as not measured."""
+    try:
+        return profile_counted(fn, launches)
+    except AssertionError as e:
+        print(f"{what}: not measured ({e}) [{card}]", flush=True)
+        return None
 
 
 # The sample chain's stages (ops/pt_chain.py): float32-equivalent operations

@@ -19,10 +19,10 @@ TILES_AN_SM tiles for every SM (the batch's tiles are the same draws with
 a leading batch axis, so tile 0 is the reference's). Every case is held
 bit for bit against its plain version, then timed with CUDA events
 (scripts/common.gather_case), every launch reading its inputs from HBM:
-one tile as single launches queued behind a spin kernel, each after the
-L2 is flushed; the batch as the least of 3 trains of 10 launches that take
-copies of the tiles in turn, 4 L2s of other copies between two uses of
-one. Beside it torch.gather on the same tiles (the indices reduced first,
+one tile as the median of 10 single launches queued behind a spin kernel,
+each after the L2 is flushed; the batch as the least of 3 trains of 10
+launches that take copies of the tiles in turn, 4 L2s of other copies
+between two uses of one. Beside it torch.gather on the same tiles (the indices reduced first,
 untimed), the copy shell (shell_copy_probe) on one f32 array whose read
 and write move the case's bytes, and the bytes bound at 3.35 TB/s: the
 32-byte sectors of the tile that this run's indices reach, the indices

@@ -20,7 +20,12 @@
   ohg        - the dependent chase idx = (idx + flat[idx]) & (n - 1) over a
                [128, 128] table, 32 hops of 2,048 lanes: each hop a load
                from shared memory, through L1, or a one-hot product on the
-               tensor cores (ops/probes.ohg_probe)
+               tensor cores (ops/probes.ohg_probe); beside the tensor
+               cores the reference's formulation as PyTorch calls, its
+               library yardstick (ohg_library: a float32 one-hot times
+               the float32 table by torch.matmul, TF32 off, a hop),
+               timed as one CUDA graph of the 32 hops (ohg_library_graph)
+               and, host-bound, launched a call at a time
   ohg1k      - the same over [1024, 128]
 
 Default: chase chase_rows a0small vmem (the reference's). Every kernel is
@@ -203,6 +208,46 @@ def ohg_ops(lanes: int, n_rows: int, k: int) -> float:
     return 2.0 * lanes * n_rows * probes.OHG_COLS * probes.OHG_PLANES * k
 
 
+def ohg_library(table, idx, k: int):
+    """k hops of the reference's MXU formulation as PyTorch calls: the
+    float32 one-hot rows of the lanes' indices times the float32 table
+    (torch.matmul, exact with TF32 off: one product by 1.0 an output),
+    the lane's column (torch.gather), add and mask. Equals ohg_plain."""
+    if table.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the one-hot yardstick needs float32 matmuls: TF32 is on")
+    n_rows = table.shape[0]
+    tab = table.to(torch.float32)
+    rows = torch.arange(n_rows, device=table.device)
+    x = idx.reshape(-1).long()
+    for _ in range(k):
+        one_hot = ((x >> 7)[:, None] == rows[None, :]).to(torch.float32)
+        v = torch.matmul(one_hot, tab).gather(1, (x & 127)[:, None])[:, 0]
+        x = (x + v.long()) & (n_rows * probes.OHG_COLS - 1)
+    return x.to(torch.int32).reshape(idx.shape)
+
+
+def ohg_library_graph(table, idx, k: int):
+    """ohg_library's k hops captured once in one CUDA graph: a function of
+    no arguments that replays them and returns the graph's output, so that
+    timing it reads the library calls' device work without the host's
+    launch of each (ohg_library itself is host-bound: several launches a
+    hop). Needs a card."""
+    dev = table.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ohg_library(table, idx, k)  # cuBLAS's handle and workspace, before the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ohg_library(table, idx, k)
+
+    def replay():
+        graph.replay()
+        return out
+    return replay
+
+
 def probe_ohg(ctx, n_rows: int = 128, r_rows: int = OHG_LANE_ROWS, k: int = OHG_HOPS) -> dict:
     dev = ctx.device
     tbln, idxn = ohg_inputs(n_rows, r_rows)
@@ -222,9 +267,14 @@ def probe_ohg(ctx, n_rows: int = 128, r_rows: int = OHG_LANE_ROWS, k: int = OHG_
         plain_mode = "mma" if mode == "mma" else "gather"
         shape = dict(shape="reference", lanes=lanes, threads=probes.OHG_THREADS, k=k)
         need = table.numel() * 4 if mode == "shared" else 0
+        cl = probes.ohg_cluster(n_rows)
+        kernel, targs = (("ohg_mma_kernel", (cl, cl)) if mode == "mma" else
+                         ("ohg_probe_kernel", (probes.OHG_MODES.index(mode),)))
+        if mode == "mma":
+            shape["threads"] = 32 * probes.OHG_TILES
         # the case is measured at once, so its closures may read the loop's names
         rec, refused = common.smem_refusal(lambda: meter.case(
-            name, "ohg_probe_kernel", (probes.OHG_MODES.index(mode),), shape,
+            name, kernel, targs, shape,
             lambda kk: probes.ohg_probe(table, idx, k=kk, mode=mode),
             lambda kk: probes.ohg_plain(table, idx, kk, plain_mode),
             n_bytes=4 * (table.numel() + 2 * lanes),
@@ -236,17 +286,34 @@ def probe_ohg(ctx, n_rows: int = 128, r_rows: int = OHG_LANE_ROWS, k: int = OHG_
                               launches=common.gather_case_launches() - before))
             continue
         rec.update(mode=mode, n_rows=n_rows, refused=False)
+        if mode == "mma":
+            rec["cluster"] = cl
+            if not torch.equal(ohg_library(table, idx, k), probes.ohg_plain(table, idx, k)):
+                raise AssertionError(f"{name}: the torch.matmul yardstick differs from the "
+                                     "plain chase")
         if dev.type == "cuda":
+            lib = ""
             if mode == "mma":
                 ops = ohg_ops(lanes, n_rows, k)
-                rec.update(bound_ms=ops / common.INT8_OPS_PER_S * 1e3, bound_by="operations")
+                graphed = ohg_library_graph(table, idx, k)
+                if not torch.equal(graphed(), probes.ohg_plain(table, idx, k)):
+                    raise AssertionError(f"{name}: the graphed torch.matmul yardstick differs "
+                                         "from the plain chase")
+                rec.update(bound_ms=ops / common.INT8_OPS_PER_S * 1e3, bound_by="operations",
+                           library_ms=common.best_ms([graphed], reps=3)[0],
+                           library_host_bound_ms=common.best_ms(
+                               [lambda: ohg_library(table, idx, k)], reps=3)[0])
+                lib = (f"; torch.matmul yardstick {rec['library_ms']:.4f} ms in one CUDA graph, "
+                       f"{rec['library_host_bound_ms']:.4f} ms launched a call at a time "
+                       "(host-bound)")
             rec["plain_ms"] = common.timed(lambda: probes.ohg_plain(
                 table, idx, k, plain_mode), reps=1, warm=False)[1]
             rec["us_per_hop"] = (rec["ms_2k"] - rec["ms"]) * 1e3 / k
             print(f"{name}: {rec['ms'] * 1e3:9.2f} us at {k} hops, {rec['us_per_hop']:.4f} "
                   f"us a hop (2k - k), {lanes * k / (rec['ms'] * 1e-3) / 1e9:6.3f} G "
-                  f"gathers/s; bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}); "
-                  f"plain {rec['plain_ms']:.3f} ms [{ctx.card}]", flush=True)
+                  f"gathers/s; bound {rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}), "
+                  f"share {rec['bound_ms'] / rec['ms']:.1%}; plain {rec['plain_ms']:.3f} ms"
+                  f"{lib} [{ctx.card}]", flush=True)
         rec["launches"] = common.gather_case_launches() - before
         cases.append(rec)
     return dict(n_rows=n_rows, lanes=lanes, k=k, cases=cases)

@@ -18,7 +18,10 @@ timed steps on the host clock, synced (pt_step_timing.measure): s/step,
 the accumulator's mean and hako_mega's launches a step. On the card one
 more step of the profiled cells (b0, b8, b8_nocompact) runs under torch.profiler for
 the device's busy and idle share, its device kernels and the time in
-hako_mega and in the sample chain's kernels (scripts/common.profile_call).
+hako_mega and in the sample chain's kernels, the trace held to the step's
+counted launches (scripts/common.profile_counted: taken again until it
+holds every hako_mega and sample-chain launch the wrappers counted, else
+"not measured").
 Then the differences: primary (b0), each added bounce (b1 - b0, b2 -
 b1, (b4 - b2) / 2, (b8 - b4) / 4), NEE (b8 - b8_nosky) and compaction
 (b8_nocompact - b8), for the cells run.
@@ -104,16 +107,22 @@ def run(res: int = 1024, width: int = 960, height: int = 540, steps: int = 2,
         if not np.isfinite(rec["mean"]):
             raise AssertionError(f"{name}: the accumulator's mean is {rec['mean']}")
         if cuda and name in PROFILED:
-            rec["profile"] = common.profile_call(lambda: pt.step(cam))
+            rec["profile"] = common.profile_or_none(
+                lambda: pt.step(cam), common.step_counts(),
+                f"[pt-attrib res={res} {width}x{height}] {name} profiled step", card)
+            # the steps the profiles ran: every try, where none held the counts
+            rec["profiled_steps"] = (rec["profile"]["tries"] if rec["profile"]
+                                     else len(common.PROFILE_PADS_S))
         records[name] = rec
         what = (f"{rec['s_per_step']:.3f} s/step (first {rec['first_s']:.1f} s)" if cuda
                 else "plain versions")
-        prof = (f", profiled step: busy {rec['profile']['busy_ms']:.1f} of "
-                f"{rec['profile']['wall_ms']:.1f} ms, idle share "
-                f"{rec['profile']['idle_share']:.3f}, {rec['profile']['kernels']} device "
-                f"kernels, hako_mega {rec['profile']['mega_ms']:.1f} ms, the sample "
-                f"chain's kernels {sum(v[0] for v in rec['profile']['chain'].values()):.1f} ms"
-                if "profile" in rec else "")
+        p = rec.get("profile")
+        prof = (f", profiled step: busy {p['busy_ms']:.1f} of {p['wall_ms']:.1f} ms, idle "
+                f"share {p['idle_share']:.3f}, {p['kernels']} device kernels, hako_mega "
+                f"{p['mega_ms']:.1f} ms, the sample chain's kernels "
+                f"{sum(v[0] for v in p['chain'].values()):.1f} ms (every counted launch "
+                f"traced, try {p['tries']})" if p else
+                ", profiled step: not measured" if "profile" in rec else "")
         print(f"[pt-attrib res={res} {width}x{height}] {name}: {what} "
               f"mean={rec['mean']:.6f}, {rec['launches_a_step']:g} hako_mega launches "
               f"a step{prof} [{card}]", flush=True)

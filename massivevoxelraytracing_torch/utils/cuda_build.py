@@ -48,15 +48,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def nvcc_commands(nvcc: str, out: str, srcs: list, tag: str = ""):
+def nvcc_commands(nvcc: str, out: str, srcs: list, tag: str = "", includes=()):
     """(one compile command per source, the link command) for the library
-    `out`; object files sit next to it, suffixed with `tag`."""
+    `out`; object files sit next to it, suffixed with `tag`; `includes`
+    are searched for the sources' headers."""
     objs = [os.path.join(os.path.dirname(out),
                          os.path.basename(s)[:-3] + tag + ".o") for s in srcs]
     compile_cmds = [
         [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
          "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
-         "-c", "-o", obj, src]
+         *(a for d in includes for a in ("-I", d)), "-c", "-o", obj, src]
         for src, obj in zip(srcs, objs)
     ]
     link_cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
@@ -184,10 +185,14 @@ def _bind(lib):
     ]
     lib.take_along_probe_launch.argtypes = [
         i, i, p, p, p,                                 # axis, form, t, idx, out
-        i, i, i, i, i, i, i, p,                        # B, R, C, r, Ci, c_out, mod, stream
+        i, i, i, i, i, i, i,                           # B, R, C, r, Ci, c_out, mod
+        i, p,                                          # slice, stream
     ]
     lib.smem_alloc_probe_launch.argtypes = [p, p, i, p]  # x, out, rows, stream
-    lib.ohg_probe_launch.argtypes = [i, p, i, p, i, i, p, i, p]  # mode, table, rows, idx0, n, k, out
+    lib.ohg_probe_launch.argtypes = [
+        i, p, i, p, i, i, p,                           # mode, table, rows, idx0, n, k, out
+        i, i, p,                                       # threads, cluster, stream
+    ]
     q = ctypes.c_longlong
     lib.pt_lane_init_launch.argtypes = [
         i, p, q, p, q,                                 # pmj, table, points, perm, n_perm
@@ -242,6 +247,7 @@ def _bind(lib):
     lib.brick_walk_launch.argtypes = walk
     lib.octree_walk_launch.argtypes = [i] + walk       # shadow
     lib.smem_optin_bytes.argtypes = [i]
+    lib.ohg_mma_max_clusters.argtypes = [i, i]            # rows, cluster
     lib.cuda_error_string.argtypes = [i]
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.hako_mega_launch, lib.hako_probe_launch,
@@ -261,17 +267,20 @@ def _bind(lib):
                lib.vox_unique_reduce_launch, lib.vox_unique_tile,
                lib.frame_raygen_launch, lib.frame_shade_launch,
                lib.brick_walk_launch, lib.octree_walk_launch,
-               lib.smem_optin_bytes):
+               lib.smem_optin_bytes, lib.ohg_mma_max_clusters):
         fn.restype = ctypes.c_int
     return lib
 
 
-def build_renamed(src: str, out_dir: str, entry_points, suffix: str = "_old"):
+def build_renamed(src: str, out_dir: str, entry_points, suffix: str = "_old",
+                  includes=()):
     """An earlier version of one kernel source, built with the library's
     nvcc flags into a library of its own under out_dir, its C entry points
     (each name followed by "(") renamed with `suffix` so that it loads
-    beside the current library. Returns (the ctypes library, the source
-    text as built, wall seconds, the ptxas report); raises if nvcc fails."""
+    beside the current library; `includes` are searched for its headers
+    (the current csrc/ for hako_device.cuh). Returns (the ctypes library,
+    the source text as built, wall seconds, the ptxas report); raises if
+    nvcc fails."""
     os.makedirs(out_dir, exist_ok=True)
     with open(src) as f:
         text = f.read()
@@ -282,7 +291,7 @@ def build_renamed(src: str, out_dir: str, entry_points, suffix: str = "_old"):
     with open(renamed, "w") as f:
         f.write(text)
     lib_path = os.path.join(out_dir, f"lib{stem}_renamed.so")
-    compile_cmds, link = nvcc_commands(nvcc_path(), lib_path, [renamed])
+    compile_cmds, link = nvcc_commands(nvcc_path(), lib_path, [renamed], includes=includes)
     t0 = time.perf_counter()
     log = ""
     for cmd in (*compile_cmds, link):

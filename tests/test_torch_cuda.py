@@ -907,6 +907,74 @@ def test_ohg_probe_matches_plain(cuda, mode, n_rows):
         table.cpu(), lanes[1].cpu(), 32, "gather").numpy())
 
 
+@pytest.mark.parametrize("batch", [1, 3, 17, 33, 1056])
+@pytest.mark.parametrize("R,C,mod", [(128, 128, 128), (16, 128, 16), (128, 128, 0),
+                                     (8, 128, 0), (32, 128, 8), (64, 12, 64), (40, 72, 32),
+                                     (16, 12, 0), (16, 72, 16), (448, 128, 256)])
+def test_take_along_axis0_slices_match_plain(cuda, batch, R, C, mod):
+    """The shared axis-0 take-along at batch 1, 3, 17, 33 and 1,056, whose
+    slices of a 128-column tile are 8, 8, 16, 32 and 32 columns (or whole
+    tiles where the indices reach every sector: the 8- and 16-row tiles
+    of the 1,056-tile batch, 4 KB tiles at any batch), mod 0 and powers of two, tiles whose columns are
+    no multiple of the slice (12 and 72) and a 448-row tile (224 KB whole,
+    within a block's opt-in limit); the sliced kernel also on the tiles
+    the wrapper takes whole, through its entry point."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import gather_ab
+
+    if R * C * 4 > probes.smem_optin_bytes(cuda):
+        pytest.skip("the tile exceeds this card's opt-in shared memory")
+    rng = np.random.default_rng(R * 1000 + C + batch)
+    t = torch.as_tensor(rng.integers(0, 1 << 30, (batch, R, C)).astype(np.int32), device=cuda)
+    hi = (4 * mod) if mod else R  # indices past the modulus: the kernel reduces them
+    idx = torch.as_tensor(rng.integers(0, hi, (batch, 16, C)).astype(np.int32), device=cuda)
+    want = probes.take_along_plain(t, idx, axis=0, mod=mod)
+    probes.reset_counters()
+    assert torch.equal(probes.take_along_probe(t, idx, axis=0, mod=mod, form="shared"), want)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["take_along_probe"] == 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if probes.taa0_whole(R, C, 16, mod, batch, sms):
+        sl = probes.taa0_slice(C, batch, sms)
+        assert torch.equal(gather_ab.sliced_call(t, idx, mod, sl)(t, idx, None), want)
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 2048])
+@pytest.mark.parametrize("n_rows", [32, 128, 1024, 2048, 4096])
+def test_ohg_mma_clusters_match_plain(cuda, n_rows, n):
+    """The tensor-core chase at 1, 15, 17 and 2,048 lanes (a partial
+    16-lane group, one lane past it, the reference's lanes), 1 and 9 hops,
+    on tables whose byte planes its default cluster splits over 1 (32,
+    128 rows), 2, 4 and 8 blocks (1,024-4,096 rows: combined through
+    distributed shared memory), bit-equal to the plain one-hot
+    arithmetic."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import gather_probe3 as g3
+
+    tbln, _ = g3.ohg_inputs(n_rows)
+    table = torch.from_numpy(tbln).to(cuda)
+    idx = torch.as_tensor(np.random.default_rng(n).integers(0, n_rows * 128, n)
+                          .astype(np.int32), device=cuda)
+    assert probes.ohg_cluster(n_rows) == {32: 1, 128: 1, 1024: 2, 2048: 4, 4096: 8}[n_rows]
+    for k in (1, 9):
+        got = probes.ohg_probe(table, idx, k=k, mode="mma")
+        assert torch.equal(got, probes.ohg_plain(table, idx, k, "mma")), k
+
+
+def test_ohg_mma_refuses_a_table_over_its_clusters_shared_memory(cuda):
+    """An 8,192-row table's byte planes are 384 KB a block over the
+    largest cluster, 8 blocks: refused before launch; 4,096 rows run."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    table = torch.zeros(8192, 128, dtype=torch.int32, device=cuda)
+    idx = torch.zeros(16, dtype=torch.int32, device=cuda)
+    probes.reset_counters()
+    with pytest.raises(ValueError, match="over 8 blocks are 401408 bytes"):
+        probes.ohg_probe(table, idx, k=1, mode="mma")
+    assert probes.LAUNCHES["ohg_probe"] == 0
+    assert torch.equal(probes.ohg_probe(table[:4096], idx, k=1, mode="mma"), idx)
+
+
 # ---------------------------------------------------------------------------
 # the multi-device layer on the card (every mesh entry on the one card)
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from massivevoxelraytracing_torch.ops import probes
 from massivevoxelraytracing_torch.scripts import common
 from massivevoxelraytracing_torch.scripts import dyngather_probe2 as dg
+from massivevoxelraytracing_torch.scripts import gather_ab
 from massivevoxelraytracing_torch.scripts import gather_probe3 as g3
 
 # The tensors here are small: one intra-op thread keeps the test runner's
@@ -269,3 +270,269 @@ def test_scripts_refuse_without_a_card(monkeypatch, script):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         script.main([])
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels' helpers: the mma mode's B fragments and the shared
+# axis-0 take-along's reached sectors, slices and marks
+# ---------------------------------------------------------------------------
+
+def fragment_bytes(frag):
+    """int32 [..., 2] registers -> uint8 [..., 2, 4] (byte j of each)."""
+    u = frag.numpy().astype(np.int64) & 0xFFFFFFFF
+    return np.stack([(u >> (8 * j)) & 255 for j in range(4)], -1)
+
+
+@pytest.mark.parametrize("n_rows,cluster", [(32, 1), (64, 2), (128, 1), (256, 4)])
+def test_ohg_fragments_are_the_mma_b_layout(n_rows, cluster):
+    """ohg_fragments, read back by mma.sync m16n8k32's B layout (thread
+    (g, t): register 0's byte j is row 4t + j, register 1's row 16 + 4t +
+    j, both at column g of the 32 x 8 tile), give every table row's three
+    byte planes, block r holding the chunks r x chunks.. ."""
+    tbl = np.random.default_rng(n_rows).integers(0, 1 << 24, (n_rows, 128)).astype(np.int32)
+    frag = fragment_bytes(probes.ohg_fragments(torch.from_numpy(tbl), cluster))
+    chunks = n_rows // 32 // cluster
+    assert frag.shape == (cluster, chunks, 16, 3, 32, 2, 4)
+    got = np.zeros((3, n_rows, 128), np.int64)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    for r in range(cluster):
+        for kc in range(chunks):
+            base = 32 * (r * chunks + kc)
+            for nt in range(16):
+                for j in range(4):
+                    for half in range(2):
+                        got[:, base + 16 * half + 4 * t + j, 8 * nt + g] = (
+                            frag[r, kc, nt, :, :, half, j])
+    want = np.stack([(tbl.astype(np.int64) >> (8 * p)) & 255 for p in range(3)])
+    np.testing.assert_array_equal(got, want)
+
+
+def one_hot_regs(d):
+    """The one-hot byte of an A register: byte d (0-3) set to 1."""
+    return np.where((d >= 0) & (d < 4), 1 << (8 * np.clip(d, 0, 3)), 0)
+
+
+def mma_model(n_rows, cluster, table, idx, k):
+    """The mma mode's hops as the kernel computes them, lane by lane of
+    each cluster's 16 x cluster: each block's partial from its B fragments
+    (ohg_fragments) and the rows' one-hot A registers, multiplied as
+    mma.sync m16n8k32 defines its fragments, then the cluster's slots
+    summed at each lane's column."""
+    frag = fragment_bytes(probes.ohg_fragments(torch.from_numpy(table), cluster))
+    chunks = n_rows // 32 // cluster
+    lanes = 16 * cluster
+    n = idx.size
+    x = np.zeros(-(-n // lanes) * lanes, np.int64)
+    x[:n] = idx
+    g = np.arange(8)
+    for _ in range(k):
+        step = np.zeros_like(x)
+        for first in range(0, x.size, lanes):
+            for grp in range(cluster):
+                lo = first + 16 * grp
+                rows, cols = x[lo:lo + 16] >> 7, x[lo:lo + 16] & 127
+                for r in range(cluster):
+                    part = np.zeros((16, 128), np.int64)
+                    for kc in range(chunks):
+                        c = r * chunks + kc
+                        a = np.zeros((16, 32), np.int64)
+                        for t in range(4):
+                            for half, rsel in ((0, rows[g]), (1, rows[g + 8])):
+                                for khalf in range(2):
+                                    reg = one_hot_regs(rsel - 32 * c - 4 * t - 16 * khalf)
+                                    for j in range(4):
+                                        a[g + 8 * half, 16 * khalf + 4 * t + j] = (reg >> (8 * j)) & 255
+                        for nt in range(16):
+                            b = np.zeros((3, 32, 8), np.int64)
+                            for lane in range(32):
+                                for half in range(2):
+                                    b[:, 16 * half + 4 * (lane % 4) + np.arange(4), lane // 4] = (
+                                        frag[r, kc, nt, :, lane, half, :])
+                            d = np.einsum("mk,pkn->pmn", a, b)
+                            part[:, 8 * nt:8 * nt + 8] += d[0] + (d[1] << 8) + (d[2] << 16)
+                    step[lo:lo + 16] += part[np.arange(16), cols]
+        x = (x + step) & (n_rows * 128 - 1)
+    return x[:n].astype(np.int32)
+
+
+@pytest.mark.parametrize("n_rows,cluster,n", [(32, 1, 17), (64, 2, 15), (128, 4, 70)])
+def test_ohg_mma_model_matches_the_plain_chase(n_rows, cluster, n):
+    """The mma mode's arithmetic as the kernel lays it out (B fragments,
+    one-hot A registers, partials of a cluster's blocks summed) equals the
+    plain one-hot chase, for lane counts that leave a group and a cluster
+    partial."""
+    tbl = np.random.default_rng(n).integers(0, n_rows * 128, (n_rows, 128)).astype(np.int32)
+    idx = np.random.default_rng(n + 1).integers(0, n_rows * 128, n).astype(np.int32)
+    want = probes.ohg_plain(torch.from_numpy(tbl), torch.from_numpy(idx), 3, "mma").numpy()
+    np.testing.assert_array_equal(mma_model(n_rows, cluster, tbl, idx, 3), want)
+    np.testing.assert_array_equal(want, g3.numpy_chase(tbl, idx, 3))
+
+
+def test_ohg_cluster_and_shared_memory():
+    """The mma mode's default cluster keeps a block's share of the byte
+    planes at 192 KB or less (1024 rows: 2 blocks); every default fits an
+    H100's 232,448 bytes of opt-in shared memory up to 4096 rows."""
+    assert [probes.ohg_cluster(n) for n in (32, 128, 512, 1024, 2048, 4096)] == [
+        1, 1, 1, 2, 4, 8]
+    for n in (32, 128, 512, 1024, 2048, 4096):
+        cl = probes.ohg_cluster(n)
+        assert probes.ohg_smem_bytes(n, cl) <= 232448
+        assert probes.ohg_smem_bytes(n, cl) == n * 384 // cl + 2 * cl * 16 * cl * 4
+    assert probes.ohg_smem_bytes(1024, 1) > 232448  # one block cannot hold the 1024 rows
+
+
+@pytest.mark.parametrize("body", ["k_taa0", "k_taa0t"])
+def test_taa0_sectors_are_the_bounds_sectors(body):
+    """The sectors the shared axis-0 take-along stages where it marks are
+    those the bytes bound counts (common.take_along_bytes): each 32-byte
+    sector of a row that an index of its columns reaches."""
+    _name, _body, axis, mod, ts, xs = next(b for b in dg.BODIES if b[1] == body)
+    t, idx = (torch.from_numpy(a) for a in dg.draws((ts, xs), 3))
+    idx = idx + mod * torch.arange(3, dtype=torch.int32)[:, None, None]
+    sec = probes.taa0_sectors(t, idx, mod=mod)
+    B, R, C = t.shape
+    assert sec.shape == (B, R, C // 8)
+    assert 32 * int(sec.sum()) + 8 * B * 16 * C == common.take_along_bytes(
+        t, idx, axis=0, mod=mod, c_out=C)
+    # by hand: row m of sector q is reached iff some idx[b, :, 8q..8q+7] % mod == m
+    x = (idx.numpy() % mod).reshape(B, 16, C // 8, 8)
+    for b in range(B):
+        for q in range(C // 8):
+            np.testing.assert_array_equal(
+                np.flatnonzero(sec[b, :, q].numpy()), np.unique(x[b, :, q]))
+
+
+def test_taa0_sectors_skip_indices_outside_the_tile():
+    """With mod 0 an index outside the tile reads through L1 and marks no
+    sector; a partial last sector (12 columns) counts as one."""
+    t = torch.zeros(1, 4, 12, dtype=torch.int32)
+    idx = torch.tensor([[[0, 1, 2, 3, 7, -1, 3, 3, 2, 9, 0, 0]]], dtype=torch.int32)
+    sec = probes.taa0_sectors(t, idx, mod=0)
+    assert sec.shape == (1, 4, 2)
+    np.testing.assert_array_equal(sec[0].numpy(), [[1, 1], [1, 0], [1, 1], [1, 0]])
+
+
+def test_taa0_slice_on_the_reference_shapes():
+    """The slice a block of the shared axis-0 take-along takes: 32 columns
+    on a batch that fills the card (k_taa0t's and k_taa0's 1,056 tiles),
+    halved while the blocks are fewer than the SMs: one a0small tile over
+    16 blocks of 8 columns, 17 tiles over 8 blocks of 16 each, 33 over 4
+    of 32; a tile narrower than the slice in one block, rounded up to a
+    sector."""
+    sms = 132
+    assert [probes.taa0_slice(128, b, sms) for b in (1, 3, 17, 33, 1056)] == [
+        8, 8, 16, 32, 32]
+    assert probes.taa0_slice(12, 1056, sms) == 16 and probes.taa0_slice(72, 1, sms) == 8
+    assert probes.taa0_slice(72, 1056, sms) == 32 and probes.taa0_slice(4, 1, sms) == 8
+
+
+def test_taa0_whole_tiles_on_the_reference_shapes():
+    """The shared axis-0 take-along stages whole tiles where 16 indices a
+    column reach every sector and the batch fills the card (k_taa0's
+    1,056 16-row tiles) or a tile is one 16-byte load of each of a
+    block's 256 threads (a0small's 8-row tile, 4 KB); it slices k_taa0t's
+    128-row tiles (~63% of the sectors reached), a modulus under the
+    rows, a0small's 32- and 128-row tile and small batches of larger
+    tiles."""
+    sms = 132
+    assert probes.taa0_whole(16, 128, 16, 16, 1056, sms)
+    assert not probes.taa0_whole(128, 128, 16, 128, 1056, sms)
+    assert not probes.taa0_whole(128, 128, 16, 16, 1056, sms)
+    assert not probes.taa0_whole(16, 128, 16, 16, 131, sms)
+    assert [probes.taa0_whole(r, 128, 16, 0, 1, sms) for r in (8, 32, 128)] == [
+        True, False, False]
+    assert [probes.taa0_whole(r, 128, 16, 0, sms, sms) for r in (8, 32, 128)] == [
+        True, True, False]
+    assert probes.taa0_whole(16, 12, 16, 0, 3, sms)  # 768 B: one load a thread
+    assert not probes.taa0_whole(8, 128, 2, 0, 1, sms)  # 2 indices reach too few
+
+
+def test_ohg_mma_refuses_tables_over_its_clusters_shared_memory():
+    """The mma mode holds a table's byte planes in its cluster's shared
+    memory, 8 blocks at most: on an H100 (232,448 bytes a block) 4,096
+    rows fit, 8,192 rows (401,408 bytes a block) are refused, naming the
+    bytes."""
+    limit = 232448
+    assert probes.ohg_mma_check(4096, limit) == 8
+    with pytest.raises(ValueError, match="8192-row table over 8 blocks are 401408 bytes"):
+        probes.ohg_mma_check(8192, limit)
+    with pytest.raises(ValueError, match="over the 100000 bytes"):
+        probes.ohg_mma_check(1024, 100000)
+    # on the CPU the wrapper runs the plain version at any size
+    table = torch.zeros(8192, 128, dtype=torch.int32)
+    assert torch.equal(probes.ohg_probe(table, torch.ones(4, dtype=torch.int32), k=1,
+                                        mode="mma"), torch.ones(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n_rows", [128, 1024])
+def test_ohg_library_yardstick_equals_the_plain_chase(n_rows):
+    """gather_probe3.ohg_library, the reference's formulation as PyTorch
+    calls (a float32 one-hot times the float32 table), is exact."""
+    tbln, idxn = g3.ohg_inputs(n_rows, 2)
+    table, idx = torch.from_numpy(tbln), torch.from_numpy(idxn)
+    assert torch.equal(g3.ohg_library(table, idx, 4), probes.ohg_plain(table, idx, 4))
+
+
+def test_gather_ab_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a card"):
+        gather_ab.run()
+
+
+def test_gather_ab_drops_the_new_arguments_for_the_earlier_entries():
+    """The earlier source's entry points, as built, take the arguments the
+    current wrappers pass less the slice (take-along) or the cluster
+    (one-hot gather); the source kept is the parent commit's."""
+    import inspect
+    import re
+
+    with open(gather_ab.EARLIER) as f:
+        old = f.read()
+    with open(gather_ab.EARLIER.replace("earlier/hako_probes_5ace4b1.cu",
+                                        "hako_probes.cu")) as f:
+        new = f.read()
+
+    def params(text, name):
+        head = re.search(rf'extern "C" int {name}\((.*?)\)', text, re.S).group(1)
+        return [p.split()[-1].lstrip("*") for p in head.split(",")]
+
+    assert params(new, "take_along_probe_launch") == (
+        params(old, "take_along_probe_launch")[:12] + ["slice", "stream"])
+    assert params(new, "ohg_probe_launch") == (
+        params(old, "ohg_probe_launch")[:8] + ["cluster", "stream"])
+    assert "a[:12], a[13]" in inspect.getsource(gather_ab.build_earlier)
+    assert "a[:8], a[9]" in inspect.getsource(gather_ab.build_earlier)
+    assert set(gather_ab.ENTRIES) == set(re.findall(r'extern "C" [\w ]+?\*? ?(\w+)\(', old))
+
+
+def test_every_bound_entry_point_takes_the_arguments_of_its_source():
+    """utils/cuda_build._bind declares for each C entry point as many
+    arguments as its definition in csrc/ takes (a launcher that gains or
+    loses an argument without its binding fails here, not on the card)."""
+    import glob
+    import os
+    import re
+    import types
+
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    cuda_build._bind(lib)
+    src = ""
+    for path in sorted(glob.glob(os.path.join(cuda_build.CSRC, "*.c*"))):
+        with open(path) as f:
+            src += f.read()
+    bound = {name: fn.argtypes for name, fn in vars(lib).items() if hasattr(fn, "argtypes")}
+    assert {"take_along_probe_launch", "ohg_probe_launch", "ohg_mma_max_clusters"} <= set(bound)
+    for name, argtypes in bound.items():
+        m = re.search(rf'extern "C" [^;{{]*?\b{name}\(([^)]*)\)\s*{{', src)
+        assert m, name
+        params = [a for a in m.group(1).split(",") if a.strip() not in ("", "void")]
+        assert len(argtypes) == len(params), name

@@ -119,3 +119,41 @@ def test_step_timing_equals_a_tracer_driven_directly():
     assert torch.equal(rec["accum"], want)
     assert rec["mean"] == float(want[:, :3].mean()) and np.isfinite(rec["mean"])
     assert (rec["scene"], rec["accel"], rec["launches_a_step"]) == ("bumpy", "hako", 0)
+
+
+def test_step_profile_is_held_to_the_steps_counts(monkeypatch, capsys):
+    """common.profile_or_none with the PT step's live counts (the sample
+    chain's kernels and hako_mega): a trace that drops one counted launch
+    in every try is "not measured"; one that drops it once is taken again
+    and kept. The step runs once a try."""
+    from massivevoxelraytracing_torch.ops import hako_mega, pt_chain
+
+    steps = []
+
+    def step():  # one step: a hako_mega and a bounce-sample launch
+        steps.append(1)
+        hako_mega.LAUNCHES += 1
+        pt_chain.LAUNCHES["pt_bounce_sample"] += 1
+
+    def fake(drops):
+        def profile(fn, pad_s=0.0, names=()):
+            before = {k: counts[k] for k in names}
+            fn()
+            named = {k: (0.1, counts[k] - before[k]) for k in names}
+            if next(drops):
+                named["pt_bounce_sample"] = (0.1, named["pt_bounce_sample"][1] - 1)
+            return dict(named=named, busy_ms=1.0)
+        return profile
+
+    monkeypatch.setattr(hako_mega, "LAUNCHES", 0)
+    monkeypatch.setattr(pt_chain, "LAUNCHES", dict.fromkeys(pt_chain.KERNELS, 0))
+    counts = common.step_counts()
+    assert dict(counts) == {**dict.fromkeys(pt_chain.KERNELS, 0), "hako_mega": 0}
+    monkeypatch.setattr(common, "profile_call", fake(iter([True] * 8)))
+    assert common.profile_or_none(step, counts, "[t] step") is None
+    assert "[t] step: not measured" in capsys.readouterr().out
+    assert len(steps) == len(common.PROFILE_PADS_S) and counts["hako_mega"] == len(steps)
+    monkeypatch.setattr(common, "profile_call", fake(iter([True, False])))
+    got = common.profile_or_none(step, counts, "[t] step")
+    assert got["tries"] == 2 and got["busy_ms"] == 1.0
+    assert got["named"]["hako_mega"] == (0.1, 1)
