@@ -134,7 +134,14 @@ Phases (any failure raises, and the script exits non-zero):
      and the fused stage, and the full frame's rounds through hako_rounds,
      the two-launch driver and the unfused stage, with each wall split
      into kernel and host time; the runs' launches (the
-     isolated phases' among them) must add up to the phase's;
+     isolated phases' among them) must add up to the phase's; then, its
+     launches not counted, scripts/row_stage_ab.fetch_ab: the redesigned
+     fetch_probe (the lanes' rows staged in shared memory) in turns with
+     the parent commit's kernel (csrc/earlier/hako_probes_a33e950.cu,
+     built there first) at the meter's three launch shapes, each == its
+     plain version, with both designs' SASS floors, the staging's bound
+     at the card's L2 read rate (l2_read_probe, == its plain version)
+     and the kernels' ptxas registers;
   5c. this slice's path, with the probe and round kernels' counts set to
      0 just before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -152,7 +159,12 @@ Phases (any failure raises, and the script exits non-zero):
      sum of their kernels' bytes bounds) and the host's wall of
      drive(max_rounds=1) for both, the full frame); every case held bit
      for bit against its plain version before it is timed, the shell
-     micro's timed from HBM;
+     micro's timed from HBM; then, its launches not counted,
+     scripts/row_stage_ab.dda_ab: the redesigned hako_dda_cached (rows
+     staged by bulk copy) in turns with the parent commit's kernel
+     (csrc/earlier/hako_rounds_a33e950.cu, built there first) on the
+     lattice round's brick rows in the round's order and sorted by row,
+     hako_dda in the same turns, each == its plain version;
   5d. this slice's path, with the probe kernels' counts set to 0 just
      before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -2292,7 +2304,8 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
     per = n * PROBE_ITERS
     print(f"[phase5] walk vs fetch on {n} lanes x {PROBE_ITERS} (== plain versions): "
           f"walk64 {walk_ms:.4f} ms = {walk_ms * 1e6 / per:.4f} ns per lane-walk "
-          f"over the card; row-word fetch (L2 flushed first) {fetch_ms:.4f} ms = "
+          f"over the card; row-word fetch, the lanes' rows staged in shared memory (L2 "
+          f"flushed first, so the staging reads HBM) {fetch_ms:.4f} ms = "
           f"{fetch_ms * 1e6 / per:.4f} ns per lane-fetch [{smi}]", flush=True)
     return dict(chase=chase, walk_ms=walk_ms, fetch_ms=fetch_ms,
                 walk_ns=walk_ms * 1e6 / per, fetch_ns=fetch_ms * 1e6 / per,
@@ -2313,7 +2326,7 @@ def phase_slice(tree, cam, smi: str) -> dict:
     from massivevoxelraytracing_torch.ops import probes
     from massivevoxelraytracing_torch.scripts import (common, construct_micro,
                                                       hako_kernel_micro,
-                                                      hako_phase_timing)
+                                                      hako_phase_timing, row_stage_ab)
 
     t0 = time.time()
     meter = common.Meter(torch.device("cuda", 0))  # one calibration for both scripts
@@ -2350,8 +2363,26 @@ def phase_slice(tree, cam, smi: str) -> dict:
     print(f"[phase5b] {len(records)} probe cases == plain versions; launches "
           f"{launches}, round kernels {round_launches} (of them in the isolated "
           f"phases {isolated}); {time.time() - t0:.1f} s [{smi}]", flush=True)
+    # the redesigned fetch in turns with the parent commit's (scripts/
+    # row_stage_ab.py, which builds the parent's library first; its
+    # launches are not counted)
+    t1 = time.time()
+    with row_stage_ab.counts_kept():
+        ab = row_stage_ab.fetch_ab(torch.device("cuda", 0), card=smi)
+    report_ab("phase5b", "fetch_probe", ab, ("one warp an SM", "full occupancy", "script"), smi)
+    print(f"[phase5b] fetch_probe in turns with the parent's kernel: "
+          f"{time.time() - t1:.1f} s [{smi}]", flush=True)
     return dict(records=records, timing=timing, launches=launches,
-                round_launches=round_launches, isolated_launches=isolated)
+                round_launches=round_launches, isolated_launches=isolated, ab=ab)
+
+
+def report_ab(phase: str, kernel: str, ab: dict, cases, smi: str) -> None:
+    """A line for each case of scripts/row_stage_ab.py whose redesigned
+    kernel is not faster than the parent's in every turn."""
+    for case in cases:
+        if ab[case]["faster"] != "current":
+            print(f"[{phase}] {kernel} {case}: the redesigned kernel is not faster in "
+                  f"every turn ({ab[case]['faster']}) [{smi}]", flush=True)
 
 
 SHELL_KERNELS = ("shell_copy_probe", "preamble_probe", "probe_stage_probe")
@@ -2367,7 +2398,8 @@ def phase_split(tree, smi: str) -> dict:
 
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.ops import probes
-    from massivevoxelraytracing_torch.scripts import hako_shell_micro, r3_phase_split
+    from massivevoxelraytracing_torch.scripts import (hako_shell_micro, r3_phase_split,
+                                                      row_stage_ab)
 
     t0 = time.time()
     torch.cuda.synchronize()
@@ -2392,8 +2424,18 @@ def phase_split(tree, smi: str) -> dict:
     print(f"[phase5c] {len(shell['cases'])} shell cases and {len(split['phases'])} round "
           f"phases == plain versions; launches {launches}, round kernels "
           f"{round_launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
+    # the redesigned row cache in turns with the parent commit's (scripts/
+    # row_stage_ab.py, which builds the parent's library first; its
+    # launches are not counted)
+    t1 = time.time()
+    with row_stage_ab.counts_kept():
+        ab = row_stage_ab.dda_ab(tree, r3_phase_split.script_camera(tree), WIDTH, 1088,
+                                 card=smi)
+    report_ab("phase5c", "hako_dda_cached", ab, ("round order", "sorted by row"), smi)
+    print(f"[phase5c] hako_dda_cached in turns with the parent's kernel: "
+          f"{time.time() - t1:.1f} s [{smi}]", flush=True)
     return dict(shell=shell, split=split, launches=launches,
-                round_launches=round_launches)
+                round_launches=round_launches, ab=ab)
 
 
 def phase_gather(smi: str, sl: dict) -> dict:
@@ -2600,7 +2642,8 @@ def split_entries(sp: dict, src: str) -> list:
         row_cache=u, uncached_ms=ph["B rows, round order"]["ms"],
         sorted_ms=ph[f"B cached U={u}, sorted by row"]["ms"],
         sorted_uncached_ms=ph["B rows, sorted by row"]["ms"],
-        sort_ms=ph["sort, gathers, scatter back"]["ms"], rows=rows))
+        sort_ms=ph["sort, gathers, scatter back"]["ms"], rows=rows,
+        ab={k: sp["ab"][k] for k in ("round order", "sorted by row", "smem", "ptxas")}))
     return out
 
 
@@ -4031,6 +4074,8 @@ def main() -> int:
             max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             cases=e["cases"]))
+        if name == "fetch_probe":  # in turns with the parent's kernel (row_stage_ab)
+            kernels[-1]["ab"] = sl["ab"]
     for k in kernels[1:5]:
         k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
                           "scripts/r3_phase_split.py:130; scripts/hako_shell_micro.py:134",

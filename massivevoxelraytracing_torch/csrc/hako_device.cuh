@@ -283,9 +283,10 @@ struct Dda {
 // base + sub-brick prefix + popcount); a supernode row (LEAF = false)
 // emits the first child brick past the resume key with its exit planes
 // (the y plane bit-cast into nmaj). Stops after max_iters sub-bricks with
-// a resume key.
-template <bool LEAF, bool SHADOW>
-__device__ __forceinline__ Dda dda_rows(const uint32_t* row,
+// a resume key. Row: how the row's words are read, row[k] (a pointer into
+// global memory by default; hako_dda_cached passes a shared-memory row).
+template <bool LEAF, bool SHADOW, class Row = const uint32_t*>
+__device__ __forceinline__ Dda dda_rows(Row row,
                                         const float dt[3], float dt_factor,
                                         int vm6, const float bt1[3],
                                         float tqe0, int max_iters,

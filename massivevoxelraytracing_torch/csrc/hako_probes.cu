@@ -14,7 +14,10 @@
 //   walk64 (or the 64-cell scan64 sweep) alone on masks held in registers
 //   (the masks step through an LCG, so nothing is hoisted), and the
 //   row-word fetch alone (words 2s, 2s+1 of the lane's row, s taken from
-//   the words read before), each looped in the kernel.
+//   the words read before), each looped in the kernel; the fetch reads the
+//   lane's row words from shared memory, staged first (fetch_probe_kernel).
+// * l2_read_probe (no counterpart in the reference): streaming reads of an
+//   L2-resident buffer, the L2 read rate that bounds the fetch's staging.
 // * construct_probe<C> (construct_micro.py run): K dependent repeats of one
 //   vector construct a lane, each written the way Hopper computes it
 //   (fminf / fmaxf, a select, integer ops, a variable shift, the literal
@@ -104,14 +107,16 @@
 //   n_rows x 128 x 3 int8 operations a hop).
 //
 // What bounds them is what they measure: load latency (the chase, the
-// fetch, the gathers) and issue rate or dependent-op latency (the walk, the
-// constructs, the selects, the calibration). The shell and the preamble
-// are bound by their bytes (16 and 14 floats a lane, each read or written
-// once); so are the stages where most rays miss the box (a missing ray's
-// walk ends at its first test), else by the walks' issue. The repeat
-// loops keep every repeat data-dependent; the outer loop is `#pragma
-// unroll 1` around a fixed inner unroll of kUnroll, so the outer loop
-// body's SASS instructions over kUnroll are the cost of one repeat.
+// gathers; the fetch's from shared memory, after its staging's L2 reads)
+// and issue rate or dependent-op latency (the walk, the constructs, the
+// selects, the calibration). The shell and the preamble are bound by their
+// bytes (16 and 14 floats a lane, each read or written once); so are the
+// stages where most rays miss the box (a missing ray's walk ends at its
+// first test), else by the walks' issue; the L2 read probe by the L2's
+// read rate. The repeat loops keep every repeat data-dependent; the outer
+// loop is `#pragma unroll 1` around a fixed inner unroll of kUnroll, so the
+// outer loop body's SASS instructions over kUnroll are the cost of one
+// repeat.
 // Plain PyTorch versions that compute the same outputs are in
 // ops/probes.py.
 
@@ -237,20 +242,124 @@ __global__ void walk_probe_kernel(const uint32_t* lo0, const uint32_t* hi0,
   out[i] = acc;
 }
 
+// fetch_probe: the lane's row words from shared memory, as the reference's
+// k_words selected among words already on chip (its lanes' BRICK_WORDS
+// words a VMEM block, brought in by the grid pipeline's DMA). A repeat
+// reads words 2s, 2s+1 with s <= 63, so a lane needs words 0-127 of its
+// row (512 B). Each warp stages its 32 lanes' words with coalesced 16-byte
+// cp.async copies, a row an instruction (lane l copies bytes 16l..16l+15
+// of row r), waits for them, and then runs the `iters` dependent fetches
+// from shared memory (LDS.64) instead of from L2. A lane's words sit at a
+// stride of kFetchStride words (528 B: 16-byte aligned for the copies, and
+// lanes at one s fall in different banks). A block stages at most
+// kFetchBuffers warps at once (16.5 KB each); a warp past them takes the
+// buffer of the warp kFetchBuffers before it when that warp is done with
+// it (an mbarrier that warp arrives on, used once). The repeat loop is the
+// only loop before the kernel's last EXIT but for that wait (whose retry
+// and a divergent warp's sync sit past it), so utils/sass.py reads the
+// repeat loop's body. Every repeat still reads both words of
+// the row and xors them: folding the table (w0 ^ w1 a row) or reading one
+// word would remove the work the probe measures.
+constexpr int kFetchWords = 128;               // words 0-127 of a row: s <= 63
+constexpr int kFetchStride = kFetchWords + 4;  // a lane's staged words, padded
+constexpr int kFetchBuffers = 4;               // warps a block stages at once
+
+size_t fetch_smem_bytes(int threads) {
+  const int warps = threads / 32;
+  const int bufs = warps < kFetchBuffers ? warps : kFetchBuffers;
+  return static_cast<size_t>(bufs) * 32 * kFetchStride * 4 + (warps - bufs) * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __global__ void fetch_probe_kernel(const uint32_t* rows, const int* row_of,
                                    int n, int iters, int* out) {
+  extern __shared__ uint4 s_fetch[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bufs = warps < kFetchBuffers ? warps : kFetchBuffers;
+  uint32_t* words = reinterpret_cast<uint32_t*>(s_fetch) + (warp % bufs) * 32 * kFetchStride;
+  // bars[w]: warp w is done with its buffer (for warp w + bufs)
+  const uint32_t bars = smem_addr(reinterpret_cast<uint32_t*>(s_fetch) + bufs * 32 * kFetchStride);
+  if (warps > bufs) {
+    if (lane == 0 && warp < warps - bufs) {  // one lane a warp: no per-thread addresses
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bars + 8 * warp), "r"(1u)
+                   : "memory");
+    }
+    __syncthreads();
+  }
+  if (warp >= bufs) {
+    uint32_t done;
+    do {
+      asm volatile(
+          "{\n\t.reg .pred p;\n\t"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+          "selp.u32 %0, 1, 0, p;\n\t}"
+          : "=r"(done) : "r"(bars + 8 * (warp - bufs)), "r"(0u) : "memory");
+    } while (!done);
+  }
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint2* row = reinterpret_cast<const uint2*>(
-      rows + static_cast<size_t>(row_of[i]) * hako::kRowWords);
+  const int first = i - lane;  // the warp's lane 0
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    if (first + r < n) {
+      const int row = __ldg(row_of + first + r);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                   ::"r"(smem_addr(words + r * kFetchStride + 4 * lane)),
+                   "l"(rows + static_cast<size_t>(row) * hako::kRowWords + 4 * lane)
+                   : "memory");
+    }
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();
+  const uint32_t mine = smem_addr(words + lane * kFetchStride);
   uint32_t s = i & 63, acc = 0;
 #pragma unroll 1
   for (int k = 0; k < iters; ++k) {
-    const uint2 w = __ldg(row + s);
-    acc ^= w.x ^ w.y;
-    s = (w.x ^ w.y ^ static_cast<uint32_t>(k)) & 63u;
+    uint32_t w0, w1;
+    asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];" : "=r"(w0), "=r"(w1) : "r"(mine + 8u * s));
+    acc ^= w0 ^ w1;
+    s = (w0 ^ w1 ^ static_cast<uint32_t>(k)) & 63u;
   }
-  out[i] = static_cast<int>(acc);
+  __syncwarp();
+  if (lane == 0 && warp + bufs < warps) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bars + 8 * warp) : "memory");
+  }
+  if (i < n) out[i] = static_cast<int>(acc);
+}
+
+// l2_read_probe: the card's L2 read rate, the rate at which the fetch's
+// staging reads its rows (scripts/row_stage_ab.py): a grid that fills the
+// card reads an L2-resident buffer of 16-byte vectors `passes` times, grid
+// stride, with ld.global.cg (past L1; volatile, so that no pass is folded
+// into another), four independent loads in flight a thread where the
+// buffer gives them, and writes one sum a thread: out[g] = the sum over the
+// passes and the vectors g, g + G, ... (G the grid's threads) of
+// x ^ y ^ z ^ w, mod 2^32. It reads each byte once a pass and writes 4 B a
+// thread.
+__device__ __forceinline__ uint32_t ldcg_xor(const uint4* p) {
+  uint32_t x, y, z, w;
+  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(x), "=r"(y), "=r"(z), "=r"(w) : "l"(p));
+  return x ^ y ^ z ^ w;
+}
+
+__global__ void l2_read_probe_kernel(const uint4* buf, long long n_vec, int passes,
+                                     uint32_t* out) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  uint32_t acc = 0;
+  for (int p = 0; p < passes; ++p) {
+    long long i = g;
+    for (; i + 3 * stride < n_vec; i += 4 * stride) {
+      const uint32_t a = ldcg_xor(buf + i), b = ldcg_xor(buf + i + stride);
+      const uint32_t c = ldcg_xor(buf + i + 2 * stride), d = ldcg_xor(buf + i + 3 * stride);
+      acc += a + b + c + d;
+    }
+    for (; i < n_vec; i += stride) acc += ldcg_xor(buf + i);
+  }
+  out[g] = acc;
 }
 
 constexpr int kUnroll = 8;  // repeats in one pass of a probe's outer loop
@@ -1283,14 +1392,37 @@ extern "C" int walk_probe_launch(const void* lo, const void* hi, const void* t1,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The dynamic shared memory a block of fetch_probe_kernel launches with.
+extern "C" size_t fetch_probe_smem_bytes(int threads) { return fetch_smem_bytes(threads); }
+
 extern "C" int fetch_probe_launch(const void* rows, const void* row_of, int n,
                                   int iters, int threads, void* out, void* stream) {
   if (n <= 0 || threads <= 0 || threads > 1024 || threads % 32)
     return cudaErrorInvalidValue;
-  fetch_probe_kernel<<<(n + threads - 1) / threads, threads, 0,
+  const size_t bytes = fetch_smem_bytes(threads);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fetch_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(fetch_smem_bytes(1024)));
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // leave no error for the next launch's check
+      return static_cast<int>(e);
+    }
+  }
+  fetch_probe_kernel<<<(n + threads - 1) / threads, threads, bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), static_cast<const int*>(row_of), n,
       iters, static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int l2_read_probe_launch(const void* buf, long long n_vec, int passes,
+                                    int blocks, int threads, void* out, void* stream) {
+  if (n_vec <= 0 || passes < 0 || blocks <= 0 || threads <= 0 || threads > 1024 ||
+      threads % 32)
+    return cudaErrorInvalidValue;
+  l2_read_probe_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(buf), n_vec, passes, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -159,30 +159,89 @@ __global__ void __launch_bounds__(kThreads) hako_dda_kernel(const DdaParams p) {
 // Kernel B through a block-local row cache (the reference's uniq-regather
 // path, _make_kernel_b(dedup_u=U), measured by scripts/r3_phase_split.py
 // :212): each 128-lane block finds the distinct rows among its go-lanes,
-// stages the first `cache` of them (by row id) in shared memory with one
-// coalesced copy, and each lane runs dda_rows on its staged row, or on its
-// row in global memory when it did not fit. dda_rows reads either through
-// the same generic pointer, so the results are hako_dda_kernel's bit for
-// bit whatever `cache` is (the reference defers the lanes that do not fit
-// instead; deferral is a round rung, which the port leaves out).
+// stages the first `cache` of them (by row id) in shared memory, and each
+// lane runs dda_rows on its staged row, or on its row in global memory
+// when it did not fit. The row's words are the same either way, so the
+// results are hako_dda_kernel's bit for bit whatever `cache` is (the
+// reference defers the lanes that do not fit instead; deferral is a round
+// rung, which the port leaves out). stats [blocks, 3]: the block's
+// go-lanes, its distinct rows, the go-lanes that read the cache.
 //
-// Finding the distinct rows: a bitonic sort of the block's 128 (row id,
-// lane) keys in shared memory (28 compare-exchange steps), then the
-// boundaries of the sorted ids counted with a ballot and a prefix over the
-// 4 warps: the counterpart of the reference's per-block sort, boundary
-// cumsum and unique take (r3_phase_split.py dedup :152). The sort was
-// chosen over __match_any_sync because a warp's match finds duplicates only
-// within its 32 lanes, and merging the 4 warps' leaders needs the same
-// block-wide step again; the sort also gives each row its rank, the slot
-// it is staged at, in one pass. Cost: ~30 barriers and ~200 instructions a
-// lane before the first row word, against one row copy a distinct row
-// instead of one row read a lane. stats [blocks, 3]: the block's go-lanes,
-// its distinct rows, the go-lanes that read the cache.
+// What bounds it: one row read a distinct row instead of one a go-lane
+// (common.dda_bound), then the DDA's issue. The design keeps the
+// dedup short and lets no lane wait for a copy it does not read:
+// * distinct rows: __match_any_sync gives each row a leader in its warp;
+//   the leaders list their ids in shared memory (by lane, with the
+//   warp's ballot of leaders), and behind one barrier each leader finds
+//   the earliest warp that lists its row (that entry stands for the row
+//   in the block). A second barrier counts the block's
+//   distinct rows. Where they all fit, a row's slot is its entry's place
+//   among the standing entries; where they do not, its rank among them
+//   (the `cache` smallest ids are staged, as the reference's sort ranks
+//   them), counted over the block's standing ids. Two barriers in all,
+//   where a bitonic sort of the block's 128 keys took 28.
+// * the copy: the standing entry's leader stages its row with one bulk
+//   copy (cp.async.bulk, 656 B = 41 x 16, the table 16-byte aligned).
+//   The block's copies complete on one mbarrier, which each warp arrives
+//   on once its leaders have issued theirs; a lane whose row is staged
+//   waits for it after its ray preamble, and every other lane walks its
+//   row in global memory at once. (An mbarrier a warp was within 2% of
+//   it, an mbarrier a row 11% slower on the lattice round: a block
+//   initialised U of them, PERF.md section 6.)
+// * the reads: a staged row is read with ld.shared (dda_rows over
+//   SmemRow), not through a generic pointer.
+// Shared memory: `cache` rows (656 B each; 43 KB at U = 64, 5 blocks an
+// SM), set by `cache` as before, and the mbarrier.
 constexpr int kRowVec = hako::kRowWords / 4;  // 16-byte vectors a row
+constexpr uint32_t kRowBytes = hako::kRowWords * 4;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kNoRow = 0xFFFFFFFFu;
+// the block's small counts after its ids (by lane): a warp's ballots of
+// its leaders and of those whose row no earlier warp lists, its
+// go-lanes; the lanes that read the cache and the warps done with them
+enum { kLeads = 0, kStanding = kWarps, kGoes = 2 * kWarps, kCachedLanes = 3 * kWarps,
+       kWarpsDone, kSmall };
 
 size_t cached_smem_bytes(int cache) {
-  return static_cast<size_t>(cache) * hako::kRowWords * 4 + kThreads * 8 +
-         kThreads * 4 + static_cast<size_t>(cache > 0 ? cache : 1) * 4 + 16;
+  return static_cast<size_t>(cache) * kRowBytes + 8 + (kThreads + kSmall) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// A row staged in shared memory at a shared-window address: row[k] is one
+// ld.shared (LDS).
+struct SmemRow {
+  uint32_t addr;
+  __device__ __forceinline__ uint32_t operator[](int k) const {
+    uint32_t v;
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr + 4u * static_cast<uint32_t>(k)));
+    return v;
+  }
+};
+
+// bytes bytes from global src to shared dst, completing on mbarrier bar,
+// which is told to expect them (its phase also waits for its arrivals)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Until mbarrier bar has completed the phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
 template <bool LEAF, bool SHADOW>
@@ -191,74 +250,98 @@ __global__ void __launch_bounds__(kThreads) hako_dda_cached_kernel(
   using namespace hako;
   extern __shared__ uint4 s_mem[];
   uint4* s_rows = s_mem;  // [cache][41]
-  auto* s_key = reinterpret_cast<unsigned long long*>(s_rows + cache * kRowVec);
-  int* s_slot = reinterpret_cast<int*>(s_key + kThreads);  // by lane
-  int* s_id = s_slot + kThreads;                           // by slot
-  int* s_warp = s_id + (cache > 0 ? cache : 1);            // 4 warp counts
-  const int t = threadIdx.x;
+  auto* s_bar = reinterpret_cast<unsigned long long*>(s_rows + cache * kRowVec);
+  uint32_t* s_ids = reinterpret_cast<uint32_t*>(s_bar + 1);  // [warp][lane] leaders' ids
+  int* s_small = reinterpret_cast<int*>(s_ids + kThreads);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int j = blockIdx.x * kThreads + t;
   const bool live = j < p.n;
   const bool go = live && p.go[j];
-  const uint32_t none = 0xFFFFFFFFu;
-  const uint32_t id = go ? static_cast<uint32_t>(p.child[j]) : none;
-  s_key[t] = (static_cast<unsigned long long>(id) << 32) | static_cast<unsigned>(t);
+  const uint32_t id = go ? static_cast<uint32_t>(p.child[j]) : kNoRow;
+  const uint32_t bar = smem_addr(s_bar);  // the block's copies, and a warp's arrival each
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(kWarps) : "memory");
+  }
+  // the warp's distinct rows: the lowest lane of a row leads it
+  const int leader = __ffs(__match_any_sync(kFull, id)) - 1;
+  const bool lead = go && lane == leader;
+  const unsigned leads = __ballot_sync(kFull, lead);
+  if (lead) s_ids[warp * 32 + lane] = id;
+  const unsigned goes = __ballot_sync(kFull, go);
+  if (lane == 0) {
+    s_small[kLeads + warp] = static_cast<int>(leads);
+    s_small[kGoes + warp] = __popc(goes);
+  }
+  if (t == 0) s_small[kCachedLanes] = s_small[kWarpsDone] = 0;
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   __syncthreads();
-  for (int k = 2; k <= kThreads; k <<= 1) {
-    for (int h = k >> 1; h > 0; h >>= 1) {
-      const int q = t ^ h;
-      if (q > t) {
-        const unsigned long long a = s_key[t], b = s_key[q];
-        if ((a > b) == ((t & k) == 0)) {
-          s_key[t] = b;
-          s_key[q] = a;
+  // the entry that stands for the row: its earliest warp's
+  int fw = warp, fi = lane;
+  if (lead) {
+    for (int w = 0; w < warp && fw == warp; ++w) {
+      for (unsigned m = static_cast<unsigned>(s_small[kLeads + w]); m; m &= m - 1u) {
+        const int k = __ffs(m) - 1;
+        if (s_ids[w * 32 + k] == id) {
+          fw = w;
+          fi = k;
+          break;
         }
       }
-      __syncthreads();
     }
   }
-  // sorted position t: a row's first key is a boundary; its rank counts
-  // the boundaries up to it
-  const unsigned long long key = s_key[t];
-  const uint32_t kid = static_cast<uint32_t>(key >> 32);
-  const bool real = kid != none;
-  const bool bnd = real && (t == 0 || static_cast<uint32_t>(s_key[t - 1] >> 32) != kid);
-  const unsigned ball = __ballot_sync(0xffffffffu, bnd);
-  const int warp = t >> 5, lane = t & 31;
-  if (lane == 0) s_warp[warp] = __popc(ball);
-  __syncthreads();
-  int rank = __popc(ball & ((2u << lane) - 1u)) - 1;
-  int distinct = 0;
-  for (int w = 0; w < kThreads / 32; ++w) {
-    if (w < warp) rank += s_warp[w];
-    distinct += s_warp[w];
+  const bool standing = lead && fw == warp;
+  const unsigned stands = __ballot_sync(kFull, standing);
+  if (lane == 0) s_small[kStanding + warp] = static_cast<int>(stands);
+  const int distinct = __syncthreads_count(standing);
+  int slot = -1;
+  if (lead) {
+    if (distinct <= cache) {  // every row staged, at its standing entry's place
+      slot = __popc(static_cast<unsigned>(s_small[kStanding + fw]) & ((1u << fi) - 1u));
+      for (int w = 0; w < fw; ++w) slot += __popc(static_cast<unsigned>(s_small[kStanding + w]));
+    } else if (cache > 0) {  // the cache smallest rows: this row's rank
+      int rank = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        for (unsigned m = static_cast<unsigned>(s_small[kStanding + w]); m; m &= m - 1u) {
+          rank += s_ids[w * 32 + __ffs(m) - 1] < id;
+        }
+      }
+      slot = rank < cache ? rank : -1;
+    }
+    if (standing && slot >= 0) {
+      bulk_load(smem_addr(s_rows + slot * kRowVec),
+                p.rows + static_cast<size_t>(id) * kRowWords, kRowBytes, bar);
+    }
   }
-  if (bnd && rank < cache) s_id[rank] = static_cast<int>(kid);
-  s_slot[key & (kThreads - 1)] = real && rank < cache ? rank : -1;
-  __syncthreads();
-  const int staged = min(distinct, cache);
-  const uint4* rows4 = reinterpret_cast<const uint4*>(p.rows);
-  for (int v = t; v < staged * kRowVec; v += kThreads) {
-    const int r = v / kRowVec;
-    s_rows[v] = __ldg(rows4 + static_cast<size_t>(s_id[r]) * kRowVec + (v - r * kRowVec));
-  }
-  const int slot = s_slot[t];
-  const int n_go = __syncthreads_count(go);
-  const int n_cached = __syncthreads_count(go && slot >= 0);
-  if (t == 0) {
-    stats[3 * blockIdx.x] = n_go;
-    stats[3 * blockIdx.x + 1] = distinct;
-    stats[3 * blockIdx.x + 2] = n_cached;
+  __syncwarp();  // the warp's copies expected before its arrival completes the phase
+  if (lane == 0) asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+  slot = __shfl_sync(kFull, slot, leader);
+  // the stats: the last warp to add its cached lanes writes them
+  const unsigned cached = __ballot_sync(kFull, go && slot >= 0);
+  if (lane == 0) {
+    atomicAdd(&s_small[kCachedLanes], __popc(cached));
+    __threadfence_block();
+    if (atomicAdd(&s_small[kWarpsDone], 1) == kWarps - 1) {
+      __threadfence_block();
+      int n_go = 0;
+      for (int w = 0; w < kWarps; ++w) n_go += s_small[kGoes + w];
+      stats[3 * blockIdx.x] = n_go;
+      stats[3 * blockIdx.x + 1] = distinct;
+      stats[3 * blockIdx.x + 2] = atomicAdd(&s_small[kCachedLanes], 0);
+    }
   }
   if (!live) return;
   Dda d{false, false, kMaxFloat, -1, 0u, 0.0f, 0.0f, p.tqe[j], 0, 0, 0, 0};
   if (go) {
     const Ray ray = ray_preamble(p.bounds, p.ro, p.rd, p.idx[j]);
     const float bt1[3] = {p.bt1[j], p.bt1[p.n + j], p.bt1[2 * p.n + j]};
-    const uint32_t* row = slot >= 0
-        ? reinterpret_cast<const uint32_t*>(s_rows + slot * kRowVec)
-        : p.rows + static_cast<size_t>(p.child[j]) * kRowWords;
-    d = dda_rows<LEAF, SHADOW>(row, ray.dt, p.dt_factor, ray.vm6, bt1, p.tqe[j],
-                               p.max_iters);
+    if (slot >= 0) {
+      mbar_wait(bar, 0);
+      d = dda_rows<LEAF, SHADOW>(SmemRow{smem_addr(s_rows + slot * kRowVec)}, ray.dt,
+                                 p.dt_factor, ray.vm6, bt1, p.tqe[j], p.max_iters);
+    } else {
+      d = dda_rows<LEAF, SHADOW>(p.rows + static_cast<size_t>(id) * kRowWords, ray.dt,
+                                 p.dt_factor, ray.vm6, bt1, p.tqe[j], p.max_iters);
+    }
   }
   p.hit[j] = d.hit;
   p.t[j] = d.t_hit;
@@ -681,6 +764,9 @@ extern "C" int hako_dda_launch(
 // hako_dda_launch's arguments, the row cache's size in rows and its stats
 // (device int32 [blocks of 128 lanes, 3]). A cache whose shared memory
 // the card refuses returns that error without a launch.
+// The dynamic shared memory a block of hako_dda_cached_kernel launches with.
+extern "C" size_t hako_dda_cached_smem_bytes(int cache) { return cached_smem_bytes(cache); }
+
 extern "C" int hako_dda_cached_launch(
     const void* rows, const void* bounds, const void* ro, const void* rd,
     const void* idx, int n, const void* go, const void* child,

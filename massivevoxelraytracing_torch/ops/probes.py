@@ -89,7 +89,7 @@ TAA_THREADS = 256     # the whole-tile take-along's block (kTaaThreads)
 TAA_SECTOR = 8        # int32 columns of a 32-byte sector
 TAA_SLICE = 32        # the sliced shared axis-0 take-along's widest slice
 SMEM_ROW_FLOATS = 128  # a row of the shared-memory allocation probe
-LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0,
+LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0, "l2_read_probe": 0,
             "construct_probe": 0, "node_gather_probe": 0,
             "table_select_probe": 0, "calib_probe": 0,
             "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0,
@@ -285,6 +285,43 @@ def fetch_probe(rows, row_of, *, iters: int, threads: int = 256):
             rows.data_ptr(), row_of.data_ptr(), n, int(iters), int(threads),
             out.data_ptr(), _stream(dev))
     _launched("fetch_probe", rc)
+    return out
+
+
+def l2_read_plain(buf, *, passes: int, lanes: int):
+    """Each of `lanes` threads' sum, mod 2^32, over the passes and the
+    16-byte vectors g, g + lanes, ... of buf (int32 [4 x vectors]) of the
+    xor of the vector's four words."""
+    v = buf.view(-1, 4)
+    x = (v[:, 0] ^ v[:, 1] ^ v[:, 2] ^ v[:, 3]).long() & 0xFFFFFFFF
+    x = torch.nn.functional.pad(x, (0, -x.shape[0] % lanes))
+    acc = (x.view(-1, lanes).sum(0) * passes) & 0xFFFFFFFF
+    return torch.where(acc >= 2 ** 31, acc - 2 ** 32, acc).to(torch.int32)
+
+
+def l2_read_probe(buf, *, passes: int, blocks: int, threads: int = 256):
+    """As l2_read_plain over blocks x threads lanes; buf int32 [4 x vectors],
+    16-byte aligned. Reads buf `passes` times, each byte once a pass."""
+    lanes = blocks * threads
+    if buf.dim() != 1 or buf.shape[0] == 0 or buf.shape[0] % 4:
+        raise ValueError(f"buf: need int32 [4 x vectors], got {list(buf.shape)}")
+    if passes < 0 or blocks <= 0:
+        raise ValueError(f"need passes >= 0 and blocks > 0, not {passes}, {blocks}")
+    _check_threads(threads)
+    if _device_of(buf, "l2_read_probe") == "cpu":
+        return l2_read_plain(buf, passes=passes, lanes=lanes)
+    from ..utils import cuda_build
+
+    dev = buf.device
+    _check("buf", buf, dev, torch.int32, buf.shape)
+    if buf.data_ptr() % 16:
+        raise ValueError("buf: need a 16-byte aligned buffer")
+    out = torch.empty(lanes, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().l2_read_probe_launch(
+            buf.data_ptr(), buf.shape[0] // 4, int(passes), int(blocks), int(threads),
+            out.data_ptr(), _stream(dev))
+    _launched("l2_read_probe", rc)
     return out
 
 

@@ -50,6 +50,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops import hako_kernels as hk
 from ..ops import probes
 from ..utils import cuda_build
 from . import common, dyngather_probe2, gather_probe3
@@ -109,13 +110,14 @@ def earlier_entries(entries: dict):
 
 @contextlib.contextmanager
 def counts_kept():
-    """The probes' launch counts restored on leaving: the comparisons are
-    not the main path's launches."""
-    saved = dict(probes.LAUNCHES)
+    """The probes' and the round kernels' launch counts restored on
+    leaving: the comparisons are not the main path's launches."""
+    saved = dict(probes.LAUNCHES), dict(hk.LAUNCHES)
     try:
         yield
     finally:
-        probes.LAUNCHES.update(saved)
+        probes.LAUNCHES.update(saved[0])
+        hk.LAUNCHES.update(saved[1])
 
 
 def in_turns(fns: dict, timer, what: str, want) -> dict:

@@ -150,14 +150,18 @@ def block_summary(stats) -> dict:
                 max_distinct=int(d.max()), cached_lanes=cached, overflow_lanes=go - cached)
 
 
-def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
-        max_dda: int = hk.DDA_ITERS, label: str = "", card: str = "") -> dict:
-    """The phases and the full frame of one tree and camera. Returns their
-    times (None on the CPU), launches and row counts, and each phase's
-    outputs (under "outputs")."""
+def round_setup(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
+                max_dda: int = hk.DDA_ITERS, step=None) -> dict:
+    """The round that run times, up to kernel B's inputs on the brick rows:
+    the frame's rays under cam, the top rung's lanes, kernel A's outputs
+    and, on a fat tree, the supernode rows and their hand-off, through the
+    wrappers (the kernels on the card, the plain versions on the CPU).
+    step(name, kernel, plain, bound) gives kernel A's and the supernode
+    rows' outputs (run checks and times them there; by default the kernel
+    alone). Kernel B's arguments are (bricks, *rays, *brick_lanes), its
+    keywords "leaf"."""
+    step = step or (lambda name, kernel, plain, bound: kernel())
     dev = tree.device
-    cuda = dev.type == "cuda"
-    uniq = uniq_for(tree.grid_res)
     ro_np, rd_np = phase_timing.frame_rays(cam, width, height)
     ro = torch.from_numpy(ro_np).to(dev)
     rd = torch.from_numpy(rd_np).to(dev)
@@ -170,6 +174,37 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     bounds = torch.cat([tree.lower, tree.upper]).to(device=dev, dtype=torch.float32)
     idx = torch.arange(n, dtype=torch.int32, device=dev)
     rays = (bounds, ro, rd)
+    state0 = phase_timing._fresh_state(n_rays, dev)
+    a = (levels, level_off, T, root, *rays, idx, state0[1])
+    a_bound = common.probe_bound(n, 0 if levels is None else levels.numel())
+    a_out = step("kernel A", lambda: hk.hako_probe(*a, max_probes=max_probes),
+                 lambda: hk.hako_probe_plain(*a, max_probes=max_probes), a_bound)
+    emit, child, bt1, tqe, tqn, exh = a_out
+    dda_kw = dict(shadow=False, max_iters=max_dda)
+    unfused_bounds = [a_bound]
+    if fat:
+        sa = (snodes, *rays, idx, emit, child, bt1, tqe)
+        unfused_bounds.append(common.dda_bound(n, *common.dda_counts(emit, child)))
+        sn = step("supernode rows",
+                  lambda: hk.hako_dda(*sa, dt_factor=0.25 ** T, leaf=False, **dda_kw),
+                  lambda: hk.hako_dda_plain(*sa, dt_factor=0.25 ** T, leaf=False, **dda_kw),
+                  unfused_bounds[-1])
+        emit, child, bt1, tqe, tqn = hk.supernode_handoff(emit, bt1, tqn, sn)
+    return dict(T=T, fat=fat, bricks=bricks, snodes=snodes, tabs=tabs, root=root,
+                levels=levels, level_off=level_off, rays=rays, n_rays=n_rays, cap=cap,
+                lanes=n, state0=state0, a_out=a_out, a_bound=a_bound,
+                unfused_bounds=unfused_bounds, brick_lanes=(idx, emit, child, bt1, tqe),
+                tqn=tqn, exh=exh, uniq=uniq_for(tree.grid_res),
+                leaf=dict(dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, **dda_kw))
+
+
+def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
+        max_dda: int = hk.DDA_ITERS, label: str = "", card: str = "") -> dict:
+    """The phases and the full frame of one tree and camera. Returns their
+    times (None on the CPU), launches and row counts, and each phase's
+    outputs (under "outputs")."""
+    dev = tree.device
+    cuda = dev.type == "cuda"
     phases, outputs = {}, {}
     launches0 = dict(hk.LAUNCHES)
 
@@ -195,24 +230,17 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
         rec["launches"] = {k: hk.LAUNCHES[k] - before[k] for k in hk.LAUNCHES}
         return got
 
-    state0 = phase_timing._fresh_state(n_rays, dev)
-    a = (levels, level_off, T, root, *rays, idx, state0[1])
-    a_bound = common.probe_bound(n, 0 if levels is None else levels.numel())
-    emit, child, bt1, tqe, tqn, exh = phase(
-        "kernel A", lambda: hk.hako_probe(*a, max_probes=max_probes),
-        lambda: hk.hako_probe_plain(*a, max_probes=max_probes), bound=a_bound)
-    dda_kw = dict(shadow=False, max_iters=max_dda)
-    unfused_bounds = [a_bound]
-    if fat:
-        s = (snodes, *rays, idx, emit, child, bt1, tqe)
-        unfused_bounds.append(common.dda_bound(n, *common.dda_counts(emit, child)))
-        sn = phase("supernode rows",
-                   lambda: hk.hako_dda(*s, dt_factor=0.25 ** T, leaf=False, **dda_kw),
-                   lambda: hk.hako_dda_plain(*s, dt_factor=0.25 ** T, leaf=False,
-                                             **dda_kw),
-                   bound=unfused_bounds[-1])
-        emit, child, bt1, tqe, tqn = hk.supernode_handoff(emit, bt1, tqn, sn)
-    leaf = dict(dt_factor=0.25 ** (T + 2 if fat else T), leaf=True, **dda_kw)
+    r = round_setup(tree, cam, width, height, max_probes=max_probes, max_dda=max_dda,
+                    step=lambda name, kernel, plain, bound: phase(name, kernel, plain,
+                                                                   bound=bound))
+    T, fat, bricks, snodes, tabs, root = (r[k] for k in ("T", "fat", "bricks", "snodes",
+                                                         "tabs", "root"))
+    levels, level_off, rays, state0 = r["levels"], r["level_off"], r["rays"], r["state0"]
+    bounds, ro, rd = rays
+    n_rays, cap, n, uniq, leaf = r["n_rays"], r["cap"], r["lanes"], r["uniq"], r["leaf"]
+    a_bound, unfused_bounds, tqn, exh = r["a_bound"], r["unfused_bounds"], r["tqn"], r["exh"]
+    lanes = r["brick_lanes"]
+    idx, emit, child, bt1, _tqe = lanes
 
     def cached_equal(name, got, want):
         _equal(name, got[0], want[0])
@@ -231,7 +259,6 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
                        equal=cached_equal, bound=b_bound)
         return out, cached[1], b_bound
 
-    lanes = (idx, emit, child, bt1, tqe)
     out_r, stats_r, b_bound = kernel_b("round order", lanes)
     unfused_bounds.append(b_bound)
     order = sort_by_row(emit, child)
@@ -265,7 +292,7 @@ def run(tree, cam, width: int, height: int, *, max_probes: int = hk.PROBES,
     phase("bookkeeping (round_lanes + merge)", book(hk.hako_merge),
           book(hk.hako_merge_plain), setup=lambda: tuple(x.clone() for x in state0))
 
-    a_out = outputs["kernel A"]
+    a_out = r["a_out"]
 
     def staged(stage):
         def call(state):

@@ -166,6 +166,11 @@ def _bind(lib):
     ]
     lib.walk_probe_launch.argtypes = [p, p, p, p, i, i, i, i, p, p]
     lib.fetch_probe_launch.argtypes = [p, p, i, i, i, p, p]
+    lib.fetch_probe_smem_bytes.argtypes = [i]
+    lib.fetch_probe_smem_bytes.restype = ctypes.c_size_t
+    lib.hako_dda_cached_smem_bytes.argtypes = [i]
+    lib.hako_dda_cached_smem_bytes.restype = ctypes.c_size_t
+    lib.l2_read_probe_launch.argtypes = [p, ctypes.c_longlong, i, i, i, p, p]
     lib.construct_probe_launch.argtypes = [
         i, p, p, p, p, p,                              # kind, fa, fb, ia, ua, ub
         i, i, p, i, p,                                 # n, k, out, threads, stream
@@ -254,7 +259,7 @@ def _bind(lib):
                lib.hako_dda_launch, lib.hako_merge_launch,
                lib.hako_dda_merge_launch, lib.hako_rounds_launch,
                lib.hako_rounds_grid, lib.row_chase_launch, lib.walk_probe_launch,
-               lib.fetch_probe_launch, lib.construct_probe_launch,
+               lib.fetch_probe_launch, lib.l2_read_probe_launch, lib.construct_probe_launch,
                lib.node_gather_probe_launch, lib.table_select_probe_launch,
                lib.calib_probe_launch, lib.hako_dda_cached_launch,
                lib.shell_copy_probe_launch, lib.preamble_probe_launch,
@@ -273,17 +278,17 @@ def _bind(lib):
 
 
 def build_renamed(src: str, out_dir: str, entry_points, suffix: str = "_old",
-                  includes=()):
+                  includes=(), extra: str = ""):
     """An earlier version of one kernel source, built with the library's
     nvcc flags into a library of its own under out_dir, its C entry points
     (each name followed by "(") renamed with `suffix` so that it loads
     beside the current library; `includes` are searched for its headers
-    (the current csrc/ for hako_device.cuh). Returns (the ctypes library,
-    the source text as built, wall seconds, the ptxas report); raises if
-    nvcc fails."""
+    (the current csrc/ for hako_device.cuh); `extra` is appended to the
+    source before the renaming. Returns (the ctypes library, the source
+    text as built, wall seconds, the ptxas report); raises if nvcc fails."""
     os.makedirs(out_dir, exist_ok=True)
     with open(src) as f:
-        text = f.read()
+        text = f.read() + extra
     for name in entry_points:
         text = text.replace(name + "(", name + suffix + "(")
     stem = os.path.splitext(os.path.basename(src))[0]

@@ -5,7 +5,10 @@ kernel's machine code. A probe kernel (csrc/hako_probes.cu) repeats its
 construct in an outer loop (`#pragma unroll 1`) whose body holds a fixed
 number of repeats, so that body's instructions over the repeats a pass
 are what one repeat issues. The body is the span of the kernel's
-outermost backward branch. Its dependent chain is the longest path
+outermost backward branch, among those before its last EXIT (past it the
+compiler places out-of-line slow paths, a divergent warp's WARPSYNC or an
+mbarrier wait's retry, which branch back into the body without being
+loops of it). Its dependent chain is the longest path
 through the body of instructions that read a register or predicate that
 an earlier instruction of the body wrote: the instructions one repeat
 must wait on in turn, whatever the issue rate.
@@ -76,14 +79,16 @@ def _target(instr: str):
 
 def loop_body(instrs: list) -> list:
     """The instructions of the outermost loop (the longest span a backward
-    branch closes). Raises if the kernel has none."""
+    branch before the last EXIT closes). Raises if the kernel has none."""
     where = {}
     for k, (addr, _text, labels) in enumerate(instrs):
         where[addr] = k
         for lab in labels:
             where[lab] = k
+    last_exit = max((k for k, (_a, text, _l) in enumerate(instrs)
+                     if re.search(r"\bEXIT\b", text)), default=len(instrs))
     best = None
-    for k, (_addr, text, _labels) in enumerate(instrs):
+    for k, (_addr, text, _labels) in enumerate(instrs[:last_exit]):
         if not re.search(r"\bBRA\b", text):
             continue
         start = where.get(_target(text))

@@ -16,11 +16,17 @@ walks, the streamed build, the terrain generator and the voxmesh /
 voxtriangle apps on the card against the same on the CPU; the issue-cost
 probes (construct_probe, node_gather_probe, table_select_probe,
 calib_probe, the scan64 walk probe) against their plain versions on the
-card, bit for bit, at two block sizes and a ragged lane count; kernel A's
+card, bit for bit, at two block sizes and a ragged lane count (the
+row-word fetch at 32, 256 and 1,024 threads, 0 to 64 repeats, on a rows
+view at a 16-byte offset, and at every block size its shared-memory query
+allows; the L2 read probe over a full grid and one block); kernel A's
 shell, preamble and stage probes (both shell layouts, all five stages,
 child indices past an smem- and a taa-form level) and kernel B through
-its row cache (leaf and supernode rows, primary and shadow, a cache small
-enough that lanes overflow it, and a cache the card refuses); the gather
+its row cache (leaf and supernode rows, primary and shadow, no cache, a
+cache small enough that lanes overflow it, caches that hold every
+distinct row, a last block partial and without go-lanes, the largest
+cache its shared-memory query fits and one row more, refused, and a
+cache the card refuses); the gather
 probes (take_along_probe in each form on the reference's tiles, and the
 shared form's refusal of a table over a block's shared memory;
 smem_alloc_probe up to the opt-in limit and one row past it; ohg_probe in
@@ -672,6 +678,67 @@ def test_walk_probe_matches_plain(cuda, impl):
                                                     impl=impl))
 
 
+@pytest.mark.parametrize("threads", [32, 256, 1024])
+def test_fetch_probe_matches_plain(cuda, threads):
+    """The row-word fetch bit-equal to its plain version at 0, 1, 7 and 64
+    repeats, on a lane count that is not a multiple of the block (the
+    last block's last warp partial), on a rows view at a 16-byte-aligned
+    offset into its storage; one launch a call."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(14)
+    n_rows = 300
+    flat = torch.as_tensor(rng.integers(0, 1 << 32, n_rows * probes.ROW_WORDS + 4,
+                                        dtype=np.uint64).astype(np.uint32).view(np.int32),
+                           device=cuda)
+    rows = flat[4:].view(n_rows, probes.ROW_WORDS)
+    assert rows.data_ptr() - flat.data_ptr() == 16 and rows.data_ptr() % 16 == 0
+    n = 3 * threads + 45
+    row_of = torch.as_tensor(rng.integers(0, n_rows, n).astype(np.int32), device=cuda)
+    probes.reset_counters()
+    for iters in (0, 1, 7, 64):
+        got = probes.fetch_probe(rows, row_of, iters=iters, threads=threads)
+        assert torch.equal(got, probes.fetch_probe_plain(rows, row_of, iters=iters)), iters
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["fetch_probe"] == 4
+
+
+@pytest.mark.parametrize("mib, passes", [(1, 0), (1, 3), (8, 2)])
+def test_l2_read_probe_matches_plain(cuda, mib, passes):
+    """The L2 read probe's sums bit-equal to its plain version over a grid
+    that fills the card and over one block with a tail of vectors (1 MiB
+    plus 5 vectors); one launch a call."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(15)
+    n = (mib << 20) // 4 + 20
+    buf = torch.as_tensor(rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+                          .view(np.int32), device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    probes.reset_counters()
+    for blocks, threads in ((sms * 8, 256), (1, 96)):
+        got = probes.l2_read_probe(buf, passes=passes, blocks=blocks, threads=threads)
+        assert torch.equal(got, probes.l2_read_plain(buf, passes=passes,
+                                                     lanes=blocks * threads))
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["l2_read_probe"] == 2
+
+
+def test_fetch_probe_smem_query_is_the_launch(cuda):
+    """fetch_probe_smem_bytes is the shared memory the launches take: at
+    every block size it fits the opt-in limit and the fetch launches."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    lib = cuda_build.load()
+    limit = probes.smem_optin_bytes(cuda)
+    rows = torch.zeros((8, probes.ROW_WORDS), dtype=torch.int32, device=cuda)
+    for threads in range(32, 1025, 32):
+        assert lib.fetch_probe_smem_bytes(threads) <= limit, threads
+        row_of = torch.zeros(threads, dtype=torch.int32, device=cuda)
+        assert int(probes.fetch_probe(rows, row_of, iters=1, threads=threads).abs().sum()) == 0
+
+
 # floats of each array one block-step of the shell kernel covers (128
 # threads x 8 float4 loads: one float4 of each of 8 arrays, or 8 of one)
 SHELL_TILE = {"8 arrays": 512, "1 array": 4096}
@@ -787,10 +854,26 @@ def first_round_stages(cuda, monkeypatch, shadow):
     return [s, b]
 
 
+def partial_tail(a, tail: int = 50):
+    """A kernel B stage's lanes cut so that its last 128-lane block holds
+    `tail` lanes, none of them a go-lane."""
+    rows, bounds, ro, rd, idx, go, child, bt1, tqe = a
+    m = (idx.shape[0] // hk.CACHE_BLOCK - 1) * hk.CACHE_BLOCK + tail
+    go = go[:m].clone()
+    go[m - tail:] = False
+    return (rows, bounds, ro, rd, idx[:m], go, child[:m], bt1[:, :m].contiguous(), tqe[:m])
+
+
 @pytest.mark.parametrize("shadow", [False, True])
-@pytest.mark.parametrize("cache", [2, 64])
+@pytest.mark.parametrize("cache", [0, 2, 64, 128])
 def test_hako_dda_cached_matches_plain(cuda, monkeypatch, cache, shadow):
+    """Supernode and brick rows of a fat tree's first round, and the brick
+    rows cut to a last block that is partial and has no go-lanes: the 8
+    outputs equal hako_dda_plain's and the stats block_rows_plain's, with
+    no row staged (cache 0), lanes past the cache (2), and every distinct
+    row of a block staged (64 here, and 128, a block's lanes)."""
     stages = first_round_stages(cuda, monkeypatch, shadow)
+    stages.append((partial_tail(stages[1][0]), stages[1][1]))
     hk.reset_counters()
     overflow = 0
     for a, k in stages:
@@ -798,10 +881,11 @@ def test_hako_dda_cached_matches_plain(cuda, monkeypatch, cache, shadow):
         for x, y in zip(got, hk.hako_dda_plain(*a, **k)):
             assert torch.equal(x, y)
         assert torch.equal(stats, hk.block_rows_plain(a[5], a[6], cache))
-        assert int(stats[:, 2].sum()) > 0
+        assert (int(stats[:, 2].sum()) > 0) == (cache > 0)
         overflow += int((stats[:, 0] - stats[:, 2]).sum())
-    assert hk.LAUNCHES["hako_dda_cached"] == 2
-    assert (overflow > 0) == (cache == 2)
+    assert hk.LAUNCHES["hako_dda_cached"] == 3
+    assert int(stats[-1, 0]) == 0 and stats.shape[0] == -(-a[4].shape[0] // hk.CACHE_BLOCK)
+    assert (overflow > 0) == (cache in (0, 2))
 
 
 def test_hako_dda_cached_refuses_too_much_shared_memory(cuda, monkeypatch):
@@ -812,6 +896,25 @@ def test_hako_dda_cached_refuses_too_much_shared_memory(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="hako_dda_cached kernel launch failed"):
         hk.hako_dda_cached(*a, cache=400, **k)
     assert hk.LAUNCHES["hako_dda_cached"] == 0
+
+
+def test_hako_dda_cached_smem_query_is_the_launch(cuda, monkeypatch):
+    """hako_dda_cached_smem_bytes is the shared memory a launch asks for:
+    the largest cache whose query fits the card's opt-in limit launches
+    and is bit-equal to the plain version, one row more is refused."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    lib = cuda_build.load()
+    limit = probes.smem_optin_bytes(cuda)
+    cache = max(c for c in range(0, 400) if lib.hako_dda_cached_smem_bytes(c) <= limit)
+    (a, k), _ = first_round_stages(cuda, monkeypatch, False)
+    got, stats = hk.hako_dda_cached(*a, cache=cache, **k)
+    for x, y in zip(got, hk.hako_dda_plain(*a, **k)):
+        assert torch.equal(x, y)
+    assert torch.equal(stats, hk.block_rows_plain(a[5], a[6], cache))
+    with pytest.raises(RuntimeError, match="hako_dda_cached kernel launch failed"):
+        hk.hako_dda_cached(*a, cache=cache + 1, **k)
 
 
 # the gather probes (scripts/dyngather_probe2.py, scripts/gather_probe3.py)

@@ -71,6 +71,41 @@ def test_outermost_loop_from_addresses():
     assert sass.chain_length(tail[1:2] + tail[7:9]) == 3
 
 
+SLOW_PATHS = """
+		Function : _ZN12_GLOBAL__N_118fetch_probe_kernelEPKjPKiiiPi
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R9+URZ], RZ ;
+        /*0020*/              @!P0 BRA 0x100 ;
+        /*0030*/                   DEPBAR.LE SB0, 0x0 ;
+        /*0040*/                   BRA.DIV UR4, 0x140 ;
+        /*0050*/                   IMAD.SHL.U32 R4, R4, 0x8, RZ ;
+        /*0060*/                   LDS.64 R12, [R4] ;
+        /*0070*/                   LOP3.LUT R4, R13, R12, RZ, 0x3c, !PT ;
+        /*0080*/                   ISETP.GE.AND P0, PT, R11, R16, PT ;
+        /*0090*/             @!P0 BRA 0x50 ;
+        /*00a0*/                   STG.E desc[UR4][R2.64], R10 ;
+        /*00b0*/                   EXIT ;
+        /*0100*/                   YIELD ;
+        /*0110*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [R9+URZ], RZ ;
+        /*0120*/              @!P0 BRA 0x100 ;
+        /*0130*/                   BRA 0x30 ;
+        /*0140*/                   WARPSYNC.COLLECTIVE R11, 0x160 ;
+        /*0150*/                   BRA 0x50 ;
+        /*0160*/                   BRA 0x160;
+"""
+
+
+def test_out_of_line_paths_after_the_last_exit_are_not_the_loop():
+    """The branches back from the slow paths that the compiler places past
+    the last EXIT (an mbarrier wait's retry, a divergent warp's
+    WARPSYNC) span more than the repeat loop; the loop is still the
+    repeat loop."""
+    funcs = sass.functions(SLOW_PATHS)
+    body = sass.loop_body(funcs[sass.kernel_name(funcs, "fetch_probe_kernel")])
+    assert len(body) == 5 and body[0].startswith("IMAD.SHL") and body[-1] == "@!P0 BRA 0x50"
+    assert sass.loop_counts(funcs, "fetch_probe_kernel")["per_repeat"] == 5
+
+
 def test_kernel_name_needs_one_match():
     funcs = sass.functions(LISTING)
     with pytest.raises(ValueError):
