@@ -141,7 +141,14 @@ Phases (any failure raises, and the script exits non-zero):
      built there first) at the meter's three launch shapes, each == its
      plain version, with both designs' SASS floors, the staging's bound
      at the card's L2 read rate (l2_read_probe, == its plain version)
-     and the kernels' ptxas registers;
+     and the kernels' ptxas registers; and scripts/table_ab.run: the
+     redesigned shared forms of node_gather_probe (n = 128, 1024, 4096)
+     and table_select_probe in turns with commit 6fa41fa's kernels
+     (csrc/earlier/hako_probes_6fa41fa.cu) at the same three shapes, each
+     == its plain version at k and 2k, with both designs' SASS floors,
+     each case's shared-memory wavefronts under both layouts, the
+     3-wavefront floor, the staged tables at the L2 read rate, the
+     kernels' ptxas registers and which probe kernels kept their SASS;
   5c. this slice's path, with the probe and round kernels' counts set to
      0 just before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -2326,7 +2333,8 @@ def phase_slice(tree, cam, smi: str) -> dict:
     from massivevoxelraytracing_torch.ops import probes
     from massivevoxelraytracing_torch.scripts import (common, construct_micro,
                                                       hako_kernel_micro,
-                                                      hako_phase_timing, row_stage_ab)
+                                                      hako_phase_timing, row_stage_ab,
+                                                      table_ab)
 
     t0 = time.time()
     meter = common.Meter(torch.device("cuda", 0))  # one calibration for both scripts
@@ -2372,13 +2380,23 @@ def phase_slice(tree, cam, smi: str) -> dict:
     report_ab("phase5b", "fetch_probe", ab, ("one warp an SM", "full occupancy", "script"), smi)
     print(f"[phase5b] fetch_probe in turns with the parent's kernel: "
           f"{time.time() - t1:.1f} s [{smi}]", flush=True)
+    # the redesigned shared forms of the node fetch and the select in turns
+    # with 6fa41fa's (scripts/table_ab.py, which builds that library first;
+    # its launches are not counted)
+    t2 = time.time()
+    tab = table_ab.run(torch.device("cuda", 0), card=smi)
+    for name in table_ab.ENTRY:
+        report_ab("phase5b", name, tab[name], tuple(tab[name]), smi)
+    print(f"[phase5b] the shared node fetch and select in turns with 6fa41fa's kernels: "
+          f"{time.time() - t2:.1f} s [{smi}]", flush=True)
     return dict(records=records, timing=timing, launches=launches,
-                round_launches=round_launches, isolated_launches=isolated, ab=ab)
+                round_launches=round_launches, isolated_launches=isolated, ab=ab,
+                table_ab=tab)
 
 
 def report_ab(phase: str, kernel: str, ab: dict, cases, smi: str) -> None:
-    """A line for each case of scripts/row_stage_ab.py whose redesigned
-    kernel is not faster than the parent's in every turn."""
+    """A line for each case of scripts/row_stage_ab.py or table_ab.py whose
+    redesigned kernel is not faster than the parent's in every turn."""
     for case in cases:
         if ab[case]["faster"] != "current":
             print(f"[{phase}] {kernel} {case}: the redesigned kernel is not faster in "
@@ -4076,6 +4094,8 @@ def main() -> int:
             cases=e["cases"]))
         if name == "fetch_probe":  # in turns with the parent's kernel (row_stage_ab)
             kernels[-1]["ab"] = sl["ab"]
+        if name in sl["table_ab"]:  # the shared forms in turns with 6fa41fa's (table_ab)
+            kernels[-1]["ab"] = sl["table_ab"][name]
     for k in kernels[1:5]:
         k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
                           "scripts/r3_phase_split.py:130; scripts/hako_shell_micro.py:134",

@@ -15,10 +15,12 @@ scripts/construct_micro.py and scripts/hako_kernel_micro.py):
     (CONSTRUCTS: construct_micro.py's eight kernels).
   * `node_gather_probe`: k dependent node fetches from an int32 [n, 3]
     node table (mask_lo, mask_hi, base) in global, shared or constant
-    memory (SPACES; hako_kernel_micro.py k_gflat / k_gsplit).
+    memory (SPACES; hako_kernel_micro.py k_gflat / k_gsplit); the shared
+    form stages the table in a layout its launcher picks from n
+    (gather_layout).
   * `table_select_probe`: k dependent selects from 64 entries of 3 words
-    in constant memory, shared memory or registers with warp shuffles
-    (FORMS; hako_kernel_micro.py k_fold).
+    in constant memory, shared memory (SELECT_LAYOUT) or registers with
+    warp shuffles (FORMS; hako_kernel_micro.py k_fold).
   * `calib_probe`: k dependent multiply-adds against 8 independent
     chains of k (CALIBS; hako_kernel_micro.py calibrate, k = 1024 / 128).
   * `shell_copy_probe`: kernel A's I/O alone, o = i + 1 over 8 separate
@@ -466,6 +468,22 @@ def node_gather_probe(table, idx0, *, k: int, space: str, threads: int = 256):
             int(k), acc.data_ptr(), fold.data_ptr(), int(threads), _stream(dev))
     _launched("node_gather_probe", rc)
     return acc, fold
+
+
+# The shared forms' staged tables (csrc/hako_probes.cu, Staged<REC, COPIES>):
+# REC 3 keeps an entry's 3 words packed, each word repeated COPIES times
+# side by side, lane l reading copy l % COPIES; REC 4 pads an entry to a
+# 16-byte record, COPIES records side by side, lane l reading copy
+# (l % 8) % COPIES. (3, 1) is the packed table itself.
+SELECT_LAYOUT = (3, 32)  # the shared select's layout
+
+
+def gather_layout(n_nodes: int) -> tuple:
+    """(rec, copies) of the shared node fetch for a table of n_nodes, as
+    its launcher picks them from n_nodes alone: 32 word copies where they
+    fit 48 KB (n_nodes <= 128), 4 record copies up to 1,024 nodes (64 KB),
+    else the packed table."""
+    return (3, 32) if n_nodes <= 128 else (4, 4) if n_nodes <= 1024 else (3, 1)
 
 
 def table_select_plain(tab, idx0, k: int):

@@ -1,9 +1,11 @@
 """What the probe and measurement scripts share: the device they run on,
 the card's name, its launch shapes, CUDA-event timing, one probe case
 measured against its plain version with its instruction counts and floors,
-and for the scene scripts the reference scripts' camera and sky, a frame's
-rays, hako_mega's bound on them, the sample chain's and the scene build's
-bounds and a profiled call's device time."""
+the card's L2 read rate, a host model of shared memory's bank wavefronts
+for the staged tables' probes, and for the scene scripts the reference
+scripts' camera and sky, a frame's rays, hako_mega's bound on them, the
+sample chain's and the scene build's bounds and a profiled call's device
+time."""
 
 from __future__ import annotations
 
@@ -102,6 +104,117 @@ def bound(n_bytes: float, n_ops: float) -> tuple:
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     o_ms = ops_ms(n_ops)
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+L2_PROBE_MIB = (8, 16, 32)  # the L2-resident buffers of the L2 read probe
+L2_PROBE_READ_MIB = 256     # what one launch of it reads, in passes over a buffer
+L2_PROBE_BLOCKS_PER_SM = 8  # of 256 threads: a full SM
+
+
+def l2_read_rates(device, rng) -> dict:
+    """{MiB: bytes/s} that l2_read_probe reads an L2-resident buffer of each
+    size at (a grid of L2_PROBE_BLOCKS_PER_SM blocks of 256 an SM, the
+    buffer read L2_PROBE_READ_MIB / MiB times a launch, warm: the least of
+    3 trains), its sums == their plain version first."""
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count * (
+        L2_PROBE_BLOCKS_PER_SM)
+    rates = {}
+    for mib in L2_PROBE_MIB:
+        buf = torch.from_numpy(rng.integers(0, 1 << 32, (mib << 20) // 4, dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32)).to(device)
+        passes = L2_PROBE_READ_MIB // mib
+
+        def read(b=buf, p=passes):
+            return probes.l2_read_probe(b, passes=p, blocks=blocks)
+
+        if not torch.equal(read(), probes.l2_read_plain(buf, passes=passes,
+                                                         lanes=blocks * 256)):
+            raise AssertionError(f"l2_read_probe {mib} MiB differs from the plain version")
+        rates[mib] = passes * (mib << 20) / (best_ms([read])[0] * 1e-3)
+    return rates
+
+
+# Shared memory: 32 banks of 4 bytes; an SM serves one wavefront of them,
+# 128 B, a clock.
+SMEM_BANKS = 32
+SMEM_WAVE_REPEATS = 16  # the repeats a lane whose loads the cases' counts model
+
+
+def smem_wavefronts(word_addresses, width: int = 4) -> np.ndarray:
+    """The shared-memory wavefronts of warp-wide loads. word_addresses
+    int [..., 32]: each lane's word address (its first word for a 16-byte
+    load; negative: a lane that loads nothing). A 4-byte load takes as many
+    wavefronts as the most distinct words any bank is asked for (a word
+    asked for by several lanes is broadcast once); a 16-byte load is served
+    a quarter-warp (8 lanes, 4 words each) at a time, each phase counted
+    so, and the phases summed. int [...]."""
+    a = np.asarray(word_addresses, dtype=np.int64)
+    lead = a.shape[:-1]
+    if width == 16:
+        words = a.reshape(*lead, 4, 8)[..., None] + np.arange(4)
+        words = np.where(a.reshape(*lead, 4, 8)[..., None] < 0, -1, words)
+        return smem_wavefronts(words.reshape(*lead, 4, 32)).sum(-1)
+    if width != 4:
+        raise ValueError(f"no {width}-byte shared loads")
+    a = np.sort(a.reshape(-1, 32), axis=1)
+    new = np.ones(a.shape, bool)
+    new[:, 1:] = a[:, 1:] != a[:, :-1]
+    bank = np.where(new & (a >= 0), a % SMEM_BANKS, SMEM_BANKS)
+    rows = np.arange(a.shape[0])[:, None] * (SMEM_BANKS + 1)
+    per_bank = np.bincount((rows + bank).ravel(), minlength=a.shape[0] * (SMEM_BANKS + 1))
+    return per_bank.reshape(-1, SMEM_BANKS + 1)[:, :SMEM_BANKS].max(1).reshape(lead)
+
+
+def staged_loads(entries, rec: int, copies: int) -> list:
+    """A fetch's shared loads of entries int [..., 32] (a warp's lanes in
+    order) from a table staged in layout (rec, copies), as
+    csrc/hako_probes.cu's StagedReader issues them: [(word addresses,
+    width)], three 4-byte loads (rec 3) or one 16-byte load (rec 4)."""
+    e = np.asarray(entries, dtype=np.int64)
+    lane = np.arange(32)
+    if rec == 4:
+        return [(4 * (e * copies + (lane & 7) % copies), 16)]
+    return [((3 * e + j) * copies + lane % copies, 4) for j in range(3)]
+
+
+def staged_wavefronts(entries, rec: int, copies: int) -> float:
+    """The mean wavefronts a warp-repeat of fetching entries int [repeats,
+    lanes] (lanes a multiple of 32) in layout (rec, copies)."""
+    e = np.asarray(entries).reshape(len(entries), -1, 32)
+    return float(sum(smem_wavefronts(a, w) for a, w in staged_loads(e, rec, copies)).mean())
+
+
+def fetch_entries(table, idx0, k: int, *, select: bool) -> np.ndarray:
+    """The entries int [k, lanes] the shared node fetch (select=False) or
+    the shared select (True) reads in its first k repeats, from the plain
+    versions' recurrences on the case's own table and start indices; the
+    lanes padded to whole warps as the kernels run them (a lane past the
+    end starts at entry 0)."""
+    words = table.cpu().numpy().view(np.uint32).astype(np.int64)
+    n = words.shape[0]
+    start = np.zeros(-(-idx0.numel() // 32) * 32, np.int64)
+    start[:idx0.numel()] = idx0.cpu().numpy()
+    acc = np.zeros_like(start)
+    out = np.empty((k, start.size), np.int64)
+    for r in range(k):
+        out[r] = e = (start + acc) & (n - 1)
+        w = words[e]
+        acc = (acc + ((w[:, 0] ^ w[:, 1] ^ w[:, 2]) if select else w[:, 2])) & 31
+    return out
+
+
+def case_wavefronts(table, idx0, k: int, *, select: bool, layouts) -> list:
+    """The mean wavefronts a warp-repeat of a shared-form case's own
+    fetches (its first SMEM_WAVE_REPEATS repeats of k, every lane) in each
+    layout (rec, copies) of `layouts`."""
+    e = fetch_entries(table, idx0, min(k, SMEM_WAVE_REPEATS), select=select)
+    return [staged_wavefronts(e, rec, copies) for rec, copies in layouts]
+
+
+def wavefront_ms(lanes: int, k: int, waves: float, sms: int, clock: float) -> float:
+    """The least ms of lanes x k repeats at `waves` wavefronts a
+    warp-repeat, one wavefront a clock an SM (3 words a lane: at least 3)."""
+    return -(-lanes // 32) * k * waves / (sms * clock) * 1e3
 
 
 # The round kernels' bounds on their inputs: each byte read or written

@@ -16,7 +16,11 @@ the latency of one dependent instruction.
 Every case is held bit for bit against its plain version (ops/probes.py)
 at each launch shape and each repeat count it is timed at, then timed
 with CUDA events; a line a case and
-shape as scripts/construct_micro.py prints. The walks read the planes of
+shape as scripts/construct_micro.py prints. The shared forms' cases add a
+line of shared-memory floors beside the issue floor: the case's own
+wavefronts a warp-repeat in the launch's layout and in the packed table,
+their floor, the 3-wavefront floor and, for the node fetch at the
+script's shape, the staged tables at the card's L2 read rate. The walks read the planes of
 random rays through the unit box (the JAX script's k_walk reads random
 planes); the node fetches start at random nodes spread over the table
 (the JAX script's start at nodes below 56). --device cpu runs the plain
@@ -102,6 +106,33 @@ def segment_table(n: int, rows, rng) -> np.ndarray:
     return rng.uniform(0, 255, (rows, probes.N_TAB_SEG * 128)).astype(np.float32)
 
 
+def smem_floors(meter, rec: dict, table, idx0, shape: dict, layout: tuple, *,
+                select: bool, l2: float = 0.0, n: int = 64) -> None:
+    """A shared-form case's shared-memory floors, printed and added to its
+    record beside the issue floor (not to its bound): its own wavefronts a
+    warp-repeat in the launch's layout and in the packed table, their
+    floor and the 3-wavefront floor (common.case_wavefronts,
+    wavefront_ms); for the node fetch at the script's shape also its
+    staged tables (each block's read of the 12 n bytes) over the card's
+    L2 read rate `l2`."""
+    lanes, k = shape["lanes"], shape["k"]
+    waves, packed = common.case_wavefronts(table, idx0, k, select=select,
+                                           layouts=(layout, (3, 1)))
+    rec.update(layout=list(layout), wavefronts=waves, packed_wavefronts=packed,
+               wavefront_floor_ms=common.wavefront_ms(lanes, k, waves, meter.sms, meter.clock),
+               floor3_ms=common.wavefront_ms(lanes, k, 3, meter.sms, meter.clock))
+    rec["wavefront_share"] = rec["wavefront_floor_ms"] / rec["ms"]
+    staged = ""
+    if not select and shape["shape"] == "script":
+        rec["staged_l2_ms"] = -(-lanes // shape["threads"]) * 12 * n / l2 * 1e3
+        staged = (f", the staged tables at the L2 read rate ({l2 / 1e12:.2f} TB/s) "
+                  f"{rec['staged_l2_ms']:.4f} ms")
+    print(f"{rec['name']:26s} {shape['shape']:14s} shared memory, layout {tuple(layout)}: "
+          f"{waves:.2f} wavefronts a warp-repeat (packed table {packed:.2f}), their floor "
+          f"{rec['wavefront_floor_ms']:.4f} ms ({rec['wavefront_share']:.1%} of the launch), "
+          f"3 wavefronts {rec['floor3_ms']:.4f} ms{staged} [{meter.card}]", flush=True)
+
+
 def run(meter, k: int = K, seed: int = 1) -> list:
     rng = np.random.default_rng(seed)
     dev = meter.device
@@ -118,31 +149,41 @@ def run(meter, k: int = K, seed: int = 1) -> list:
                 lambda kk, a=(lo, hi, t1, dc): probes.walk_probe_plain(
                     *a, iters=kk, impl=impl),
                 n_bytes=36 * n, repeats=1)
+    l2 = (max(common.l2_read_rates(dev, np.random.default_rng(seed)).values())
+          if dev.type == "cuda" else 0.0)
     for n_nodes, rows in TABLES:
         table = probes.node_table_from_segments(segment_table(n_nodes, rows, rng), dev)
+        layout = probes.gather_layout(n_nodes)
         for space in probes.SPACES:
+            kernel = (("node_gather_shared_kernel", layout) if space == "shared" else
+                      ("node_gather_probe_kernel", (probes.SPACES.index(space),)))
             for shape in common.shapes(dev, k):
                 idx0 = torch.from_numpy(rng.integers(0, n_nodes - 31, shape["lanes"])
                                         .astype(np.int32)).to(dev)
-                meter.case(
-                    f"gather {space} n={n_nodes}", "node_gather_probe_kernel",
-                    (probes.SPACES.index(space),), shape,
+                rec = meter.case(
+                    f"gather {space} n={n_nodes}", *kernel, shape,
                     lambda kk, i=idx0, t=shape["threads"]: probes.node_gather_probe(
                         table, i, k=kk, space=space, threads=t),
                     lambda kk, i=idx0: probes.node_gather_plain(table, i, kk),
                     n_bytes=12 * (n_nodes + shape["lanes"]), repeats=probes.UNROLL)
+                if space == "shared" and "ms" in rec:
+                    smem_floors(meter, rec, table, idx0, shape, layout, select=False, l2=l2,
+                                n=n_nodes)
     tab = _u32(rng, (64, 3), dev)
     for form in probes.FORMS:
+        kernel = (("table_select_shared_kernel", probes.SELECT_LAYOUT) if form == "shared" else
+                  ("table_select_probe_kernel", (probes.FORMS.index(form),)))
         for shape in common.shapes(dev, k):
             idx0 = torch.from_numpy(rng.integers(0, 56, shape["lanes"])
                                     .astype(np.int32)).to(dev)
-            meter.case(
-                f"select 64x3 {form}", "table_select_probe_kernel",
-                (probes.FORMS.index(form),), shape,
+            rec = meter.case(
+                f"select 64x3 {form}", *kernel, shape,
                 lambda kk, i=idx0, t=shape["threads"]: probes.table_select_probe(
                     tab, i, k=kk, form=form, threads=t),
                 lambda kk, i=idx0: probes.table_select_plain(tab, i, kk),
                 n_bytes=768 + 8 * shape["lanes"], repeats=probes.UNROLL)
+            if form == "shared" and "ms" in rec:
+                smem_floors(meter, rec, tab, idx0, shape, probes.SELECT_LAYOUT, select=True)
     rows = _u32(rng, (FETCH_ROWS, probes.ROW_WORDS), dev)
     for shape in common.shapes(dev, k):
         row_of = torch.from_numpy(rng.integers(0, FETCH_ROWS, shape["lanes"])

@@ -77,9 +77,6 @@ KERNEL = {"rounds": "hako_dda_cached_kernel", "probes": "fetch_probe_kernel"}
 SMEM = {"rounds": ("hako_dda_cached_smem_bytes", "cached_smem_bytes"),
         "probes": ("fetch_probe_smem_bytes", "fetch_smem_bytes")}
 STAGED_WORDS = 128  # words 0-127 of a row: what the staged fetch copies a lane
-L2_PROBE_MIB = (8, 16, 32)  # the L2-resident buffers of the L2 read probe
-L2_PROBE_READ_MIB = 256     # what one launch of it reads, in passes over a buffer
-L2_PROBE_BLOCKS_PER_SM = 8  # of 256 threads: a full SM
 
 
 def entry_points(text: str) -> list:
@@ -229,28 +226,6 @@ def dda_ab(tree, cam, width: int, height: int, *, old: str = EARLIER["rounds"],
     return out
 
 
-def l2_read_rates(device, rng) -> dict:
-    """{MiB: bytes/s} that l2_read_probe reads an L2-resident buffer of each
-    size at (a grid of L2_PROBE_BLOCKS_PER_SM blocks of 256 an SM, the
-    buffer read L2_PROBE_READ_MIB / MiB times a launch, warm: the least of
-    3 trains), its sums == their plain version first."""
-    blocks = torch.cuda.get_device_properties(device).multi_processor_count * (
-        L2_PROBE_BLOCKS_PER_SM)
-    rates = {}
-    for mib in L2_PROBE_MIB:
-        buf = hako_kernel_micro._u32(rng, ((mib << 20) // 4,), device)
-        passes = L2_PROBE_READ_MIB // mib
-
-        def read(b=buf, p=passes):
-            return probes.l2_read_probe(b, passes=p, blocks=blocks)
-
-        if not torch.equal(read(), probes.l2_read_plain(buf, passes=passes,
-                                                         lanes=blocks * 256)):
-            raise AssertionError(f"l2_read_probe {mib} MiB differs from the plain version")
-        rates[mib] = passes * (mib << 20) / (common.best_ms([read], reps=REPS)[0] * 1e-3)
-    return rates
-
-
 def issue_floor_ms(funcs: dict, lanes: int, k: int, sms: int, clock: float) -> tuple:
     """(SASS instructions of fetch_probe_kernel's repeat loop a repeat,
     the issue floor of lanes x k repeats), as Meter.case counts them."""
@@ -274,7 +249,7 @@ def fetch_ab(device, *, old: str = EARLIER["probes"], k: int = hako_kernel_micro
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         clock = common.sm_clock_hz()
         common.warm_up(device)
-        out["l2_rates"] = l2_read_rates(device, np.random.default_rng(seed))
+        out["l2_rates"] = common.l2_read_rates(device, np.random.default_rng(seed))
         out["l2_bytes_per_s"] = max(out["l2_rates"].values())
     rng = np.random.default_rng(seed)
     rows = hako_kernel_micro._u32(rng, (hako_kernel_micro.FETCH_ROWS, probes.ROW_WORDS),

@@ -180,6 +180,12 @@ def _bind(lib):
         p, p, i, p,                                    # acc, fold, threads, stream
     ]
     lib.table_select_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
+    lib.node_gather_probe_plan.argtypes = [i, p]        # nodes, out[3]
+    lib.node_gather_probe_plan.restype = None
+    lib.node_gather_probe_smem_bytes.argtypes = [i]
+    lib.node_gather_probe_smem_bytes.restype = ctypes.c_size_t
+    lib.table_select_probe_smem_bytes.argtypes = []
+    lib.table_select_probe_smem_bytes.restype = ctypes.c_size_t
     lib.calib_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
     lib.shell_copy_probe_launch.argtypes = [i, p, p, i, p]  # aos, in[8], out[8], n
     lib.preamble_probe_launch.argtypes = [p, p, i, p, p]    # ray[6], bounds, n, out[8]

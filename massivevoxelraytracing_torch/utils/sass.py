@@ -16,6 +16,7 @@ must wait on in turn, whatever the issue rate.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import re
 import subprocess
@@ -36,6 +37,14 @@ def cuobjdump_path() -> str:
     from .cuda_build import nvcc_path
 
     return os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+
+
+def nvcc_release() -> str:
+    """The build line of `nvcc --version` (the compiler that made the SASS)."""
+    from .cuda_build import nvcc_path
+
+    out = subprocess.run([nvcc_path(), "--version"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
 
 
 def dump(lib_path: str) -> str:
@@ -155,3 +164,24 @@ def loop_counts(funcs: dict, name: str, *targs, repeats: int = 1) -> dict:
     chain = chain_length(body)
     return dict(body=len(body), chain=chain, per_repeat=len(body) / repeats,
                 chain_per_repeat=chain / repeats)
+
+
+# nvcc names a source's anonymous namespace after a hash that follows the
+# path it was built at: _ZN<n>_GLOBAL__N__<hash>_<n>_<stem>_cu_<hash8><rest>
+_ANON = re.compile(r"^_ZN\d+_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]{8}(.*)$")
+
+
+def source_key(name: str) -> str:
+    """A kernel's mangled name as "<source>.cu:<the rest>", without the
+    hashes of the path it was built at (a name outside an anonymous
+    namespace as it is)."""
+    m = _ANON.match(name)
+    return f"{m.group(1)}.cu:{m.group(2)}" if m else name
+
+
+def digests(funcs: dict) -> dict:
+    """{source_key: the first 16 hex digits of the sha256 of the kernel's
+    instructions, one a line, without their addresses} of a listing's
+    kernels: equal digests, equal machine code."""
+    return {source_key(f): hashlib.sha256("\n".join(t for _a, t, _l in instrs).encode())
+            .hexdigest()[:16] for f, instrs in funcs.items()}

@@ -653,6 +653,116 @@ def test_table_select_probe_matches_plain(cuda, form):
         assert torch.equal(got, probes.table_select_plain(tab, idx0, PROBE_K))
 
 
+def offset_view(x, words: int):
+    """x (contiguous) copied into a larger buffer `words` int32 words in:
+    a contiguous view that is not 16-byte aligned where words % 4."""
+    flat = torch.zeros(x.numel() + words, dtype=x.dtype, device=x.device)
+    flat[words:] = x.reshape(-1)
+    return flat[words:].view(x.shape)
+
+
+@pytest.mark.parametrize("n_nodes", [1 << j for j in range(13)])
+def test_shared_node_gather_every_table_size(cuda, n_nodes):
+    """The shared node fetch at every table size its launcher takes (each
+    layout it picks: 32 word copies up to 128 nodes, 4 record copies up
+    to 1,024, the packed table beyond), bit-equal to its plain version at
+    32 and 256 threads, on a lane count with a partial last warp, at k
+    and 2k, on a 16-byte-aligned table (the bulk copy where its bytes are
+    whole 16-byte units: 4 nodes and up) and on a view 4 bytes in (every
+    thread copies words); one launch a call."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(n_nodes + 1)
+    table = torch.as_tensor(rng.integers(0, 1 << 32, (n_nodes, 3), dtype=np.uint64)
+                            .astype(np.uint32).view(np.int32), device=cuda)
+    idx0 = torch.as_tensor(rng.integers(0, 1 << 20, PROBE_LANES).astype(np.int32),
+                           device=cuda)
+    probes.reset_counters()
+    calls = 0
+    for tab in (table, offset_view(table, 1)):
+        assert (tab.data_ptr() % 16 == 0) == (tab is table)
+        for threads in (32, 256):
+            for k in (PROBE_K, 2 * PROBE_K):
+                got = probes.node_gather_probe(tab, idx0, k=k, space="shared", threads=threads)
+                for a, b in zip(got, probes.node_gather_plain(table, idx0, k)):
+                    assert torch.equal(a, b), (threads, k, tab is table)
+                calls += 1
+    assert probes.LAUNCHES["node_gather_probe"] == calls
+
+
+def test_shared_select_on_every_staging_path(cuda):
+    """The shared select bit-equal to its plain version at 32 and 256
+    threads, a partial last warp, k and 2k, on an aligned table (the bulk
+    copy) and on a view 4 bytes in (words copied by every thread)."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(12)
+    tab = torch.as_tensor(rng.integers(0, 1 << 32, (64, 3), dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32), device=cuda)
+    idx0 = torch.as_tensor(rng.integers(0, 64, PROBE_LANES).astype(np.int32), device=cuda)
+    for t in (tab, offset_view(tab, 1)):
+        for threads in (32, 256):
+            for k in (PROBE_K, 2 * PROBE_K):
+                got = probes.table_select_probe(t, idx0, k=k, form="shared", threads=threads)
+                assert torch.equal(got, probes.table_select_plain(tab, idx0, k)), (threads, k)
+
+
+def test_shared_forms_smem_queries_are_the_launch(cuda):
+    """The launchers' layouts, as their C query answers them, are the ones
+    ops/probes.py mirrors for the wavefront model (gather_layout,
+    SELECT_LAYOUT) at every table size; the dynamic shared memory a block
+    launches with is the staged table, the packed table where the layout
+    has copies (the bulk copy's destination) and the mbarrier, each
+    rounded up to 16 bytes, and fits a block's opt-in limit; the largest
+    table of each layout launches at 1,024 threads, bit-equal to its
+    plain version."""
+    import ctypes
+
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    def want(n, rec, copies):
+        up16 = -(-4 * n * rec * copies // 16) * 16
+        return up16 + (0 if copies == 1 else -(-12 * n // 16) * 16) + 16
+
+    lib = cuda_build.load()
+    limit = probes.smem_optin_bytes(cuda)
+    for j in range(13):
+        n = 1 << j
+        out = (ctypes.c_int * 2)()
+        lib.node_gather_probe_plan(n, out)
+        assert tuple(out) == probes.gather_layout(n), n
+        assert lib.node_gather_probe_smem_bytes(n) == want(n, *out) <= limit, n
+    assert lib.table_select_probe_smem_bytes() == want(64, *probes.SELECT_LAYOUT)
+    rng = np.random.default_rng(13)
+    for n in (128, 1024, 4096):
+        table = torch.as_tensor(rng.integers(0, 1 << 31, (n, 3)).astype(np.int32), device=cuda)
+        idx0 = torch.as_tensor(rng.integers(0, n, 2048).astype(np.int32), device=cuda)
+        got = probes.node_gather_probe(table, idx0, k=8, space="shared", threads=1024)
+        for a, b in zip(got, probes.node_gather_plain(table, idx0, 8)):
+            assert torch.equal(a, b), n
+
+
+def test_shared_node_gather_refuses_tables_past_its_limit(cuda):
+    """A table over MAX_NODES nodes or not a power of two is refused
+    before any launch: by the wrapper (ValueError) and by the C launcher
+    (cudaErrorInvalidValue)."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    idx0 = torch.zeros(64, dtype=torch.int32, device=cuda)
+    acc = torch.empty_like(idx0)
+    probes.reset_counters()
+    for n in (probes.MAX_NODES * 2, 96):
+        table = torch.zeros((n, 3), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="power of two"):
+            probes.node_gather_probe(table, idx0, k=8, space="shared")
+        assert cuda_build.load().node_gather_probe_launch(
+            probes.SPACES.index("shared"), table.data_ptr(), n, idx0.data_ptr(), 64, 8,
+            acc.data_ptr(), acc.data_ptr(), 32, None) == 1
+    assert probes.LAUNCHES["node_gather_probe"] == 0
+
+
 @pytest.mark.parametrize("kind", ["chain", "par8"])
 def test_calib_probe_matches_plain(cuda, kind):
     from massivevoxelraytracing_torch.ops import probes

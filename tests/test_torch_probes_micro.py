@@ -246,3 +246,83 @@ def test_scripts_share_one_calibration():
     assert [r["name"] for r in recs if r["name"].startswith("calib")] == [
         f"calib {c}" for c in probes.CALIBS]
     assert all(r["checked_k"] == [r["k"]] for r in recs)
+
+
+# the shared forms' wavefront model (scripts/common.smem_wavefronts) and
+# the staged layouts' address functions
+
+
+def test_smem_wavefronts_broadcast_and_one_bank():
+    """A word every lane asks for is one wavefront; 32 distinct words of
+    one bank are 32; 32 words in 32 banks are 1; a lane that loads nothing
+    costs nothing; a 16-byte load of 32 consecutive records is 4 phases."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    lane = np.arange(32)
+    assert common.smem_wavefronts(np.full(32, 7)) == 1
+    assert common.smem_wavefronts(lane * 32 + 5) == 32
+    assert common.smem_wavefronts(lane) == 1
+    assert common.smem_wavefronts(np.where(lane < 2, lane * 32, -1)) == 2
+    assert common.smem_wavefronts(lane * 4, 16) == 4
+    assert common.smem_wavefronts(np.zeros(32, int), 16) == 4  # a broadcast a phase
+    assert common.smem_wavefronts(lane * 32, 16) == 32  # 8 records of one bank a phase
+    assert list(common.smem_wavefronts(np.stack([lane, lane * 32]))) == [1, 32]
+
+
+@pytest.mark.parametrize("n, want", [(64, 6.0), (128, 8.4), (1024, 10.3), (4096, 10.5)])
+def test_smem_wavefronts_of_the_packed_table(n, want):
+    """Uniformly random entries of the packed table (stride 3 words), 4,000
+    warps: the wavefronts a warp-repeat of its 3 loads, as the uniform
+    model counts them (6.0 / 8.4 / 10.3 / 10.5 at 64 / 128 / 1,024 / 4,096
+    entries)."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    e = np.random.default_rng(n).integers(0, n, (1, 4000 * 32))
+    assert common.staged_wavefronts(e, 3, 1) == pytest.approx(want, abs=0.1)
+
+
+@pytest.mark.parametrize("rec, copies, per_load", [(3, 32, 1), (4, 8, 4)])
+def test_replicated_layouts_are_conflict_free(rec, copies, per_load):
+    """32 word copies take 1 wavefront a 4-byte load and 8 record copies 4
+    a 16-byte load, whatever the entries: random, all one entry, all in one
+    bank of the packed table, a stride of 8 records, each warp's lanes
+    sorted or reversed."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    rng = np.random.default_rng(24)
+    lane = np.arange(32)
+    for e in (rng.integers(0, 4096, (200, 32)), np.zeros((1, 32), int),
+              (lane * 32)[None], (lane * 8)[None], np.sort(rng.integers(0, 64, (50, 32))),
+              (31 - lane)[None]):
+        for a, width in common.staged_loads(e, rec, copies):
+            assert width == (16 if rec == 4 else 4)
+            assert (common.smem_wavefronts(a, width) == per_load).all()
+
+
+@pytest.mark.parametrize("select", [False, True])
+def test_fetch_entries_follow_the_plain_recurrence(select):
+    """The entries a case reads at repeat r are (idx0 + acc_r) & (n - 1),
+    acc_r the plain version's output after r repeats; a lane past the
+    last whole warp starts at entry 0."""
+    from massivevoxelraytracing_torch.scripts import common
+
+    rng = np.random.default_rng(5)
+    n = 64 if select else 128
+    tab = torch.from_numpy(rng.integers(0, 1 << 32, (n, 3), dtype=np.uint64)
+                           .astype(np.uint32).view(np.int32))
+    idx0 = torch.from_numpy(rng.integers(0, n - 31, 45).astype(np.int32))
+    e = common.fetch_entries(tab, idx0, 9, select=select)
+    assert e.shape == (9, 64) and (e[0, 45:] == 0).all()
+    for r in (0, 1, 8):
+        acc = (probes.table_select_plain(tab, idx0, r) if select else
+               probes.node_gather_plain(tab, idx0, r)[0]) if r else torch.zeros(45, dtype=torch.int32)
+        assert np.array_equal(e[r, :45], ((idx0 + acc) & (n - 1)).numpy())
+
+
+def test_staged_layouts_by_table_size():
+    """The launchers' layouts (mirrored for the wavefront model): the
+    select's 32 word copies; the node fetch's 32 word copies where they fit
+    48 KB, 4 record copies up to 1,024 nodes, the packed table beyond."""
+    assert probes.SELECT_LAYOUT == (3, 32)
+    assert [probes.gather_layout(1 << j) for j in range(13)] == (
+        [(3, 32)] * 8 + [(4, 4)] * 3 + [(3, 1)] * 2)

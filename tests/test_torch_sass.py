@@ -112,3 +112,61 @@ def test_kernel_name_needs_one_match():
         sass.kernel_name(funcs, "construct_probe_kernel", 1)
     with pytest.raises(ValueError):
         sass.loop_body([(0, "EXIT", ()), (16, "BRA 0x10", ())])
+
+
+# On the card (the library built, cuobjdump beside nvcc): the redesigned
+# shared forms' repeat loops, and every other kernel against its SASS at
+# commit 6fa41fa.
+RECORD = "sass_6fa41fa.json"
+REDESIGNED = ("hako_probes.cu:24node_gather_probe_kernelILi1EEEvPKjiPKiiiPiS5_",
+              "hako_probes.cu:25table_select_probe_kernelILi1EEEvPKjPKiiiPi")
+
+
+@pytest.fixture
+def built():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    cuda_build.load()
+    return sass.functions(sass.dump(cuda_build.LIB_PATH))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel, targs", [("table_select_shared_kernel", "select"),
+                                           ("node_gather_shared_kernel", 128)])
+def test_shared_forms_repeat_loop_reads_shared_memory_only(built, kernel, targs):
+    """The shared select's and the n = 128 node fetch's repeat loops read
+    the staged table only: 3 LDS (32-bit) a repeat (32 word copies) or one
+    LDS.128 (record copies), no global, local or generic load."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    layout = probes.SELECT_LAYOUT if targs == "select" else probes.gather_layout(targs)
+    body = sass.loop_body(built[sass.kernel_name(built, kernel, *layout)])
+    ops = [sass._opcode(t)[1] for t in body]
+    loads = [op for op in ops if op.split(".")[0] in ("LDS", "LDG", "LD", "LDL")]
+    want = ["LDS"] * 3 if layout[0] == 3 else ["LDS.128"]
+    assert sorted(loads) == sorted(want * probes.UNROLL), loads
+
+
+@pytest.mark.cuda
+def test_kernels_keep_their_sass_of_6fa41fa(built):
+    """Every kernel but the two redesigned shared forms has the machine
+    code it had at commit 6fa41fa (csrc/earlier/sass_6fa41fa.json, digests
+    of that commit's library, recorded with the same nvcc): the main
+    path's kernels (hako_mega, the rounds route, the sample chain, the
+    frame, the scene build, the walks) and the probes' other forms, the
+    yardsticks the redesigned forms are measured against."""
+    import json
+    import os
+
+    from massivevoxelraytracing_torch.utils import cuda_build
+
+    with open(os.path.join(cuda_build.CSRC, "earlier", RECORD)) as f:
+        rec = json.load(f)
+    assert sass.nvcc_release() == rec["nvcc"], "another nvcc: the record does not apply"
+    now = sass.digests(built)
+    kept = {k: v for k, v in rec["sass"].items() if k not in REDESIGNED}
+    assert len(kept) == len(rec["sass"]) - 2
+    assert {k: now.get(k) for k in kept} == kept
+    assert not set(REDESIGNED) & now.keys()
