@@ -149,6 +149,18 @@ Phases (any failure raises, and the script exits non-zero):
      each case's shared-memory wavefronts under both layouts, the
      3-wavefront floor, the staged tables at the L2 read rate, the
      kernels' ptxas registers and which probe kernels kept their SASS;
+     the meter's calibration now first measures the SM's pipes
+     (common.pipe_rates: pipe_probe, each instruction class alone and in
+     pairs at full occupancy, == its plain version at k and 2k), and every
+     case prints its pipe floor and share beside the issue floor (the slope
+     share at full occupancy, an empty launch of the grid at the script
+     shape); then scripts/issue_ab.run: the Hopper forms of walk_probe
+     (walk64, scan64) and construct_probe (the eight constructs) in turns
+     with commit aca9a3e's kernels (csrc/earlier/hako_probes_aca9a3e.cu) at
+     the same three shapes, each == its plain version at k and 2k, with
+     both designs' SASS a repeat, issue and pipe floors, the walks' slots
+     (warps against lanes, the counting variant walk_count) and
+     hako_mega's loop against both floors;
   5c. this slice's path, with the probe and round kernels' counts set to
      0 just before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -322,6 +334,7 @@ It needs a CUDA device and the repository around it.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -2320,7 +2333,7 @@ def phase_probes(tree, ro, rd, device, smi: str) -> dict:
 
 
 SLICE_KERNELS = ("construct_probe", "node_gather_probe", "table_select_probe",
-                 "calib_probe", "walk_probe", "fetch_probe")
+                 "calib_probe", "walk_probe", "fetch_probe", "pipe_probe")
 
 
 def phase_slice(tree, cam, smi: str) -> dict:
@@ -2333,10 +2346,14 @@ def phase_slice(tree, cam, smi: str) -> dict:
     from massivevoxelraytracing_torch.ops import probes
     from massivevoxelraytracing_torch.scripts import (common, construct_micro,
                                                       hako_kernel_micro,
-                                                      hako_phase_timing, row_stage_ab,
-                                                      table_ab)
+                                                      hako_phase_timing, issue_ab,
+                                                      row_stage_ab, table_ab)
 
     t0 = time.time()
+    # the earlier probes library for issue_ab, built by nvcc while the card
+    # measures
+    build = concurrent.futures.ThreadPoolExecutor(1)
+    earlier = build.submit(issue_ab.build_earlier, issue_ab.EARLIER)
     meter = common.Meter(torch.device("cuda", 0))  # one calibration for both scripts
     torch.cuda.synchronize()
     probes.reset_counters()
@@ -2389,9 +2406,20 @@ def phase_slice(tree, cam, smi: str) -> dict:
         report_ab("phase5b", name, tab[name], tuple(tab[name]), smi)
     print(f"[phase5b] the shared node fetch and select in turns with 6fa41fa's kernels: "
           f"{time.time() - t2:.1f} s [{smi}]", flush=True)
+    # the redesigned walk probe and construct probe in turns with aca9a3e's
+    # (scripts/issue_ab.py, at the meter's pipe rates; its launches are not
+    # counted)
+    t3 = time.time()
+    iss = issue_ab.run(torch.device("cuda", 0), card=smi, pipe=meter.pipe, funcs=meter.funcs,
+                       earlier=earlier.result())
+    build.shutdown()
+    for name in issue_ab.ENTRY:
+        report_ab("phase5b", name, iss[name], tuple(iss[name]), smi)
+    print(f"[phase5b] the walk and construct probes in turns with aca9a3e's kernels: "
+          f"{time.time() - t3:.1f} s [{smi}]", flush=True)
     return dict(records=records, timing=timing, launches=launches,
                 round_launches=round_launches, isolated_launches=isolated, ab=ab,
-                table_ab=tab)
+                table_ab=tab, issue_ab=iss, pipe=meter.pipe)
 
 
 def report_ab(phase: str, kernel: str, ab: dict, cases, smi: str) -> None:
@@ -2696,6 +2724,23 @@ def slice_entry(sl: dict, prefix) -> dict:
                 bound_ms=max(ops, byt), bound_by="operations" if ops >= byt else "bytes",
                 max_abs_err=max(r["max_abs_err"] for r in recs),
                 cases=sorted({r["name"] for r in recs}))
+
+
+def pipe_entry(sl: dict, src: str) -> dict:
+    """The pipe probe's kernels-line entry: its pairs at full occupancy and
+    k repeats, summed (ms, plain ms, the larger of the issue and bytes
+    floors), the launch count of phase 5b (the pairs, and the empty launches
+    beside the script-shape cases), each class's rate."""
+    pairs = sl["pipe"]["pairs"].values()
+    ops = sum(r["issue_floor_ms"] for r in pairs)
+    byt = sum(r["bytes_floor_ms"] for r in pairs)
+    return dict(name="pipe_probe", route="cuda", source=src + "hako_probes.cu",
+                replaces="scripts/hako_kernel_micro.py:188 (calibrate; the per-class rates "
+                         "have no counterpart there)",
+                launches=sl["launches"]["pipe_probe"], max_abs_err=0.0,
+                ms=sum(r["ms_k"] for r in pairs), plain_ms=sum(r["plain_ms"] for r in pairs),
+                bound_ms=max(ops, byt), bound_by="operations" if ops >= byt else "bytes",
+                library_ms=None, rates=sl["pipe"]["rates"], pairs=len(sl["pipe"]["pairs"]))
 
 
 def floors(counters: dict, n_rays: int, pr: dict) -> dict:
@@ -4096,6 +4141,11 @@ def main() -> int:
             kernels[-1]["ab"] = sl["ab"]
         if name in sl["table_ab"]:  # the shared forms in turns with 6fa41fa's (table_ab)
             kernels[-1]["ab"] = sl["table_ab"][name]
+        if name in sl["issue_ab"]:  # the Hopper forms in turns with aca9a3e's (issue_ab)
+            kernels[-1]["ab"] = sl["issue_ab"][name]
+            if name == "walk_probe":
+                kernels[-1]["walk_slots"] = sl["issue_ab"]["walk_slots"]
+    kernels.append(pipe_entry(sl, src))
     for k in kernels[1:5]:
         k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
                           "scripts/r3_phase_split.py:130; scripts/hako_shell_micro.py:134",

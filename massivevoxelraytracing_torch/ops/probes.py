@@ -12,7 +12,16 @@ scripts/construct_micro.py and scripts/hako_kernel_micro.py):
     alone on register-resident masks, and the row-word fetch alone, each
     looped `iters` times a lane. Output: a checksum a lane.
   * `construct_probe`: k dependent repeats of one vector construct a lane
-    (CONSTRUCTS: construct_micro.py's eight kernels).
+    (CONSTRUCTS: construct_micro.py's eight kernels; bit_at and pc64_below
+    in their Hopper forms).
+  * `pipe_probe` (no counterpart in the reference): the rate at which an
+    SM issues each class of warp instruction that the repeat loops issue
+    (PIPE_CLASSES), alone and in pairs (PIPE_PAIRS); `empty_launch`, a
+    grid that does nothing (a launch's fixed cost).
+  * `walk_count`: the walk probe's counting variant (the slots a warp runs
+    and the slots its lanes need, the Hopper walk or walk64 as it is);
+    `walk_form` and `bit_forms`: the walk, the sweep, bit_at and
+    pc64_below in both forms side by side, for the card tests.
   * `node_gather_probe`: k dependent node fetches from an int32 [n, 3]
     node table (mask_lo, mask_hi, base) in global, shared or constant
     memory (SPACES; hako_kernel_micro.py k_gflat / k_gsplit); the shared
@@ -51,7 +60,7 @@ import numpy as np
 import torch
 
 from . import hako_kernels as hk
-from .bits import MASK32, to_i32_bits, u32
+from .bits import MASK32, popcount32, to_i32_bits, u32
 from .hako_kernels import _bit_at, _pc64_below, _scan64_impl, _walk64_impl
 
 ROW_WORDS = 164
@@ -67,6 +76,19 @@ FORMS = ("constant", "shared", "shuffle")
 CALIBS = ("chain", "par8")
 CALIB_MUL = 1.0000001  # 1 + 2^-23 as f32
 UNROLL = 8  # repeats a pass of the kernels' outer loop: k is a multiple
+# pipe_probe's instruction classes (csrc PipeOp, in order) and the pairs it
+# launches (csrc PIPE_PAIRS, in order): each class alone, each beside LOP3,
+# beside IMAD, and the slow classes beside each other
+PIPE_CLASSES = ("FADD/FMUL", "FMNMX", "FSETP", "ISETP", "LOP3", "SHF", "SEL", "FSEL",
+                "IADD3", "IMAD", "POPC", "I2F", "F2I")
+PIPE_PAIRS = (tuple((c, c) for c in PIPE_CLASSES)
+              + tuple((c, "LOP3") for c in PIPE_CLASSES if c != "LOP3")
+              + tuple((c, "IMAD") for c in ("FADD/FMUL", "FMNMX", "FSETP", "IADD3", "SHF",
+                                            "POPC", "I2F"))
+              + (("FADD/FMUL", "FMNMX"), ("FADD/FMUL", "POPC"), ("POPC", "I2F"),
+                 ("POPC", "F2I"), ("I2F", "F2I")))
+PIPE_FLOAT = ("FADD/FMUL", "FMNMX", "FSEL")  # classes whose chains hold floats
+PIPE_UNROLL = 8  # a pass's steps of each group
 N_TAB_SEG = 11  # byte segments of a reference node: 4 + 4 + 3
 SHELL_ARRAYS = 8  # kernel A's lane arrays each way
 # probe_stage_probe's stages: staged()'s four kernels, then k_body
@@ -95,7 +117,8 @@ LAUNCHES = {"row_chase": 0, "walk_probe": 0, "fetch_probe": 0, "l2_read_probe": 
             "construct_probe": 0, "node_gather_probe": 0,
             "table_select_probe": 0, "calib_probe": 0,
             "shell_copy_probe": 0, "preamble_probe": 0, "probe_stage_probe": 0,
-            "take_along_probe": 0, "smem_alloc_probe": 0, "ohg_probe": 0}
+            "take_along_probe": 0, "smem_alloc_probe": 0, "ohg_probe": 0,
+            "pipe_probe": 0, "walk_count": 0, "walk_form": 0, "bit_form": 0}
 # the 2D gather probes' kernels (dyngather_probe2.py, gather_probe3.py)
 GATHER_KERNELS = ("take_along_probe", "smem_alloc_probe", "ohg_probe")
 
@@ -168,9 +191,9 @@ def _check_threads(threads):
         raise ValueError(f"threads must be a multiple of 32 up to 1024, not {threads}")
 
 
-def _check_repeats(k):
-    if k <= 0 or k % UNROLL:
-        raise ValueError(f"k must be a positive multiple of {UNROLL}, not {k}")
+def _check_repeats(k, unroll: int = UNROLL):
+    if k <= 0 or k % unroll:
+        raise ValueError(f"k must be a positive multiple of {unroll}, not {k}")
 
 
 def _launched(name, rc):
@@ -573,6 +596,292 @@ def calib_probe(kind: str, a, b, *, k: int | None = None, threads: int = 256):
             CALIBS.index(kind), a.data_ptr(), b.data_ptr(), n, int(k),
             out.data_ptr(), int(threads), _stream(dev))
     _launched("calib_probe", rc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SM's pipes (pipe_probe), a launch's fixed cost (empty_launch)
+# ---------------------------------------------------------------------------
+
+def _f32(bits):
+    return to_i32_bits(bits).view(torch.float32)
+
+
+def _bits(f):
+    return f.view(torch.int32).long() & MASK32
+
+
+def _mul32(x, y):
+    """x * y mod 2^32 of u32 values held as int64 (no int64 overflow)."""
+    return (x * (y & 0xFFFF) + (((x * (y >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def _f2i_rz(f):
+    """__float2int_rz: truncation, saturated to int32, NaN -> 0 (as u32)."""
+    t = torch.trunc(torch.nan_to_num(f, nan=0.0).double())
+    t = torch.clamp(t, -2.0 ** 31, 2.0 ** 31 - 1).long()
+    return t & MASK32
+
+
+def _pipe_step(op, a, q, y, ol, ofl, u, g, p):
+    """One step of class op on a group's chains a int64 [4, N] (u32) and
+    predicates q bool [2, N], at step u of group g, with the lanes' u32
+    counters ol int64 [N] (compared as int32) and float pass counters ofl
+    (exact), and p = pass & 1."""
+    if op in ("FSETP", "ISETP"):
+        for j in range(2):
+            t = (g * 2 + j) * PIPE_UNROLL + u
+            if op == "FSETP":
+                hit = ofl > 0.5 * t + 0.25
+            else:
+                th = (a[(j + u) % 4] + u * 0x01000193) & MASK32
+                hit = to_i32_bits(ol).long() > to_i32_bits(th).long()
+            q[j] = ~q[j] & hit
+        return a
+    if op == "FADD/FMUL":
+        c = torch.tensor(CALIB_MUL, dtype=torch.float32, device=a.device)
+        return _bits(_f32(a) * c + y)
+    if op == "POPC":
+        return popcount32(a)
+    if op == "I2F":
+        return _bits(to_i32_bits(a).to(torch.float32))
+    if op == "F2I":
+        return _f2i_rz(_f32(a))
+    b, c = a.roll(-1, 0), a.roll(-3, 0)
+    if op == "FMNMX":
+        fa, fb = _f32(a), _f32(b)
+        return _bits(torch.fmin(fa, fb) if u & 1 else torch.fmax(fa, fb))
+    if op == "LOP3":
+        return (a & b) ^ c
+    if op == "SHF":
+        return (((b << 32) | a) >> (c & 31)) & MASK32
+    if op in ("SEL", "FSEL"):
+        return b if (p != bool(u & 1)) else c
+    if op == "IADD3":
+        return (a + b + c) & MASK32
+    return (_mul32(a, b) + c) & MASK32
+
+
+def pipe_probe_plain(a: str, b: str, x0, k: int):
+    """pipe_probe's outputs: x0 int32 [8, N] (u32 bit patterns: group 0's
+    four chains, then group 1's), k repeats (k / PIPE_UNROLL passes of
+    PIPE_UNROLL steps of each group: class a on group 0, b on group 1; a
+    lane's float pass counter starts at x0[0] & 1, its u32 counter at x0[0]
+    and steps by ol * 0x9E3779B1 + 1 a pass, ISETP comparing it with chain
+    (j + u) % 4 plus u * 0x01000193). int32 [9, N]: the chains, then the
+    predicate bits."""
+    x = x0.long() & MASK32
+    groups = [x[:4].clone(), x[4:].clone()]
+    ys = [_f32(g.clone()) for g in groups]
+    qs = [[torch.zeros(x.shape[1], dtype=torch.bool, device=x.device) for _ in range(2)]
+          for _ in range(2)]
+    ol, ofl = x[0].clone(), x[0] & 1
+    for o in range(k // PIPE_UNROLL):
+        p = bool(o & 1)
+        for u in range(PIPE_UNROLL):
+            for g, op in enumerate((a, b)):
+                groups[g] = _pipe_step(op, groups[g], qs[g], ys[g], ol, ofl, u, g, p)
+        ofl = ofl + 1
+        ol = _mul32(ol, torch.full_like(ol, 0x9E3779B1)) + 1 & MASK32
+    bits = sum(qs[g][j].long() << (2 * g + j) for g in range(2) for j in range(2))
+    return to_i32_bits(torch.cat([groups[0], groups[1], bits[None]], 0))
+
+
+def pipe_probe(a: str, b: str, x0, *, k: int, threads: int = 256):
+    """As pipe_probe_plain; (a, b) one of PIPE_PAIRS, k a multiple of
+    PIPE_UNROLL."""
+    if (a, b) not in PIPE_PAIRS:
+        raise ValueError(f"no pipe probe of the pair {(a, b)}")
+    _check_repeats(k, PIPE_UNROLL)
+    if _device_of(x0, "pipe_probe") == "cpu":
+        return pipe_probe_plain(a, b, x0, k)
+    from ..utils import cuda_build
+
+    dev = x0.device
+    n = x0.shape[1]
+    _check("x0", x0, dev, torch.int32, (8, n))
+    _check_threads(threads)
+    out = torch.empty(9, n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().pipe_probe_launch(
+            PIPE_CLASSES.index(a), PIPE_CLASSES.index(b), x0.data_ptr(), n, int(k),
+            out.data_ptr(), int(threads), _stream(dev))
+    _launched("pipe_probe", rc)
+    return out
+
+
+def pipe_inputs(a: str, b: str, lanes: int, rng, device):
+    """pipe_probe's x0 for a pair: floats in [0.5, 2) for PIPE_FLOAT
+    classes' chains, random u32 bit patterns for the others."""
+    rows = []
+    for op in (a, b):
+        if op in PIPE_FLOAT:
+            v = rng.uniform(0.5, 2.0, (4, lanes)).astype(np.float32).view(np.int32)
+        else:
+            v = rng.integers(0, 1 << 32, (4, lanes), dtype=np.uint64).astype(
+                np.uint32).view(np.int32)
+        rows.append(v)
+    return torch.from_numpy(np.concatenate(rows)).to(device)
+
+
+def empty_launch(blocks: int, threads: int, device):
+    """A grid of blocks x threads that does nothing (counted as a pipe
+    probe launch); the card only."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no empty launch on {device}")
+    _check_threads(threads)
+    from ..utils import cuda_build
+
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().empty_probe_launch(int(blocks), int(threads), _stream(dev))
+    _launched("pipe_probe", rc)
+
+
+# ---------------------------------------------------------------------------
+# the walk's forms side by side, its slots, bit_at / pc64_below's forms
+# ---------------------------------------------------------------------------
+
+WALK_FORMS = ("walk64", "hopper", "scan")
+
+
+def walk_slots_plain(lo, hi, vm6, t1, dc, t_q, *, hopper: bool):
+    """The slots each lane's walk runs: walk64's (hopper False: until it
+    hits, steps past a coordinate of 3, or ends its 10th slot) or the
+    Hopper walk's (until it hits or its exit reaches the node's exit); 0
+    where the ray misses the node. int64 [N]."""
+    tq0 = torch.clamp(t_q, min=0.0)
+    node_en = hk._max3(hk._plane(t1, dc, 0))
+    node_ex = hk._min3(t1)
+    t_start = torch.maximum(node_en, tq0)
+    c = sum((hk._plane(t1, dc, k) <= t_start).to(torch.int64) for k in (1, 2, 3))
+    en = hk._max3(hk._plane(t1, dc, c))
+    n = hk._plane(t1, dc, torch.clamp(c + 1, max=4))
+    alive = t_start < node_ex
+    slots = torch.zeros_like(vm6)
+    for slot in range(10):
+        slots = slots + alive.long()
+        ex = hk._min3(n)
+        occ = _bit_at(lo, hi, hk._cell_of(c[0], c[1], c[2]) ^ vm6)
+        if hopper:
+            stop = (occ & (en < ex)) | ~(ex < node_ex)
+        else:
+            stop = occ & (en < ex) & (ex > tq0)
+        alive = alive & ~stop
+        sx = (n[0] <= n[1]) & (n[0] <= n[2])
+        sy = ~sx & (n[1] <= n[2])
+        step = torch.stack([sx, sy, ~sx & ~sy])
+        c = c + step.long()
+        en = ex
+        n = torch.where(step & (c < 4), hk._plane(t1, dc, torch.clamp(c + 1, max=4)), n)
+        if not hopper:
+            alive = alive & (c < 4).all(0)
+    return slots
+
+
+def walk_count_plain(lo, hi, t1, dc, *, iters: int, hopper: bool):
+    """walk_count's plain version on the tensors' device: each lane's own
+    slots (walk_slots_plain over the probe's masks, vm6 = 0, t_q = 0), the
+    lane-slots, the passes of a model warp (each repeat its slowest lane's
+    slots) and the probe's checksum."""
+    lo_, hi_ = lo.long() & MASK32, hi.long() & MASK32
+    zero = torch.zeros_like(lo_)
+    tq = torch.zeros_like(t1[0])
+    own = torch.zeros_like(lo_)
+    passes = torch.zeros((), dtype=torch.int64, device=lo.device)
+    for _ in range(iters):
+        s = walk_slots_plain(lo_, hi_, zero, t1, dc, tq, hopper=hopper)
+        own = own + s
+        passes = passes + torch.nn.functional.pad(s, (0, -s.shape[0] % 32)).view(-1, 32).amax(1).sum()
+        lo_ = (lo_ * 1664525 + 1013904223) & MASK32
+        hi_ = (hi_ * 22695477 + 1) & MASK32
+    return dict(passes=int(passes), lane_slots=int(own.sum()), slots=own,
+                out=walk_probe_plain(lo, hi, t1, dc, iters=iters))
+
+
+def walk_count(lo, hi, t1, dc, *, iters: int, hopper: bool, threads: int = 256):
+    """The walk probe's counting variant (vm6 = 0, t_q = 0, the probe's
+    masks): {"passes": the slot passes its warps ran, "lane_slots": the
+    active lanes summed over them, "slots": int64 [N] each lane's own slots,
+    "out": the probe's checksum}. On the CPU, walk_count_plain (its passes
+    the plain model's)."""
+    if _device_of(lo, "walk_count") == "cpu":
+        return walk_count_plain(lo, hi, t1, dc, iters=iters, hopper=hopper)
+    from ..utils import cuda_build
+
+    dev = lo.device
+    n = lo.shape[0]
+    for name, x, shape, dt in (("lo", lo, (n,), torch.int32), ("hi", hi, (n,), torch.int32),
+                               ("t1", t1, (3, n), torch.float32),
+                               ("dc", dc, (3, n), torch.float32)):
+        _check(name, x, dev, dt, shape)
+    _check_threads(threads)
+    out = torch.empty(4, n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().walk_count_launch(
+            int(hopper), lo.data_ptr(), hi.data_ptr(), t1.data_ptr(), dc.data_ptr(), n,
+            int(iters), out.data_ptr(), int(threads), _stream(dev))
+    _launched("walk_count", rc)
+    return dict(passes=int(out[0].long().sum()), lane_slots=int(out[1].long().sum()),
+                slots=out[2].long(), out=out[3])
+
+
+def walk_form(lo, hi, vm6, t1, dc, t_q, *, form: str):
+    """(en, ex, c) of one walk a lane: form "walk64" (hako_device.cuh),
+    "hopper" (the Hopper walk) or "scan" (the sweep's cell; its en / ex
+    are FLT_MAX on the card). lo / hi / vm6 int32 [N], t1 / dc f32 [3, N],
+    t_q f32 [N]. On the CPU: _walk64_impl (both walks) or _scan64_impl."""
+    if form not in WALK_FORMS:
+        raise ValueError(f"no walk form {form!r}")
+    if _device_of(lo, "walk_form") == "cpu":
+        impl = _scan64_impl if form == "scan" else _walk64_impl
+        en, ex, c = impl(lo.long() & MASK32, hi.long() & MASK32, vm6.long(), t1, dc, t_q)
+        return en, ex, c.to(torch.int32)
+    from ..utils import cuda_build
+
+    dev = lo.device
+    n = lo.shape[0]
+    for name, x, shape, dt in (("lo", lo, (n,), torch.int32), ("hi", hi, (n,), torch.int32),
+                               ("vm6", vm6, (n,), torch.int32),
+                               ("t1", t1, (3, n), torch.float32),
+                               ("dc", dc, (3, n), torch.float32),
+                               ("t_q", t_q, (n,), torch.float32)):
+        _check(name, x, dev, dt, shape)
+    en = torch.empty(n, dtype=torch.float32, device=dev)
+    ex = torch.empty_like(en)
+    c = torch.empty(n, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().walk_form_launch(
+            WALK_FORMS.index(form), lo.data_ptr(), hi.data_ptr(), vm6.data_ptr(),
+            t1.data_ptr(), dc.data_ptr(), t_q.data_ptr(), n, en.data_ptr(), ex.data_ptr(),
+            c.data_ptr(), _stream(dev))
+    _launched("walk_form", rc)
+    return en, ex, c
+
+
+def bit_forms(lo, hi):
+    """int32 [4, N, 64]: bit_at, its Hopper form, pc64_below, its Hopper
+    form, for every cell of each mask (lo / hi int32 [N]); on the CPU the
+    plain _bit_at / _pc64_below for both forms."""
+    if _device_of(lo, "bit_form") == "cpu":
+        cell = torch.arange(64, device=lo.device)[None, :]
+        m_lo, m_hi = (lo.long() & MASK32)[:, None], (hi.long() & MASK32)[:, None]
+        bit = _bit_at(m_lo, m_hi, cell).to(torch.int32)
+        pc = _pc64_below(m_lo, m_hi, cell).to(torch.int32)
+        return torch.stack([bit, bit, pc, pc])
+    from ..utils import cuda_build
+
+    dev = lo.device
+    n = lo.shape[0]
+    _check("lo", lo, dev, torch.int32, (n,))
+    _check("hi", hi, dev, torch.int32, (n,))
+    out = torch.empty(4, n, 64, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = cuda_build.load().bit_form_launch(lo.data_ptr(), hi.data_ptr(), n,
+                                               out.data_ptr(), _stream(dev))
+    _launched("bit_form", rc)
     return out
 
 

@@ -470,6 +470,7 @@ class Meter:
         self.device = device
         self.card = card(device)
         self.dep_ns = None
+        self.pipe = None  # pipe_rates' answer, once calibrated on the card
         self.calibrated = False
         self.records = []
         if device.type == "cuda":
@@ -485,6 +486,14 @@ class Meter:
         from ..utils import sass
 
         return sass.loop_counts(self.funcs, kernel, *targs, repeats=repeats)
+
+    def pipe_floor(self, kernel: str, targs: tuple, repeats: int) -> dict:
+        """sass.pipe_floor of the kernel's repeat loop at the rates and
+        pipes this meter measured (pipe_rates)."""
+        from ..utils import sass
+
+        body = sass.loop_body(self.funcs[sass.kernel_name(self.funcs, kernel, *targs)])
+        return sass.pipe_floor(body, self.pipe["rates"], self.pipe["pipes"], repeats)
 
     def case(self, name: str, kernel: str, targs: tuple, shape: dict, run, plain,
              n_bytes: int, repeats: int) -> dict:
@@ -520,33 +529,160 @@ class Meter:
                    issue_floor_ms=issue_ms, bytes_floor_ms=bytes_ms,
                    bound_ms=max(issue_ms, bytes_ms),
                    bound_by="operations" if issue_ms >= bytes_ms else "bytes")
+        pipe = ""
+        if self.pipe is not None:
+            pf = self.pipe_floor(kernel, targs, repeats)
+            rec.update(pipe_clocks_per_repeat=pf["clocks"], busiest_pipe=pf["pipe"],
+                       pipe_floor_ms=lanes / 32 * k * pf["clocks"] / (self.sms * self.clock)
+                       * 1e3, unclassified_per_repeat=pf["unclassified"])
+            rec["pipe_share"] = rec["pipe_floor_ms"] / ms
+            pipe = (f", pipe ({pf['pipe']}) {rec['pipe_floor_ms']:.4f} ms "
+                    f"({rec['pipe_share']:.1%} of the launch; issue {issue_ms / ms:.1%})")
         if self.dep_ns is not None:
             rec["latency_floor_ms"] = k * c["chain_per_repeat"] * self.dep_ns * 1e-6
         if shape["shape"] == "script":
             rec["plain_ms"] = timed(lambda: plain(k), reps=1)[1]
             rec["ns_per_block_repeat"] = ms * 1e6 / (k * lanes / 2048)
             rec["g_repeats_per_s"] = lanes * k / (ms * 1e-3) / 1e9
+            blocks = -(-lanes // threads)
+            rec["empty_launch_ms"] = best_ms(
+                [lambda: probes.empty_launch(blocks, threads, self.device)])[0]
             what = (f"{rec['ns_per_block_repeat']:9.3f} ns a block-repeat, "
-                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s (whole launch)")
+                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s (whole launch; an empty "
+                    f"launch of the grid {rec['empty_launch_ms']:.4f} ms)")
         else:
             rec["ms_2k"] = ms2[0]
             slope = ms2[0] - ms
             rec["ns_per_repeat"] = slope * 1e6 / k
             rec["g_repeats_per_s"] = lanes * k / (slope * 1e-3) / 1e9
+            rec["slope_issue_share"] = issue_ms / slope
+            if "pipe_floor_ms" in rec:
+                rec["slope_pipe_share"] = rec["pipe_floor_ms"] / slope
             what = (f"{rec['ns_per_repeat']:9.3f} ns a dependent repeat "
                     f"({rec['ns_per_repeat'] * self.clock * 1e-9:.1f} cycles)"
                     if shape["shape"] == "one warp an SM" else
-                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s")
+                    f"{rec['g_repeats_per_s']:9.2f} G repeats/s (slope share: issue "
+                    f"{rec['slope_issue_share']:.1%}"
+                    + (f", pipe {rec['slope_pipe_share']:.1%}" if "slope_pipe_share" in rec
+                       else "") + ")")
         print(f"{name:26s} {shape['shape']:14s} {lanes:6d} x {k:4d}: == plain at "
               f"{' and '.join(map(str, ks))}; "
               f"{ms:9.4f} ms, {what}; SASS {c['per_repeat']:.2f} a repeat (chain "
-              f"{c['chain_per_repeat']:.2f}); floors: issue {issue_ms:.4f} ms, bytes "
+              f"{c['chain_per_repeat']:.2f}); floors: issue {issue_ms:.4f} ms{pipe}, bytes "
               f"{bytes_ms:.4f} ms"
               + (f", latency {rec['latency_floor_ms']:.4f} ms"
                  if "latency_floor_ms" in rec else "")
               + f" [{self.card}]", flush=True)
         self.records.append(rec)
         return rec
+
+
+# ---------------------------------------------------------------------------
+# The SM's pipes (pipe_probe)
+# ---------------------------------------------------------------------------
+
+PIPE_REPEATS = 256  # pipe_probe's repeats at full occupancy (and 2k)
+CPU_PIPE_REPEATS = 16
+# a pair shares one pipe where it takes at least this share of its two
+# classes' clocks added (else its classes issue side by side, if not
+# perfectly: the floor keeps the side-by-side clocks, a lower bound)
+ONE_PIPE_SHARE = 0.95
+PURE = 0.9  # a class alone whose pass is at least this share of it
+
+
+def pipe_rates(device, funcs=None, sms: int = 0, clock: float = 0.0, card: str = "",
+               seed: int = 0, k: int = PIPE_REPEATS) -> dict:
+    """pipe_probe's pairs (probes.PIPE_PAIRS), each == its plain version at
+    k and 2k first (on the CPU at CPU_LANES lanes and CPU_PIPE_REPEATS, with
+    no time). On the card at full occupancy (SMs x 2048 lanes, 256 threads):
+    the least of 3 trains of 10 launches at k and 2k; the slope gives the
+    SM-clocks a warp-pass takes at the maximum clock; a class alone gives its
+    rate, its instructions a pass (from the pass's SASS) over those clocks
+    (less the clocks of the pass's other classes of the same pipe at their
+    rates: those of the passes that are at least PURE their own class, and
+    for the others, whose passes hold each other's classes, three rounds of
+    the same): the warp
+    instructions an SM issues a clock; a pair is measured against
+    the two classes' clocks added (one pipe) and against the larger of them
+    and the issue floor (side by side), and shares one pipe where it takes
+    at least ONE_PIPE_SHARE of the clocks added. Each pair's record also
+    has its issue and bytes floors at k and its plain version's ms. Returns
+    {"rates": {class: rate}, "pairs": {"A+B": record}, "pipes": sass.PIPES,
+    "disagree": the pairs whose call differs from sass.PIPES} ({} rates on
+    the CPU)."""
+    from ..utils import sass
+
+    rng = np.random.default_rng(seed)
+    t_start = time.perf_counter()
+    cuda = device.type == "cuda"
+    lanes = sms * 2048 if cuda else CPU_LANES
+    k = k if cuda else CPU_PIPE_REPEATS
+    out = dict(rates={}, pairs={}, pipes=dict(sass.PIPES), disagree=[])
+    timed_pairs = []
+    for a, b in probes.PIPE_PAIRS:
+        x0 = probes.pipe_inputs(a, b, lanes, rng, device)
+        for kk in ((k, 2 * k) if cuda else (k,)):
+            if not torch.equal(probes.pipe_probe(a, b, x0, k=kk),
+                               probes.pipe_probe_plain(a, b, x0, kk)):
+                raise AssertionError(f"pipe_probe {a}+{b} (k={kk}) differs from its plain "
+                                     "version")
+        if not cuda:
+            continue
+        ms = best_ms([lambda kk=kk: probes.pipe_probe(a, b, x0, k=kk) for kk in (k, 2 * k)])
+        names = (sass.kernel_name(funcs, "pipe_probe_kernel", probes.PIPE_CLASSES.index(a),
+                                  probes.PIPE_CLASSES.index(b)))
+        body = sass.loop_body(funcs[names])
+        counts = sass.class_counts(body)
+        passes = k // probes.PIPE_UNROLL
+        clocks = (ms[1] - ms[0]) * 1e-3 * clock * sms / (lanes / 32 * passes)
+        issue_ms = lanes / 32 * passes * len(body) / (sms * SCHEDULERS * clock) * 1e3
+        rec = dict(ms_k=ms[0], ms_2k=ms[1], clocks_per_pass=clocks, counts=counts,
+                   body=len(body), k=k, lanes=lanes, issue_floor_ms=issue_ms,
+                   bytes_floor_ms=17 * 4 * lanes / HBM_BYTES_PER_S * 1e3,
+                   plain_ms=timed(lambda: probes.pipe_probe_plain(a, b, x0, k), reps=1)[1])
+        out["pairs"][f"{a}+{b}"] = rec
+        timed_pairs.append((a, b, rec))
+    # a class alone: its rate over its pass's clocks; where the compiler put
+    # other classes of the same pipe into the pass (the compares' predicate
+    # moves), their clocks at their own rates come off first
+    singles = [(a, rec) for a, b, rec in timed_pairs if a == b]
+    pure = [(a, rec) for a, rec in singles if rec["counts"].get(a, 0) >= PURE * rec["body"]]
+    impure = [x for x in singles if x not in pure]
+    for a, rec in pure:
+        rec["others_clocks"] = 0.0
+        out["rates"][a] = rec["counts"].get(a, 0) / rec["clocks_per_pass"]
+    for _ in range(3):  # the impure classes' rates depend on each other's
+        for a, rec in impure:
+            rec["others_clocks"] = sum(
+                n / out["rates"][o] for o, n in rec["counts"].items()
+                if o != a and o in out["rates"] and sass.PIPES.get(o) == sass.PIPES.get(a))
+            out["rates"][a] = rec["counts"].get(a, 0) / (rec["clocks_per_pass"]
+                                                         - rec["others_clocks"])
+    for a, rec in singles:
+        others = rec["others_clocks"]
+        print(f"[pipe] {a:9s} alone: {rec['counts'].get(a, 0)} a pass of {rec['body']}, "
+              f"{rec['clocks_per_pass']:.2f} SM-clocks a warp-pass (the pass's other "
+              f"classes of its pipe {others:.2f}): {out['rates'][a]:.3f} warp instructions "
+              f"an SM a clock [{card}]", flush=True)
+    for a, b, rec in timed_pairs:
+        if a == b:
+            continue
+        na, nb = rec["counts"].get(a, 0), rec["counts"].get(b, 0)
+        one = na / out["rates"][a] + nb / out["rates"][b]
+        side = max(na / out["rates"][a], nb / out["rates"][b], rec["body"] / SCHEDULERS)
+        rec.update(one_pipe_clocks=one, side_by_side_clocks=side,
+                   call="one pipe" if rec["clocks_per_pass"] >= ONE_PIPE_SHARE * one
+                   else "side by side")
+        table = "one pipe" if sass.PIPES[a] == sass.PIPES[b] else "side by side"
+        if rec["call"] != table:
+            out["disagree"].append(f"{a}+{b}")
+        print(f"[pipe] {a}+{b}: {na} + {nb} a pass, {rec['clocks_per_pass']:.2f} SM-clocks a "
+              f"warp-pass; one pipe {one:.2f}, side by side {side:.2f}: {rec['call']} "
+              f"(sass.PIPES: {table}) [{card}]", flush=True)
+    if cuda:
+        print(f"[pipe] {len(timed_pairs)} pairs in {time.perf_counter() - t_start:.1f} s "
+              f"[{card}]", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,12 @@ package's flat table and its split tables of 1, 8 and 32 rows, carried
 across by node_table_from_segments), the 64-entry select that the
 reference's fold_select over SMEM does, from constant memory, shared
 memory or registers with warp shuffles (table_select_probe), and the
-brick-row word fetch (fetch_probe); and `calibrate`: dependent
-multiply-adds against eight independent chains (calib_probe), which give
-the latency of one dependent instruction.
+brick-row word fetch (fetch_probe); and `calibrate`: the rate at which an
+SM issues each class of instruction the repeat loops issue, alone and in
+pairs (common.pipe_rates over pipe_probe: the rates every case's pipe
+floor is read at), then dependent multiply-adds against eight independent
+chains (calib_probe), which give the latency of one dependent
+instruction.
 
     python -m massivevoxelraytracing_torch.scripts.hako_kernel_micro
     python -m massivevoxelraytracing_torch.scripts.hako_kernel_micro --device cpu
@@ -61,10 +64,18 @@ def _u32(rng, size, device):
 
 
 def calibrate(meter, seed: int = 0) -> list:
-    """k_chain and k_par8 at every launch shape; sets meter.dep_ns, the ns
-    of one dependent instruction, from the chain at one warp an SM, and
-    marks the meter calibrated."""
+    """The SM's pipes first (common.pipe_rates: meter.pipe, the rates and
+    pipes every case's pipe floor is read at); then k_chain and k_par8 at
+    every launch shape; sets meter.dep_ns, the ns of one dependent
+    instruction, from the chain at one warp an SM, and marks the meter
+    calibrated."""
     rng = np.random.default_rng(seed)
+    cuda = meter.device.type == "cuda"
+    pipe = common.pipe_rates(meter.device, meter.funcs if cuda else None,
+                             meter.sms if cuda else 0, meter.clock if cuda else 0.0,
+                             meter.card, seed)
+    if cuda:
+        meter.pipe = pipe
     out = []
     for kind in probes.CALIBS:
         base = probes.CALIB_REPEATS[kind]

@@ -187,6 +187,14 @@ def _bind(lib):
     lib.table_select_probe_smem_bytes.argtypes = []
     lib.table_select_probe_smem_bytes.restype = ctypes.c_size_t
     lib.calib_probe_launch.argtypes = [i, p, p, i, i, p, i, p]
+    lib.pipe_probe_launch.argtypes = [i, i, p, i, i, p, i, p]  # a, b, in, n, k, out, threads
+    lib.empty_probe_launch.argtypes = [i, i, p]          # blocks, threads, stream
+    lib.walk_count_launch.argtypes = [i, p, p, p, p, i, i, p, i, p]
+    lib.walk_form_launch.argtypes = [
+        i, p, p, p, p, p, p, i,                        # form, lo, hi, vm6, t1, dc, tq, n
+        p, p, p, p,                                    # en, ex, c, stream
+    ]
+    lib.bit_form_launch.argtypes = [p, p, i, p, p]       # lo, hi, n, out, stream
     lib.shell_copy_probe_launch.argtypes = [i, p, p, i, p]  # aos, in[8], out[8], n
     lib.preamble_probe_launch.argtypes = [p, p, i, p, p]    # ray[6], bounds, n, out[8]
     lib.probe_stage_probe_launch.argtypes = [
@@ -268,6 +276,8 @@ def _bind(lib):
                lib.fetch_probe_launch, lib.l2_read_probe_launch, lib.construct_probe_launch,
                lib.node_gather_probe_launch, lib.table_select_probe_launch,
                lib.calib_probe_launch, lib.hako_dda_cached_launch,
+               lib.pipe_probe_launch, lib.empty_probe_launch, lib.walk_count_launch, lib.walk_form_launch,
+               lib.bit_form_launch,
                lib.shell_copy_probe_launch, lib.preamble_probe_launch,
                lib.probe_stage_probe_launch, lib.take_along_probe_launch,
                lib.smem_alloc_probe_launch, lib.ohg_probe_launch,

@@ -185,3 +185,59 @@ def digests(funcs: dict) -> dict:
     kernels: equal digests, equal machine code."""
     return {source_key(f): hashlib.sha256("\n".join(t for _a, t, _l in instrs).encode())
             .hexdigest()[:16] for f, instrs in funcs.items()}
+
+
+# The SM's pipes: a SASS opcode (its name before the first ".") -> the
+# pipe_probe class it belongs to (ops/probes.PIPE_CLASSES); I2FP is the
+# int-to-float convert the probes issue. Opcodes outside the table (branches,
+# moves, the uniform datapath, PRMT, FLO, ...) count toward the issue floor
+# only.
+PIPE_CLASS = {"FADD": "FADD/FMUL", "FMUL": "FADD/FMUL", "FFMA": "FADD/FMUL",
+              "FMNMX": "FMNMX", "FSETP": "FSETP", "ISETP": "ISETP", "LOP3": "LOP3",
+              "SHF": "SHF", "SEL": "SEL", "FSEL": "FSEL", "IADD3": "IADD3", "IMAD": "IMAD",
+              "POPC": "POPC", "I2FP": "I2F", "I2F": "I2F", "F2I": "F2I"}
+# Which classes share a pipe (their clocks add) and which issue side by
+# side, as the card measured them (scripts/common.pipe_rates and the
+# probes' own loops, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6):
+# the integer, logic, compare, min / max, select and int-to-float classes,
+# each 2 warp instructions an SM a clock, share one pipe; FADD / FMUL (4 a
+# clock) and IMAD (2 a clock) have pipes of their own; POPC and F2I (0.5 a
+# clock) share one. (In pipe_probe's pairs FADD / FMUL beside LOP3, FMNMX
+# or IMAD took near their clocks added, but the minmax and cmpsel
+# constructs run FADD beside FMNMX / FSETP / FSEL faster than that: a floor
+# must stay below every loop, so FADD / FMUL keep a pipe of their own.)
+PIPES = {"FMNMX": "alu", "FSETP": "alu", "ISETP": "alu", "LOP3": "alu", "SHF": "alu",
+         "SEL": "alu", "FSEL": "alu", "IADD3": "alu", "I2F": "alu", "FADD/FMUL": "fp32",
+         "IMAD": "imad", "POPC": "xu", "F2I": "xu"}
+
+
+def class_counts(body: list) -> dict:
+    """{pipe_probe class or the opcode outside them: instructions} of a loop
+    body."""
+    out = {}
+    for text in body:
+        base = _opcode(text)[1].split(".")[0]
+        key = PIPE_CLASS.get(base, base)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def pipe_floor(body: list, rates: dict, pipes: dict = PIPES, repeats: int = 1) -> dict:
+    """The clocks an SM needs a warp-repeat of the loop on its busiest pipe:
+    each class's instructions a repeat over its rate (warp instructions an
+    SM issues a clock, `rates`, from pipe_probe alone), summed over the
+    classes that share a pipe (`pipes`). Returns {"clocks", "pipe" (the
+    busiest), "by_pipe" {pipe: clocks}, "issue_clocks" (all instructions a
+    repeat over the SM's 4 a clock), "unclassified" (instructions a repeat
+    that count toward the issue only)}."""
+    counts = class_counts(body)
+    by_pipe = {}
+    other = 0
+    for key, n in counts.items():
+        if key in rates and key in pipes:
+            by_pipe[pipes[key]] = by_pipe.get(pipes[key], 0.0) + n / repeats / rates[key]
+        else:
+            other += n
+    pipe = max(by_pipe, key=by_pipe.get) if by_pipe else None
+    return dict(clocks=by_pipe.get(pipe, 0.0), pipe=pipe, by_pipe=by_pipe,
+                issue_clocks=len(body) / repeats / 4, unclassified=other / repeats)

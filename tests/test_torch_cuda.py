@@ -788,6 +788,112 @@ def test_walk_probe_matches_plain(cuda, impl):
                                                     impl=impl))
 
 
+MIRRORS = [x | y | z for x in (0, 0b001001) for y in (0, 0b010010) for z in (0, 0b100100)]
+
+
+def walk_inputs(n, rng, device, tie: bool):
+    """(lo, hi, vm6, t1, dc) of n walks: the mirrored planes of rays through
+    the unit box (ray_preamble), with random masks and each of the 8 mirror
+    masks in turn; with `tie`, rays whose planes tie across axes (origins
+    on the cell lattice, directions of equal or halved components)."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hk
+
+    if tie:
+        ro = rng.integers(-2, 7, (n, 3)) * 0.25 - 0.5
+        rd = rng.choice([-1.0, -0.5, 0.5, 1.0], (n, 3))
+    else:
+        ro = rng.uniform(-1.0, 2.0, (n, 3))
+        rd = rng.normal(size=(n, 3))
+    ro = torch.as_tensor(ro, dtype=torch.float32)
+    rd = torch.as_tensor(rd, dtype=torch.float32)
+    _t0, t1, dt, _vm6, _ok = hk._ray_preamble(torch.zeros(3), torch.ones(3), ro, rd)
+    vm6 = torch.as_tensor([MIRRORS[i % 8] for i in range(n)], dtype=torch.int32)
+    lo, hi = (torch.as_tensor(rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+                              .view(np.int32)) for _ in range(2))
+    return [x.contiguous().to(device) for x in (lo, hi, vm6, t1, dt * 0.25)]
+
+
+@pytest.mark.parametrize("tie", [False, True])
+@pytest.mark.parametrize("tq", ["zero", "positive", "negative"])
+def test_hopper_walk_equals_walk64(cuda, tie, tq):
+    """The Hopper walk returns walk64's (en, ex, c) (hako_device.cuh, through
+    the test kernel) on random masks, all 8 mirror masks, t_q at 0, inside
+    the node or before it, and rays whose planes tie; the sweep's cell is
+    the plain _scan64_impl's on the same walks."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(20 + tie)
+    n = 20000
+    lo, hi, vm6, t1, dc = walk_inputs(n, rng, cuda, tie)
+    t_q = {"zero": torch.zeros(n), "negative": torch.full((n,), -1.0),
+           "positive": torch.as_tensor(rng.uniform(0.0, 1.5, n), dtype=torch.float32)}[tq]
+    t_q = t_q.to(cuda)
+    probes.reset_counters()
+    want = probes.walk_form(lo, hi, vm6, t1, dc, t_q, form="walk64")
+    got = probes.walk_form(lo, hi, vm6, t1, dc, t_q, form="hopper")
+    assert int((want[2] < 64).sum()) > n // 50  # the walks hit
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    scan = probes.walk_form(lo, hi, vm6, t1, dc, t_q, form="scan")[2]
+    plain = probes.walk_form(*(x.cpu() for x in (lo, hi, vm6, t1, dc, t_q)), form="scan")[2]
+    assert torch.equal(scan.cpu(), plain) and torch.equal(scan, want[2])
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["walk_form"] == 3
+
+
+@pytest.mark.parametrize("masks", ["zero", "ones", "random"])
+def test_bit_forms_equal_for_every_cell(cuda, masks):
+    """bit_at and pc64_below in their Hopper forms == hako_device.cuh's for
+    all 64 cells of every mask, and == the plain versions."""
+    from massivevoxelraytracing_torch.ops import probes
+
+    rng = np.random.default_rng(22)
+    n = 512
+    if masks == "random":
+        lo, hi = (torch.as_tensor(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                                  .astype(np.uint32).view(np.int32), device=cuda)
+                  for _ in range(2))
+    else:
+        lo = hi = torch.full((n,), 0 if masks == "zero" else -1, dtype=torch.int32, device=cuda)
+    got = probes.bit_forms(lo, hi)
+    assert torch.equal(got[0], got[1]) and torch.equal(got[2], got[3])
+    assert torch.equal(got.cpu(), probes.bit_forms(lo.cpu(), hi.cpu()))
+
+
+@pytest.mark.parametrize("pair", list(range(37)))
+def test_pipe_probe_matches_plain(cuda, pair):
+    from massivevoxelraytracing_torch.ops import probes
+
+    a, b = probes.PIPE_PAIRS[pair]
+    x0 = probes.pipe_inputs(a, b, PROBE_LANES, np.random.default_rng(23 + pair), cuda)
+    probes.reset_counters()
+    for k in (8, PROBE_K):
+        assert torch.equal(probes.pipe_probe(a, b, x0, k=k, threads=256),
+                           probes.pipe_probe_plain(a, b, x0, k)), k
+    probes.empty_launch(3, 64, cuda)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES["pipe_probe"] == 3
+
+
+@pytest.mark.parametrize("hopper", [False, True])
+def test_walk_count_matches_its_plain_slots(cuda, hopper):
+    """The counting variant: each lane's slots == the plain count, the
+    passes' active lanes sum to them, the warps ran at least each repeat's
+    slowest lane's slots, and its checksum is the walk probe's."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import hako_kernel_micro as km
+
+    rng = np.random.default_rng(24)
+    t1, dc = km.ray_planes(PROBE_LANES, cuda, rng)
+    lo, hi = km._u32(rng, PROBE_LANES, cuda), km._u32(rng, PROBE_LANES, cuda)
+    got = probes.walk_count(lo, hi, t1, dc, iters=PROBE_K, hopper=hopper, threads=64)
+    want = probes.walk_count(lo.cpu(), hi.cpu(), t1.cpu(), dc.cpu(), iters=PROBE_K,
+                             hopper=hopper)
+    assert torch.equal(got["slots"].cpu(), want["slots"])
+    assert got["lane_slots"] == want["lane_slots"] and got["passes"] >= want["passes"]
+    assert torch.equal(got["out"].cpu(), want["out"])
+
+
 @pytest.mark.parametrize("threads", [32, 256, 1024])
 def test_fetch_probe_matches_plain(cuda, threads):
     """The row-word fetch bit-equal to its plain version at 0, 1, 7 and 64
