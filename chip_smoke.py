@@ -1,7 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--ab]
+
+Every phase drives its path and holds every kernel against its plain
+version. With --ab, each redesigned kernel is also timed in turns against
+its parent commit's kernels (the A/B steps below, scripts/render_ab.py,
+row_stage_ab.py, table_ab.py, issue_ab.py, gather_ab.py and stage_ab.py,
+which build those libraries from csrc/earlier/); without it none of them
+runs, nothing is built from csrc/earlier/, and the kernels line's A/B
+fields read "not run (--ab)". Any other argument is refused.
 
 Phases (any failure raises, and the script exits non-zero):
   1. build the CUDA kernels from massivevoxelraytracing_torch/csrc (one
@@ -30,9 +38,9 @@ Phases (any failure raises, and the script exits non-zero):
      un-tiled and flat) against their plain stages on the same card
      tensors, bit for bit, on the frame and on a 1000x700 band from row
      256; each kernel's ms, its plain stage's ms and its bytes bound
-     (scripts/common.raygen_bound / shade_bound) and share; frame_raygen
-     in turns with the parent commit's kernel (scripts/render_ab.py, both
-     == the plain stage first); the frame through stages="plain" (the
+     (scripts/common.raygen_bound / shade_bound) and share; with --ab,
+     frame_raygen in turns with the parent commit's kernel
+     (scripts/render_ab.py, both == the plain stage first); the frame through stages="plain" (the
      route before these kernels) and through the kernels, timed and
      profiled (device kernels, busy, idle; a trace must hold every launch
      the frame's wrappers and hako_mega counted, common.profile_counted,
@@ -92,7 +100,8 @@ Phases (any failure raises, and the script exits non-zero):
      of the first packet, recorded in the warm step, bit for bit, with its
      ms, plain ms and bytes bound on the bounce-1 call (the bounce sample
      also through the sats HDRI backend, with its bound, and through both
-     backends in turns with the parent commit's kernel, scripts/render_ab.py);
+     backends in turns with the parent commit's kernel with --ab,
+     scripts/render_ab.py);
      and on one packet's full
      bounce-1 BSDF and NEE batches (the inputs the step gives the
      kernels): each of hako_probe / hako_dda / hako_merge / hako_dda_merge
@@ -134,8 +143,8 @@ Phases (any failure raises, and the script exits non-zero):
      and the fused stage, and the full frame's rounds through hako_rounds,
      the two-launch driver and the unfused stage, with each wall split
      into kernel and host time; the runs' launches (the
-     isolated phases' among them) must add up to the phase's; then, its
-     launches not counted, scripts/row_stage_ab.fetch_ab: the redesigned
+     isolated phases' among them) must add up to the phase's; then, with
+     --ab, its launches not counted, scripts/row_stage_ab.fetch_ab: the redesigned
      fetch_probe (the lanes' rows staged in shared memory) in turns with
      the parent commit's kernel (csrc/earlier/hako_probes_a33e950.cu,
      built there first) at the meter's three launch shapes, each == its
@@ -154,7 +163,7 @@ Phases (any failure raises, and the script exits non-zero):
      pairs at full occupancy, == its plain version at k and 2k), and every
      case prints its pipe floor and share beside the issue floor (the slope
      share at full occupancy, an empty launch of the grid at the script
-     shape); then scripts/issue_ab.run: the Hopper forms of walk_probe
+     shape); then (--ab) scripts/issue_ab.run: the Hopper forms of walk_probe
      (walk64, scan64) and construct_probe (the eight constructs) in turns
      with commit aca9a3e's kernels (csrc/earlier/hako_probes_aca9a3e.cu) at
      the same three shapes, each == its plain version at k and 2k, with
@@ -178,12 +187,18 @@ Phases (any failure raises, and the script exits non-zero):
      sum of their kernels' bytes bounds) and the host's wall of
      drive(max_rounds=1) for both, the full frame); every case held bit
      for bit against its plain version before it is timed, the shell
-     micro's timed from HBM; then, its launches not counted,
-     scripts/row_stage_ab.dda_ab: the redesigned hako_dda_cached (rows
-     staged by bulk copy) in turns with the parent commit's kernel
-     (csrc/earlier/hako_rounds_a33e950.cu, built there first) on the
-     lattice round's brick rows in the round's order and sorted by row,
-     hako_dda in the same turns, each == its plain version;
+     micro's timed from HBM, its preamble's and stages' bounds the larger
+     of their bytes and their pipe floors at phase 5b's pipe rates; then,
+     with --ab, their launches not counted, scripts/row_stage_ab.dda_ab:
+     the redesigned hako_dda_cached (rows staged by bulk copy) in turns
+     with the parent commit's kernel (csrc/earlier/hako_rounds_a33e950.cu,
+     built there first) on the lattice round's brick rows in the round's
+     order and sorted by row, hako_dda in the same turns, each == its plain
+     version; and scripts/stage_ab.run: the redesigned probe_stage_probe
+     (every stage) in turns with commit aca9a3e's kernel on the shell
+     micro's lanes and on lanes whose walks find cells, each == its plain
+     version, with both designs' grids, registers, SASS a warp-lane and
+     pipe floors;
   5d. this slice's path, with the probe kernels' counts set to 0 just
      before and read just after (each must have launched, and the
      scripts' own counts must add up to the phase's):
@@ -198,7 +213,7 @@ Phases (any failure raises, and the script exits non-zero):
      shared memory, through L1 and on the tensor cores at 128 and 1024
      rows, k and 2k hops, beside its torch.matmul yardstick); every case
      held bit for bit against its plain version before it is timed; then,
-     its launches not counted, scripts/gather_ab.run: the redesigned
+     with --ab, its launches not counted, scripts/gather_ab.run: the redesigned
      ohg_probe mma mode and take_along_probe<0, SHARED> in turns with the
      parent commit's kernels (csrc/earlier/hako_probes_5ace4b1.cu, built
      there first), each == its plain version, with torch.matmul (one CUDA
@@ -348,6 +363,12 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 SEED = 7
+# the timings in turns of each redesigned kernel against its parent commit's
+# kernels (scripts/*_ab.py), taken only with --ab: they build the parents'
+# libraries from csrc/earlier/ and repeat findings already recorded
+AB_STEPS = ("render_ab", "row_stage_ab", "table_ab", "issue_ab", "gather_ab", "stage_ab")
+NOT_RUN = "not run (--ab)"
+AB = False  # whether this run takes AB_STEPS (main sets it from the command line)
 GRID = 1024
 WIDTH, HEIGHT = 1920, 1080
 TIMED_FRAMES = 5
@@ -927,17 +948,19 @@ def phase_frame_kernels(tree, cam, img, depth, device, smi: str) -> dict:
             out["timing"] = {name: dict(ms=k_ms[name], plain_ms=p_ms[name],
                                         bound_ms=bnd[name][0], bound_by=bnd[name][1],
                                         share=bnd[name][0] / k_ms[name]) for name in k_ms}
-            # frame_raygen in turns with the parent commit's kernel
-            # (scripts/render_ab.py), both == the plain stage first
-            render_ab.build_earlier()  # both parents' libraries, built together
-            ab = render_ab.raygen_ab(render_ab.parent("frame_raygen"), camv, w, h, device,
-                                     smi)
-            print(f"[phase3] frame_raygen in turns with its parent's kernel (CUDA events, "
-                  f"{render_ab.REPS} calls a turn): current {fmt_ms(ab['ms'])} ms, parent "
-                  f"{fmt_ms(ab['old_ms'])} ms; share current {ab['share']:.1%}, parent "
-                  f"{ab['old_share']:.1%} of {ab['bound_ms']:.4f} ms; faster in every turn: "
-                  f"{ab['faster']} [{smi}]", flush=True)
-            out["timing"]["frame_raygen"]["ab"] = ab
+            # with --ab, frame_raygen in turns with the parent commit's
+            # kernel (scripts/render_ab.py), both == the plain stage first
+            if AB:
+                render_ab.build_earlier()  # both parents' libraries, built together
+                ab = render_ab.raygen_ab(render_ab.parent("frame_raygen"), camv, w, h,
+                                         device, smi)
+                print(f"[phase3] frame_raygen in turns with its parent's kernel (CUDA "
+                      f"events, {render_ab.REPS} calls a turn): current {fmt_ms(ab['ms'])} "
+                      f"ms, parent {fmt_ms(ab['old_ms'])} ms; share current "
+                      f"{ab['share']:.1%}, parent {ab['old_share']:.1%} of "
+                      f"{ab['bound_ms']:.4f} ms; faster in every turn: {ab['faster']} "
+                      f"[{smi}]", flush=True)
+                out["timing"]["frame_raygen"]["ab"] = ab
 
     # the frame through both routes, in turns, the parent's route first
     def frame(stages):
@@ -2153,11 +2176,11 @@ def phase_chain(pt, cam, stage_calls, state_accum, state_spp, after_one, prof,
             e["sats_bound_ms"], e["sats_bound_by"] = common.chain_bound(
                 "bounce_sample", sats, k, skern)
             del skern
-            # both backends in turns with the parent commit's kernel
-            # (scripts/render_ab.py), both == the plain stage first
-            old_fn = render_ab.parent("pt_bounce_sample")
-            for backend in ("sats", "alias"):
-                ab = render_ab.bounce_ab(old_fn, a, k, backend, smi)
+            # with --ab, both backends in turns with the parent commit's
+            # kernel (scripts/render_ab.py), both == the plain stage first
+            for backend in ("sats", "alias") if AB else ():
+                ab = render_ab.bounce_ab(render_ab.parent("pt_bounce_sample"), a, k,
+                                         backend, smi)
                 e[f"{backend}_ab"] = ab
                 print(f"[phase4] pt_bounce_sample ({backend}) in turns with its parent's "
                       f"kernel (CUDA events, {render_ab.REPS} calls a turn): current "
@@ -2350,10 +2373,10 @@ def phase_slice(tree, cam, smi: str) -> dict:
                                                       row_stage_ab, table_ab)
 
     t0 = time.time()
-    # the earlier probes library for issue_ab, built by nvcc while the card
-    # measures
+    # with --ab, the earlier probes library for issue_ab and stage_ab, built
+    # by nvcc while the card measures
     build = concurrent.futures.ThreadPoolExecutor(1)
-    earlier = build.submit(issue_ab.build_earlier, issue_ab.EARLIER)
+    earlier = build.submit(issue_ab.build_earlier, issue_ab.EARLIER) if AB else None
     meter = common.Meter(torch.device("cuda", 0))  # one calibration for both scripts
     torch.cuda.synchronize()
     probes.reset_counters()
@@ -2388,38 +2411,40 @@ def phase_slice(tree, cam, smi: str) -> dict:
     print(f"[phase5b] {len(records)} probe cases == plain versions; launches "
           f"{launches}, round kernels {round_launches} (of them in the isolated "
           f"phases {isolated}); {time.time() - t0:.1f} s [{smi}]", flush=True)
-    # the redesigned fetch in turns with the parent commit's (scripts/
-    # row_stage_ab.py, which builds the parent's library first; its
-    # launches are not counted)
+    out = dict(records=records, timing=timing, launches=launches,
+               round_launches=round_launches, isolated_launches=isolated, pipe=meter.pipe,
+               funcs=meter.funcs, earlier=earlier)
+    build.shutdown(wait=False)
+    # with --ab, the redesigned kernels in turns with their parent commits'
+    # (their launches are not counted): the fetch (scripts/row_stage_ab.py,
+    # which builds a33e950's library first), the shared forms of the node
+    # fetch and the select (scripts/table_ab.py, 6fa41fa's), the walk probe
+    # and construct probe (scripts/issue_ab.py, aca9a3e's, at the meter's
+    # pipe rates)
+    if not AB:
+        return out
     t1 = time.time()
     with row_stage_ab.counts_kept():
-        ab = row_stage_ab.fetch_ab(torch.device("cuda", 0), card=smi)
-    report_ab("phase5b", "fetch_probe", ab, ("one warp an SM", "full occupancy", "script"), smi)
+        out["ab"] = row_stage_ab.fetch_ab(torch.device("cuda", 0), card=smi)
+    report_ab("phase5b", "fetch_probe", out["ab"],
+              ("one warp an SM", "full occupancy", "script"), smi)
     print(f"[phase5b] fetch_probe in turns with the parent's kernel: "
           f"{time.time() - t1:.1f} s [{smi}]", flush=True)
-    # the redesigned shared forms of the node fetch and the select in turns
-    # with 6fa41fa's (scripts/table_ab.py, which builds that library first;
-    # its launches are not counted)
     t2 = time.time()
-    tab = table_ab.run(torch.device("cuda", 0), card=smi)
+    out["table_ab"] = tab = table_ab.run(torch.device("cuda", 0), card=smi)
     for name in table_ab.ENTRY:
         report_ab("phase5b", name, tab[name], tuple(tab[name]), smi)
-    print(f"[phase5b] the shared node fetch and select in turns with 6fa41fa's kernels: "
-          f"{time.time() - t2:.1f} s [{smi}]", flush=True)
-    # the redesigned walk probe and construct probe in turns with aca9a3e's
-    # (scripts/issue_ab.py, at the meter's pipe rates; its launches are not
-    # counted)
+    print(f"[phase5b] the shared node fetch and select in turns with 6fa41fa's "
+          f"kernels: {time.time() - t2:.1f} s [{smi}]", flush=True)
     t3 = time.time()
-    iss = issue_ab.run(torch.device("cuda", 0), card=smi, pipe=meter.pipe, funcs=meter.funcs,
-                       earlier=earlier.result())
-    build.shutdown()
+    out["issue_ab"] = iss = issue_ab.run(torch.device("cuda", 0), card=smi,
+                                         pipe=meter.pipe, funcs=meter.funcs,
+                                         earlier=earlier.result())
     for name in issue_ab.ENTRY:
         report_ab("phase5b", name, iss[name], tuple(iss[name]), smi)
     print(f"[phase5b] the walk and construct probes in turns with aca9a3e's kernels: "
           f"{time.time() - t3:.1f} s [{smi}]", flush=True)
-    return dict(records=records, timing=timing, launches=launches,
-                round_launches=round_launches, isolated_launches=isolated, ab=ab,
-                table_ab=tab, issue_ab=iss, pipe=meter.pipe)
+    return out
 
 
 def report_ab(phase: str, kernel: str, ab: dict, cases, smi: str) -> None:
@@ -2434,24 +2459,28 @@ def report_ab(phase: str, kernel: str, ab: dict, cases, smi: str) -> None:
 SHELL_KERNELS = ("shell_copy_probe", "preamble_probe", "probe_stage_probe")
 
 
-def phase_split(tree, smi: str) -> dict:
+def phase_split(tree, smi: str, meter: dict) -> dict:
     """Phase 5c: kernel A's fixed cost (scripts/hako_shell_micro.py, both
-    parts) and the round's phases with the row-cached kernel B
-    (scripts/r3_phase_split.run on the phase-3 lattice under the script's
-    camera), through their entry points, with the kernels' counts set to 0
-    just before and read just after."""
+    parts, its preamble's and stages' pipe floors at phase 5b's pipe rates,
+    meter["pipe"], from the SASS meter["funcs"]) and the round's phases
+    with the row-cached kernel B (scripts/r3_phase_split.run on the
+    phase-3 lattice under the script's camera), through their entry
+    points, with the kernels' counts set to 0 just before and read just
+    after; with --ab, the row cache and the probe body's stages in turns
+    with their parents' kernels (meter["earlier"]: aca9a3e's library, built
+    during phase 5b)."""
     import torch
 
     from massivevoxelraytracing_torch.ops import hako_kernels as hk
     from massivevoxelraytracing_torch.ops import probes
     from massivevoxelraytracing_torch.scripts import (hako_shell_micro, r3_phase_split,
-                                                      row_stage_ab)
+                                                      row_stage_ab, stage_ab)
 
     t0 = time.time()
     torch.cuda.synchronize()
     probes.reset_counters()
     hk.reset_counters()
-    shell = hako_shell_micro.main(["--staged"])
+    shell = hako_shell_micro.main(["--staged"], pipe=meter["pipe"], funcs=meter["funcs"])
     split = r3_phase_split.run(tree, r3_phase_split.script_camera(tree), WIDTH, 1088,
                                label=f"lattice {GRID}^3", card=smi)
     torch.cuda.synchronize()
@@ -2470,18 +2499,29 @@ def phase_split(tree, smi: str) -> dict:
     print(f"[phase5c] {len(shell['cases'])} shell cases and {len(split['phases'])} round "
           f"phases == plain versions; launches {launches}, round kernels "
           f"{round_launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
-    # the redesigned row cache in turns with the parent commit's (scripts/
-    # row_stage_ab.py, which builds the parent's library first; its
-    # launches are not counted)
+    out = dict(shell=shell, split=split, launches=launches, round_launches=round_launches)
+    if not AB:
+        return out
+    # with --ab, the redesigned kernels in turns with their parent commits'
+    # (their launches are not counted): the row cache (scripts/row_stage_ab.py,
+    # which builds a33e950's library first) and the probe body's stages
+    # (scripts/stage_ab.py, aca9a3e's library, at the meter's pipe rates)
     t1 = time.time()
     with row_stage_ab.counts_kept():
-        ab = row_stage_ab.dda_ab(tree, r3_phase_split.script_camera(tree), WIDTH, 1088,
-                                 card=smi)
-    report_ab("phase5c", "hako_dda_cached", ab, ("round order", "sorted by row"), smi)
+        out["ab"] = row_stage_ab.dda_ab(tree, r3_phase_split.script_camera(tree), WIDTH,
+                                        1088, card=smi)
+    report_ab("phase5c", "hako_dda_cached", out["ab"], ("round order", "sorted by row"), smi)
     print(f"[phase5c] hako_dda_cached in turns with the parent's kernel: "
           f"{time.time() - t1:.1f} s [{smi}]", flush=True)
-    return dict(shell=shell, split=split, launches=launches,
-                round_launches=round_launches, ab=ab)
+    t2 = time.time()
+    out["stage_ab"] = sab = stage_ab.run(torch.device("cuda", 0), card=smi,
+                                         pipe=meter["pipe"], funcs=meter["funcs"],
+                                         earlier=meter["earlier"].result())
+    report_ab("phase5c", "probe_stage_probe", sab,
+              [k for k in sab if k not in ("designs", "pipe")], smi)
+    print(f"[phase5c] the probe body's stages in turns with aca9a3e's kernel: "
+          f"{time.time() - t2:.1f} s [{smi}]", flush=True)
+    return out
 
 
 def phase_gather(smi: str, sl: dict) -> dict:
@@ -2537,9 +2577,12 @@ def phase_gather(smi: str, sl: dict) -> dict:
     print(f"[phase5d] {len(cases)} gather cases == plain versions; capacity "
           f"{cap['largest_launched_bytes']} B (the opt-in limit), {cap['refused_rows']} rows "
           f"refused; launches {launches}; {time.time() - t0:.1f} s [{smi}]", flush=True)
-    # the two redesigned kernels in turns with the parent commit's
-    # (scripts/gather_ab.py; its launches are not counted)
-    ab = gather_ab.run(card=smi)
+    out = dict(dyngather=dyn, gather_probe3=g3, launches=launches, fetch_ns=fetch_ns)
+    if not AB:
+        return out
+    # with --ab, the two redesigned kernels in turns with the parent
+    # commit's (scripts/gather_ab.py; its launches are not counted)
+    out["ab"] = ab = gather_ab.run(card=smi)
     for key in ("ohg 128", "ohg 1024", "k_taa0t", "a0small 128"):
         if ab[key]["faster"] != "current":
             print(f"[phase5d] {key}: the redesigned kernel is not faster in every turn "
@@ -2553,7 +2596,7 @@ def phase_gather(smi: str, sl: dict) -> dict:
               f"{'faster' if max(r['ms']) < min(lib) else 'not faster'} [{smi}]", flush=True)
     print(f"[phase5d] in turns with the parent's kernels: {time.time() - t0:.1f} s [{smi}]",
           flush=True)
-    return dict(dyngather=dyn, gather_probe3=g3, launches=launches, fetch_ns=fetch_ns, ab=ab)
+    return out
 
 
 def gather_entries(gp: dict, src: str) -> list:
@@ -2587,7 +2630,6 @@ def gather_entries(gp: dict, src: str) -> list:
     bodies += [(f"a0small n_rows={n}", "scripts/gather_probe3.py:70",
                 [c for c in a0 if c["n_rows"] == n], 1)
                for n in dict.fromkeys(r["n_rows"] for r in a0)]
-    ab = gp["ab"]
     ab_keys = ("old_ms", "ms", "share", "old_share", "faster", "torch.gather_ms",
                "sliced_ms")
     for body, replaces, recs, batch in bodies:
@@ -2601,8 +2643,9 @@ def gather_entries(gp: dict, src: str) -> list:
             ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=e["library_ms"], shell_ms=e["shell_ms"],
             bytes=e["bytes"], cases=brief(recs, keys),
-            **({"in_turns": {k: ab[key][k] for k in ab_keys if k in ab[key]}}
-               if key in ab else {})))
+            **({"in_turns": ab_field(lambda key=key: {
+                k: gp["ab"][key][k] for k in ab_keys if k in gp["ab"][key]})}
+               if not AB or key in gp["ab"] else {})))
     if total(taa, "launches") != gp["launches"]["take_along_probe"]:
         raise AssertionError("phase 5d: the take-along bodies' launches do not add up")
     ohg_keys = ("ms", "ms_2k", "us_per_hop", "plain_ms", "library_ms", "library_host_bound_ms",
@@ -2623,10 +2666,11 @@ def gather_entries(gp: dict, src: str) -> list:
              library_ms=total(mma, "library_ms"),
              library_host_bound_ms=total(mma, "library_host_bound_ms"),
              cases=brief(ohg, ohg_keys),
-             in_turns={f"{n} rows": {k: ab[f"ohg {n}"][k]
-                                     for k in ab_keys[:5] + ("torch.matmul_ms",
-                                                             "torch.matmul host-bound_ms")}
-                       for n in (128, 1024)}),
+             in_turns=ab_field(lambda: {
+                 f"{n} rows": {k: gp["ab"][f"ohg {n}"][k]
+                               for k in ab_keys[:5] + ("torch.matmul_ms",
+                                                       "torch.matmul host-bound_ms")}
+                 for n in (128, 1024)})),
     ]
 
 
@@ -2671,6 +2715,8 @@ def split_entries(sp: dict, src: str) -> list:
         out.append(dict(name=name, route="cuda", source=src + "hako_probes.cu",
                         replaces=replaces, launches=sp["launches"][name], max_abs_err=0.0,
                         **shell_entry(sp["shell"], name)))
+    # the stages in turns with aca9a3e's kernel (stage_ab)
+    out[-1]["ab"] = ab_field(lambda: {k: v for k, v in sp["stage_ab"].items() if k != "pipe"})
     spl = sp["split"]
     u = spl["uniq"]
     ph = spl["phases"]
@@ -2689,7 +2735,8 @@ def split_entries(sp: dict, src: str) -> list:
         sorted_ms=ph[f"B cached U={u}, sorted by row"]["ms"],
         sorted_uncached_ms=ph["B rows, sorted by row"]["ms"],
         sort_ms=ph["sort, gathers, scatter back"]["ms"], rows=rows,
-        ab={k: sp["ab"][k] for k in ("round order", "sorted by row", "smem", "ptxas")}))
+        ab=ab_field(lambda: {
+            k: sp["ab"][k] for k in ("round order", "sorted by row", "smem", "ptxas")})))
     return out
 
 
@@ -3910,7 +3957,7 @@ def frame_walk_entries(frame3: dict, structures: dict, main_path: dict, vox_path
                                                structures.items() if k in WALK_OF)}
             extra = dict(share=tm["share"], frame_routes=frame3["routes"])
             if name == "frame_raygen":
-                extra.update(ab=tm["ab"], profiled_ms=tm.get("profiled_ms"),
+                extra.update(ab=ab_field(lambda: tm["ab"]), profiled_ms=tm.get("profiled_ms"),
                              profiled_share=tm.get("profiled_share"))
             if name == "frame_shade":
                 c = frame3["timing"]["frame_shade_colour"]
@@ -3959,9 +4006,33 @@ def ptxas_summary(lines: list, kernel: str) -> list:
     return out
 
 
-def main() -> int:
+def ab_field(pick):
+    """A kernels-line field read from the A/B steps' results: pick() with
+    --ab; NOT_RUN without (no step ran)."""
+    return pick() if AB else NOT_RUN
+
+
+def ab_steps(argv: list) -> tuple:
+    """The A/B steps a command line asks for: all of AB_STEPS with --ab,
+    none without; any other argument is refused (SystemExit)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py",
+                                 description="Smoke run of the PyTorch / CUDA port on one "
+                                             "NVIDIA GPU.")
+    ap.add_argument("--ab", action="store_true",
+                    help="also time each redesigned kernel in turns against its parent "
+                         "commit's kernels (scripts/*_ab.py), building their libraries from "
+                         "csrc/earlier/")
+    return AB_STEPS if ap.parse_args(argv).ab else ()
+
+
+def main(argv=None) -> int:
     import torch
 
+    global AB
+    steps = ab_steps(sys.argv[1:] if argv is None else argv)
+    AB = bool(steps)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     from massivevoxelraytracing_torch.utils import cuda_build, host_build
@@ -3981,6 +4052,7 @@ def main() -> int:
           f"{host_build.last_build_seconds}) [{smi}]", flush=True)
     for ln in regs:
         print(f"[phase1] ptxas: {ln}")
+    print(f"[phase1] A/B steps: {', '.join(steps) or NOT_RUN}", flush=True)
 
     t_main = time.time()
 
@@ -4009,6 +4081,7 @@ def main() -> int:
     frame_args = main_path["frame_args"]
     lap("phase 4")
     from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import issue_ab, table_ab
 
     probes.reset_counters()
     pr = phase_probes(tree, frame_args[6], frame_args[7], device, smi)
@@ -4022,9 +4095,10 @@ def main() -> int:
         print(f"[phase5] {label}: floors {floor[label]} [{smi}]", flush=True)
     lap("phase 5")
     sl = phase_slice(tree, cam, smi)
+    meter = dict(pipe=sl["pipe"], funcs=sl.pop("funcs"), earlier=sl.pop("earlier"))
     pr["slice"] = sl
     lap("phase 5b")
-    sp = phase_split(tree, smi)
+    sp = phase_split(tree, smi, meter)
     pr["split"] = sp
     lap("phase 5c")
     gp = phase_gather(smi, sl)
@@ -4137,14 +4211,16 @@ def main() -> int:
             max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             cases=e["cases"]))
-        if name == "fetch_probe":  # in turns with the parent's kernel (row_stage_ab)
-            kernels[-1]["ab"] = sl["ab"]
-        if name in sl["table_ab"]:  # the shared forms in turns with 6fa41fa's (table_ab)
-            kernels[-1]["ab"] = sl["table_ab"][name]
-        if name in sl["issue_ab"]:  # the Hopper forms in turns with aca9a3e's (issue_ab)
-            kernels[-1]["ab"] = sl["issue_ab"][name]
-            if name == "walk_probe":
-                kernels[-1]["walk_slots"] = sl["issue_ab"]["walk_slots"]
+        # the redesigned ones in turns with their parents' kernels (--ab):
+        # the fetch (row_stage_ab), the shared forms (table_ab), the Hopper
+        # forms (issue_ab)
+        for key, names in (("ab", ("fetch_probe",)), ("table_ab", table_ab.ENTRY),
+                           ("issue_ab", issue_ab.ENTRY)):
+            if name in names:
+                kernels[-1]["ab"] = ab_field(
+                    lambda key=key: sl[key] if key == "ab" else sl[key][name])
+        if name == "walk_probe":
+            kernels[-1]["walk_slots"] = ab_field(lambda: sl["issue_ab"]["walk_slots"])
     kernels.append(pipe_entry(sl, src))
     for k in kernels[1:5]:
         k["replaces"] += {"hako_probe": "; scripts/hako_phase_timing.py:91; "
@@ -4189,8 +4265,10 @@ def main() -> int:
             bound_ms=e["bound_ms"], bound_by=e["bound_by"], library_ms=None,
             share=e["share"], lanes=e["lanes"], ms_a_step=e["ms_a_step"],
             calls_checked=e["calls_checked"],
-            **{k: e[k] for k in ("sats_ms", "sats_plain_ms", "sats_bound_ms", "sats_bound_by",
-                                 "sats_ab", "alias_ab") if k in e}))
+            **{k: e[k] for k in ("sats_ms", "sats_plain_ms", "sats_bound_ms", "sats_bound_by")
+               if k in e},
+            **({f"{b}_ab": ab_field(lambda b=b: e[f"{b}_ab"]) for b in ("sats", "alias")}
+               if name == "pt_bounce_sample" else {})))
     # the scene build (phase 3c): launches by path, each counted from 0
     for name, e in build3c["stages"].items():
         by_path = {path: got[name] for path, got in vox_paths.items()}

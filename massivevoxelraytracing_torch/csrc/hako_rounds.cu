@@ -608,7 +608,7 @@ __global__ void __launch_bounds__(kThreads) hako_rounds_kernel(const RoundsParam
     int* out = p.lists + (r & 1) * p.n;
     int* out_count = p.counts + r % 3;
     // round r + 1 appends to counts[(r + 1) % 3], which every thread last
-    // read right after round r - 1's barrier
+    // read right after round r - 2's barrier
     if (leader) p.counts[(r + 1) % 3] = 0;
     for (int base = warp_first; base < count; base += stride) {
       const int j = base + wl;

@@ -1020,7 +1020,7 @@ def _level_node(tab, form, child):
 
 
 def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
-                      clip: int = STAGE_CLIP):
+                      clip: int = STAGE_CLIP, walks: list | None = None):
     """Kernel A's probe body by stage on the lanes' rays (ox, oy, oz, dx,
     dy, dz, tq; f32 [n]) in the box bounds, from the root masks
     root_mask (lo, hi) through the root-down level tables `tabs` (int32
@@ -1029,7 +1029,8 @@ def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
     to [0, clip]; + that node's walk. Returns (child int32, en, ex).
     Stage 4: the body unrolled over T levels; returns (child, cell, en,
     ex, exit planes x, y, z, rank) as hako_shell_micro.py's k_body
-    writes them."""
+    writes them. `walks`, where given, gets each walk's arguments (lo, hi,
+    vm6, t1, dc, t_q) in the order the body runs them."""
     ro, rd = _stack_rays(rays)
     tq = rays[6]
     _t0, t1, dt, vm6, _ok = hk._ray_preamble(bounds[:3], bounds[3:], ro, rd)
@@ -1042,10 +1043,15 @@ def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
     def exit_planes(cur, dc, c):
         return hk._plane(cur, dc, torch.clamp(hk._coords(c) + 1, max=4))
 
+    def walk(lo, hi, t1, dc):
+        if walks is not None:
+            walks.append((lo, hi, vm6, t1, dc, tq))
+        return _walk64_impl(lo, hi, vm6, t1, dc, tq)
+
     if stage == 4:
         base = torch.zeros_like(vm6)
         for depth in range(T):
-            en, ex, c = _walk64_impl(ml, mh, vm6, cur, dc, tq)
+            en, ex, c = walk(ml, mh, cur, dc)
             nt1 = exit_planes(cur, dc, c)
             rank = _pc64_below(ml, mh, c ^ vm6)
             child = base + rank
@@ -1056,7 +1062,7 @@ def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
         i32 = torch.int32
         return (child.to(i32), c.to(i32), en, ex, nt1[0], nt1[1], nt1[2],
                 rank.to(i32))
-    en, ex, c = _walk64_impl(ml, mh, vm6, cur, dc, tq)
+    en, ex, c = walk(ml, mh, cur, dc)
     child = c
     if stage >= 1:
         nt1 = exit_planes(cur, dc, c)
@@ -1066,8 +1072,40 @@ def probe_stage_plain(stage: int, rays, bounds, root_mask, tabs, *, T: int,
         ml2, mh2, b2 = _level_node(tabs[0], forms[0], torch.clamp(child, 0, clip))
         child = b2 + rank
     if stage >= 3:
-        child = child + _walk64_impl(ml2, mh2, vm6, nt1, dc * 0.25, tq)[2]
+        child = child + walk(ml2, mh2, nt1, dc * 0.25)[2]
     return child.to(torch.int32), en, ex
+
+
+def stage_slots(stage: int, rays, bounds, root_mask, tabs, *, T: int,
+                clip: int = STAGE_CLIP, hopper: bool = True) -> list:
+    """The slots of each walk the probe body by stage runs on these lanes
+    (walk_slots_plain: the Hopper walk's, or walk64's where hopper is
+    false), as the kernel's warps run them: a warp takes 32 consecutive
+    lanes and runs a walk's slots until its slowest lane is done. For each
+    walk in order: {"lane_slots", "warp_slots" (summed over the warps),
+    "warps_in" (the warps with a lane whose ray meets the walk's node),
+    "warps"}."""
+    walks = []
+    probe_stage_plain(stage, rays, bounds, root_mask, tabs, T=T, clip=clip, walks=walks)
+    out = []
+    for lo, hi, vm6, t1, dc, tq in walks:
+        s = walk_slots_plain(lo & MASK32, hi & MASK32, vm6, t1, dc, tq, hopper=hopper)
+        warp = torch.nn.functional.pad(s, (0, -s.shape[0] % 32)).view(-1, 32).amax(1)
+        out.append(dict(lane_slots=int(s.sum()), warp_slots=int(warp.sum()),
+                        warps_in=int((warp > 0).sum()), warps=warp.shape[0]))
+    return out
+
+
+def stage_blocks(stage: int, n: int, device) -> int:
+    """The blocks probe_stage_probe launches stage `stage` with on n lanes:
+    one wave at most (the SMs x the blocks an SM holds at the kernel's
+    registers); the card only."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"no stage grid on {device}")
+    from ..utils import cuda_build
+
+    with torch.cuda.device(torch.device(device)):
+        return int(cuda_build.load().probe_stage_probe_blocks(int(stage), int(n)))
 
 
 def probe_stage_probe(stage: int, rays, bounds, root_mask, tabs, *, T: int,

@@ -685,6 +685,48 @@ def pipe_rates(device, funcs=None, sms: int = 0, clock: float = 0.0, card: str =
     return out
 
 
+def stage_loop_times(stage: int, slots: list, T: int, warps: int) -> tuple:
+    """(the times a warp runs each loop of the probe body by stage's lane
+    body, the times it enters each loop's guard), in address order, a
+    warp-lane's mean on a launch's lanes: each walk loop its slots as the
+    warps run them and its guard (the walk's start) where a lane of the
+    warp meets the walk's node (probes.stage_slots; stage 4's one walk loop
+    all T walks'), stage 4's level loop T times, entered once, before it."""
+    runs = [s["warp_slots"] / warps for s in slots]
+    ins = [s["warps_in"] / warps for s in slots]
+    if stage == 4:
+        return [float(T), sum(runs)], [1.0, sum(ins)]
+    return runs, ins
+
+
+def lane_floor(funcs: dict, kernel: str, targs: tuple, *, grid_stride: bool, times=(),
+               entries=(), lanes: int, pipe: dict, sms: int, clock: float) -> dict:
+    """A lane kernel's SASS a warp-lane (utils/sass.lane_split: its lane
+    body's instructions once, each loop's as many times as `times` gives
+    it, each loop's guard as `entries` gives it) and the pipe floor of
+    `lanes` lanes at the measured rates (sass.pipe_floor): {"instructions",
+    "pipe_floor_ms", "issue_floor_ms", "busiest_pipe", "by_pipe", "loops",
+    "loop_sizes", "guard_sizes", "straight"}; "pipe_floor_ms" None where
+    the lane body's loops are not as many as `times` (the compiler unrolled
+    or split one)."""
+    from ..utils import sass
+
+    body, inner, guards = sass.lane_split(funcs[sass.kernel_name(funcs, kernel, *targs)],
+                                          grid_stride)
+    rec = dict(loops=len(inner), loop_sizes=[len(b) for b in inner],
+               guard_sizes=[len(g) for g in guards], straight=len(body))
+    if len(inner) != len(times):
+        rec.update(instructions=None, pipe_floor_ms=None, issue_floor_ms=None,
+                   busiest_pipe=None, by_pipe=None)
+        return rec
+    pf = sass.pipe_floor(body, pipe["rates"], pipe["pipes"],
+                         loops=tuple(zip(inner, times)) + tuple(zip(guards, entries)))
+    rec.update(instructions=pf["instructions"], busiest_pipe=pf["pipe"], by_pipe=pf["by_pipe"],
+               pipe_floor_ms=lanes / 32 * pf["clocks"] / (sms * clock) * 1e3,
+               issue_floor_ms=lanes / 32 * pf["issue_clocks"] / (sms * clock) * 1e3)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # The 2D gather probes' cases (dyngather_probe2.py, gather_probe3.py)
 # ---------------------------------------------------------------------------

@@ -18,7 +18,11 @@ cases mostly measure I/O and the preamble (both shares are printed).
 Cases, each held bit for bit against its plain version, then timed with
 CUDA events (the least of 3 trains of 10 launches queued behind a spin
 kernel, beside the library call where there is one; ms and us a
-2,048-lane block, as the reference reports). Every timed launch reads its
+2,048-lane block, as the reference reports). The preamble's and the
+stages' bound is the larger of their bytes and their pipe floor
+(common.lane_floor: the kernel's SASS a warp-lane, each walk loop counted
+as often as the warps run its slots, probes.stage_slots, at pipe_probe's
+rates, common.pipe_rates, measured here unless the caller passes them). Every timed launch reads its
 inputs from HBM, as a round's kernel A does: each train takes copies of
 the case's inputs in turn, enough that 4 L2s of other copies pass between
 two reads of one (scripts/common.cold_copies), for the kernels and for
@@ -87,12 +91,30 @@ def _equal(name, got, want):
             raise AssertionError(f"{name}: output {i} differs from the plain version")
 
 
-def run(device, *, staged: bool = False, card: str = "") -> dict:
+def run(device, *, staged: bool = False, card: str = "", pipe: dict | None = None,
+        funcs: dict | None = None) -> dict:
     """The cases on `device` (all lanes on the card, one block on the
     CPU). Returns the case records, the tree's shape and the shares of
-    lanes whose line meets the box and whose walk finds a cell."""
+    lanes whose line meets the box and whose walk finds a cell. pipe /
+    funcs: the pipe rates and the library's SASS functions where the
+    caller has them already."""
     cuda = device.type == "cuda"
     lanes = LANES if cuda else BLOCK
+    if cuda:
+        from ..utils import cuda_build, sass
+
+        cuda_build.load()
+        funcs = funcs or sass.functions(sass.dump(cuda_build.LIB_PATH))
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        clock = common.sm_clock_hz()
+        pipe = pipe or common.pipe_rates(device, funcs, sms, clock, card)
+
+    def floor(kernel, targs=(), runs=((), ()), grid_stride=False):
+        """The kernel's pipe floor on the case's lanes (on the card); runs:
+        common.stage_loop_times' (loop times, guard entries)."""
+        return common.lane_floor(funcs, kernel, targs, grid_stride=grid_stride,
+                                 times=runs[0], entries=runs[1], lanes=lanes, pipe=pipe,
+                                 sms=sms, clock=clock)
     eight, tree = script_inputs(device, lanes)
     (_bricks, _snodes, tabs, root), T = hk.hako_args(tree)
     forms = probes.level_forms(tabs)
@@ -104,11 +126,12 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
     records = []
 
     def case(name, site, kernel, fn, plain, inputs, n_bytes, n_ops, library=None,
-             variants=None):
+             variants=None, pipe_floor=None):
         """fn(*inputs) against plain(*inputs), then (on the card) both,
         library(*inputs) and each of `variants` ({label: function}, each
         held against plain first) timed in turns on cold copies of the
-        inputs."""
+        inputs; the bound the larger of n_bytes, n_ops and pipe_floor()
+        (common.lane_floor's record) where given."""
         before = dict(probes.LAUNCHES), dict(hk.LAUNCHES)
         got = fn(*inputs)
         want = plain(*inputs)
@@ -126,11 +149,23 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
             rec["plain_ms"] = common.timed(lambda: plain(*inputs), reps=1, warm=False)[1]
             rec["us_per_block"] = rec["ms"] * 1e3 / blocks
             rec["bound_ms"], rec["bound_by"] = common.bound(n_bytes, n_ops)
+            rec["bytes_ms"] = n_bytes / common.HBM_BYTES_PER_S * 1e3
+            if pipe_floor is not None:
+                fl = pipe_floor()
+                rec.update(pipe_floor_ms=fl["pipe_floor_ms"], busiest_pipe=fl["busiest_pipe"],
+                           sass_a_warp_lane=fl["instructions"], lane_loops=fl["loops"])
+                if (fl["pipe_floor_ms"] or 0.0) > rec["bound_ms"]:
+                    rec["bound_ms"], rec["bound_by"] = fl["pipe_floor_ms"], "operations"
         rec["launches"] = (sum(probes.LAUNCHES[k] - before[0][k] for k in probes.LAUNCHES)
                            + sum(hk.LAUNCHES[k] - before[1][k] for k in hk.LAUNCHES))
         records.append(rec)
         if cuda:
             lib = (f", torch.add {rec['library_ms']:.4f} ms" if library else "")
+            if "pipe_floor_ms" in rec:
+                lib += (f"; bytes {rec['bytes_ms']:.4f} ms, pipe floor "
+                        + ("not measured" if rec["pipe_floor_ms"] is None else
+                           f"{rec['pipe_floor_ms']:.4f} ms ({rec['busiest_pipe']}, "
+                           f"{rec['sass_a_warp_lane']:.1f} SASS a warp-lane)"))
             lib += "".join(f", {label} {v:.4f} ms" for label, v in rec["variants_ms"].items())
             print(f"[shell micro] {name:36s}: {rec['ms']:8.4f} ms ({rec['us_per_block']:6.3f} "
                   f"us/block) == plain ({rec['plain_ms']:.2f} ms); bound "
@@ -160,7 +195,8 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
     pre = case("shell + ray preamble", ":102", "preamble_probe",
                lambda *r: probes.preamble_probe(list(r), unit),
                lambda *r: probes.preamble_plain(list(r), unit), eight[:6],
-               14 * F32 * lanes, pre_ops)
+               14 * F32 * lanes, pre_ops,
+               pipe_floor=lambda: floor("preamble_probe_kernel"))
     # (d) the real kernel A
     bounds = torch.cat([tree.lower, tree.upper]).to(torch.float32)
     ro = torch.stack(eight[:3], 1).contiguous()
@@ -188,19 +224,29 @@ def run(device, *, staged: bool = False, card: str = "") -> dict:
                 lambda *r: probes.probe_stage_plain(stage, list(r), bounds, root16, tabs,
                                                     T=T))
 
+    def stage_floor(stage, rays):
+        """The stage's pipe floor, its walks' slots as the warps run them."""
+        slots = probes.stage_slots(stage, rays, bounds, root16, tabs, T=T)
+        return floor("probe_stage_kernel", (stage,),
+                     common.stage_loop_times(stage, slots, T, -(-lanes // 32)),
+                     grid_stride=True)
+
+    body = eight[:6] + [eight[6]]
     case("unrolled probe body (no loop)", ":200", "probe_stage_probe", *stage_fns(4),
-         eight[:6] + [eight[6]], 15 * F32 * lanes + tab_bytes, pre_ops)
+         body, 15 * F32 * lanes + tab_bytes, pre_ops,
+         pipe_floor=lambda: stage_floor(4, body))
     if staged:
         zero_tq = eight[:6] + [tq0]
         for stage in range(4):
             case(f"stage {stage}: {probes.PROBE_STAGES[stage]}", ":287",
                  "probe_stage_probe", *stage_fns(stage), zero_tq,
-                 10 * F32 * lanes + (tab_bytes if stage >= 2 else 0), pre_ops)
+                 10 * F32 * lanes + (tab_bytes if stage >= 2 else 0), pre_ops,
+                 pipe_floor=lambda s=stage: stage_floor(s, zero_tq))
     return dict(lanes=lanes, T=T, level_nodes=[t.shape[0] for t in tabs], forms=forms,
                 meets_box_share=meets, ahead_share=ahead, cases=records)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, pipe: dict | None = None, funcs: dict | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     common.add_device_arg(ap)
     ap.add_argument("--staged", action="store_true",
@@ -209,7 +255,7 @@ def main(argv=None) -> dict:
     dev = common.resolve_device(args.device)
     card = common.card(dev)
     print(card, flush=True)
-    return run(dev, staged=args.staged, card=card)
+    return run(dev, staged=args.staged, card=card, pipe=pipe, funcs=funcs)
 
 
 if __name__ == "__main__":

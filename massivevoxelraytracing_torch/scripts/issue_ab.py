@@ -57,10 +57,13 @@ from .walk_ab import ptxas_lines
 EARLIER = os.path.join(cuda_build.CSRC, "earlier", "hako_probes_aca9a3e.cu")
 ENTRY = {"walk_probe": "walk_probe_launch", "construct_probe": "construct_probe_launch"}
 KERNEL = {"walk_probe": "walk_probe_kernel", "construct_probe": "construct_probe_kernel"}
+# the earlier library's entry points that callers swap in: the walk and
+# construct probes here, the probe body by stage in scripts/stage_ab.py
+SWAPPED = (*ENTRY.values(), "probe_stage_probe_launch")
 
 
 def build_earlier(src: str):
-    """(the earlier library's ENTRY entry points, its SASS functions, its
+    """(the earlier library's SWAPPED entry points, its SASS functions, its
     ptxas report), built now."""
     out_dir = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "issue_ab")
     with open(src) as f:
@@ -71,7 +74,7 @@ def build_earlier(src: str):
           f"{os.path.relpath(src, cuda_build.CSRC)} in {seconds:.1f} s", flush=True)
     current = cuda_build.load()
     entries = {}
-    for name in ENTRY.values():
+    for name in SWAPPED:
         fn = getattr(lib, name + "_old")
         fn.argtypes, fn.restype = getattr(current, name).argtypes, ctypes.c_int
         entries[name] = fn

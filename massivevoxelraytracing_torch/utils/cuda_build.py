@@ -202,6 +202,7 @@ def _bind(lib):
         p, p, p, p, p, i,                              # levels, off, n, form, rows, count
         i, i, i, p, p, p,                              # T, clip, n, out_i[3], out_f[5], stream
     ]
+    lib.probe_stage_probe_blocks.argtypes = [i, i]        # stage, n
     lib.take_along_probe_launch.argtypes = [
         i, i, p, p, p,                                 # axis, form, t, idx, out
         i, i, i, i, i, i, i,                           # B, R, C, r, Ci, c_out, mod
@@ -279,7 +280,8 @@ def _bind(lib):
                lib.pipe_probe_launch, lib.empty_probe_launch, lib.walk_count_launch, lib.walk_form_launch,
                lib.bit_form_launch,
                lib.shell_copy_probe_launch, lib.preamble_probe_launch,
-               lib.probe_stage_probe_launch, lib.take_along_probe_launch,
+               lib.probe_stage_probe_launch, lib.probe_stage_probe_blocks,
+               lib.take_along_probe_launch,
                lib.smem_alloc_probe_launch, lib.ohg_probe_launch,
                lib.pt_lane_init_launch, lib.pt_primary_shade_launch,
                lib.pt_bounce_sample_launch, lib.pt_bounce_shade_launch,

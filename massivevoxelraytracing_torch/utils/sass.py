@@ -86,14 +86,69 @@ def _target(instr: str):
     return int(m.group(1), 16) if m else None
 
 
-def loop_body(instrs: list) -> list:
-    """The instructions of the outermost loop (the longest span a backward
-    branch before the last EXIT closes). Raises if the kernel has none."""
+def _jump(instr: str):
+    """_target, and also the target of a branch on a predicate operand
+    (`BRA P3, 0x..`, `BRA.U !UP0, 0x..`) and of a CALL: the reading of
+    loops and lane_split (loop_body keeps _target's)."""
+    t = _target(instr)
+    if t is not None:
+        return t
+    m = re.search(r"\bCALL\.\S+\s+(0x[0-9a-f]+)", instr)
+    if m:
+        return int(m.group(1), 16)
+    m = re.search(r"\bBRA(?:\.\S+)?\s+!?U?P[T0-6],\s*(0x[0-9a-f]+)", instr)
+    return int(m.group(1), 16) if m else None
+
+
+def _where(instrs: list) -> dict:
+    """{address or label: instruction index}."""
     where = {}
     for k, (addr, _text, labels) in enumerate(instrs):
         where[addr] = k
         for lab in labels:
             where[lab] = k
+    return where
+
+
+def _last_exit(instrs: list) -> int:
+    """The index of the body's end: its last EXIT; but where that EXIT is
+    predicated (a loop that leaves by it, its branch back after it), the
+    instruction before the first subroutine a CALL enters or before the
+    closing branch to itself, whichever comes first past that EXIT."""
+    exits = [k for k, (_a, text, _l) in enumerate(instrs) if re.search(r"\bEXIT\b", text)]
+    if not exits:
+        return len(instrs)
+    last = exits[-1]
+    if not instrs[last][1].startswith("@"):
+        return last
+    where = _where(instrs)
+    ends = [where[_jump(text)] for _a, text, _l in instrs
+            if re.search(r"\bCALL\b", text) and _jump(text) in where]
+    ends += [k for k, (addr, text, _l) in enumerate(instrs)
+             if re.search(r"\bBRA\b", text) and where.get(_jump(text)) == k]
+    past = [k - 1 for k in ends if k > last]
+    return min(past) if past else last
+
+
+def loops(instrs: list) -> list:
+    """The spans (first, last instruction index) that the backward branches
+    before the last EXIT close, one a loop (the widest where several
+    branches share a head), in address order of their heads."""
+    where = _where(instrs)
+    spans = {}
+    for k, (_addr, text, _labels) in enumerate(instrs[:_last_exit(instrs) + 1]):
+        if not re.search(r"\bBRA\b", text):
+            continue
+        start = where.get(_jump(text))
+        if start is not None and start < k:
+            spans[start] = max(spans.get(start, k), k)
+    return sorted(spans.items())
+
+
+def loop_body(instrs: list) -> list:
+    """The instructions of the outermost loop (the longest span a backward
+    branch before the last EXIT closes). Raises if the kernel has none."""
+    where = _where(instrs)
     last_exit = max((k for k, (_a, text, _l) in enumerate(instrs)
                      if re.search(r"\bEXIT\b", text)), default=len(instrs))
     best = None
@@ -107,6 +162,47 @@ def loop_body(instrs: list) -> list:
     if best is None:
         raise ValueError("no loop in this kernel")
     return [text for _addr, text, _labels in instrs[best[0]:best[1] + 1]]
+
+
+def lane_split(instrs: list, grid_stride: bool) -> tuple:
+    """A lane's instructions split by how often a warp runs them: (those it
+    runs once, [each loop's own instructions, outside the loops nested in
+    it], [each loop's guard: the instructions around it that the loop's
+    earliest forward branch past it skips, a walk's start and its hit's
+    decode, which a warp whose lanes all miss the walk's node skips]), the
+    loops in address order. The lane's body is the kernel before its end
+    (_last_exit) or, for a kernel that runs its lanes in a grid-stride
+    loop, that (outermost) loop's body. A guard's search starts at the
+    enclosing loop's head or past the guard before it."""
+    spans = loops(instrs)
+    first, last = 0, min(_last_exit(instrs), len(instrs) - 1)
+    if grid_stride:
+        if not spans:
+            raise ValueError("no grid-stride loop in this kernel")
+        first, last = max(spans, key=lambda s: s[1] - s[0])
+        spans = [s for s in spans if s != (first, last)]
+    inner = [s for s in spans if first <= s[0] and s[1] <= last]
+    where = _where(instrs)
+    guards = []
+    for lo_k, hi_k in inner:
+        outer = [s for s in inner if s[0] < lo_k and hi_k < s[1]]
+        lim = (min(outer, key=lambda s: s[1] - s[0]) if outer else (first, last))
+        start = max([lim[0]] + [g[1] + 1 for g in guards if g is not None and g[1] < lo_k])
+        skips = [(k, where[_jump(t)]) for k, (_a, t, _l) in enumerate(instrs)
+                 if start <= k < lo_k and re.search(r"\bBRA\b", t)
+                 and where.get(_jump(t), -1) > hi_k and where[_jump(t)] <= lim[1]]
+        guards.append((min(skips)[0] + 1, min(skips)[1] - 1) if skips else None)
+    owner = {}
+    for k in range(first, last + 1):
+        hold = [(s[1] - s[0], ("loop", j)) for j, s in enumerate(inner) if s[0] <= k <= s[1]]
+        hold += [(g[1] - g[0], ("guard", j)) for j, g in enumerate(guards)
+                 if g is not None and g[0] <= k <= g[1]]
+        owner[k] = min(hold)[1] if hold else None
+    text = [t for _a, t, _l in instrs]
+    return ([text[k] for k, o in owner.items() if o is None],
+            [[text[k] for k, o in owner.items() if o == ("loop", j)] for j in range(len(inner))],
+            [[text[k] for k, o in owner.items() if o == ("guard", j)]
+             for j in range(len(inner))])
 
 
 def _opcode(text: str) -> tuple:
@@ -222,15 +318,23 @@ def class_counts(body: list) -> dict:
     return out
 
 
-def pipe_floor(body: list, rates: dict, pipes: dict = PIPES, repeats: int = 1) -> dict:
+def pipe_floor(body: list, rates: dict, pipes: dict = PIPES, repeats: int = 1,
+               loops: tuple = ()) -> dict:
     """The clocks an SM needs a warp-repeat of the loop on its busiest pipe:
     each class's instructions a repeat over its rate (warp instructions an
     SM issues a clock, `rates`, from pipe_probe alone), summed over the
-    classes that share a pipe (`pipes`). Returns {"clocks", "pipe" (the
+    classes that share a pipe (`pipes`). `loops`: (instructions, times a
+    warp runs them a repeat) of loops run beside the body (a walk's slots,
+    as a warp runs them), added to its counts. Returns {"clocks", "pipe" (the
     busiest), "by_pipe" {pipe: clocks}, "issue_clocks" (all instructions a
     repeat over the SM's 4 a clock), "unclassified" (instructions a repeat
-    that count toward the issue only)}."""
+    that count toward the issue only), "instructions" (a repeat)}."""
     counts = class_counts(body)
+    total = float(len(body))
+    for instrs, times in loops:
+        total += times * len(instrs)
+        for key, n in class_counts(instrs).items():
+            counts[key] = counts.get(key, 0) + times * n
     by_pipe = {}
     other = 0
     for key, n in counts.items():
@@ -240,4 +344,5 @@ def pipe_floor(body: list, rates: dict, pipes: dict = PIPES, repeats: int = 1) -
             other += n
     pipe = max(by_pipe, key=by_pipe.get) if by_pipe else None
     return dict(clocks=by_pipe.get(pipe, 0.0), pipe=pipe, by_pipe=by_pipe,
-                issue_clocks=len(body) / repeats / 4, unclassified=other / repeats)
+                issue_clocks=total / repeats / 4, unclassified=other / repeats,
+                instructions=total / repeats)

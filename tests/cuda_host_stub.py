@@ -10,8 +10,9 @@ another, for kernels without collectives; a cooperative launch
 grid.sync() a std::barrier over the grid and __ballot_sync / __shfl_sync
 a std::barrier over the warp, so lists, counters and barriers run with
 real concurrency. The occupancy query answers g_emu_per_sm blocks on
-each of g_emu_sms "SMs" (emu_set_grid), and a cooperative grid larger
-than that is refused. COOPERATIVE_GROUPS is `cooperative_groups.h`.
+each of g_emu_sms "SMs" (emu_set_grid), cudaGetDevice the index
+emu_set_device gives (0 until then), and a cooperative grid larger than
+that is refused. COOPERATIVE_GROUPS is `cooperative_groups.h`.
 build() writes the headers and the source and compiles them.
 """
 
@@ -65,6 +66,7 @@ struct EmuGrid {
 inline EmuGrid* g_emu = nullptr;
 inline int g_emu_sms = 3;          // "SMs" of the emulated card
 inline int g_emu_per_sm = 1;       // blocks an SM by "occupancy"
+inline int g_emu_device = 0;       // the current device's index
 inline long long g_emu_coop_launches = 0;
 
 inline EmuWarp& emu_warp() {
@@ -110,7 +112,7 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* d) { *d = g_emu_device; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
   *v = g_emu_sms; return cudaSuccess;
 }
@@ -162,6 +164,7 @@ inline cudaError_t emu_coop_launch(dim3 g, dim3 b, F&& fn) {
 
 extern "C" long long emu_coop_count() { return g_emu_coop_launches; }
 extern "C" void emu_set_grid(int sms, int per_sm) { g_emu_sms = sms; g_emu_per_sm = per_sm; }
+extern "C" void emu_set_device(int d) { g_emu_device = d; }
 """
 
 COOPERATIVE_GROUPS = r"""#pragma once

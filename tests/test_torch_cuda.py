@@ -21,7 +21,10 @@ row-word fetch at 32, 256 and 1,024 threads, 0 to 64 repeats, on a rows
 view at a 16-byte offset, and at every block size its shared-memory query
 allows; the L2 read probe over a full grid and one block); kernel A's
 shell, preamble and stage probes (both shell layouts, all five stages,
-child indices past an smem- and a taa-form level) and kernel B through
+child indices past an smem- and a taa-form level; the streaming stage
+kernel also == the parent commit's at 1 to past 3 waves of lanes, under
+every mirror mask, with +-0 / inf / NaN directions and ranks clipped at
+cells 64-127) and kernel B through
 its row cache (leaf and supernode rows, primary and shadow, no cache, a
 cache small enough that lanes overflow it, caches that hold every
 distinct row, a last block partial and without go-lanes, the largest
@@ -1046,6 +1049,102 @@ def test_probe_stage_probe_matches_plain(cuda, stage):
     child = got[0].cpu().numpy()
     if stage == 4:
         assert (child >= 300).any() and (got[1] == 64).any() and (got[1] < 64).any()
+
+
+@pytest.fixture(scope="module")
+def earlier_stage():
+    """The parent design's stage entry point (commit aca9a3e's source,
+    csrc/earlier/, built once for the module)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from massivevoxelraytracing_torch.scripts import issue_ab
+
+    entries, _funcs, _log = issue_ab.build_earlier(issue_ab.EARLIER)
+    return entries["probe_stage_probe_launch"]
+
+
+def equal_or_both_nan(a, b):
+    """Equal values, NaN where the other is NaN (a NaN ray's exit planes)."""
+    nan = torch.isnan(a) if a.dtype.is_floating_point else torch.zeros_like(a, dtype=bool)
+    return torch.equal(nan, torch.isnan(b) if b.dtype.is_floating_point else nan) and \
+        torch.equal(a[~nan], b[~nan])
+
+
+def stage_by_both(stage, rays, bounds, root, tabs, T, earlier):
+    """(the kernel's outputs, the parent kernel's, the plain version's)."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts.gather_ab import earlier_entries
+
+    got = probes.probe_stage_probe(stage, rays, bounds, root, tabs, T=T)
+    with earlier_entries({"probe_stage_probe_launch": earlier}):
+        old = probes.probe_stage_probe(stage, rays, bounds, root, tabs, T=T)
+    return got, old, probes.probe_stage_plain(stage, rays, bounds, root, tabs, T=T)
+
+
+@pytest.mark.parametrize("n", [1, 31, 129, 4096 + 17, "waves"])
+@pytest.mark.parametrize("stage", range(5))
+def test_probe_stage_probe_equals_plain_and_parent(cuda, earlier_stage, stage, n):
+    """The streaming stage kernel (one wave of blocks, a grid-stride loop)
+    == its plain version and the parent's kernel bit for bit on the card
+    tests' dense masks, at lane counts below a warp, past a block, and past
+    3 of its waves (each thread then runs 3-4 lanes)."""
+    from massivevoxelraytracing_torch.ops import probes
+    from massivevoxelraytracing_torch.scripts import stage_ab
+
+    if n == "waves":
+        n = 3 * probes.stage_blocks(stage, 1 << 30, cuda) * stage_ab.THREADS + 17
+    rays, bounds, root, tabs = stage_ab.hit_inputs(cuda, n, seed=30 + stage)
+    probes.reset_counters()
+    got, old, want = stage_by_both(stage, rays, bounds, root, tabs, stage_ab.HIT_T,
+                                   earlier_stage)
+    for g, o, w in zip(got, old, want):
+        assert torch.equal(g, w) and torch.equal(o, w)
+    assert probes.LAUNCHES["probe_stage_probe"] == 2
+
+
+def edge_rays(rng, n, cuda):
+    """Rays of all 8 mirror masks in turn (the signs of N(0, 1) directions
+    set by the lane), some direction components +-0, +-inf or NaN, origins
+    around and on the unit box's faces, t_q of either sign."""
+    d = np.abs(rng.normal(size=(3, n))).astype(np.float32)
+    d *= np.where(np.arange(n)[None, :] >> np.arange(3)[:, None] & 1, -1.0, 1.0)
+    for v, share in ((0.0, 0.03), (-0.0, 0.03), (np.inf, 0.01), (-np.inf, 0.01),
+                     (np.nan, 0.01)):
+        d[rng.random((3, n)) < share] = v
+    o = rng.choice([-0.5, 0.0, 0.25, 1.0, 1.5], (3, n)).astype(np.float32)
+    o = np.where(rng.random((3, n)) < 0.7, rng.uniform(-0.5, 1.5, (3, n)), o).astype(np.float32)
+    tq = rng.uniform(-0.6, 0.6, n).astype(np.float32)
+    return [torch.as_tensor(x.copy(), device=cuda) for x in (*o, *d, tq)]
+
+
+@pytest.mark.parametrize("stage", range(5))
+def test_probe_stage_probe_mirrors_clips_and_past_levels(cuda, earlier_stage, stage):
+    """All 8 mirror masks, t_q of either sign, +-0 / inf / NaN direction
+    components: the kernel == plain == the parent's kernel; the walks that
+    find no cell rank cells 64-127 (c ^ vm6, clipped to cell 63's count)
+    under every mirror mask, and the child indices run past both levels
+    (40 nodes in the smem form, 300 in the taa form)."""
+    from massivevoxelraytracing_torch.ops import hako_kernels as hkk
+    from massivevoxelraytracing_torch.scripts import stage_ab
+
+    n = 20000
+    rng = np.random.default_rng(40 + stage)
+    _rays, bounds, root, tabs = stage_ab.hit_inputs(cuda, 1, seed=40 + stage)
+    rays = edge_rays(rng, n, cuda)
+    got, old, want = stage_by_both(stage, rays, bounds, root, tabs, stage_ab.HIT_T,
+                                   earlier_stage)
+    for g, o, w in zip(got, old, want):
+        assert equal_or_both_nan(g, w) and equal_or_both_nan(o, w)
+    ro, rd = torch.stack(rays[:3], 1).cpu(), torch.stack(rays[3:6], 1).cpu()
+    vm6 = hkk._ray_preamble(torch.zeros(3), torch.ones(3), ro, rd)[3]
+    assert len(set(vm6.tolist())) == 8
+    cell = got[1] if stage == 4 else None
+    if stage == 4:
+        missed = (cell == 64).cpu()
+        assert len(set((64 ^ vm6[missed]).tolist())) == 8 and (cell < 64).any()
+    if stage >= 2:
+        child = got[0]
+        assert (child >= 300).any() and (child < 300).any()
 
 
 def first_round_stages(cuda, monkeypatch, shadow):
